@@ -1,0 +1,23 @@
+"""FrameINO on PyTorch and CUDA: a port of ``frameino_tpu`` for NVIDIA
+Hopper (H100), beside the JAX package, which stays the reference.
+
+The first slice is Wan2.2-TI2V-5B FrameINO serving: the HTTP server
+(``app/server.py``, entry point ``serve.py``), the pipeline
+(``pipelines/wan_i2v.py``), the Wan2.2 VAE (``models/wan_vae.py``), the
+FlowMatch-Euler scheduler and the 5B DiT (``models/wan_dit.py``). Its three
+attention kernels are written by hand for sm_90a (``ops/attention.py``,
+``csrc/flash_fwd.cu``, ``ops/qk_norm_rope_triton.py``).
+
+Module paths mirror ``frameino_tpu``; this package never imports jax.
+
+Layout:
+    core/        shape buckets
+    ops/         norms, dense, embeddings, rope, conv, attention kernels
+    csrc/        CUDA C++ sources, built into build/ at first use
+    models/      wan_dit, wan_vae, weights (bridge from the JAX trees)
+    schedulers/  flow_match_euler
+    pipelines/   wan_i2v
+    app/         HTTP server
+"""
+
+__version__ = "0.1.0"

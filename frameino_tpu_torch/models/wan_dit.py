@@ -1,0 +1,383 @@
+"""Wan 2.2 video DiT denoiser, forward only (counterpart of
+``frameino_tpu/models/wan_dit.py``).
+
+``WanDiT`` is an ``nn.Module`` with diffusers ``WanTransformer3DModel``
+parameter names, so a diffusers state dict and the weight bridge
+(``models/weights.py``) both load through ``load_state_dict``. The math
+follows the JAX forward: fp32 AdaLN modulation and residual sums around
+attention and FFN, qk RMS-norm across heads, interleaved 3-axis RoPE,
+patchify-as-dense, the two-level per-token timestep form of the Wan2.2
+expand path, and per-block text K/V computed once per clip.
+
+The forward runs in the weights' dtype (bf16 at full width): it casts its
+input to that dtype and returns fp32. On CUDA tensors self-attention goes
+through the fused K2 -> K1 kernels and cross-attention through K3
+(``ops/attention.py``); on the CPU both take the plain reference path.
+
+Not ported: the Wan2.1 image-KV branch and the pp/sp mesh paths.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from frameino_tpu_torch.ops import attention as attn_ops
+from frameino_tpu_torch.ops.embeddings import (pixart_text_projection,
+                                               sinusoidal_timestep_embedding,
+                                               timestep_embedding_mlp)
+from frameino_tpu_torch.ops.linear import dense, gelu_tanh, silu
+from frameino_tpu_torch.ops.norms import layer_norm, rms_norm
+from frameino_tpu_torch.ops.rope import apply_rope_interleaved, wan_rope_table
+
+
+@dataclasses.dataclass(frozen=True)
+class WanDiTConfig:
+    patch_size: Tuple[int, int, int] = (1, 2, 2)
+    num_attention_heads: int = 24
+    attention_head_dim: int = 128
+    in_channels: int = 48
+    out_channels: int = 48
+    text_dim: int = 4096
+    freq_dim: int = 256
+    ffn_dim: int = 14336
+    num_layers: int = 30
+    cross_attn_norm: bool = True
+    eps: float = 1e-6
+    rope_max_seq_len: int = 1024
+
+    @property
+    def inner_dim(self) -> int:
+        return self.num_attention_heads * self.attention_head_dim
+
+
+# Wan2.2-TI2V-5B: dim 3072 = 24 x 128, 30 layers, ffn 14336, z=48.
+WAN22_TI2V_5B = WanDiTConfig()
+# FrameINO motion models: +48 trajectory-latent input channels.
+WAN22_TI2V_5B_MOTION = dataclasses.replace(WAN22_TI2V_5B, in_channels=96)
+
+
+def tiny_config(**kw) -> WanDiTConfig:
+    base = dict(num_attention_heads=2, attention_head_dim=24, in_channels=8,
+                out_channels=8, text_dim=16, freq_dim=32, ffn_dim=64,
+                num_layers=2)
+    base.update(kw)
+    return WanDiTConfig(**base)
+
+
+# ---------------------------------------------------------------------------
+# Modules (diffusers names)
+# ---------------------------------------------------------------------------
+
+class _TwoLinear(nn.Module):
+    """TimestepEmbedding / PixArtAlphaTextProjection parameter holder."""
+
+    def __init__(self, d_in, d_out, **kw):
+        super().__init__()
+        self.linear_1 = nn.Linear(d_in, d_out, **kw)
+        self.linear_2 = nn.Linear(d_out, d_out, **kw)
+
+
+class _ConditionEmbedder(nn.Module):
+    def __init__(self, cfg: WanDiTConfig, **kw):
+        super().__init__()
+        d = cfg.inner_dim
+        self.time_embedder = _TwoLinear(cfg.freq_dim, d, **kw)
+        self.time_proj = nn.Linear(d, 6 * d, **kw)
+        self.text_embedder = _TwoLinear(cfg.text_dim, d, **kw)
+
+
+class _Attention(nn.Module):
+    def __init__(self, d, eps, **kw):
+        super().__init__()
+        self.to_q = nn.Linear(d, d, **kw)
+        self.to_k = nn.Linear(d, d, **kw)
+        self.to_v = nn.Linear(d, d, **kw)
+        self.to_out = nn.ModuleList([nn.Linear(d, d, **kw), nn.Dropout(0.0)])
+        self.norm_q = nn.RMSNorm(d, eps=eps, **kw)
+        self.norm_k = nn.RMSNorm(d, eps=eps, **kw)
+
+
+class _GeluProj(nn.Module):
+    def __init__(self, d_in, d_out, **kw):
+        super().__init__()
+        self.proj = nn.Linear(d_in, d_out, **kw)
+
+
+class _FeedForward(nn.Module):
+    def __init__(self, d, ffn_dim, **kw):
+        super().__init__()
+        self.net = nn.ModuleList([_GeluProj(d, ffn_dim, **kw), nn.Dropout(0.0),
+                                  nn.Linear(ffn_dim, d, **kw)])
+
+
+def _split_heads(x, num_heads):
+    B, S, D = x.shape
+    return x.reshape(B, S, num_heads, D // num_heads).permute(0, 2, 1, 3)
+
+
+def _merge_heads(x):
+    B, H, S, Dh = x.shape
+    return x.permute(0, 2, 1, 3).reshape(B, S, H * Dh)
+
+
+def _lin(x, layer, out_dtype=None):
+    return dense(x, layer.weight, layer.bias, out_dtype=out_dtype)
+
+
+class WanBlock(nn.Module):
+    """WanTransformerBlock (reference transformer_wan.py:308-350)."""
+
+    def __init__(self, cfg: WanDiTConfig, **kw):
+        super().__init__()
+        d = cfg.inner_dim
+        self.cfg = cfg
+        self.scale_shift_table = nn.Parameter(torch.empty(1, 6, d, **kw))
+        self.attn1 = _Attention(d, cfg.eps, **kw)
+        self.attn2 = _Attention(d, cfg.eps, **kw)
+        if cfg.cross_attn_norm:
+            self.norm2 = nn.LayerNorm(d, eps=cfg.eps, **kw)
+        self.ffn = _FeedForward(d, cfg.ffn_dim, **kw)
+
+    def text_kv(self, context) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Cross-attention K/V [B, H, L, Dh] for a fixed text context."""
+        a = self.attn2
+        k = rms_norm(_lin(context, a.to_k), a.norm_k.weight, self.cfg.eps)
+        v = _lin(context, a.to_v)
+        H = self.cfg.num_attention_heads
+        return (_split_heads(k, H).contiguous(),
+                _split_heads(v, H).contiguous())
+
+    def _self_attention(self, x, cos, sin):
+        cfg, a = self.cfg, self.attn1
+        H = cfg.num_attention_heads
+        q, k, v = _lin(x, a.to_q), _lin(x, a.to_k), _lin(x, a.to_v)
+        if x.is_cuda:
+            # K2 (norm + RoPE producer) -> bound -> K1
+            o = attn_ops.fused_qk_flash_attention(
+                q, k, _split_heads(v, H).contiguous(), a.norm_q.weight,
+                a.norm_k.weight, cos, sin, num_heads=H, eps=cfg.eps)
+        else:
+            q = _split_heads(rms_norm(q, a.norm_q.weight, cfg.eps), H)
+            k = _split_heads(rms_norm(k, a.norm_k.weight, cfg.eps), H)
+            q = apply_rope_interleaved(q, cos, sin)
+            k = apply_rope_interleaved(k, cos, sin)
+            o = attn_ops.attention_ref(q, k, _split_heads(v, H))
+        return _lin(_merge_heads(o), a.to_out[0])
+
+    def _cross_attention(self, x, context, kv):
+        cfg, a = self.cfg, self.attn2
+        q = rms_norm(_lin(x, a.to_q), a.norm_q.weight, cfg.eps)
+        qh = _split_heads(q, cfg.num_attention_heads)
+        kh, vh = kv if kv is not None else self.text_kv(context)
+        if qh.is_cuda:
+            o = attn_ops.flash_attention_inference(qh, kh, vh)   # K3
+        else:
+            o = attn_ops.attention_ref(qh, kh, vh)
+        return _lin(_merge_heads(o), a.to_out[0])
+
+    def forward(self, x, context, timestep_proj, cos, sin, kv=None):
+        """x: [B, S, D] compute dtype; timestep_proj fp32 [B, S|1, 6, D] or
+        the two-level pair ([B, 2, 6, D], selector [B, S, 1])."""
+        eps = self.cfg.eps
+        table = self.scale_shift_table.float()               # [1, 6, D]
+        if isinstance(timestep_proj, tuple):
+            # two distinct per-token timesteps: select between two rows
+            pair, sel = timestep_proj
+            mod = table[None] + pair                          # [B, 2, 6, D]
+            hi_mask = sel > 0.5
+            shift_msa, scale_msa, gate_msa, c_shift, c_scale, c_gate = [
+                torch.where(hi_mask, mod[:, 1, i][:, None], mod[:, 0, i][:, None])
+                for i in range(6)]
+        else:
+            mod = table[None] + timestep_proj                 # [B, S|1, 6, D]
+            shift_msa, scale_msa, gate_msa, c_shift, c_scale, c_gate = \
+                mod.unbind(dim=2)
+
+        norm_x = layer_norm(x, eps=eps) * (1 + scale_msa) + shift_msa
+        attn_out = self._self_attention(norm_x.to(x.dtype), cos, sin)
+        x = (x.float() + attn_out.float() * gate_msa).to(x.dtype)
+
+        if self.cfg.cross_attn_norm:
+            norm_x = layer_norm(x, self.norm2.weight, self.norm2.bias,
+                                eps=eps).to(x.dtype)
+        else:
+            norm_x = x
+        x = x + self._cross_attention(norm_x, context, kv)
+
+        norm_x = layer_norm(x, eps=eps) * (1 + c_scale) + c_shift
+        h = _lin(norm_x.to(x.dtype), self.ffn.net[0].proj)
+        h = _lin(gelu_tanh(h), self.ffn.net[2])
+        return (x.float() + h.float() * c_gate).to(x.dtype)
+
+
+def _patchify_tokens(x, patch):
+    """[B, C, F, H, W] -> [B, tokens, C*pt*ph*pw], patch vector layout
+    (C, pt, ph, pw) as the Conv3d weight flattens."""
+    B, C, F, H, W = x.shape
+    pt, ph, pw = patch
+    x = x.reshape(B, C, F // pt, pt, H // ph, ph, W // pw, pw)
+    x = x.permute(0, 2, 4, 6, 1, 3, 5, 7)
+    return x.reshape(B, (F // pt) * (H // ph) * (W // pw), C * pt * ph * pw)
+
+
+def _unpatchify_tokens(x, grid, patch, out_ch):
+    """[B, S, out_ch*pt*ph*pw] -> [B, out_ch, F, H, W]."""
+    B = x.shape[0]
+    f, h, w = grid
+    pt, ph, pw = patch
+    x = x.reshape(B, f, h, w, pt, ph, pw, out_ch)
+    x = x.permute(0, 7, 1, 4, 2, 5, 3, 6)
+    return x.reshape(B, out_ch, f * pt, h * ph, w * pw)
+
+
+class WanDiT(nn.Module):
+    """WanTransformer3DModel, forward only.
+
+    Build with ``device="meta"`` and then ``to_empty`` + ``init_random_``
+    or ``load_state_dict(..., assign=True)`` to skip torch's default init.
+    """
+
+    def __init__(self, cfg: WanDiTConfig, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        d = cfg.inner_dim
+        self.cfg = cfg
+        self.patch_embedding = nn.Conv3d(cfg.in_channels, d, cfg.patch_size,
+                                         stride=cfg.patch_size, **kw)
+        self.condition_embedder = _ConditionEmbedder(cfg, **kw)
+        self.blocks = nn.ModuleList([WanBlock(cfg, **kw)
+                                     for _ in range(cfg.num_layers)])
+        self.scale_shift_table = nn.Parameter(torch.empty(1, 2, d, **kw))
+        self.proj_out = nn.Linear(
+            d, cfg.out_channels * math.prod(cfg.patch_size), **kw)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.proj_out.weight.dtype
+
+    @torch.no_grad()
+    def init_random_(self, generator: torch.Generator):
+        """Seeded init mirroring ``init_wan_dit``: uniform(+-1/sqrt(fan_in))
+        for dense and patch weights and biases, unit norm gains, zero norm
+        biases, N(0, 1/d) AdaLN tables. Draws in fp32 on ``generator``'s
+        device, then casts into each parameter."""
+        d = self.cfg.inner_dim
+
+        def fill_uniform(p, fan_in):
+            bound = fan_in ** -0.5
+            r = torch.rand(p.shape, generator=generator,
+                           device=generator.device, dtype=torch.float32)
+            p.copy_(r.mul_(2 * bound).sub_(bound))
+
+        for mod in self.modules():
+            if isinstance(mod, (nn.Linear, nn.Conv3d)):
+                fan_in = mod.weight[0].numel()
+                fill_uniform(mod.weight, fan_in)
+                fill_uniform(mod.bias, fan_in)
+            elif isinstance(mod, (nn.RMSNorm, nn.LayerNorm)):
+                mod.weight.fill_(1.0)
+                if getattr(mod, "bias", None) is not None:
+                    mod.bias.zero_()
+        for name, p in self.named_parameters():
+            if name.endswith("scale_shift_table"):
+                r = torch.randn(p.shape, generator=generator,
+                                device=generator.device, dtype=torch.float32)
+                p.copy_(r / d ** 0.5)
+        return self
+
+    @torch.no_grad()
+    def precompute_text_kv(self, encoder_hidden_states,
+                           dtype: Optional[torch.dtype] = None
+                           ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """Per-block cross-attention K/V for a fixed text context (constant
+        across denoise steps): one (k, v) pair [B, H, L, Dh] per block."""
+        te = self.condition_embedder.text_embedder
+        context = pixart_text_projection(encoder_hidden_states, te.linear_1,
+                                         te.linear_2,
+                                         out_dtype=dtype or self.dtype)
+        return [blk.text_kv(context) for blk in self.blocks]
+
+    @torch.no_grad()
+    def forward(self, hidden_states, timestep, encoder_hidden_states=None, *,
+                timestep_mask=None, text_kv=None):
+        """hidden_states [B, C, F, H, W] (latent + condition channels);
+        timestep [B] or per-token [B, S]; ``timestep_mask`` [B, S] 0/1
+        selects per token between timestep 0 and ``timestep`` (the
+        two-level expand path; needs timestep [B]);
+        encoder_hidden_states [B, L, text_dim], unused when ``text_kv``
+        (from ``precompute_text_kv``) is given. Returns fp32
+        [B, out_channels, F, H, W]."""
+        cfg = self.cfg
+        d = cfg.inner_dim
+        x = hidden_states.to(self.dtype)
+        B, _, F, H, W = x.shape
+        pt, ph, pw = cfg.patch_size
+        grid = (F // pt, H // ph, W // pw)
+        cos_np, sin_np = wan_rope_table(cfg.attention_head_dim, *grid,
+                                        max_seq_len=cfg.rope_max_seq_len)
+        cos = torch.from_numpy(cos_np).to(x.device)
+        sin = torch.from_numpy(sin_np).to(x.device)
+
+        pe = self.patch_embedding
+        x = dense(_patchify_tokens(x, cfg.patch_size), pe.weight.reshape(d, -1),
+                  pe.bias)
+
+        ce = self.condition_embedder
+        two_level = timestep_mask is not None
+        if two_level:
+            if timestep.ndim != 1:
+                raise ValueError("timestep_mask requires timestep of shape [B]")
+            timestep = torch.stack([torch.zeros_like(timestep), timestep], 1)
+        t_freq = sinusoidal_timestep_embedding(timestep.float(), cfg.freq_dim)
+        temb = timestep_embedding_mlp(t_freq, ce.time_embedder.linear_1,
+                                      ce.time_embedder.linear_2)
+        timestep_proj = _lin(silu(temb), ce.time_proj, out_dtype=torch.float32)
+        per_token = timestep.ndim == 2 and not two_level
+        if two_level:
+            sel = timestep_mask.float()[:, :, None]             # [B, S, 1]
+            timestep_proj = (timestep_proj.reshape(B, 2, 6, d), sel)
+        else:
+            timestep_proj = timestep_proj.reshape(B, -1 if per_token else 1,
+                                                  6, d)
+
+        context = None
+        if text_kv is None:
+            context = pixart_text_projection(
+                encoder_hidden_states, ce.text_embedder.linear_1,
+                ce.text_embedder.linear_2, out_dtype=x.dtype)
+        for i, blk in enumerate(self.blocks):
+            x = blk(x, context, timestep_proj, cos, sin,
+                    kv=None if text_kv is None else text_kv[i])
+
+        # output AdaLN + projection
+        table = self.scale_shift_table.float()                   # [1, 2, D]
+        if two_level:
+            mod = table[None] + temb[:, :, None, :]              # [B, 2, 2, D]
+            hi_mask = sel > 0.5
+            shift = torch.where(hi_mask, mod[:, 1, 0][:, None],
+                                mod[:, 0, 0][:, None])
+            scale = torch.where(hi_mask, mod[:, 1, 1][:, None],
+                                mod[:, 0, 1][:, None])
+        elif per_token:
+            mod = table[None] + temb.reshape(B, -1, 1, d)
+            shift, scale = mod[:, :, 0], mod[:, :, 1]
+        else:
+            mod = table + temb[:, None, :]                       # [B, 2, D]
+            shift, scale = mod[:, :1], mod[:, 1:2]
+        x = (layer_norm(x, eps=cfg.eps) * (1 + scale) + shift).to(x.dtype)
+        x = _lin(x, self.proj_out)
+        return _unpatchify_tokens(x, grid, cfg.patch_size,
+                                  cfg.out_channels).float()
+
+
+def init_wan_dit(cfg: WanDiTConfig, generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32) -> WanDiT:
+    """Seeded random WanDiT on ``generator``'s device."""
+    model = WanDiT(cfg, device="meta", dtype=dtype)
+    model.to_empty(device=generator.device)
+    return model.init_random_(generator).eval()

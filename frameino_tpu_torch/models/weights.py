@@ -1,0 +1,186 @@
+"""Weight bridge: JAX parameter trees (as numpy arrays) -> the port's
+state dicts, under diffusers names (counterpart of
+``frameino_tpu/models/weights.py``, which maps diffusers checkpoints into
+the JAX trees).
+
+- JAX dense kernels [in, out] -> torch Linear weights [out, in];
+- the DiT's scanned ``blocks`` axis is unstacked into ``blocks.{i}``;
+- the patch embedding's dense rows -> Conv3d weight [D, C, pt, ph, pw];
+- VAE conv kernels DHWIO -> OIDHW and HWIO -> OIHW, WanRMS_norm gammas
+  [C] -> diffusers' [C, 1, 1(, 1)], 1x1 attention kernels -> Conv2d.
+
+The VAE's block structure is read from the config, never from the tree's
+static ``Meta`` tags.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from frameino_tpu_torch.models.wan_dit import WanDiTConfig
+from frameino_tpu_torch.models.wan_vae import WanVAEConfig
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, order="C"))   # a writable copy
+
+
+def _put_lin(sd: StateDict, name: str, p: Dict[str, Any]):
+    sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).T)
+    if "bias" in p:
+        sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def wan_dit_from_jax(params_np: Dict[str, Any],
+                     cfg: WanDiTConfig) -> StateDict:
+    """JAX ``init_wan_dit``-layout tree -> ``WanDiT`` state dict."""
+    d = cfg.inner_dim
+    sd: StateDict = {}
+    pe = params_np["patch_embedding"]
+    sd["patch_embedding.weight"] = _t(np.asarray(pe["kernel"]).T.reshape(
+        d, cfg.in_channels, *cfg.patch_size))
+    sd["patch_embedding.bias"] = _t(pe["bias"])
+    ce = params_np["condition_embedder"]
+    for sub in ("time_embedder", "text_embedder"):
+        for lin in ("linear_1", "linear_2"):
+            _put_lin(sd, f"condition_embedder.{sub}.{lin}", ce[sub][lin])
+    _put_lin(sd, "condition_embedder.time_proj", ce["time_proj"])
+    sd["scale_shift_table"] = _t(params_np["norm_out_table"])
+    _put_lin(sd, "proj_out", params_np["proj_out"])
+
+    blocks = params_np["blocks"]
+    for i in range(cfg.num_layers):
+        lp = _index_tree(blocks, i)
+        b = f"blocks.{i}."
+        sd[b + "scale_shift_table"] = _t(lp["scale_shift_table"])
+        for an in ("attn1", "attn2"):
+            a = lp[an]
+            for proj in ("to_q", "to_k", "to_v"):
+                _put_lin(sd, b + f"{an}.{proj}", a[proj])
+            _put_lin(sd, b + f"{an}.to_out.0", a["to_out"])
+            sd[b + f"{an}.norm_q.weight"] = _t(a["norm_q"]["weight"])
+            sd[b + f"{an}.norm_k.weight"] = _t(a["norm_k"]["weight"])
+        _put_lin(sd, b + "ffn.net.0.proj", lp["ffn"]["fc1"])
+        _put_lin(sd, b + "ffn.net.2", lp["ffn"]["fc2"])
+        if cfg.cross_attn_norm:
+            sd[b + "norm2.weight"] = _t(lp["norm2"]["weight"])
+            sd[b + "norm2.bias"] = _t(lp["norm2"]["bias"])
+    return sd
+
+
+def _index_tree(tree, i):
+    if isinstance(tree, dict):
+        return {k: _index_tree(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+# ---------------------------------------------------------------------------
+# Wan VAE
+# ---------------------------------------------------------------------------
+
+def _put_cconv(sd: StateDict, name: str, p):
+    sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).transpose(4, 3, 0, 1, 2))
+    sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def _put_conv2d(sd: StateDict, name: str, p):
+    sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def _put_gamma(sd: StateDict, name: str, p, images: bool = False):
+    g = np.asarray(p["gamma"])
+    sd[f"{name}.gamma"] = _t(g.reshape(g.shape[0], *((1,) * (2 if images
+                                                              else 3))))
+
+
+def _put_res(sd: StateDict, name: str, p):
+    _put_gamma(sd, f"{name}.norm1", p["norm1"])
+    _put_cconv(sd, f"{name}.conv1", p["conv1"])
+    _put_gamma(sd, f"{name}.norm2", p["norm2"])
+    _put_cconv(sd, f"{name}.conv2", p["conv2"])
+    if "conv_shortcut" in p:
+        _put_cconv(sd, f"{name}.conv_shortcut", p["conv_shortcut"])
+
+
+def _put_attn(sd: StateDict, name: str, p):
+    _put_gamma(sd, f"{name}.norm", p["norm"], images=True)
+    for proj in ("to_qkv", "proj"):
+        k = np.asarray(p[proj]["kernel"])
+        sd[f"{name}.{proj}.weight"] = _t(k.T[:, :, None, None])
+        sd[f"{name}.{proj}.bias"] = _t(p[proj]["bias"])
+
+
+def _put_resample(sd: StateDict, name: str, p, temporal: bool):
+    _put_conv2d(sd, f"{name}.resample.1", p["conv"])
+    if temporal:
+        _put_cconv(sd, f"{name}.time_conv", p["time_conv"])
+
+
+def _put_mid(sd: StateDict, name: str, p):
+    _put_res(sd, f"{name}.resnets.0", p["res1"])
+    _put_attn(sd, f"{name}.attentions.0", p["attn"])
+    _put_res(sd, f"{name}.resnets.1", p["res2"])
+
+
+def wan_vae_from_jax(params_np: Dict[str, Any],
+                     cfg: WanVAEConfig) -> StateDict:
+    """JAX ``init_wan_vae``-layout tree -> ``WanVAE`` state dict (the
+    diffusers ``AutoencoderKLWan`` names), plain (2.1) or residual (2.2)
+    block layout per ``cfg.is_residual``."""
+    sd: StateDict = {}
+    enc = params_np["encoder"]
+    _put_cconv(sd, "encoder.conv_in", enc["conv_in"])
+    n_levels = len(cfg.dim_mult)
+    if cfg.is_residual:
+        for i, blk in enumerate(enc["down_blocks"]):
+            last = i == n_levels - 1
+            temporal = (not last) and cfg.temperal_downsample[i]
+            base = f"encoder.down_blocks.{i}"
+            for j in range(cfg.num_res_blocks):
+                _put_res(sd, f"{base}.resnets.{j}", blk["resnets"][j])
+            if not last:
+                _put_resample(sd, f"{base}.downsampler", blk["downsampler"],
+                              temporal)
+    else:
+        # flat list: res (+attn) per block, then a resample per level
+        li = 0
+        scale = 1.0
+        blocks = enc["down_blocks"]
+        for i in range(n_levels):
+            for _ in range(cfg.num_res_blocks):
+                _put_res(sd, f"encoder.down_blocks.{li}", blocks[li])
+                li += 1
+                if scale in cfg.attn_scales:
+                    _put_attn(sd, f"encoder.down_blocks.{li}", blocks[li])
+                    li += 1
+            if i != n_levels - 1:
+                _put_resample(sd, f"encoder.down_blocks.{li}", blocks[li],
+                              cfg.temperal_downsample[i])
+                li += 1
+                scale /= 2.0
+    _put_mid(sd, "encoder.mid_block", enc["mid"])
+    _put_gamma(sd, "encoder.norm_out", enc["norm_out"])
+    _put_cconv(sd, "encoder.conv_out", enc["conv_out"])
+
+    dec = params_np["decoder"]
+    _put_cconv(sd, "decoder.conv_in", dec["conv_in"])
+    _put_mid(sd, "decoder.mid_block", dec["mid"])
+    for i, blk in enumerate(dec["up_blocks"]):
+        base = f"decoder.up_blocks.{i}"
+        for j in range(cfg.num_res_blocks + 1):
+            _put_res(sd, f"{base}.resnets.{j}", blk["resnets"][j])
+        if i != n_levels - 1:
+            up = f"{base}.upsampler" if cfg.is_residual \
+                else f"{base}.upsamplers.0"
+            _put_resample(sd, up, blk["upsampler"], cfg.temperal_upsample[i])
+    _put_gamma(sd, "decoder.norm_out", dec["norm_out"])
+    _put_cconv(sd, "decoder.conv_out", dec["conv_out"])
+    _put_cconv(sd, "quant_conv", params_np["quant_conv"])
+    _put_cconv(sd, "post_quant_conv", params_np["post_quant_conv"])
+    return sd

@@ -1,0 +1,330 @@
+"""Attention ops: the plain PyTorch reference and the Hopper kernels.
+
+Counterpart of ``frameino_tpu/ops/attention.py``. The Wan DiT needs two
+attention shapes on the serving path:
+
+- self-attention over the video tokens, behind the qk RMS-norm taken
+  across all heads and the interleaved RoPE:
+  ``fused_qk_flash_attention`` = K2 (norm + RoPE producer) -> bound ->
+  K1 (static-bound flash forward);
+- cross-attention to the 512 text tokens: ``flash_attention_inference``
+  = K3 (online-softmax flash forward).
+
+K1 and K3 are one CUDA C++ kernel (``csrc/flash_fwd.cu``) templated on
+the softmax variant; K2 is a Triton kernel. Each wrapper launches its
+kernel for CUDA tensors (bf16, contiguous) and raises on anything else;
+for CPU tensors it runs the plain PyTorch version beside it. Each
+wrapper counts its kernel launches in ``<wrapper>.launches``.
+
+Layouts follow the JAX package: attention tensors are [B, H, S, D],
+raw q/k are [B, S, H*D].
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+LOG2E = 1.4426950408889634
+_EXP_FLOOR = -120.0
+
+_REPO_ROOT = Path(__file__).resolve().parents[2]
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = _REPO_ROOT / "build"
+
+
+def _default_scale(head_dim: int) -> float:
+    return head_dim ** -0.5
+
+
+# ---------------------------------------------------------------------------
+# Plain reference
+# ---------------------------------------------------------------------------
+
+def attention_ref(q, k, v, scale: Optional[float] = None):
+    """softmax(q k^T * scale) v with fp32 softmax. q/k/v: [B, H, S, D].
+
+    Counterpart of ``attention_xla``: fp32 logits, probabilities cast to
+    v's dtype before the second product, fp32 accumulation.
+    """
+    scale = scale if scale is not None else _default_scale(q.shape[-1])
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.matmul(probs.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# K1 / K3: CUDA flash forward (csrc/flash_fwd.cu)
+# ---------------------------------------------------------------------------
+
+_lib_lock = threading.Lock()
+_lib = None
+BUILD_LOG = ""
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+
+
+def build_flash_lib():
+    """Compile ``csrc/flash_fwd.cu`` for sm_90a into ``build/`` (once per
+    source content) and load it with ctypes."""
+    global _lib, BUILD_LOG
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        src = _CSRC / "flash_fwd.cu"
+        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+        so = BUILD_DIR / f"libflash_fwd_{digest}.so"
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                   "-std=c++17", "-O3", "-Xptxas=-v", "-shared",
+                   "-Xcompiler", "-fPIC", "-o", str(tmp), str(src)]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            BUILD_LOG = res.stdout + res.stderr
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                                   f"{BUILD_LOG}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        fn = lib.flash_fwd_bf16
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _lib = lib
+        return lib
+
+
+def _check_cuda_bf16(name: str, *tensors):
+    for t in tensors:
+        if not t.is_cuda:
+            raise ValueError(f"{name}: mixed devices ({t.device})")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: the CUDA kernel takes bfloat16, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensor must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensor must be 16-byte aligned")
+
+
+def _launch_flash(q, k, v, bound, q_scale: float):
+    """q [BH, Sq, D], k/v [BH, Skv, D] bf16 CUDA; bound: 1-element fp32
+    CUDA tensor (static variant) or None (online variant)."""
+    bh, sq, d = q.shape
+    skv = k.shape[1]
+    if k.shape != (bh, skv, d) or v.shape != k.shape:
+        raise ValueError(f"flash: shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)}")
+    if d not in (64, 128):
+        raise ValueError(f"flash: head_dim {d} not in (64, 128)")
+    if skv == 0 or sq == 0:
+        raise ValueError("flash: empty sequence")
+    _check_cuda_bf16("flash", q, k, v)
+    if bound is not None:
+        if (not bound.is_cuda or bound.dtype != torch.float32
+                or bound.numel() != 1):
+            raise ValueError("flash: bound must be a 1-element fp32 CUDA "
+                             "tensor")
+    lib = build_flash_lib()
+    o = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_fwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        0 if bound is None else bound.data_ptr(), bh, sq, skv, d,
+        int(bound is not None), float(q_scale), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_fwd_bf16 launch failed: CUDA error {err}")
+    return o
+
+
+def flash_fwd_ref(q, k, v, q_scale: float):
+    """Plain version of K3: q [BH, Sq, D] is scaled by ``q_scale`` in its
+    own dtype (``q * jnp.asarray(c, q.dtype)`` on the TPU side), then
+    exp2-domain softmax in fp32, probabilities cast to v's dtype."""
+    qs = q * torch.tensor(q_scale, dtype=q.dtype)
+    s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    out = torch.matmul(p.to(v.dtype).float(), v.float())
+    return (out / p.sum(dim=-1, keepdim=True)).to(q.dtype)
+
+
+def flash_fwd(q, k, v, q_scale: float):
+    """K3 (replaces ``_flash_fwd`` / ``_flash_fwd_kernel``): online-softmax
+    flash forward over [BH, S, D]; q is scaled by ``q_scale`` (rounded to
+    q's dtype) inside the kernel. CUDA: kernel; CPU: ``flash_fwd_ref``."""
+    if not q.is_cuda:
+        return flash_fwd_ref(q, k, v, q_scale)
+    dev_scale = float(torch.tensor(q_scale, dtype=torch.bfloat16))
+    out = _launch_flash(q, k, v, None, dev_scale)
+    flash_fwd.launches += 1
+    return out
+
+
+flash_fwd.launches = 0
+
+
+def flash_fwd_static_ref(q, k, v, bound):
+    """Plain version of K1: ``p = exp2(max(s - bound, -120))`` over
+    pre-scaled q, probabilities cast to v's dtype, fp32 sums."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    p = torch.exp2(torch.clamp(s - bound.reshape(()).float(),
+                               min=_EXP_FLOOR))
+    out = torch.matmul(p.to(v.dtype).float(), v.float())
+    return (out / p.sum(dim=-1, keepdim=True)).to(q.dtype)
+
+
+def flash_fwd_static(q, k, v, bound):
+    """K1 (replaces ``_flash_fwd_static`` / ``_flash_fwd_kernel_static``):
+    static-bound flash forward over pre-scaled q [BH, S, D]. ``bound`` is a
+    device scalar >= every logit; it is read by the kernel, never synced
+    to the host. CUDA: kernel; CPU: ``flash_fwd_static_ref``."""
+    if not q.is_cuda:
+        return flash_fwd_static_ref(q, k, v, bound)
+    out = _launch_flash(q, k, v, bound.reshape(1).contiguous(), 1.0)
+    flash_fwd_static.launches += 1
+    return out
+
+
+flash_fwd_static.launches = 0
+
+
+def flash_attention_inference(q, k, v, scale: Optional[float] = None):
+    """Non-causal flash attention, forward only. q/k/v: [B, H, S, D]."""
+    B, H, Sq, D = q.shape
+    scale = scale if scale is not None else _default_scale(D)
+    out = flash_fwd(q.reshape(B * H, Sq, D), k.reshape(B * H, -1, D),
+                    v.reshape(B * H, -1, D), scale * LOG2E)
+    return out.reshape(B, H, Sq, D)
+
+
+# ---------------------------------------------------------------------------
+# K2: Triton qk RMS-norm (across heads) + interleaved RoPE producer
+# ---------------------------------------------------------------------------
+# The kernel and its design note are in ops/qk_norm_rope_triton.py.
+
+def qk_norm_rope_ref(raw, weight, cos, sin, num_heads: int, eps: float):
+    """Plain version of K2. raw [B, S, H*D]; weight [H*D]; cos/sin [S, D/2]
+    fp32 (any softmax gain already folded in). Returns [B*H, S, D] in
+    raw's dtype."""
+    B, S, HD = raw.shape
+    H = num_heads
+    D = HD // H
+    xf = raw.float()
+    # fp64 sum of squares and rsqrt, rounded once to fp32 (as the kernel);
+    # eps is the fp32 value the TPU kernel adds
+    ssq = xf.double().square().sum(-1, keepdim=True)
+    rstd = (1.0 / torch.sqrt(ssq / HD + float(np.float32(eps)))).float()
+    f = (xf * rstd * weight.float()).to(raw.dtype).float()
+    f = f.reshape(B, S, H, D // 2, 2)
+    fe, fo = f[..., 0], f[..., 1]
+    c = cos.float()[None, :, None, :]
+    s = sin.float()[None, :, None, :]
+    out = torch.stack([fe * c - fo * s, fo * c + fe * s], dim=-1)
+    out = out.reshape(B, S, H, D).permute(0, 2, 1, 3)
+    return out.reshape(B * H, S, D).to(raw.dtype).contiguous()
+
+
+def qk_norm_rope(raw, weight, cos, sin, num_heads: int, eps: float):
+    """K2 (replaces ``_qk_producer_fullrow``): RMS-norm across all heads,
+    gain, round to raw's dtype, interleaved RoPE -> [B*H, S, D]. CUDA:
+    Triton kernel; CPU: ``qk_norm_rope_ref``."""
+    if not raw.is_cuda:
+        return qk_norm_rope_ref(raw, weight, cos, sin, num_heads, eps)
+    B, S, HD = raw.shape
+    H = num_heads
+    D = HD // H
+    if H * D != HD or D % 2 or (D & (D - 1)):
+        raise ValueError(f"qk_norm_rope: H*D={HD} with H={H} needs a "
+                         f"power-of-two head_dim")
+    if weight.shape != (HD,) or cos.shape != (S, D // 2) \
+            or sin.shape != cos.shape:
+        raise ValueError("qk_norm_rope: weight must be [H*D] and cos/sin "
+                         "[S, D/2]")
+    _check_cuda_bf16("qk_norm_rope", raw)
+    for t in (weight, cos, sin):
+        if not t.is_cuda or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError("qk_norm_rope: weight/cos/sin must be "
+                             "contiguous fp32 CUDA tensors")
+    from frameino_tpu_torch.ops import qk_norm_rope_triton   # needs triton
+    out = torch.empty((B * H, S, D), dtype=raw.dtype, device=raw.device)
+    qk_norm_rope_triton.launch(raw, weight, cos, sin, out, H, eps)
+    qk_norm_rope.launches += 1
+    return out
+
+
+qk_norm_rope.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Fused self-attention path: K2 (q, k) -> bound -> K1
+# ---------------------------------------------------------------------------
+
+def _rowmax_norm(x):
+    """max row L2 over [BH, S, D], fp32, on x's device."""
+    return torch.linalg.vector_norm(x, dim=-1, dtype=torch.float32).amax()
+
+
+def fused_qk_flash_attention(q_raw, k_raw, v, w_q, w_k, cos, sin, *,
+                             num_heads: int, eps: float,
+                             scale: Optional[float] = None,
+                             static_softmax: bool = True):
+    """Self-attention with the qk-norm + interleaved-RoPE producers
+    (counterpart of ``_fused_qk_flash_impl``).
+
+    q_raw/k_raw: [B, S, H*D] straight out of the to_q/to_k denses. v:
+    [B, H, S, D]. w_q/w_k: [H*D] RMSNorm gains. cos/sin: [S, D/2] fp32 rope
+    pair tables. Returns [B, H, S, D]. The softmax scale * log2(e) is
+    folded into q's rope tables, as on the TPU; with ``static_softmax``
+    the bound max||q_i|| * max||k_j|| (Cauchy-Schwarz) stays on the device.
+    """
+    B, S, HD = q_raw.shape
+    H = num_heads
+    D = HD // H
+    scale = scale if scale is not None else _default_scale(D)
+    gain = scale * LOG2E
+    cos = cos.float()
+    sin = sin.float()
+    w_q = w_q.float().contiguous()
+    w_k = w_k.float().contiguous()
+    qh = qk_norm_rope(q_raw, w_q, (cos * gain).contiguous(),
+                      (sin * gain).contiguous(), H, eps)
+    kh = qk_norm_rope(k_raw, w_k, cos.contiguous(), sin.contiguous(), H,
+                      eps)
+    vh = v.reshape(B * H, S, D)
+    if static_softmax:
+        bound = _rowmax_norm(qh) * _rowmax_norm(kh)
+        out = flash_fwd_static(qh, kh, vh, bound)
+    else:
+        out = flash_fwd(qh, kh, vh, 1.0)
+    return out.reshape(B, H, S, D)
+
+
+def reset_launch_counts():
+    flash_fwd.launches = 0
+    flash_fwd_static.launches = 0
+    qk_norm_rope.launches = 0
+
+
+def launch_counts() -> dict:
+    return {"flash_fwd_static": flash_fwd_static.launches,
+            "qk_norm_rope": qk_norm_rope.launches,
+            "flash_fwd": flash_fwd.launches}
+

@@ -1,0 +1,52 @@
+"""Normalization ops (counterpart of ``frameino_tpu/ops/norms.py``).
+
+All statistics in fp32, matching the reference's ``FP32LayerNorm`` and
+``_keep_in_fp32_modules`` recipe; callers cast back when needed.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def layer_norm(x, weight=None, bias=None, eps: float = 1e-6):
+    """LayerNorm over the last dim, fp32 statistics, fp32 result.
+
+    With ``weight is None`` this is the non-affine FP32LayerNorm of the
+    Wan blocks' norm1/norm3.
+    """
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    y = (xf - mean) * torch.reciprocal(torch.sqrt(var + eps))
+    if weight is not None:
+        y = y * weight.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y
+
+
+def rms_norm(x, weight=None, eps: float = 1e-6):
+    """RMSNorm over the last dim, fp32 statistics, result in x's dtype
+    (Wan's ``qk_norm="rms_norm_across_heads"`` over the full inner_dim)."""
+    xf = x.float()
+    ms = xf.square().mean(-1, keepdim=True)
+    y = xf * torch.reciprocal(torch.sqrt(ms + eps))
+    if weight is not None:
+        y = y * weight.float()
+    return y.to(x.dtype)
+
+
+def l2_normalize_channel(x, scale: float, gamma, bias=0.0, dim: int = 1):
+    """``WanRMS_norm``: F.normalize along ``dim`` * sqrt(C) * gamma + bias.
+
+    torch's F.normalize clamps the L2 *norm* at 1e-12. ``gamma`` (and a
+    tensor ``bias``) broadcast against x.
+    """
+    xf = x.float()
+    n = torch.linalg.vector_norm(xf, dim=dim, keepdim=True)
+    y = xf / torch.clamp(n, min=1e-12)
+    y.mul_(scale).mul_(gamma.float())
+    if not (isinstance(bias, float) and bias == 0.0):
+        y = y + bias
+    return y.to(x.dtype)

@@ -1,0 +1,302 @@
+"""Wan2.2 FrameINO image-to-video pipeline (counterpart of
+``frameino_tpu/pipelines/wan_i2v.py``, the Wan2.2 expand path only).
+
+The condition algebra is the JAX module's: VAE condition encodes of the
+canvas first frame, the trajectory video and each ID frame; per-step
+blend of the clean first-frame condition; per-token timesteps with two
+values (0 on the condition frame, t elsewhere) passed as a mask; ID
+latents appended on the frame axis and trajectory latents on channels; ID
+predictions dropped; final re-blend. The JAX ``lax.scan`` over steps is a
+Python loop here, with the text K/V computed once per segment.
+
+Not ported: the Wan2.1 branch (``prepare_conditions_wan21``,
+``denoise_segment_wan21``) and the tiled, hybrid and streaming decodes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from frameino_tpu_torch.models import wan_vae
+from frameino_tpu_torch.models.wan_dit import WanDiT
+from frameino_tpu_torch.schedulers.flow_match_euler import (
+    FlowMatchEulerConfig, euler_step, inference_sigmas)
+
+DECODE_NOT_PORTED = (
+    "decode_mode={!r} is not ported yet: the tiled, hybrid and streaming "
+    "VAE paths are ROADMAP.md queue 1, item 2; use decode_mode='full'")
+
+
+@dataclasses.dataclass(frozen=True)
+class WanPipelineConfig:
+    boundary_ratio: Optional[float] = None
+    scheduler: FlowMatchEulerConfig = FlowMatchEulerConfig()
+
+
+def latent_shape(vae_cfg: wan_vae.WanVAEConfig, batch: int, num_frames: int,
+                 height: int, width: int) -> Tuple[int, ...]:
+    f = (num_frames - 1) // vae_cfg.scale_factor_temporal + 1
+    return (batch, vae_cfg.z_dim, f,
+            height // vae_cfg.scale_factor_spatial,
+            width // vae_cfg.scale_factor_spatial)
+
+
+def round_num_frames(num_frames: int, temporal: int = 4) -> int:
+    """Frame rounding to 4N+1 (reference ``:707-712``)."""
+    if num_frames % temporal != 1:
+        num_frames = num_frames // temporal * temporal + 1
+    return max(num_frames, 1)
+
+
+def prepare_conditions(vae: wan_vae.WanVAE, image, traj_video, id_frames):
+    """VAE-encode the FrameINO conditions (posterior mode), normalized.
+
+    image [B, 3, H, W] in [-1, 1]; traj_video [B, 3, T, H, W] or None;
+    id_frames [B, 3, N, H, W] or None. Returns (condition [B, z, 1, h, w],
+    traj_latents [B, z, f(+N), h, w] or None, id_latents [B, z, N, h, w]
+    or None). The trajectory clip takes the full-sequence encode, which
+    equals the JAX package's hybrid encode.
+    """
+    cfg = vae.cfg
+
+    def enc(v):
+        return wan_vae.normalize_latents(cfg, vae.encode(v))
+
+    condition = enc(image[:, :, None])
+    traj_latents = enc(traj_video) if traj_video is not None else None
+    id_latents = None
+    if id_frames is not None and id_frames.shape[2] > 0:
+        # each ID frame is encoded as its own single-frame clip
+        id_latents = torch.cat([enc(id_frames[:, :, i:i + 1])
+                                for i in range(id_frames.shape[2])], dim=2)
+        if traj_latents is not None:
+            traj_latents = torch.cat(
+                [traj_latents, torch.zeros_like(id_latents)], dim=2)
+    return condition, traj_latents, id_latents
+
+
+def build_first_frame_mask(num_latent_frames: int, latent_h: int,
+                           latent_w: int, device=None):
+    """[1, 1, F, h, w]: 0 on frame 0 (clean condition), 1 elsewhere."""
+    mask = torch.ones((1, 1, num_latent_frames, latent_h, latent_w),
+                      dtype=torch.float32, device=device)
+    mask[:, :, 0] = 0.0
+    return mask
+
+
+def _per_token_timesteps(mask_adjust, t, patch_hw: int = 2):
+    """(mask[0,0][:, ::p, ::p] * t).flatten() (reference ``:832-843``)."""
+    return (mask_adjust[0, 0][:, ::patch_hw, ::patch_hw] * t).reshape(-1)
+
+
+def denoise_segment(dit: WanDiT, latents, condition, traj_latents,
+                    id_latents, first_frame_mask, context_2b,
+                    sigmas: np.ndarray, sigmas_next: np.ndarray,
+                    timesteps: np.ndarray, guidance_scale: float,
+                    cfg_sequential: bool = False):
+    """Run one expert over its timestep segment.
+
+    latents [B, z, F, h, w] fp32; context_2b [2B, L, text_dim] (cond;
+    uncond); sigmas/sigmas_next/timesteps: fp32 numpy arrays of this
+    segment. ``cfg_sequential`` runs cond and uncond as two batch-B
+    forwards instead of one batch-2B forward (half the activations).
+    """
+    B = latents.shape[0]
+    num_gen_frames = latents.shape[2]
+    lat_h, lat_w = latents.shape[3], latents.shape[4]
+    do_cfg = guidance_scale > 1.0
+    dev = latents.device
+
+    mask_adjust = first_frame_mask
+    if id_latents is not None:
+        id_pad = torch.ones((1, 1, id_latents.shape[2], lat_h, lat_w),
+                            dtype=torch.float32, device=dev)
+        mask_adjust = torch.cat([first_frame_mask, id_pad], dim=2)
+    ts_mask = _per_token_timesteps(mask_adjust, 1.0,
+                                   patch_hw=dit.cfg.patch_size[1])
+    ts_mask_b = ts_mask[None].expand(B, -1)
+
+    # text K/V are constant over the segment: project them once
+    if do_cfg:
+        kv = dit.precompute_text_kv(context_2b)
+        if cfg_sequential:
+            kv_cond = [(k[:B], v[:B]) for k, v in kv]
+            kv_uncond = [(k[B:], v[B:]) for k, v in kv]
+    else:
+        kv = dit.precompute_text_kv(context_2b[:B])
+
+    for sigma, sigma_next, t in zip(sigmas, sigmas_next, timesteps):
+        latent_in = (1.0 - first_frame_mask) * condition \
+            + first_frame_mask * latents
+        if id_latents is not None:
+            latent_in = torch.cat([latent_in, id_latents], dim=2)
+        if traj_latents is not None:
+            latent_in = torch.cat([latent_in, traj_latents], dim=1)
+        t_b = torch.full((B,), float(t), dtype=torch.float32, device=dev)
+
+        if do_cfg and cfg_sequential:
+            pred_cond = dit(latent_in, t_b, timestep_mask=ts_mask_b,
+                            text_kv=kv_cond)
+            pred_uncond = dit(latent_in, t_b, timestep_mask=ts_mask_b,
+                              text_kv=kv_uncond)
+            noise_pred = pred_uncond + guidance_scale * (pred_cond
+                                                         - pred_uncond)
+        elif do_cfg:
+            pred = dit(torch.cat([latent_in, latent_in], dim=0),
+                       torch.cat([t_b, t_b], dim=0),
+                       timestep_mask=torch.cat([ts_mask_b, ts_mask_b], 0),
+                       text_kv=kv)
+            pred_cond, pred_uncond = pred.chunk(2, dim=0)
+            noise_pred = pred_uncond + guidance_scale * (pred_cond
+                                                         - pred_uncond)
+        else:
+            noise_pred = dit(latent_in, t_b, timestep_mask=ts_mask_b,
+                             text_kv=kv)
+
+        noise_pred = noise_pred[:, :, :num_gen_frames]   # drop ID frames
+        latents = euler_step(latents, noise_pred, sigma, sigma_next)
+    return latents
+
+
+def denoise(dit: WanDiT, latents, condition, traj_latents, id_latents,
+            first_frame_mask, context, neg_context, sigmas: np.ndarray,
+            timesteps: np.ndarray, guidance_scale: float = 5.0,
+            dit_2: Optional[WanDiT] = None,
+            guidance_scale_2: Optional[float] = None, split_idx: int = 0,
+            cfg_mode: str = "batch"):
+    """Full CFG denoise loop; sigmas [steps+1], timesteps [steps] (numpy
+    fp32). ``split_idx`` > 0 routes steps [0, split_idx) to ``dit`` (high
+    noise) and the rest to ``dit_2`` (low noise): the two-expert path."""
+    if cfg_mode not in ("batch", "sequential"):
+        raise ValueError(f"cfg_mode must be 'batch' or 'sequential', got "
+                         f"{cfg_mode!r}")
+    context_2b = torch.cat([context, neg_context], dim=0)
+
+    def seg(model, lat, lo, hi, gs):
+        return denoise_segment(
+            model, lat, condition, traj_latents, id_latents,
+            first_frame_mask, context_2b, sigmas[lo:hi],
+            sigmas[lo + 1:hi + 1], timesteps[lo:hi], gs,
+            cfg_sequential=cfg_mode == "sequential")
+
+    n = len(timesteps)
+    if split_idx and dit_2 is not None:
+        latents = seg(dit, latents, 0, split_idx, guidance_scale)
+        latents = seg(dit_2, latents, split_idx, n,
+                      guidance_scale_2 or guidance_scale)
+    else:
+        latents = seg(dit, latents, 0, n, guidance_scale)
+    # final re-blend (reference :912-913)
+    return (1.0 - first_frame_mask) * condition + first_frame_mask * latents
+
+
+class WanImageToVideoPipeline:
+    """Masked-canvas image, trajectory video, optional ID frames and prompt
+    embeddings -> video (reference ``__call__`` contract,
+    ``pipeline_wan_i2v_motion_FrameINO.py:581-936``).
+
+    The DiT runs in its weights' dtype and the VAE in fp32; inputs are
+    moved to the DiT's device.
+    """
+
+    def __init__(self, dit: WanDiT, vae: wan_vae.WanVAE,
+                 pipe_cfg: WanPipelineConfig = WanPipelineConfig(),
+                 text_encoder_fn=None, dit_2: Optional[WanDiT] = None):
+        self.dit = dit
+        self.dit_2 = dit_2
+        self.vae = vae
+        self.pipe_cfg = pipe_cfg
+        self.text_encoder_fn = text_encoder_fn
+
+    @property
+    def dit_cfg(self):
+        return self.dit.cfg
+
+    @property
+    def vae_cfg(self):
+        return self.vae.cfg
+
+    @property
+    def device(self) -> torch.device:
+        return self.dit.proj_out.weight.device
+
+    @torch.no_grad()
+    def __call__(self, image, prompt_embeds=None, negative_prompt_embeds=None,
+                 prompt: Optional[str] = None,
+                 negative_prompt: Optional[str] = None,
+                 traj_tensor=None, id_tensor=None, height: int = 704,
+                 width: int = 1280, num_frames: int = 81,
+                 num_inference_steps: int = 50, guidance_scale: float = 5.0,
+                 guidance_scale_2: Optional[float] = None,
+                 generator: Optional[torch.Generator] = None, latents=None,
+                 output_type: str = "np", decode_mode: str = "full",
+                 cfg_mode: str = "batch"):
+        if decode_mode != "full":
+            raise NotImplementedError(DECODE_NOT_PORTED.format(decode_mode))
+        dev = self.device
+        vae_cfg = self.vae_cfg
+        num_frames = round_num_frames(num_frames,
+                                      vae_cfg.scale_factor_temporal)
+
+        if prompt_embeds is None:
+            if self.text_encoder_fn is None:
+                raise ValueError("need prompt_embeds or a text_encoder_fn")
+            prompt_embeds = self.text_encoder_fn([prompt])
+            negative_prompt_embeds = self.text_encoder_fn(
+                [negative_prompt or ""])
+        prompt_embeds = prompt_embeds.to(dev)
+        if negative_prompt_embeds is None:
+            negative_prompt_embeds = torch.zeros_like(prompt_embeds)
+        negative_prompt_embeds = negative_prompt_embeds.to(dev)
+
+        B = prompt_embeds.shape[0]
+        shape = latent_shape(vae_cfg, B, num_frames, height, width)
+        if latents is None:
+            if generator is None:
+                generator = torch.Generator(dev).manual_seed(0)
+            latents = torch.randn(shape, generator=generator,
+                                  device=generator.device,
+                                  dtype=torch.float32)
+        latents = latents.to(dev, torch.float32)
+
+        # traj arrives [F, C, H, W] as the dataset emits it
+        if traj_tensor is not None and traj_tensor.ndim == 4:
+            traj_tensor = traj_tensor.permute(1, 0, 2, 3)[None]
+        if id_tensor is not None and id_tensor.ndim == 4:
+            id_tensor = id_tensor[None]
+
+        def f32(x):
+            return None if x is None else x.to(dev, torch.float32)
+
+        sched = self.pipe_cfg.scheduler
+        sigmas, timesteps = inference_sigmas(sched, num_inference_steps)
+        condition, traj_latents, id_latents = prepare_conditions(
+            self.vae, f32(image), f32(traj_tensor), f32(id_tensor))
+        mask = build_first_frame_mask(shape[2], shape[3], shape[4], dev)
+
+        split_idx = 0
+        if self.pipe_cfg.boundary_ratio is not None \
+                and self.dit_2 is not None:
+            boundary_t = self.pipe_cfg.boundary_ratio \
+                * sched.num_train_timesteps
+            split_idx = int(np.sum(timesteps >= boundary_t))
+        latents = denoise(
+            self.dit, latents, condition, traj_latents, id_latents, mask,
+            prompt_embeds, negative_prompt_embeds, sigmas, timesteps,
+            guidance_scale=float(guidance_scale), dit_2=self.dit_2,
+            guidance_scale_2=(None if guidance_scale_2 is None
+                              else float(guidance_scale_2)),
+            split_idx=split_idx, cfg_mode=cfg_mode)
+
+        if output_type == "latent":
+            return latents
+        z = wan_vae.denormalize_latents(vae_cfg, latents)
+        video = self.vae.decode(z)
+        if output_type == "np":
+            return video.cpu().numpy()
+        return video
+

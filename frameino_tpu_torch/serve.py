@@ -1,0 +1,121 @@
+"""Serving entry point of the PyTorch port: build the Wan2.2 FrameINO
+pipeline and start the HTTP API.
+
+    python -m frameino_tpu_torch.serve --smoke            # tiny, CPU
+    python -m frameino_tpu_torch.serve --random_init      # 5B width, CUDA
+
+``--random_init`` serves Wan2.2-TI2V-5B-motion at full width with weights
+drawn from seed 0 (bf16 DiT, fp32 VAE): outputs are noise, for
+latency and memory measurement of the real serving path. Requests carry
+``prompt_embeds_b64`` (the UMT5 encoder is not ported yet).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+NOT_PORTED = {
+    "text_encoder": "--text_encoder: the UMT5 text encoder is ROADMAP.md "
+                    "queue 1, item 1; send prompt_embeds_b64 instead",
+    "quantize": "--quantize: int8 serving is ROADMAP.md queue 1, item 3",
+    "cogvideox": "--family cogvideox: CogVideoX is ROADMAP.md queue 1, "
+                 "item 5",
+    "checkpoint": "loading released checkpoints is ROADMAP.md queue 1, "
+                  "item 7; use --smoke or --random_init",
+}
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    mode = p.add_mutually_exclusive_group()
+    mode.add_argument("--smoke", action="store_true",
+                      help="tiny random models on the CPU")
+    mode.add_argument("--random_init", action="store_true",
+                      help="full-width Wan2.2-TI2V-5B-motion with seeded "
+                           "random weights on CUDA (outputs are noise)")
+    p.add_argument("--family", choices=["wan", "cogvideox"], default="wan")
+    p.add_argument("--text_encoder", default=None)
+    p.add_argument("--quantize", choices=["int8"], default=None)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8188)
+    p.add_argument("--bucket_grid", type=int, default=64,
+                   help="round request H/W up to this grid (multiple of "
+                        "32); 0 keeps the x32 canvas rule only")
+    p.add_argument("--frame_grid", type=int, default=None,
+                   help="optional frame-count lattice (multiple of the VAE "
+                        "temporal ratio)")
+    return p.parse_args(argv)
+
+
+def smoke_configs():
+    """The tiny Wan configs the CPU smoke server and tests use."""
+    from frameino_tpu_torch.models import wan_dit, wan_vae
+    vae_cfg = wan_vae.WanVAEConfig(
+        base_dim=8, z_dim=4, dim_mult=(1, 2), num_res_blocks=1,
+        temperal_downsample=(True,), is_residual=False,
+        scale_factor_temporal=2, scale_factor_spatial=2,
+        latents_mean=(0.0,) * 4, latents_std=(1.0,) * 4)
+    dit_cfg = wan_dit.tiny_config(in_channels=8, out_channels=4)
+    return dit_cfg, vae_cfg
+
+
+def configure_cuda_numerics():
+    """The port's numerics on CUDA, set explicitly rather than inherited:
+    fp32 matmuls in full fp32 (no TF32), bf16 GEMMs reduce in fp32, and
+    cuDNN convolutions (the fp32 VAE) in TF32, PyTorch's default."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def build_pipeline(*, smoke: bool, random_init: bool, family: str = "wan",
+                   text_encoder=None, quantize=None):
+    """The port's Wan2.2 FrameINO pipeline with random weights from seed
+    0."""
+    if text_encoder:
+        raise NotImplementedError(NOT_PORTED["text_encoder"])
+    if quantize:
+        raise NotImplementedError(NOT_PORTED["quantize"])
+    if family != "wan":
+        raise NotImplementedError(NOT_PORTED["cogvideox"])
+    if not (smoke or random_init):
+        raise NotImplementedError(NOT_PORTED["checkpoint"])
+    from frameino_tpu_torch.models import wan_dit, wan_vae
+    from frameino_tpu_torch.pipelines.wan_i2v import (WanImageToVideoPipeline,
+                                                      WanPipelineConfig)
+    if smoke:
+        dit_cfg, vae_cfg = smoke_configs()
+        device, dit_dtype = torch.device("cpu"), torch.float32
+    else:
+        if not torch.cuda.is_available():
+            raise RuntimeError("--random_init serves on CUDA; no CUDA "
+                               "device is available")
+        configure_cuda_numerics()
+        dit_cfg = wan_dit.WAN22_TI2V_5B_MOTION
+        vae_cfg = wan_vae.WAN22_VAE_CONFIG
+        device, dit_dtype = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device).manual_seed(0)
+    dit = wan_dit.init_wan_dit(dit_cfg, gen, dtype=dit_dtype)
+    vae = wan_vae.init_wan_vae(vae_cfg, gen)
+    return WanImageToVideoPipeline(dit, vae, WanPipelineConfig())
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    from frameino_tpu_torch.app.server import PipelineServer
+    pipe = build_pipeline(smoke=args.smoke, random_init=args.random_init,
+                          family=args.family,
+                          text_encoder=args.text_encoder,
+                          quantize=args.quantize)
+    if args.random_init:
+        print("WARNING: --random_init serves RANDOM weights; outputs are "
+              "noise")
+    server = PipelineServer(pipe, bucket_grid=args.bucket_grid,
+                            frame_grid=args.frame_grid)
+    server.serve(args.host, args.port)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,115 @@
+"""The port's Hopper kernels against their plain PyTorch versions on the
+card. Every test here needs an NVIDIA GPU and skips without one; run them
+on a GPU machine with ``python -m pytest tests/test_torch_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from frameino_tpu_torch.models import wan_dit as tdit
+from frameino_tpu_torch.ops import attention as A
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA and Triton kernels have "
+                    "no CPU mode")
+    return torch.device("cuda")
+
+
+def _bf16_ulp(x):
+    ax = torch.clamp(x.abs(), min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(ax)) - 7)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,skv", [(100, 77), (130, 512), (64, 64)])
+def test_flash_kernels_match_plain(dev, d, sq, skv):
+    g = torch.Generator(dev).manual_seed(0)
+    q, k, v = (torch.randn(3, n, d, device=dev, dtype=torch.bfloat16,
+                           generator=g) for n in (sq, skv, skv))
+    c = d ** -0.5 * A.LOG2E
+    before = A.launch_counts()
+    got = A.flash_fwd(q, k, v, c)
+    ref = A.flash_fwd_ref(q, k, v, c)
+    qs = (q.float() * c).to(torch.bfloat16)
+    bound = A._rowmax_norm(qs) * A._rowmax_norm(k)
+    got_s = A.flash_fwd_static(qs, k, v, bound)
+    ref_s = A.flash_fwd_static_ref(qs, k, v, bound)
+    torch.cuda.synchronize()
+    # bf16 outputs of fp32 softmax sums in another order: 2e-2
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(got_s.float(), ref_s.float(), atol=2e-2,
+                               rtol=2e-2)
+    after = A.launch_counts()
+    assert after["flash_fwd"] == before["flash_fwd"] + 1
+    assert after["flash_fwd_static"] == before["flash_fwd_static"] + 1
+
+
+@pytest.mark.parametrize("heads,s", [(3, 100), (24, 257)])
+def test_qk_norm_rope_kernel_within_one_ulp(dev, heads, s):
+    g = torch.Generator(dev).manual_seed(1)
+    raw = torch.randn(2, s, heads * 128, device=dev, dtype=torch.bfloat16,
+                      generator=g)
+    w = 1 + 0.1 * torch.randn(heads * 128, device=dev, generator=g)
+    ang = torch.randn(s, 64, device=dev, generator=g)
+    cos, sin = ang.cos() * 0.5, ang.sin() * 0.5
+    got = A.qk_norm_rope(raw, w, cos, sin, heads, 1e-6).float()
+    ref = A.qk_norm_rope_ref(raw, w, cos, sin, heads, 1e-6).float()
+    # the same roundings to bf16; fp32 reassociation may flip one: 1 ulp
+    assert torch.all((got - ref).abs()
+                     <= torch.maximum(_bf16_ulp(got), _bf16_ulp(ref)))
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(dev):
+    q = torch.randn(2, 64, 128, device=dev)
+    with pytest.raises(TypeError):
+        A.flash_fwd(q, q, q, 0.1)                       # fp32
+    qb = q.to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        A.flash_fwd(qb.transpose(1, 2).contiguous().transpose(1, 2), qb,
+                    qb, 0.1)                             # not contiguous
+    with pytest.raises(ValueError):
+        A.flash_fwd(torch.randn(2, 64, 96, device=dev,
+                                dtype=torch.bfloat16), qb, qb, 0.1)
+    with pytest.raises(ValueError):
+        A.qk_norm_rope(torch.randn(1, 8, 3 * 96, device=dev,
+                                   dtype=torch.bfloat16),
+                       torch.ones(3 * 96, device=dev),
+                       torch.ones(8, 48, device=dev),
+                       torch.zeros(8, 48, device=dev), 3, 1e-6)
+
+
+def test_dit_on_cuda_runs_the_kernels(dev):
+    """A 2-block DiT at head_dim 128 in bf16: the CUDA forward launches
+    K1 and K3 once and K2 twice per block, and agrees with the CPU plain
+    path on the same bf16 weights."""
+    cfg = tdit.tiny_config(num_attention_heads=2, attention_head_dim=128,
+                           ffn_dim=256, in_channels=8, out_channels=4)
+    cpu = tdit.init_wan_dit(cfg, torch.Generator().manual_seed(0),
+                            dtype=torch.bfloat16)
+    gpu = tdit.WanDiT(cfg, device="meta", dtype=torch.bfloat16)
+    gpu.load_state_dict({k: v.to(dev) for k, v in cpu.state_dict().items()},
+                        assign=True)
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(2, 8, 3, 8, 10).astype(np.float32))
+    t = torch.tensor([900.0, 900.0])
+    ctx = torch.from_numpy(rs.randn(2, 7, 16).astype(np.float32))
+    mask = torch.ones(2, 3 * 4 * 5)
+    mask[:, :20] = 0
+    A.reset_launch_counts()
+    got = gpu(x.to(dev), t.to(dev), ctx.to(dev),
+              timestep_mask=mask.to(dev)).cpu()
+    counts = A.launch_counts()
+    ref = cpu(x, t, ctx, timestep_mask=mask)
+    assert counts == {"flash_fwd_static": 2, "qk_norm_rope": 4,
+                      "flash_fwd": 2}
+    assert torch.isfinite(got).all()
+    # both bf16 through 2 blocks; the kernels round p to bf16 at another
+    # shift than the plain softmax: 5e-2
+    torch.testing.assert_close(got, ref, atol=5e-2, rtol=5e-2)
