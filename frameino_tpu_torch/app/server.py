@@ -1,5 +1,6 @@
-"""HTTP serving API around the port's Wan pipeline (counterpart of
-``frameino_tpu/app/server.py``; same request and response schema).
+"""HTTP serving API around the port's FrameINO pipelines, Wan2.2 or
+CogVideoX (counterpart of ``frameino_tpu/app/server.py``; same request
+and response schema).
 
     POST /generate   JSON request -> {"video_b64": <mp4>, ...}
     GET  /healthz    liveness + model and device info
@@ -13,13 +14,14 @@ Request schema (all condition fields optional except the image):
       "id_image_b64": <base64 PNG/JPEG>,
       "height": int, "width": int, "num_frames": int,
       "num_inference_steps": int, "guidance_scale": float,
-      "seed": int, "decode_mode": "full"
+      "seed": int, "decode_mode": str
     }
 
 Generation is serialized with a lock (one card); concurrent requests
-queue. The default ``decode_mode`` is "full": the full-sequence decode
-fits on an 80 GB card. The other modes of the JAX server are not ported
-and answer 400.
+queue. Without ``decode_mode`` in the request each pipeline keeps its own
+default: "full" for Wan (the full-sequence decode fits on an 80 GB card;
+its other modes are not ported and answer 400), "streaming" for CogVideoX
+(the tiled chunk walk of the JAX pipeline).
 """
 
 from __future__ import annotations
@@ -70,7 +72,8 @@ def _to_unit_range(img_u8: np.ndarray) -> torch.Tensor:
 
 
 class PipelineServer:
-    """Wraps a ``WanImageToVideoPipeline`` behind the HTTP API."""
+    """Wraps a ``WanImageToVideoPipeline`` or a
+    ``CogVideoXImageToVideoPipeline`` behind the HTTP API."""
 
     def __init__(self, pipeline, text_encoder_fn=None,
                  default_steps: int = 50, default_guidance: float = 5.0,
@@ -99,7 +102,11 @@ class PipelineServer:
         W = int(req.get("width", image.shape[1]))
         F = int(req.get("num_frames", 81))
 
-        temporal = self.pipeline.vae_cfg.scale_factor_temporal
+        # Wan's VAE config names the ratio scale_factor_temporal,
+        # CogVideoX's temporal_compression_ratio
+        vae_cfg = self.pipeline.vae_cfg
+        temporal = getattr(vae_cfg, "scale_factor_temporal", None) \
+            or getattr(vae_cfg, "temporal_compression_ratio", 4)
         if self.bucket_grid:
             Hb, Wb = SB.bucket_hw(H, W, grid=self.bucket_grid)
             Fb = SB.bucket_frames(F, temporal=temporal,
@@ -140,6 +147,9 @@ class PipelineServer:
 
         gen = torch.Generator(self.pipeline.device).manual_seed(
             int(req.get("seed", 0)))
+        # no decode_mode in the request: the pipeline's own default
+        extra = ({"decode_mode": req["decode_mode"]}
+                 if "decode_mode" in req else {})
         with self.lock:
             video = self.pipeline(
                 image_t, prompt_embeds=prompt_embeds,
@@ -149,7 +159,7 @@ class PipelineServer:
                                                 self.default_steps)),
                 guidance_scale=float(req.get("guidance_scale",
                                              self.default_guidance)),
-                generator=gen, decode_mode=req.get("decode_mode", "full"))
+                generator=gen, **extra)
             self.generations += 1
 
         if not np.isfinite(video).all():

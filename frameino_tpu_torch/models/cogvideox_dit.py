@@ -1,0 +1,473 @@
+"""CogVideoX video DiT over the joint [text; video] sequence, forward only
+(counterpart of ``frameino_tpu/models/cogvideox_dit.py``).
+
+``CogVideoXDiT`` is an ``nn.Module`` with diffusers
+``CogVideoXTransformer3DModel`` parameter names, so a diffusers state dict
+and the weight bridge (``models/weights.py``) both load through
+``load_state_dict``. The math follows the JAX forward:
+
+- the patch embed projects the text tokens and puts them BEFORE the video
+  tokens, then adds the joint position table; with ``use_frame_in`` one
+  more frame of position embeddings is appended, sliced at the actual text
+  length (the reference's quirk), and the video part is resized to the
+  patch grid with JAX's antialiased trilinear filter;
+- AdaLN-Zero on the joint sequence as a per-token select over a video
+  mask (text and video rows get their own shift/scale/gate);
+- joint self-attention with per-head LayerNorm on q/k and RoPE whose
+  tables are identity over the text prefix. On CUDA tensors it runs K4
+  (LayerNorm + RoPE producer) -> bound -> K1 at head_dim 64
+  (``ops/attention.fused_ln_qk_flash_attention``); on the CPU the plain
+  path, or the same fused function's plain versions with
+  ``attn_impl="fused"``;
+- gelu_tanh FFN, ``norm_final`` over the joint sequence, ``norm_out``,
+  ``proj_out`` and the 2D unpatchify.
+
+The forward runs in the weights' dtype (bf16 at full width): it casts its
+inputs to that dtype and returns fp32. Layout is the JAX package's,
+frame-first: hidden_states [B, F, C, H, W].
+
+Where the JAX forward raises, the port takes the intended value: JAX
+sizes the appended ``use_frame_in`` slice as (table tokens) // (F - 1),
+which is one frame only when F is the table's frame count + 1, and adds
+the table without slicing when the sample grid matches; the port appends
+one table frame (ph * pw tokens) and always slices to the sequence. Both
+equal JAX wherever JAX runs (ROADMAP queue 3).
+
+Not ported (they raise): CogVideoX 1.5's ``patch_size_t``,
+``ofs_embed_dim``, the 2B path without RoPE, and the pp/mesh paths.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from frameino_tpu_torch.ops import attention as attn_ops
+from frameino_tpu_torch.ops.embeddings import (cogvideox_3d_sincos_pos_embed,
+                                               sinusoidal_timestep_embedding,
+                                               timestep_embedding_mlp)
+from frameino_tpu_torch.ops.linear import dense, gelu_tanh, silu
+from frameino_tpu_torch.ops.norms import layer_norm
+from frameino_tpu_torch.ops.rope import (apply_rope_interleaved,
+                                         cogvideox_rope_table)
+
+NOT_PORTED = ("{} is not ported: CogVideoX 1.5 (patch_size_t), ofs "
+              "embeddings and the 2B path without RoPE are ROADMAP.md "
+              "queue 1, item 5")
+
+
+@dataclasses.dataclass(frozen=True)
+class CogVideoXConfig:
+    num_attention_heads: int = 48
+    attention_head_dim: int = 64
+    in_channels: int = 32
+    out_channels: int = 16
+    time_embed_dim: int = 512
+    ofs_embed_dim: Optional[int] = None
+    text_embed_dim: int = 4096
+    num_layers: int = 42
+    attention_bias: bool = True
+    sample_width: int = 90
+    sample_height: int = 60
+    sample_frames: int = 49
+    patch_size: int = 2
+    patch_size_t: Optional[int] = None
+    temporal_compression_ratio: int = 4
+    max_text_seq_length: int = 226
+    norm_eps: float = 1e-5
+    qk_norm_eps: float = 1e-6
+    spatial_interpolation_scale: float = 1.875
+    temporal_interpolation_scale: float = 1.0
+    use_rotary_positional_embeddings: bool = True
+    use_learned_positional_embeddings: bool = True
+    use_frame_in: bool = False
+    freq_shift: int = 0
+
+    @property
+    def inner_dim(self) -> int:
+        return self.num_attention_heads * self.attention_head_dim
+
+
+# CogVideoX-5B-I2V; FrameINO: in_channels 48 = 16 noisy + 16 image + 16
+# trajectory latent channels, one extra ID frame of positions
+COGVIDEOX_5B_I2V = CogVideoXConfig()
+COGVIDEOX_5B_I2V_FRAMEINO = dataclasses.replace(COGVIDEOX_5B_I2V,
+                                                in_channels=48,
+                                                use_frame_in=True)
+
+
+def tiny_config(**kw) -> CogVideoXConfig:
+    base = dict(num_attention_heads=2, attention_head_dim=16, in_channels=12,
+                out_channels=4, time_embed_dim=16, text_embed_dim=16,
+                num_layers=2, sample_width=8, sample_height=8,
+                sample_frames=9, max_text_seq_length=8)
+    base.update(kw)
+    return CogVideoXConfig(**base)
+
+
+# ---------------------------------------------------------------------------
+# Antialiased trilinear resize (jax.image.resize "trilinear")
+# ---------------------------------------------------------------------------
+
+def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
+    """[n_in, n_out] fp32 triangle-filter weights of
+    ``jax.image.scale_and_translate`` with antialias: when downsampling
+    the kernel widens by n_in / n_out (a low-pass filter), when
+    upsampling it is plain linear interpolation."""
+    scale = np.float32(n_out) / np.float32(n_in)
+    inv = np.float32(1.0) / scale
+    kscale = max(inv, np.float32(1.0))
+    sample = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv \
+        - np.float32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) \
+        / kscale
+    w = np.maximum(np.float32(0.0), np.float32(1.0) - x)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1), 0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0).astype(np.float32)
+
+
+def resize_antialiased(x, shape):
+    """Resize every axis of ``x`` whose size differs from ``shape``, one
+    separable pass per axis, in x's dtype."""
+    for d, n in enumerate(shape):
+        if x.shape[d] == n:
+            continue
+        w = torch.from_numpy(_resize_weights(x.shape[d], n)).to(x.device,
+                                                                 x.dtype)
+        x = torch.movedim(torch.movedim(x, d, -1) @ w, -1, d)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Modules (diffusers names)
+# ---------------------------------------------------------------------------
+
+class _TwoLinear(nn.Module):
+    """TimestepEmbedding parameter holder."""
+
+    def __init__(self, d_in, d_out, **kw):
+        super().__init__()
+        self.linear_1 = nn.Linear(d_in, d_out, **kw)
+        self.linear_2 = nn.Linear(d_out, d_out, **kw)
+
+
+class _PatchEmbed(nn.Module):
+    """CogVideoXPatchEmbed: Conv2d patchify, text projection, joint table."""
+
+    def __init__(self, cfg: CogVideoXConfig, **kw):
+        super().__init__()
+        d, p = cfg.inner_dim, cfg.patch_size
+        self.proj = nn.Conv2d(cfg.in_channels, d, p, stride=p, **kw)
+        self.text_proj = nn.Linear(cfg.text_embed_dim, d, **kw)
+        ph, pw = cfg.sample_height // p, cfg.sample_width // p
+        pf = (cfg.sample_frames - 1) // cfg.temporal_compression_ratio + 1
+        self.register_buffer("pos_embedding", torch.empty(
+            1, cfg.max_text_seq_length + pf * ph * pw, d, **kw))
+
+    def default_pos_embedding(self, cfg: CogVideoXConfig) -> torch.Tensor:
+        """Zeros over the text slots, 3D sincos over the sample patch
+        grid (diffusers ``_get_positional_embeddings``)."""
+        p = cfg.patch_size
+        ph, pw = cfg.sample_height // p, cfg.sample_width // p
+        pf = (cfg.sample_frames - 1) // cfg.temporal_compression_ratio + 1
+        pos = cogvideox_3d_sincos_pos_embed(
+            cfg.inner_dim, ph, pw, pf, cfg.spatial_interpolation_scale,
+            cfg.temporal_interpolation_scale).reshape(pf * ph * pw, -1)
+        joint = np.zeros((1, cfg.max_text_seq_length + pos.shape[0],
+                          cfg.inner_dim), np.float32)
+        joint[:, cfg.max_text_seq_length:] = pos
+        return torch.from_numpy(joint)
+
+
+class _LayerNormZero(nn.Module):
+    """CogVideoXLayerNormZero / AdaLayerNorm parameter holder."""
+
+    def __init__(self, temb_dim, d, n_chunks, eps, **kw):
+        super().__init__()
+        self.linear = nn.Linear(temb_dim, n_chunks * d, **kw)
+        self.norm = nn.LayerNorm(d, eps=eps, **kw)
+
+
+class _Attention(nn.Module):
+    def __init__(self, cfg: CogVideoXConfig, **kw):
+        super().__init__()
+        d, hd = cfg.inner_dim, cfg.attention_head_dim
+        bias = cfg.attention_bias
+        self.to_q = nn.Linear(d, d, bias=bias, **kw)
+        self.to_k = nn.Linear(d, d, bias=bias, **kw)
+        self.to_v = nn.Linear(d, d, bias=bias, **kw)
+        self.to_out = nn.ModuleList([nn.Linear(d, d, **kw), nn.Dropout(0.0)])
+        self.norm_q = nn.LayerNorm(hd, eps=cfg.qk_norm_eps, **kw)
+        self.norm_k = nn.LayerNorm(hd, eps=cfg.qk_norm_eps, **kw)
+
+
+class _GeluProj(nn.Module):
+    def __init__(self, d_in, d_out, **kw):
+        super().__init__()
+        self.proj = nn.Linear(d_in, d_out, **kw)
+
+
+class _FeedForward(nn.Module):
+    def __init__(self, d, **kw):
+        super().__init__()
+        self.net = nn.ModuleList([_GeluProj(d, 4 * d, **kw), nn.Dropout(0.0),
+                                  nn.Linear(4 * d, d, **kw)])
+
+
+def _lin(x, layer, out_dtype=None):
+    return dense(x, layer.weight, layer.bias, out_dtype=out_dtype)
+
+
+def _split_heads(x, num_heads):
+    B, S, D = x.shape
+    return x.reshape(B, S, num_heads, D // num_heads).permute(0, 2, 1, 3)
+
+
+def _merge_heads(x):
+    B, H, S, Dh = x.shape
+    return x.permute(0, 2, 1, 3).reshape(B, S, H * Dh)
+
+
+def _adaln_zero(norm: _LayerNormZero, x, temb, eps, video_mask):
+    """CogVideoXLayerNormZero on the joint sequence: both streams are
+    per-token affine, so a per-token select over ``video_mask`` [1, S, 1]
+    (0 text, 1 video) replaces the reference's split and concat. Returns
+    (normed x in x's dtype, fp32 gate)."""
+    mod = _lin(silu(temb.float()), norm.linear, out_dtype=torch.float32)
+    shift, scale, gate, e_shift, e_scale, e_gate = mod.chunk(6, dim=-1)
+    m = video_mask
+
+    def sel(v, e):
+        return e[:, None] + (v[:, None] - e[:, None]) * m
+
+    nx = layer_norm(x, norm.norm.weight, norm.norm.bias, eps=eps) \
+        * (1 + sel(scale, e_scale)) + sel(shift, e_shift)
+    return nx.to(x.dtype), sel(gate, e_gate)
+
+
+class CogVideoXBlock(nn.Module):
+    """CogVideoXBlock on the joint [text; video] sequence."""
+
+    def __init__(self, cfg: CogVideoXConfig, **kw):
+        super().__init__()
+        d = cfg.inner_dim
+        self.cfg = cfg
+        self.norm1 = _LayerNormZero(cfg.time_embed_dim, d, 6, cfg.norm_eps,
+                                    **kw)
+        self.attn1 = _Attention(cfg, **kw)
+        self.norm2 = _LayerNormZero(cfg.time_embed_dim, d, 6, cfg.norm_eps,
+                                    **kw)
+        self.ff = _FeedForward(d, **kw)
+
+    def _attention(self, x, cos_j, sin_j, fused: bool):
+        cfg, a = self.cfg, self.attn1
+        H = cfg.num_attention_heads
+        q, k = _lin(x, a.to_q), _lin(x, a.to_k)
+        v = _split_heads(_lin(x, a.to_v), H)
+        if fused:
+            # K4 (LayerNorm + RoPE producer) -> bound -> K1
+            o = attn_ops.fused_ln_qk_flash_attention(
+                q, k, v.contiguous(), a.norm_q.weight, a.norm_q.bias,
+                a.norm_k.weight, a.norm_k.bias, cos_j, sin_j, num_heads=H,
+                eps=cfg.qk_norm_eps)
+        else:
+            def head_norm(t, norm):
+                return layer_norm(_split_heads(t, H), norm.weight, norm.bias,
+                                  eps=cfg.qk_norm_eps).to(t.dtype)
+
+            q = apply_rope_interleaved(head_norm(q, a.norm_q), cos_j, sin_j)
+            k = apply_rope_interleaved(head_norm(k, a.norm_k), cos_j, sin_j)
+            o = attn_ops.attention_ref(q, k, v)
+        return _lin(_merge_heads(o), a.to_out[0])
+
+    def forward(self, x, temb, cos_j, sin_j, video_mask, fused: bool):
+        eps = self.cfg.norm_eps
+        nx, gate = _adaln_zero(self.norm1, x, temb, eps, video_mask)
+        a = self._attention(nx, cos_j, sin_j, fused)
+        x = x + (gate * a.float()).to(x.dtype)
+        nx, gate_ff = _adaln_zero(self.norm2, x, temb, eps, video_mask)
+        f = _lin(gelu_tanh(_lin(nx, self.ff.net[0].proj)), self.ff.net[2])
+        return x + (gate_ff * f.float()).to(x.dtype)
+
+
+class CogVideoXDiT(nn.Module):
+    """CogVideoXTransformer3DModel (5B layout, RoPE + learned positions),
+    forward only.
+
+    Build with ``device="meta"`` and then ``to_empty`` + ``init_random_``
+    or ``load_state_dict(..., assign=True)`` to skip torch's default init.
+    """
+
+    def __init__(self, cfg: CogVideoXConfig, device=None, dtype=None):
+        super().__init__()
+        if cfg.patch_size_t is not None:
+            raise NotImplementedError(NOT_PORTED.format("patch_size_t"))
+        if cfg.ofs_embed_dim:
+            raise NotImplementedError(NOT_PORTED.format("ofs_embed_dim"))
+        if not (cfg.use_rotary_positional_embeddings
+                and cfg.use_learned_positional_embeddings):
+            raise NotImplementedError(NOT_PORTED.format(
+                "a config without RoPE and learned positions"))
+        kw = dict(device=device, dtype=dtype)
+        d = cfg.inner_dim
+        p = cfg.patch_size
+        self.cfg = cfg
+        self.patch_embed = _PatchEmbed(cfg, **kw)
+        self.time_embedding = _TwoLinear(d, cfg.time_embed_dim, **kw)
+        self.transformer_blocks = nn.ModuleList(
+            [CogVideoXBlock(cfg, **kw) for _ in range(cfg.num_layers)])
+        self.norm_final = nn.LayerNorm(d, eps=cfg.norm_eps, **kw)
+        self.norm_out = _LayerNormZero(cfg.time_embed_dim, d, 2, cfg.norm_eps,
+                                       **kw)
+        self.proj_out = nn.Linear(d, cfg.out_channels * p * p, **kw)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.proj_out.weight.dtype
+
+    @torch.no_grad()
+    def init_random_(self, generator: torch.Generator):
+        """Seeded init mirroring ``init_cogvideox_dit``: uniform(+-1/
+        sqrt(fan_in)) for dense and patch weights and biases, unit norm
+        gains, zero norm biases, the sincos position table. Draws in fp32 on
+        ``generator``'s device, then casts into each parameter."""
+        def fill_uniform(p, fan_in):
+            bound = fan_in ** -0.5
+            r = torch.rand(p.shape, generator=generator,
+                           device=generator.device, dtype=torch.float32)
+            p.copy_(r.mul_(2 * bound).sub_(bound))
+
+        for mod in self.modules():
+            if isinstance(mod, (nn.Linear, nn.Conv2d)):
+                fan_in = mod.weight[0].numel()
+                fill_uniform(mod.weight, fan_in)
+                if mod.bias is not None:
+                    fill_uniform(mod.bias, fan_in)
+            elif isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+        pe = self.patch_embed
+        pe.pos_embedding.copy_(pe.default_pos_embedding(self.cfg))
+        return self
+
+    def _patch_embed(self, text, video):
+        """text [B, L, text_dim]; video [B, F, C, H, W] -> [B, L+S, D]."""
+        cfg, pe = self.cfg, self.patch_embed
+        d, ps = cfg.inner_dim, cfg.patch_size
+        B, F, C, H, W = video.shape
+        text = _lin(text, pe.text_proj)
+        L = text.shape[1]
+        v = video.reshape(B, F, C, H // ps, ps, W // ps, ps)
+        v = v.permute(0, 1, 3, 5, 2, 4, 6).reshape(
+            B, F * (H // ps) * (W // ps), C * ps * ps)
+        v = dense(v, pe.proj.weight.reshape(d, -1), pe.proj.bias)
+        embeds = torch.cat([text, v], dim=1)
+
+        pos = pe.pos_embedding
+        ph, pw = cfg.sample_height // ps, cfg.sample_width // ps
+        post_t = (cfg.sample_frames - 1) // cfg.temporal_compression_ratio + 1
+        if cfg.use_frame_in:
+            # one more frame, sliced at the ACTUAL text length L (the
+            # reference's quirk; L == max_text_seq_length in practice)
+            pos = torch.cat([pos, pos[:, L:L + ph * pw]], dim=1)
+            post_t += 1
+        pre_t_frames = (F - 1) * cfg.temporal_compression_ratio + 1
+        seq_length = H * W * F // (ps * ps)
+        if (cfg.sample_height != H or cfg.sample_width != W
+                or cfg.sample_frames != pre_t_frames):
+            if L != cfg.max_text_seq_length:
+                # the resized table starts at L: only a full-length prompt
+                # leaves exactly the video slots after it (JAX fails too)
+                raise ValueError(
+                    f"CogVideoX takes prompt embeddings of "
+                    f"{cfg.max_text_seq_length} tokens off the sample grid, "
+                    f"got {L}")
+            pv = pos[:, L:].reshape(1, post_t, ph, pw, d).float()
+            pv = resize_antialiased(pv, (1, F, H // ps, W // ps, d))
+            pos = torch.cat([pos[:, :L], pv.reshape(1, -1, d).to(pos.dtype)],
+                            dim=1)
+        return embeds + pos[:, :L + seq_length].to(embeds.dtype)
+
+    @torch.no_grad()
+    def forward(self, hidden_states, encoder_hidden_states, timestep,
+                image_rotary_emb: Tuple[torch.Tensor, torch.Tensor], *,
+                attn_impl: Optional[str] = None):
+        """hidden_states [B, F, C, H, W]; encoder_hidden_states
+        [B, L, text_dim]; timestep [B]; image_rotary_emb: the (cos, sin)
+        [F*h*w, head_dim/2] tables of the video tokens. ``attn_impl``:
+        None takes the kernels on CUDA and the plain path on the CPU;
+        "fused" takes ``fused_ln_qk_flash_attention`` (on the CPU its
+        plain versions); "xla" the plain path, CPU only. Returns fp32
+        [B, F, out_channels, H, W]."""
+        cfg = self.cfg
+        x = hidden_states.to(self.dtype)
+        B, F, C, H, W = x.shape
+        if attn_impl not in (None, "fused", "xla"):
+            raise ValueError(f"attn_impl must be None, 'fused' or 'xla', got "
+                             f"{attn_impl!r}")
+        if attn_impl == "xla" and x.is_cuda:
+            raise ValueError("attn_impl='xla' is the CPU plain path; CUDA "
+                             "tensors run the kernels")
+        fused = attn_impl == "fused" or (attn_impl is None and x.is_cuda)
+
+        te = self.time_embedding
+        t_freq = sinusoidal_timestep_embedding(
+            timestep.float().to(x.device), cfg.inner_dim,
+            downscale_freq_shift=float(cfg.freq_shift))
+        emb = timestep_embedding_mlp(t_freq, te.linear_1, te.linear_2)
+
+        x = self._patch_embed(encoder_hidden_states.to(x.device, self.dtype),
+                              x)
+        L = encoder_hidden_states.shape[1]
+        S = x.shape[1]
+        video_mask = torch.cat([torch.zeros(L, device=x.device),
+                                torch.ones(S - L, device=x.device)]
+                               )[None, :, None]
+        cos, sin = (t.float().to(x.device) for t in image_rotary_emb)
+        half = cos.shape[-1]
+        cos_j = torch.cat([torch.ones(L, half, device=x.device), cos])
+        sin_j = torch.cat([torch.zeros(L, half, device=x.device), sin])
+        for blk in self.transformer_blocks:
+            x = blk(x, emb, cos_j, sin_j, video_mask, fused)
+
+        # 5B: norm over the joint sequence, then the video span
+        h = layer_norm(x, self.norm_final.weight, self.norm_final.bias,
+                       eps=cfg.norm_eps).to(x.dtype)[:, L:]
+        no = self.norm_out
+        mod = _lin(silu(emb.float()), no.linear, out_dtype=torch.float32)
+        shift, scale = mod.chunk(2, dim=-1)
+        h = layer_norm(h, no.norm.weight, no.norm.bias, eps=cfg.norm_eps)
+        h = (h * (1 + scale[:, None]) + shift[:, None]).to(x.dtype)
+        h = _lin(h, self.proj_out)
+        p = cfg.patch_size
+        out = h.reshape(B, F, H // p, W // p, -1, p, p)
+        out = out.permute(0, 1, 4, 2, 5, 3, 6).reshape(B, F, -1, H, W)
+        return out.float()
+
+
+def cogvideox_rope(cfg: CogVideoXConfig, F: int, H: int, W: int,
+                   duplicate_first_frame_for_id: bool = False, device=None):
+    """RoPE (cos, sin) tables of the latent patch grid F x H/p x W/p, as
+    copies of the cached numpy tables."""
+    cos, sin = cogvideox_rope_table(
+        cfg.attention_head_dim, F, H // cfg.patch_size, W // cfg.patch_size,
+        base_h=cfg.sample_height // cfg.patch_size,
+        base_w=cfg.sample_width // cfg.patch_size,
+        duplicate_first_frame_for_id=duplicate_first_frame_for_id)
+    return (torch.tensor(cos, device=device),
+            torch.tensor(sin, device=device))
+
+
+def init_cogvideox_dit(cfg: CogVideoXConfig, generator: torch.Generator,
+                       dtype: torch.dtype = torch.float32) -> CogVideoXDiT:
+    """Seeded random CogVideoXDiT on ``generator``'s device."""
+    model = CogVideoXDiT(cfg, device="meta", dtype=dtype)
+    model.to_empty(device=generator.device)
+    return model.init_random_(generator).eval()

@@ -4,12 +4,14 @@ state dicts, under diffusers names (counterpart of
 the JAX trees).
 
 - JAX dense kernels [in, out] -> torch Linear weights [out, in];
-- the DiT's scanned ``blocks`` axis is unstacked into ``blocks.{i}``;
-- the patch embedding's dense rows -> Conv3d weight [D, C, pt, ph, pw];
+- the DiTs' scanned ``blocks`` axis is unstacked into ``blocks.{i}``
+  (Wan) or ``transformer_blocks.{i}`` (CogVideoX);
+- the patch embeddings' dense rows -> Conv3d weight [D, C, pt, ph, pw]
+  (Wan) or Conv2d weight [D, C, ph, pw] (CogVideoX);
 - VAE conv kernels DHWIO -> OIDHW and HWIO -> OIHW, WanRMS_norm gammas
   [C] -> diffusers' [C, 1, 1(, 1)], 1x1 attention kernels -> Conv2d.
 
-The VAE's block structure is read from the config, never from the tree's
+The VAEs' block structure is read from the config, never from the tree's
 static ``Meta`` tags.
 """
 
@@ -20,6 +22,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from frameino_tpu_torch.models.cogvideox_dit import CogVideoXConfig
+from frameino_tpu_torch.models.cogvideox_vae import CogVideoXVAEConfig
 from frameino_tpu_torch.models.wan_dit import WanDiTConfig
 from frameino_tpu_torch.models.wan_vae import WanVAEConfig
 
@@ -183,4 +187,112 @@ def wan_vae_from_jax(params_np: Dict[str, Any],
     _put_cconv(sd, "decoder.conv_out", dec["conv_out"])
     _put_cconv(sd, "quant_conv", params_np["quant_conv"])
     _put_cconv(sd, "post_quant_conv", params_np["post_quant_conv"])
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# CogVideoX DiT and VAE
+# ---------------------------------------------------------------------------
+
+def _put_norm(sd: StateDict, name: str, p):
+    sd[f"{name}.weight"] = _t(p["weight"])
+    sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def cogvideox_dit_from_jax(params_np: Dict[str, Any],
+                           cfg: CogVideoXConfig) -> StateDict:
+    """JAX ``init_cogvideox_dit``-layout tree -> ``CogVideoXDiT`` state
+    dict (the names of ``weights.cogvideox_dit_to_state_dict``)."""
+    d, p = cfg.inner_dim, cfg.patch_size
+    sd: StateDict = {}
+    pe = params_np["patch_embed"]
+    sd["patch_embed.proj.weight"] = _t(np.asarray(pe["proj"]["kernel"]).T
+                                       .reshape(d, cfg.in_channels, p, p))
+    sd["patch_embed.proj.bias"] = _t(pe["proj"]["bias"])
+    _put_lin(sd, "patch_embed.text_proj", pe["text_proj"])
+    sd["patch_embed.pos_embedding"] = _t(pe["pos_embedding"])
+    for lin in ("linear_1", "linear_2"):
+        _put_lin(sd, f"time_embedding.{lin}",
+                 params_np["time_embedding"][lin])
+    _put_norm(sd, "norm_final", params_np["norm_final"])
+    _put_lin(sd, "norm_out.linear", params_np["norm_out"]["linear"])
+    _put_norm(sd, "norm_out.norm", params_np["norm_out"]["norm"])
+    _put_lin(sd, "proj_out", params_np["proj_out"])
+    for i in range(cfg.num_layers):
+        lp = _index_tree(params_np["blocks"], i)
+        b = f"transformer_blocks.{i}."
+        for nn_ in ("norm1", "norm2"):
+            _put_lin(sd, b + f"{nn_}.linear", lp[nn_]["linear"])
+            _put_norm(sd, b + f"{nn_}.norm", lp[nn_]["norm"])
+        a = lp["attn1"]
+        for proj in ("to_q", "to_k", "to_v"):
+            _put_lin(sd, b + f"attn1.{proj}", a[proj])
+        _put_lin(sd, b + "attn1.to_out.0", a["to_out"])
+        _put_norm(sd, b + "attn1.norm_q", a["norm_q"])
+        _put_norm(sd, b + "attn1.norm_k", a["norm_k"])
+        _put_lin(sd, b + "ff.net.0.proj", lp["ff"]["fc1"])
+        _put_lin(sd, b + "ff.net.2", lp["ff"]["fc2"])
+    return sd
+
+
+def _put_cog_cconv(sd: StateDict, name: str, p):
+    """CogVideoXCausalConv3d wraps its Conv3d as ``.conv``."""
+    _put_cconv(sd, f"{name}.conv", p)
+
+
+def _put_cog_spatial_norm(sd: StateDict, name: str, p):
+    _put_norm(sd, f"{name}.norm_layer", p["norm"])
+    _put_cog_cconv(sd, f"{name}.conv_y", p["conv_y"])
+    _put_cog_cconv(sd, f"{name}.conv_b", p["conv_b"])
+
+
+def _put_cog_res(sd: StateDict, name: str, p, spatial_norm: bool):
+    for n in ("norm1", "norm2"):
+        if spatial_norm:
+            _put_cog_spatial_norm(sd, f"{name}.{n}", p[n])
+        else:
+            _put_norm(sd, f"{name}.{n}", p[n])
+    _put_cog_cconv(sd, f"{name}.conv1", p["conv1"])
+    _put_cog_cconv(sd, f"{name}.conv2", p["conv2"])
+    if "conv_shortcut" in p:
+        # diffusers' default 1x1x1 shortcut is a plain (Safe)Conv3d
+        _put_cconv(sd, f"{name}.conv_shortcut", p["conv_shortcut"])
+
+
+def cogvideox_vae_from_jax(params_np: Dict[str, Any],
+                           cfg: CogVideoXVAEConfig) -> StateDict:
+    """JAX ``init_cogvideox_vae``-layout tree -> ``CogVideoXVAE`` state
+    dict (diffusers ``AutoencoderKLCogVideoX`` names; the inverse of
+    ``weights.cogvideox_vae_from_state_dict``)."""
+    sd: StateDict = {}
+    levels = len(cfg.block_out_channels)
+    enc = params_np["encoder"]
+    _put_cog_cconv(sd, "encoder.conv_in", enc["conv_in"])
+    for i, blk in enumerate(enc["down_blocks"]):
+        base = f"encoder.down_blocks.{i}"
+        for j in range(cfg.layers_per_block):
+            _put_cog_res(sd, f"{base}.resnets.{j}", blk["resnets"][j], False)
+        if i < levels - 1:
+            _put_conv2d(sd, f"{base}.downsamplers.0.conv",
+                        blk["downsampler"])
+    for j in range(2):
+        _put_cog_res(sd, f"encoder.mid_block.resnets.{j}",
+                     enc["mid"]["resnets"][j], False)
+    _put_norm(sd, "encoder.norm_out", enc["norm_out"])
+    _put_cog_cconv(sd, "encoder.conv_out", enc["conv_out"])
+
+    dec = params_np["decoder"]
+    _put_cog_cconv(sd, "decoder.conv_in", dec["conv_in"])
+    for j in range(2):
+        _put_cog_res(sd, f"decoder.mid_block.resnets.{j}",
+                     dec["mid"]["resnets"][j], True)
+    for i, blk in enumerate(dec["up_blocks"]):
+        base = f"decoder.up_blocks.{i}"
+        for j in range(cfg.layers_per_block + 1):
+            _put_cog_res(sd, f"{base}.resnets.{j}", blk["resnets"][j], True)
+        if i < levels - 1:
+            _put_conv2d(sd, f"{base}.upsamplers.0.conv",
+                        blk["upsampler"])
+    _put_cog_spatial_norm(sd, "decoder.norm_out", dec["norm_out"])
+    _put_cog_cconv(sd, "decoder.conv_out", dec["conv_out"])
     return sd

@@ -1,17 +1,21 @@
 """Attention ops: the plain PyTorch reference and the Hopper kernels.
 
-Counterpart of ``frameino_tpu/ops/attention.py``. The Wan DiT needs two
-attention shapes on the serving path:
+Counterpart of ``frameino_tpu/ops/attention.py``. The serving paths need
+three attention shapes:
 
-- self-attention over the video tokens, behind the qk RMS-norm taken
+- Wan self-attention over the video tokens, behind the qk RMS-norm taken
   across all heads and the interleaved RoPE:
   ``fused_qk_flash_attention`` = K2 (norm + RoPE producer) -> bound ->
-  K1 (static-bound flash forward);
-- cross-attention to the 512 text tokens: ``flash_attention_inference``
-  = K3 (online-softmax flash forward).
+  K1 (static-bound flash forward), at head_dim 128;
+- Wan cross-attention to the 512 text tokens:
+  ``flash_attention_inference`` = K3 (online-softmax flash forward);
+- CogVideoX joint [text; video] self-attention, behind the per-head qk
+  LayerNorm and the RoPE with identity rows over the text prefix:
+  ``fused_ln_qk_flash_attention`` = K4 (LayerNorm + RoPE producer) ->
+  bound -> K1, at head_dim 64.
 
 K1 and K3 are one CUDA C++ kernel (``csrc/flash_fwd.cu``) templated on
-the softmax variant; K2 is a Triton kernel. Each wrapper launches its
+the softmax variant and head_dim; K2 and K4 are Triton kernels. Each wrapper launches its
 kernel for CUDA tensors (bf16, contiguous) and raises on anything else;
 for CPU tensors it runs the plain PyTorch version beside it. Each
 wrapper counts its kernel launches in ``<wrapper>.launches``.
@@ -274,7 +278,73 @@ qk_norm_rope.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Fused self-attention path: K2 (q, k) -> bound -> K1
+# K4: Triton per-head qk LayerNorm + joint-sequence RoPE producer
+# ---------------------------------------------------------------------------
+# The kernel and its design note are in ops/qk_ln_rope_triton.py.
+
+def qk_ln_rope_ref(raw, weight, bias, cos, sin, num_heads: int, eps: float):
+    """Plain version of K4. raw [B, S, H*D]; weight/bias [D] (one LayerNorm
+    shared by all heads); cos/sin [S, D/2] fp32 (identity rows over a text
+    prefix and any softmax gain already in them). Returns [B*H, S, D] in
+    raw's dtype.
+
+    The kernel's arithmetic step for step: mean and variance of each head's
+    D lanes in fp64, rstd rounded once to fp32, ((x - mu) * rstd) * gamma
+    + beta in fp32, rounded to raw's dtype, then the rotation with each
+    product rounded before the sum."""
+    B, S, HD = raw.shape
+    H = num_heads
+    D = HD // H
+    xf = raw.float().reshape(B, S, H, D)
+    xd = xf.double()
+    mean = xd.sum(-1, keepdim=True) / D
+    var = (xd - mean).square().sum(-1, keepdim=True) / D
+    # eps is the fp32 value the TPU kernel adds
+    rstd = (1.0 / torch.sqrt(var + float(np.float32(eps)))).float()
+    f = (xf - mean.float()) * rstd * weight.float() + bias.float()
+    f = f.to(raw.dtype).float().reshape(B, S, H, D // 2, 2)
+    fe, fo = f[..., 0], f[..., 1]
+    c = cos.float()[None, :, None, :]
+    s = sin.float()[None, :, None, :]
+    out = torch.stack([fe * c - fo * s, fo * c + fe * s], dim=-1)
+    out = out.reshape(B, S, H, D).permute(0, 2, 1, 3)
+    return out.reshape(B * H, S, D).to(raw.dtype).contiguous()
+
+
+def qk_ln_rope(raw, weight, bias, cos, sin, num_heads: int, eps: float):
+    """K4 (replaces ``_qk_producer_ln``): per-head LayerNorm with a shared
+    [D] gamma/beta, round to raw's dtype, interleaved RoPE -> [B*H, S, D].
+    CUDA: Triton kernel; CPU: ``qk_ln_rope_ref``."""
+    if not raw.is_cuda:
+        return qk_ln_rope_ref(raw, weight, bias, cos, sin, num_heads, eps)
+    B, S, HD = raw.shape
+    H = num_heads
+    D = HD // H
+    if H * D != HD or D % 2 or (D & (D - 1)):
+        raise ValueError(f"qk_ln_rope: H*D={HD} with H={H} needs a "
+                         f"power-of-two head_dim")
+    if weight.shape != (D,) or bias.shape != (D,) \
+            or cos.shape != (S, D // 2) or sin.shape != cos.shape:
+        raise ValueError("qk_ln_rope: weight/bias must be [D] and cos/sin "
+                         "[S, D/2]")
+    _check_cuda_bf16("qk_ln_rope", raw)
+    for t in (weight, bias, cos, sin):
+        if not t.is_cuda or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError("qk_ln_rope: weight/bias/cos/sin must be "
+                             "contiguous fp32 CUDA tensors")
+    from frameino_tpu_torch.ops import qk_ln_rope_triton   # needs triton
+    out = torch.empty((B * H, S, D), dtype=raw.dtype, device=raw.device)
+    qk_ln_rope_triton.launch(raw, weight, bias, cos, sin, out, H, eps)
+    qk_ln_rope.launches += 1
+    return out
+
+
+qk_ln_rope.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Fused self-attention paths: K2 or K4 (q, k) -> bound -> K1
 # ---------------------------------------------------------------------------
 
 def _rowmax_norm(x):
@@ -317,14 +387,51 @@ def fused_qk_flash_attention(q_raw, k_raw, v, w_q, w_k, cos, sin, *,
     return out.reshape(B, H, S, D)
 
 
+def fused_ln_qk_flash_attention(q_raw, k_raw, v, w_q, b_q, w_k, b_k, cos,
+                                sin, *, num_heads: int, eps: float,
+                                scale: Optional[float] = None,
+                                static_softmax: bool = True):
+    """Joint [text; video] self-attention with the per-head LayerNorm +
+    RoPE producers (counterpart of ``_fused_ln_qk_flash_impl``).
+
+    q_raw/k_raw: [B, S, H*D] straight out of the to_q/to_k denses. v:
+    [B, H, S, D]. w/b: [D] LayerNorm gamma/beta of norm_q / norm_k.
+    cos/sin: joint [S, D/2] tables, cos 1 / sin 0 over the text prefix.
+    Returns [B, H, S, D]. The softmax scale * log2(e) is folded into q's
+    tables (so text q rows are scaled too); ``static_softmax`` takes the
+    Cauchy-Schwarz bound and K1, otherwise K3 with q_scale 1.
+    """
+    B, S, HD = q_raw.shape
+    H = num_heads
+    D = HD // H
+    scale = scale if scale is not None else _default_scale(D)
+    gain = scale * LOG2E
+    cos = cos.float()
+    sin = sin.float()
+    params = [t.float().contiguous() for t in (w_q, b_q, w_k, b_k)]
+    qh = qk_ln_rope(q_raw, params[0], params[1], (cos * gain).contiguous(),
+                    (sin * gain).contiguous(), H, eps)
+    kh = qk_ln_rope(k_raw, params[2], params[3], cos.contiguous(),
+                    sin.contiguous(), H, eps)
+    vh = v.reshape(B * H, S, D)
+    if static_softmax:
+        bound = _rowmax_norm(qh) * _rowmax_norm(kh)
+        out = flash_fwd_static(qh, kh, vh, bound)
+    else:
+        out = flash_fwd(qh, kh, vh, 1.0)
+    return out.reshape(B, H, S, D)
+
+
 def reset_launch_counts():
     flash_fwd.launches = 0
     flash_fwd_static.launches = 0
     qk_norm_rope.launches = 0
+    qk_ln_rope.launches = 0
 
 
 def launch_counts() -> dict:
     return {"flash_fwd_static": flash_fwd_static.launches,
             "qk_norm_rope": qk_norm_rope.launches,
-            "flash_fwd": flash_fwd.launches}
+            "flash_fwd": flash_fwd.launches,
+            "qk_ln_rope": qk_ln_rope.launches}
 

@@ -1,0 +1,232 @@
+"""CogVideoX FrameINO image-to-video pipeline (counterpart of
+``frameino_tpu/pipelines/cogvideox_i2v.py``).
+
+The condition algebra is the JAX module's:
+
+- every condition (the canvas first frame, the trajectory video, the ID
+  frame) encodes through the tiled streaming VAE walk, takes a posterior
+  sample and is scaled by ``scaling_factor``; the first-frame latent is
+  zero-padded over time; latents are frame-first [B, F, z, h, w];
+- CFG runs as batch 2 (uncond first); the ID latent is appended on the
+  frame axis with zeros added to the image and trajectory streams, then
+  the streams are concatenated on channels (noisy, image, trajectory ->
+  48 at full width) and the ID predictions are dropped;
+- the 3D RoPE tables are computed once, frame 0's block duplicated for
+  the ID frame; guidance follows the dynamic (cosine-ramped) schedule;
+- DDIM or DPM-Solver++ steps, the DPM x0 estimate carried through the
+  loop with t_back = -1 marking the first step.
+
+The JAX ``lax.scan`` over steps is a Python loop here. Every
+``decode_mode`` takes the tiled streaming walk (JAX's default; peak memory
+one chunk of one tile). JAX's "full" mode maps to it too: the segmented
+full-sequence decode runs out of an 80 GB card at 480x736x49 (PERF.md);
+``CogVideoXVAE.decode`` stays as the tests' reference.
+
+Not ported: ``offload_dit``/``offload_vae`` and ``vae_offload`` (sized for
+a 16 GB chip) and ``steps_per_program`` (a TPU watchdog workaround).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from frameino_tpu_torch.models import cogvideox_vae_streaming as VS
+from frameino_tpu_torch.models.cogvideox_dit import (CogVideoXDiT,
+                                                     cogvideox_rope)
+from frameino_tpu_torch.models.cogvideox_vae import CogVideoXVAE
+from frameino_tpu_torch.schedulers.cogvideox_dpm import dpm_step_pair
+from frameino_tpu_torch.schedulers.ddim import (DDIMConfig,
+                                                ddim_alphas_cumprod,
+                                                ddim_step,
+                                                inference_timesteps)
+
+
+@dataclasses.dataclass(frozen=True)
+class CogPipelineConfig:
+    scheduler: DDIMConfig = DDIMConfig()
+    scheduler_type: str = "ddim"            # 'ddim' | 'dpm'
+    use_dynamic_cfg: bool = True
+
+
+def dynamic_cfg_scales(guidance_scale: float, timesteps: np.ndarray,
+                       num_inference_steps: int) -> np.ndarray:
+    """Cosine-ramped guidance per step (the reference formula, raw
+    timesteps 0..999 included)."""
+    return np.array([
+        1.0 + guidance_scale * (
+            (1 - math.cos(math.pi * ((num_inference_steps - float(t))
+                                     / num_inference_steps) ** 5.0)) / 2)
+        for t in timesteps], dtype=np.float32)
+
+
+def prepare_conditions(vae: CogVideoXVAE, image, traj_video, id_frame,
+                       num_latent_frames: int,
+                       generator: Optional[torch.Generator] = None):
+    """image [B, 3, H, W], traj_video [B, 3, T, H, W] or None, id_frame
+    [B, 3, H, W] or None, in [-1, 1] -> (image_latents [B, F, z, h, w]
+    zero-padded after frame 0, traj_latents or None, id_latent
+    [B, 1, z, h, w] or None), fp32, scaled by ``scaling_factor``."""
+    sf = vae.cfg.scaling_factor
+
+    def enc(v):
+        z = VS.streaming_encode(vae, v, generator)
+        return (z * sf).permute(0, 2, 1, 3, 4)
+
+    img = enc(image[:, :, None])
+    pad = torch.zeros((img.shape[0], num_latent_frames - 1, *img.shape[2:]),
+                      dtype=img.dtype, device=img.device)
+    image_latents = torch.cat([img, pad], dim=1)
+    traj_latents = enc(traj_video) if traj_video is not None else None
+    id_latent = enc(id_frame[:, :, None]) if id_frame is not None else None
+    return image_latents, traj_latents, id_latent
+
+
+def denoise(dit: CogVideoXDiT, sched_cfg: DDIMConfig, latents,
+            image_latents, traj_latents, id_latent, context, neg_context,
+            rope, timesteps: np.ndarray, timesteps_back: np.ndarray,
+            guidance_scales: np.ndarray, num_inference_steps: int,
+            scheduler_type: str = "ddim"):
+    """CFG denoise loop over frame-first latents [B, F, z, h, w] (fp32);
+    returns the final latents."""
+    if scheduler_type not in ("ddim", "dpm"):
+        raise ValueError(f"scheduler_type must be 'ddim' or 'dpm', got "
+                         f"{scheduler_type!r}")
+    B, F = latents.shape[:2]
+    ac = ddim_alphas_cumprod(sched_cfg).astype(np.float32)
+    context_2b = torch.cat([neg_context, context], dim=0)
+
+    # the condition streams are constant over the loop
+    img = torch.cat([image_latents, image_latents], dim=0)
+    trj = (torch.cat([traj_latents, traj_latents], dim=0)
+           if traj_latents is not None else None)
+    idl = None
+    if id_latent is not None:
+        idl = torch.cat([id_latent, id_latent], dim=0)
+        zpad = torch.zeros_like(idl)
+        img = torch.cat([img, zpad], dim=1)
+        if trj is not None:
+            trj = torch.cat([trj, zpad], dim=1)
+    streams = [img] + ([trj] if trj is not None else [])
+
+    old_x0 = torch.zeros_like(latents)
+    for t, t_back, g in zip(timesteps, timesteps_back, guidance_scales):
+        x = torch.cat([latents, latents], dim=0)
+        if idl is not None:
+            x = torch.cat([x, idl], dim=1)                # frame axis
+        x_in = torch.cat([x] + streams, dim=2)           # channel axis
+        ts = torch.full((2 * B,), float(t), dtype=torch.float32,
+                        device=latents.device)
+        pred = dit(x_in, context_2b, ts, rope)[:, :F]    # drop ID frames
+        uncond, cond = pred.chunk(2, dim=0)
+        noise_pred = uncond + float(g) * (cond - uncond)
+        if scheduler_type == "dpm":
+            latents, old_x0 = dpm_step_pair(
+                sched_cfg, ac, latents, noise_pred, int(t), int(t_back),
+                old_x0, num_inference_steps)
+        else:
+            latents = ddim_step(sched_cfg, ac, latents, noise_pred, int(t),
+                                num_inference_steps)
+    return latents
+
+
+class CogVideoXImageToVideoPipeline:
+    """Masked-canvas image, trajectory video, optional ID frame and prompt
+    embeddings -> video (reference ``__call__`` contract,
+    ``pipeline_cogvideox_i2v_motion_FrameINO.py:604-959``).
+
+    The DiT runs in its weights' dtype and the VAE in its own; inputs are
+    moved to the DiT's device.
+    """
+
+    def __init__(self, dit: CogVideoXDiT, vae: CogVideoXVAE,
+                 pipe_cfg: CogPipelineConfig = CogPipelineConfig(),
+                 text_encoder_fn=None):
+        self.dit = dit
+        self.vae = vae
+        self.pipe_cfg = pipe_cfg
+        self.text_encoder_fn = text_encoder_fn
+
+    @property
+    def dit_cfg(self):
+        return self.dit.cfg
+
+    @property
+    def vae_cfg(self):
+        return self.vae.cfg
+
+    @property
+    def device(self) -> torch.device:
+        return self.dit.proj_out.weight.device
+
+    @torch.no_grad()
+    def __call__(self, image, prompt_embeds=None, negative_prompt_embeds=None,
+                 traj_tensor=None, id_tensor=None, height: int = 480,
+                 width: int = 720, num_frames: int = 49,
+                 num_inference_steps: int = 50, guidance_scale: float = 6.0,
+                 generator: Optional[torch.Generator] = None, latents=None,
+                 output_type: str = "np", decode_mode: str = "streaming"):
+        dev = self.device
+        vae_cfg = self.vae_cfg
+        if generator is None:
+            generator = torch.Generator(dev).manual_seed(0)
+        if prompt_embeds is None:
+            raise ValueError("need prompt_embeds (the T5 encoder is not "
+                             "ported)")
+        prompt_embeds = prompt_embeds.to(dev, torch.float32)
+        if negative_prompt_embeds is None:
+            negative_prompt_embeds = torch.zeros_like(prompt_embeds)
+        negative_prompt_embeds = negative_prompt_embeds.to(dev, torch.float32)
+        B = prompt_embeds.shape[0]
+
+        F = (num_frames - 1) // vae_cfg.temporal_compression_ratio + 1
+        h = height // vae_cfg.spatial_compression_ratio
+        w = width // vae_cfg.spatial_compression_ratio
+        shape = (B, F, vae_cfg.latent_channels, h, w)
+        if latents is None:
+            latents = torch.randn(shape, generator=generator,
+                                  device=generator.device,
+                                  dtype=torch.float32)
+        latents = latents.to(dev, torch.float32)
+
+        if traj_tensor is not None and traj_tensor.ndim == 4:
+            traj_tensor = traj_tensor.permute(1, 0, 2, 3)[None]
+        if id_tensor is not None:
+            # [3, H, W], [B, 3, H, W] or the Wan-style [B, 3, N, H, W]
+            if id_tensor.ndim == 3:
+                id_tensor = id_tensor[None]
+            elif id_tensor.ndim == 5:
+                id_tensor = id_tensor[:, :, 0]
+
+        def f32(x):
+            return None if x is None else x.to(dev, torch.float32)
+
+        image_latents, traj_latents, id_latent = prepare_conditions(
+            self.vae, f32(image), f32(traj_tensor), f32(id_tensor), F,
+            generator)
+        rope = cogvideox_rope(self.dit_cfg, F, h, w,
+                              duplicate_first_frame_for_id=id_latent
+                              is not None, device=dev)
+
+        sched = self.pipe_cfg.scheduler
+        ts = inference_timesteps(sched, num_inference_steps)
+        ts_back = np.concatenate([[-1], ts[:-1]])
+        if self.pipe_cfg.use_dynamic_cfg:
+            g = dynamic_cfg_scales(guidance_scale, ts, num_inference_steps)
+        else:
+            g = np.full(len(ts), guidance_scale, np.float32)
+        latents = denoise(self.dit, sched, latents, image_latents,
+                          traj_latents, id_latent, prompt_embeds,
+                          negative_prompt_embeds, rope, ts, ts_back, g,
+                          num_inference_steps, self.pipe_cfg.scheduler_type)
+        if output_type == "latent":
+            return latents
+
+        z = latents.permute(0, 2, 1, 3, 4) / vae_cfg.scaling_factor
+        video = VS.tiled_streaming_decode(self.vae, z).float().clamp_(-1.0,
+                                                                      1.0)
+        return video.cpu().numpy() if output_type == "np" else video

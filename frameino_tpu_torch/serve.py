@@ -1,13 +1,17 @@
-"""Serving entry point of the PyTorch port: build the Wan2.2 FrameINO
-pipeline and start the HTTP API.
+"""Serving entry point of the PyTorch port: build a FrameINO pipeline
+(Wan2.2 or CogVideoX) and start the HTTP API.
 
-    python -m frameino_tpu_torch.serve --smoke            # tiny, CPU
-    python -m frameino_tpu_torch.serve --random_init      # 5B width, CUDA
+    python -m frameino_tpu_torch.serve --smoke                # tiny, CPU
+    python -m frameino_tpu_torch.serve --random_init          # 5B, CUDA
+    python -m frameino_tpu_torch.serve --family cogvideox --smoke
+    python -m frameino_tpu_torch.serve --family cogvideox --random_init
 
-``--random_init`` serves Wan2.2-TI2V-5B-motion at full width with weights
-drawn from seed 0 (bf16 DiT, fp32 VAE): outputs are noise, for
+``--random_init`` serves the family's 5B FrameINO model at full width with
+weights drawn from seed 0: Wan2.2-TI2V-5B-motion (bf16 DiT, fp32 VAE) or
+CogVideoX-5B-I2V-FrameINO (bf16 DiT, bf16 VAE). Outputs are noise, for
 latency and memory measurement of the real serving path. Requests carry
-``prompt_embeds_b64`` (the UMT5 encoder is not ported yet).
+``prompt_embeds_b64`` (the UMT5 and T5 encoders are not ported yet):
+[512, 4096] for Wan, [226, 4096] for CogVideoX.
 """
 
 from __future__ import annotations
@@ -20,8 +24,8 @@ NOT_PORTED = {
     "text_encoder": "--text_encoder: the UMT5 text encoder is ROADMAP.md "
                     "queue 1, item 1; send prompt_embeds_b64 instead",
     "quantize": "--quantize: int8 serving is ROADMAP.md queue 1, item 3",
-    "cogvideox": "--family cogvideox: CogVideoX is ROADMAP.md queue 1, "
-                 "item 5",
+    "cogvideox_int8": "--quantize int8 --family cogvideox: int8 CogVideoX "
+                      "is ROADMAP.md queue 1, item 5 (after item 3)",
     "checkpoint": "loading released checkpoints is ROADMAP.md queue 1, "
                   "item 7; use --smoke or --random_init",
 }
@@ -33,8 +37,9 @@ def parse_args(argv=None):
     mode.add_argument("--smoke", action="store_true",
                       help="tiny random models on the CPU")
     mode.add_argument("--random_init", action="store_true",
-                      help="full-width Wan2.2-TI2V-5B-motion with seeded "
-                           "random weights on CUDA (outputs are noise)")
+                      help="the family's full-width 5B FrameINO model with "
+                           "seeded random weights on CUDA (outputs are "
+                           "noise)")
     p.add_argument("--family", choices=["wan", "cogvideox"], default="wan")
     p.add_argument("--text_encoder", default=None)
     p.add_argument("--quantize", choices=["int8"], default=None)
@@ -64,7 +69,8 @@ def smoke_configs():
 def configure_cuda_numerics():
     """The port's numerics on CUDA, set explicitly rather than inherited:
     fp32 matmuls in full fp32 (no TF32), bf16 GEMMs reduce in fp32, and
-    cuDNN convolutions (the fp32 VAE) in TF32, PyTorch's default."""
+    cuDNN convolutions of the fp32 Wan VAE in TF32, PyTorch's default
+    (the bf16 CogVideoX VAE's accumulate in fp32)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = True
@@ -72,31 +78,51 @@ def configure_cuda_numerics():
 
 def build_pipeline(*, smoke: bool, random_init: bool, family: str = "wan",
                    text_encoder=None, quantize=None):
-    """The port's Wan2.2 FrameINO pipeline with random weights from seed
-    0."""
+    """The port's FrameINO pipeline of ``family`` with random weights from
+    seed 0."""
     if text_encoder:
         raise NotImplementedError(NOT_PORTED["text_encoder"])
     if quantize:
-        raise NotImplementedError(NOT_PORTED["quantize"])
-    if family != "wan":
-        raise NotImplementedError(NOT_PORTED["cogvideox"])
+        raise NotImplementedError(NOT_PORTED["cogvideox_int8"
+                                             if family == "cogvideox"
+                                             else "quantize"])
+    if family not in ("wan", "cogvideox"):
+        raise ValueError(f"family must be 'wan' or 'cogvideox', got "
+                         f"{family!r}")
     if not (smoke or random_init):
         raise NotImplementedError(NOT_PORTED["checkpoint"])
-    from frameino_tpu_torch.models import wan_dit, wan_vae
-    from frameino_tpu_torch.pipelines.wan_i2v import (WanImageToVideoPipeline,
-                                                      WanPipelineConfig)
     if smoke:
-        dit_cfg, vae_cfg = smoke_configs()
         device, dit_dtype = torch.device("cpu"), torch.float32
     else:
         if not torch.cuda.is_available():
             raise RuntimeError("--random_init serves on CUDA; no CUDA "
                                "device is available")
         configure_cuda_numerics()
-        dit_cfg = wan_dit.WAN22_TI2V_5B_MOTION
-        vae_cfg = wan_vae.WAN22_VAE_CONFIG
         device, dit_dtype = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator(device).manual_seed(0)
+    if family == "cogvideox":
+        from frameino_tpu_torch.models import cogvideox_dit, cogvideox_vae
+        from frameino_tpu_torch.pipelines.cogvideox_i2v import (
+            CogPipelineConfig, CogVideoXImageToVideoPipeline)
+        if smoke:
+            dit_cfg = cogvideox_dit.tiny_config()
+            vae_cfg = cogvideox_vae.tiny_vae_config()
+        else:
+            dit_cfg = cogvideox_dit.COGVIDEOX_5B_I2V_FRAMEINO
+            vae_cfg = cogvideox_vae.COGVIDEOX_VAE_CONFIG
+        dit = cogvideox_dit.init_cogvideox_dit(dit_cfg, gen, dtype=dit_dtype)
+        # the VAE in the DiT's dtype, as the JAX server keeps it for this
+        # family (bf16 at full width)
+        vae = cogvideox_vae.init_cogvideox_vae(vae_cfg, gen, dtype=dit_dtype)
+        return CogVideoXImageToVideoPipeline(dit, vae, CogPipelineConfig())
+    from frameino_tpu_torch.models import wan_dit, wan_vae
+    from frameino_tpu_torch.pipelines.wan_i2v import (WanImageToVideoPipeline,
+                                                      WanPipelineConfig)
+    if smoke:
+        dit_cfg, vae_cfg = smoke_configs()
+    else:
+        dit_cfg = wan_dit.WAN22_TI2V_5B_MOTION
+        vae_cfg = wan_vae.WAN22_VAE_CONFIG
     dit = wan_dit.init_wan_dit(dit_cfg, gen, dtype=dit_dtype)
     vae = wan_vae.init_wan_vae(vae_cfg, gen)
     return WanImageToVideoPipeline(dit, vae, WanPipelineConfig())

@@ -7,8 +7,10 @@ import numpy as np
 import pytest
 import torch
 
+from frameino_tpu_torch.models import cogvideox_dit as cdit
 from frameino_tpu_torch.models import wan_dit as tdit
 from frameino_tpu_torch.ops import attention as A
+from frameino_tpu_torch.ops.rope import cogvideox_rope_table
 
 pytestmark = pytest.mark.cuda
 
@@ -108,7 +110,87 @@ def test_dit_on_cuda_runs_the_kernels(dev):
     counts = A.launch_counts()
     ref = cpu(x, t, ctx, timestep_mask=mask)
     assert counts == {"flash_fwd_static": 2, "qk_norm_rope": 4,
-                      "flash_fwd": 2}
+                      "flash_fwd": 2, "qk_ln_rope": 0}
+    assert torch.isfinite(got).all()
+    # both bf16 through 2 blocks; the kernels round p to bf16 at another
+    # shift than the plain softmax: 5e-2
+    torch.testing.assert_close(got, ref, atol=5e-2, rtol=5e-2)
+
+
+def _cog_tables(dev, L, grid, gain=1.0):
+    """Joint [L + f*h*w, 32] tables: identity over the text prefix."""
+    cos, sin = cogvideox_rope_table(64, *grid)
+    cos = torch.cat([torch.ones(L, 32), torch.from_numpy(cos)])
+    sin = torch.cat([torch.zeros(L, 32), torch.from_numpy(sin)])
+    return ((cos * gain).to(dev).contiguous(),
+            (sin * gain).to(dev).contiguous())
+
+
+@pytest.mark.parametrize("heads,L,grid", [(3, 11, (3, 5, 6)),
+                                          (48, 226, (2, 7, 9))])
+@pytest.mark.parametrize("gain", [1.0, 64 ** -0.5 * A.LOG2E])
+def test_qk_ln_rope_kernel_within_one_ulp(dev, heads, L, grid, gain):
+    """A text prefix of identity rows and a ragged S (101 and 352 tokens,
+    neither a multiple of the 64-token block)."""
+    g = torch.Generator(dev).manual_seed(2)
+    cos, sin = _cog_tables(dev, L, grid, gain)
+    S = cos.shape[0]
+    raw = 2 * torch.randn(2, S, heads * 64, device=dev, dtype=torch.bfloat16,
+                          generator=g) + 0.5
+    w = 1 + 0.1 * torch.randn(64, device=dev, generator=g)
+    b = 0.1 * torch.randn(64, device=dev, generator=g)
+    before = A.launch_counts()["qk_ln_rope"]
+    got = A.qk_ln_rope(raw, w, b, cos, sin, heads, 1e-6).float()
+    ref = A.qk_ln_rope_ref(raw, w, b, cos, sin, heads, 1e-6).float()
+    torch.cuda.synchronize()
+    assert A.launch_counts()["qk_ln_rope"] == before + 1
+    assert got.shape == (2 * heads, S, 64)
+    # the plain version does the kernel's arithmetic (fp64 statistics, no
+    # fma): within one bf16 ulp
+    assert torch.all((got - ref).abs()
+                     <= torch.maximum(_bf16_ulp(got), _bf16_ulp(ref)))
+
+
+def test_qk_ln_rope_rejects_what_the_kernel_does_not_take(dev):
+    cos, sin = _cog_tables(dev, 4, (1, 2, 2))
+    raw = torch.randn(1, 8, 2 * 64, device=dev)
+    w, b = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    with pytest.raises(TypeError):
+        A.qk_ln_rope(raw, w, b, cos, sin, 2, 1e-6)           # fp32
+    rb = raw.to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        A.qk_ln_rope(rb.new_empty(1, 128, 8).transpose(1, 2), w, b, cos,
+                     sin, 2, 1e-6)                           # not contiguous
+    with pytest.raises(ValueError):
+        A.qk_ln_rope(rb, w, b, cos.t().contiguous().t(), sin, 2, 1e-6)
+    with pytest.raises(ValueError):
+        A.qk_ln_rope(rb, w.half(), b, cos, sin, 2, 1e-6)
+
+
+def test_cogvideox_dit_on_cuda_runs_the_kernels(dev):
+    """A 2-block FrameINO DiT at head_dim 64 in bf16: the CUDA forward
+    launches K4 twice and K1 once per block, none of K2/K3, and agrees with
+    the CPU plain path on the same bf16 weights."""
+    cfg = cdit.tiny_config(num_attention_heads=2, attention_head_dim=64,
+                           use_frame_in=True)
+    cpu = cdit.init_cogvideox_dit(cfg, torch.Generator().manual_seed(0),
+                                  dtype=torch.bfloat16)
+    gpu = cdit.CogVideoXDiT(cfg, device="meta", dtype=torch.bfloat16)
+    gpu.load_state_dict({k: v.to(dev) for k, v in cpu.state_dict().items()},
+                        assign=True)
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(2, 4, 12, 8, 12).astype(np.float32))
+    t = torch.tensor([900.0, 900.0])
+    ctx = torch.from_numpy(rs.randn(2, 8, 16).astype(np.float32))
+    rope = cdit.cogvideox_rope(cfg, 3, 8, 12,
+                               duplicate_first_frame_for_id=True)
+    A.reset_launch_counts()
+    got = gpu(x.to(dev), ctx.to(dev), t.to(dev),
+              tuple(r.to(dev) for r in rope)).cpu()
+    counts = A.launch_counts()
+    ref = cpu(x, ctx, t, rope)
+    assert counts == {"flash_fwd_static": 2, "qk_norm_rope": 0,
+                      "flash_fwd": 0, "qk_ln_rope": 4}
     assert torch.isfinite(got).all()
     # both bf16 through 2 blocks; the kernels round p to bf16 at another
     # shift than the plain softmax: 5e-2

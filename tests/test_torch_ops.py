@@ -337,5 +337,8 @@ def test_kernel_wrappers_count_no_launch_on_cpu():
     tattn.flash_fwd_static(q, q, q, torch.tensor(50.0))
     tattn.qk_norm_rope(torch.randn(1, 8, 128), torch.ones(128),
                        torch.ones(8, 32), torch.zeros(8, 32), 2, 1e-6)
+    tattn.qk_ln_rope(torch.randn(1, 8, 128), torch.ones(64), torch.zeros(64),
+                     torch.ones(8, 32), torch.zeros(8, 32), 2, 1e-6)
     assert tattn.launch_counts() == {"flash_fwd_static": 0,
-                                     "qk_norm_rope": 0, "flash_fwd": 0}
+                                     "qk_norm_rope": 0, "flash_fwd": 0,
+                                     "qk_ln_rope": 0}

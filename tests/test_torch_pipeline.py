@@ -219,7 +219,8 @@ def test_unported_decode_mode_is_400(server):
 @pytest.mark.parametrize("kw,item", [
     (dict(smoke=True, random_init=False, text_encoder="umt5"), "item 1"),
     (dict(smoke=True, random_init=False, quantize="int8"), "item 3"),
-    (dict(smoke=True, random_init=False, family="cogvideox"), "item 5"),
+    (dict(smoke=True, random_init=False, family="cogvideox",
+          quantize="int8"), "item 5"),
     (dict(smoke=False, random_init=False), "item 7"),
 ])
 def test_serve_unported_options_raise(kw, item):
@@ -236,7 +237,7 @@ def test_serve_args():
 
 def test_port_never_imports_jax():
     """Importing the package, its server and entry point, and serving one
-    smoke request leaves jax unimported."""
+    smoke request of each family leaves jax unimported."""
     code = textwrap.dedent("""
         import base64, io, sys
         import numpy as np
@@ -244,20 +245,24 @@ def test_port_never_imports_jax():
         from frameino_tpu_torch import serve
         from frameino_tpu_torch.app.server import PipelineServer
         from frameino_tpu_torch.models import weights  # noqa: F401
+        from frameino_tpu_torch.models import cogvideox_vae_streaming  # noqa
         from frameino_tpu_torch.ops import attention  # noqa: F401
-        srv = PipelineServer(serve.build_pipeline(smoke=True,
-                                                  random_init=False))
+        from frameino_tpu_torch.schedulers import cogvideox_dpm  # noqa: F401
         from PIL import Image
         b = io.BytesIO()
         Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(b, "PNG")
         e = io.BytesIO()
-        np.save(e, np.zeros((4, 16), np.float32))
-        out = srv.handle_generate({
-            "image_b64": base64.b64encode(b.getvalue()).decode(),
-            "prompt_embeds_b64": base64.b64encode(e.getvalue()).decode(),
-            "num_frames": 5, "num_inference_steps": 1,
-            "trajectories": [[[2, 2], [10, 12]]]})
-        assert out["num_frames"] == 5, out
+        # 8 text tokens: the tiny CogVideoX's max_text_seq_length
+        np.save(e, np.zeros((8, 16), np.float32))
+        for family in ("wan", "cogvideox"):
+            srv = PipelineServer(serve.build_pipeline(
+                smoke=True, random_init=False, family=family))
+            out = srv.handle_generate({
+                "image_b64": base64.b64encode(b.getvalue()).decode(),
+                "prompt_embeds_b64": base64.b64encode(e.getvalue()).decode(),
+                "num_frames": 5, "num_inference_steps": 1,
+                "trajectories": [[[2, 2], [10, 12]]]})
+            assert out["num_frames"] == 5, out
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib")))
         assert not bad, bad
