@@ -53,7 +53,7 @@ def _encode_video_mp4(frames: np.ndarray, fps: int = 16) -> str:
     import os
     import tempfile
 
-    from frameino_tpu.data.video_io import write_video
+    from frameino_tpu_torch.data.video_io import write_video
     fd, path = tempfile.mkstemp(suffix=".mp4")
     os.close(fd)
     try:
@@ -94,8 +94,8 @@ class PipelineServer:
         self.generations = 0
 
     def handle_generate(self, req: dict) -> dict:
-        from frameino_tpu.app.core import (prepare_id_reference,
-                                           tracks_to_traj_tensor)
+        from frameino_tpu_torch.app.core import (prepare_id_reference,
+                                                 tracks_to_traj_tensor)
 
         image = _decode_image(req["image_b64"])
         H = int(req.get("height", image.shape[0]))

@@ -1,4 +1,4 @@
-"""Wan 2.2 video DiT denoiser, forward only (counterpart of
+"""Wan 2.2 video DiT denoiser (counterpart of
 ``frameino_tpu/models/wan_dit.py``).
 
 ``WanDiT`` is an ``nn.Module`` with diffusers ``WanTransformer3DModel``
@@ -10,9 +10,15 @@ patchify-as-dense, the two-level per-token timestep form of the Wan2.2
 expand path, and per-block text K/V computed once per clip.
 
 The forward runs in the weights' dtype (bf16 at full width): it casts its
-input to that dtype and returns fp32. On CUDA tensors self-attention goes
-through the fused K2 -> K1 kernels and cross-attention through K3
-(``ops/attention.py``); on the CPU both take the plain reference path.
+input to that dtype and returns fp32. The serving forward runs without
+autograd: on CUDA tensors self-attention goes through the fused K2 -> K1
+kernels and cross-attention through K3 (``ops/attention.py``); on the CPU
+both take the plain reference path. The training forward
+(``differentiable=True``, the JAX signature's flag) keeps the graph: the
+qk RMS-norm and RoPE run as plain ops, every attention goes through K6
+(``flash_attention_train``), the text K/V are projected inside the graph,
+and ``remat`` recomputes each block in the backward
+(``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``).
 
 Not ported: the Wan2.1 image-KV branch and the pp/sp mesh paths.
 """
@@ -25,6 +31,7 @@ from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from frameino_tpu_torch.ops import attention as attn_ops
 from frameino_tpu_torch.ops.embeddings import (pixart_text_projection,
@@ -152,11 +159,11 @@ class WanBlock(nn.Module):
         return (_split_heads(k, H).contiguous(),
                 _split_heads(v, H).contiguous())
 
-    def _self_attention(self, x, cos, sin):
+    def _self_attention(self, x, cos, sin, differentiable):
         cfg, a = self.cfg, self.attn1
         H = cfg.num_attention_heads
         q, k, v = _lin(x, a.to_q), _lin(x, a.to_k), _lin(x, a.to_v)
-        if x.is_cuda:
+        if x.is_cuda and not differentiable:
             # K2 (norm + RoPE producer) -> bound -> K1
             o = attn_ops.fused_qk_flash_attention(
                 q, k, _split_heads(v, H).contiguous(), a.norm_q.weight,
@@ -166,21 +173,29 @@ class WanBlock(nn.Module):
             k = _split_heads(rms_norm(k, a.norm_k.weight, cfg.eps), H)
             q = apply_rope_interleaved(q, cos, sin)
             k = apply_rope_interleaved(k, cos, sin)
-            o = attn_ops.attention_ref(q, k, _split_heads(v, H))
+            if differentiable:
+                o = attn_ops.flash_attention_train(          # K6
+                    q.contiguous(), k.contiguous(),
+                    _split_heads(v, H).contiguous())
+            else:
+                o = attn_ops.attention_ref(q, k, _split_heads(v, H))
         return _lin(_merge_heads(o), a.to_out[0])
 
-    def _cross_attention(self, x, context, kv):
+    def _cross_attention(self, x, context, kv, differentiable):
         cfg, a = self.cfg, self.attn2
         q = rms_norm(_lin(x, a.to_q), a.norm_q.weight, cfg.eps)
         qh = _split_heads(q, cfg.num_attention_heads)
         kh, vh = kv if kv is not None else self.text_kv(context)
-        if qh.is_cuda:
+        if differentiable:
+            o = attn_ops.flash_attention_train(qh.contiguous(), kh, vh)  # K6
+        elif qh.is_cuda:
             o = attn_ops.flash_attention_inference(qh, kh, vh)   # K3
         else:
             o = attn_ops.attention_ref(qh, kh, vh)
         return _lin(_merge_heads(o), a.to_out[0])
 
-    def forward(self, x, context, timestep_proj, cos, sin, kv=None):
+    def forward(self, x, context, timestep_proj, cos, sin, kv=None,
+                differentiable=False):
         """x: [B, S, D] compute dtype; timestep_proj fp32 [B, S|1, 6, D] or
         the two-level pair ([B, 2, 6, D], selector [B, S, 1])."""
         eps = self.cfg.eps
@@ -199,7 +214,8 @@ class WanBlock(nn.Module):
                 mod.unbind(dim=2)
 
         norm_x = layer_norm(x, eps=eps) * (1 + scale_msa) + shift_msa
-        attn_out = self._self_attention(norm_x.to(x.dtype), cos, sin)
+        attn_out = self._self_attention(norm_x.to(x.dtype), cos, sin,
+                                        differentiable)
         x = (x.float() + attn_out.float() * gate_msa).to(x.dtype)
 
         if self.cfg.cross_attn_norm:
@@ -207,7 +223,7 @@ class WanBlock(nn.Module):
                                 eps=eps).to(x.dtype)
         else:
             norm_x = x
-        x = x + self._cross_attention(norm_x, context, kv)
+        x = x + self._cross_attention(norm_x, context, kv, differentiable)
 
         norm_x = layer_norm(x, eps=eps) * (1 + c_scale) + c_shift
         h = _lin(norm_x.to(x.dtype), self.ffn.net[0].proj)
@@ -236,7 +252,7 @@ def _unpatchify_tokens(x, grid, patch, out_ch):
 
 
 class WanDiT(nn.Module):
-    """WanTransformer3DModel, forward only.
+    """WanTransformer3DModel.
 
     Build with ``device="meta"`` and then ``to_empty`` + ``init_random_``
     or ``load_state_dict(..., assign=True)`` to skip torch's default init.
@@ -302,16 +318,34 @@ class WanDiT(nn.Module):
                                          out_dtype=dtype or self.dtype)
         return [blk.text_kv(context) for blk in self.blocks]
 
-    @torch.no_grad()
     def forward(self, hidden_states, timestep, encoder_hidden_states=None, *,
-                timestep_mask=None, text_kv=None):
+                timestep_mask=None, text_kv=None, differentiable=False,
+                remat=False):
         """hidden_states [B, C, F, H, W] (latent + condition channels);
         timestep [B] or per-token [B, S]; ``timestep_mask`` [B, S] 0/1
         selects per token between timestep 0 and ``timestep`` (the
         two-level expand path; needs timestep [B]);
         encoder_hidden_states [B, L, text_dim], unused when ``text_kv``
         (from ``precompute_text_kv``) is given. Returns fp32
-        [B, out_channels, F, H, W]."""
+        [B, out_channels, F, H, W].
+
+        ``differentiable``: the training forward, under autograd, through
+        K6 (no ``text_kv``: the text K/V are projected in the graph).
+        ``remat``: with ``differentiable``, recompute each block in the
+        backward instead of keeping its activations."""
+        if not differentiable:
+            with torch.no_grad():
+                return self._forward(hidden_states, timestep,
+                                     encoder_hidden_states, timestep_mask,
+                                     text_kv, False, False)
+        if text_kv is not None:
+            raise ValueError("the differentiable forward projects the text "
+                             "K/V in the graph; pass encoder_hidden_states")
+        return self._forward(hidden_states, timestep, encoder_hidden_states,
+                             timestep_mask, None, True, remat)
+
+    def _forward(self, hidden_states, timestep, encoder_hidden_states,
+                 timestep_mask, text_kv, differentiable, remat):
         cfg = self.cfg
         d = cfg.inner_dim
         x = hidden_states.to(self.dtype)
@@ -351,8 +385,13 @@ class WanDiT(nn.Module):
                 encoder_hidden_states, ce.text_embedder.linear_1,
                 ce.text_embedder.linear_2, out_dtype=x.dtype)
         for i, blk in enumerate(self.blocks):
-            x = blk(x, context, timestep_proj, cos, sin,
-                    kv=None if text_kv is None else text_kv[i])
+            kv = None if text_kv is None else text_kv[i]
+            if remat:
+                x = checkpoint(blk, x, context, timestep_proj, cos, sin, kv,
+                               differentiable, use_reentrant=False)
+            else:
+                x = blk(x, context, timestep_proj, cos, sin, kv,
+                        differentiable)
 
         # output AdaLN + projection
         table = self.scale_shift_table.float()                   # [1, 2, D]

@@ -14,11 +14,17 @@ three attention shapes:
   ``fused_ln_qk_flash_attention`` = K4 (LayerNorm + RoPE producer) ->
   bound -> K1, at head_dim 64.
 
+The training path needs every attention differentiable:
+``flash_attention_train`` = K6 (flash forward with the row log-sum-exp,
+and a backward giving dQ, dK, dV), behind a ``torch.autograd.Function``.
+
 K1 and K3 are one CUDA C++ kernel (``csrc/flash_fwd.cu``) templated on
-the softmax variant and head_dim; K2 and K4 are Triton kernels. Each wrapper launches its
-kernel for CUDA tensors (bf16, contiguous) and raises on anything else;
-for CPU tensors it runs the plain PyTorch version beside it. Each
-wrapper counts its kernel launches in ``<wrapper>.launches``.
+the softmax variant and head_dim; K6 is a second CUDA C++ source
+(``csrc/flash_attn_train.cu``); K2 and K4 are Triton kernels. Each
+wrapper launches its kernel for CUDA tensors (bf16, contiguous) and
+raises on anything else; for CPU tensors it runs the plain PyTorch
+version beside it. Each wrapper counts its kernel launches in
+``<wrapper>.launches``.
 
 Layouts follow the JAX package: attention tensors are [B, H, S, D],
 raw q/k are [B, S, H*D].
@@ -68,12 +74,21 @@ def attention_ref(q, k, v, scale: Optional[float] = None):
 
 
 # ---------------------------------------------------------------------------
-# K1 / K3: CUDA flash forward (csrc/flash_fwd.cu)
+# Building the CUDA sources (csrc/*.cu) with nvcc into build/
 # ---------------------------------------------------------------------------
 
+# source -> {C function: argtypes}; every function returns a CUDA error code
+_VP, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_CUDA_SOURCES = {
+    "flash_fwd": {"flash_fwd_bf16": [_VP] * 5 + [_INT] * 5 + [_F32, _VP]},
+    "flash_attn_train": {
+        "attn_train_fwd_bf16": [_VP] * 5 + [_INT] * 4 + [_F32, _VP],
+        "attn_train_bwd_bf16": [_VP] * 10 + [_INT] * 4 + [_F32, _VP]},
+}
+
 _lib_lock = threading.Lock()
-_lib = None
-BUILD_LOG = ""
+_libs: dict = {}
+BUILD_LOG: dict = {}      # source -> nvcc's output (registers, spills)
 
 
 def _nvcc() -> str:
@@ -84,36 +99,61 @@ def _nvcc() -> str:
                         "bin", "nvcc")
 
 
-def build_flash_lib():
-    """Compile ``csrc/flash_fwd.cu`` for sm_90a into ``build/`` (once per
-    source content) and load it with ctypes."""
-    global _lib, BUILD_LOG
+def _so_path(name: str) -> Path:
+    digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes()
+                            ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build_cuda_libs(names=None) -> dict:
+    """Compile the CUDA sources for sm_90a into ``build/`` (once per source
+    content; one nvcc per source, all started together) and load them with
+    ctypes. Returns {source: CDLL}."""
+    names = list(_CUDA_SOURCES) if names is None else list(names)
     with _lib_lock:
-        if _lib is not None:
-            return _lib
-        src = _CSRC / "flash_fwd.cu"
-        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-        so = BUILD_DIR / f"libflash_fwd_{digest}.so"
-        if not so.exists():
+        todo = [n for n in names if n not in _libs]
+        procs = {}
+        for n in todo:
+            so = _so_path(n)
+            if so.exists():
+                continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                    "-std=c++17", "-O3", "-Xptxas=-v", "-shared",
-                   "-Xcompiler", "-fPIC", "-o", str(tmp), str(src)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            BUILD_LOG = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                                   f"{BUILD_LOG}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        fn = lib.flash_fwd_bf16
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-            ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
-        return lib
+                   "-Xcompiler", "-fPIC", "-o", str(tmp),
+                   str(_CSRC / f"{n}.cu")]
+            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT,
+                                         text=True), tmp, so)
+        failed = []
+        for n, (proc, tmp, so) in procs.items():
+            BUILD_LOG[n] = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"nvcc {n}.cu failed ({proc.returncode}):\n"
+                              f"{BUILD_LOG[n]}")
+            else:
+                os.replace(tmp, so)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for n in todo:
+            lib = ctypes.CDLL(str(_so_path(n)))
+            for fn_name, argtypes in _CUDA_SOURCES[n].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _libs[n] = lib
+        return {n: _libs[n] for n in names}
 
+
+def _lib(name: str):
+    lib = _libs.get(name)
+    return lib if lib is not None else build_cuda_libs([name])[name]
+
+
+# ---------------------------------------------------------------------------
+# K1 / K3: CUDA flash forward (csrc/flash_fwd.cu)
+# ---------------------------------------------------------------------------
 
 def _check_cuda_bf16(name: str, *tensors):
     for t in tensors:
@@ -146,7 +186,7 @@ def _launch_flash(q, k, v, bound, q_scale: float):
                 or bound.numel() != 1):
             raise ValueError("flash: bound must be a 1-element fp32 CUDA "
                              "tensor")
-    lib = build_flash_lib()
+    lib = _lib("flash_fwd")
     o = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_fwd_bf16(
@@ -216,6 +256,126 @@ def flash_attention_inference(q, k, v, scale: Optional[float] = None):
     out = flash_fwd(q.reshape(B * H, Sq, D), k.reshape(B * H, -1, D),
                     v.reshape(B * H, -1, D), scale * LOG2E)
     return out.reshape(B, H, Sq, D)
+
+
+# ---------------------------------------------------------------------------
+# K6: CUDA flash attention forward + backward for training
+# (csrc/flash_attn_train.cu)
+# ---------------------------------------------------------------------------
+
+def flash_attention_train_ref(q, k, v, scale: Optional[float] = None):
+    """Plain version of K6: ``attention_ref`` under autograd. q [B, H, Sq,
+    D], k/v [B, H, Skv, D]."""
+    return attention_ref(q, k, v, scale)
+
+
+def _check_train_shapes(name, q, k, v):
+    if q.ndim != 3 or k.shape != v.shape or k.ndim != 3 \
+            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)}")
+    if q.shape[2] not in (64, 128):
+        raise ValueError(f"{name}: head_dim {q.shape[2]} not in (64, 128)")
+    if q.shape[1] == 0 or k.shape[1] == 0:
+        raise ValueError(f"{name}: empty sequence")
+
+
+def flash_attn_train_fwd(q, k, v, scale: float):
+    """K6 forward kernel on q [BH, Sq, D], k/v [BH, Skv, D] bf16 CUDA:
+    returns (o [BH, Sq, D] bf16, lse [BH, Sq] fp32, natural log)."""
+    _check_train_shapes("flash_attn_train_fwd", q, k, v)
+    _check_cuda_bf16("flash_attn_train_fwd", q, k, v)
+    bh, sq, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    err = _lib("flash_attn_train").attn_train_fwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), bh, sq, k.shape[1], d, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"attn_train_fwd_bf16 launch failed: CUDA error "
+                           f"{err}")
+    flash_attn_train_fwd.launches += 1
+    return o, lse
+
+
+flash_attn_train_fwd.launches = 0
+
+
+def flash_attn_train_bwd(q, k, v, o, lse, do, scale: float):
+    """K6 backward kernels (row dot, dK/dV, dQ) on the forward's inputs,
+    its o and lse, and dO like o: returns (dq, dk, dv) bf16."""
+    _check_train_shapes("flash_attn_train_bwd", q, k, v)
+    _check_cuda_bf16("flash_attn_train_bwd", q, k, v, o, do)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError("flash_attn_train_bwd: o and dO must be shaped "
+                         "like q")
+    bh, sq, d = q.shape
+    if (not lse.is_cuda or lse.dtype != torch.float32
+            or lse.shape != (bh, sq) or not lse.is_contiguous()):
+        raise ValueError("flash_attn_train_bwd: lse must be a contiguous "
+                         "fp32 CUDA [BH, Sq] tensor")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    di = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    err = _lib("flash_attn_train").attn_train_bwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), di.data_ptr(), bh, sq, k.shape[1], d, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"attn_train_bwd_bf16 launch failed: CUDA error "
+                           f"{err}")
+    flash_attn_train_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attn_train_bwd.launches = 0
+
+
+class _FlashAttentionTrain(torch.autograd.Function):
+    """K6 forward and backward behind autograd, on [B, H, S, D]."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        B, H, Sq, D = q.shape
+        Skv = k.shape[2]
+        o, lse = flash_attn_train_fwd(q.view(B * H, Sq, D),
+                                      k.view(B * H, Skv, D),
+                                      v.view(B * H, Skv, D), scale)
+        o = o.view(B, H, Sq, D)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        B, H, Sq, D = q.shape
+        Skv = k.shape[2]
+
+        def rows(t, s):
+            return t.reshape(B * H, s, D)
+
+        dq, dk, dv = flash_attn_train_bwd(
+            rows(q, Sq), rows(k, Skv), rows(v, Skv), rows(o, Sq), lse,
+            rows(do.contiguous(), Sq), ctx.scale)
+        return (dq.view(B, H, Sq, D), dk.view(B, H, Skv, D),
+                dv.view(B, H, Skv, D), None)
+
+
+def flash_attention_train(q, k, v, scale: Optional[float] = None):
+    """K6 (replaces ``flash_attention_train``): differentiable non-causal
+    attention on q [B, H, Sq, D], k/v [B, H, Skv, D], any lengths (masked
+    in the kernel, no padding). CUDA: the forward and backward kernels,
+    contiguous bf16 only; CPU: ``flash_attention_train_ref``."""
+    scale = scale if scale is not None else _default_scale(q.shape[-1])
+    if not q.is_cuda:
+        return flash_attention_train_ref(q, k, v, scale)
+    if q.ndim != 4 or k.ndim != 4 or q.shape[:2] != k.shape[:2]:
+        raise ValueError(f"flash_attention_train: shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)}")
+    _check_cuda_bf16("flash_attention_train", q, k, v)
+    return _FlashAttentionTrain.apply(q, k, v, float(scale))
 
 
 # ---------------------------------------------------------------------------
@@ -422,16 +582,15 @@ def fused_ln_qk_flash_attention(q_raw, k_raw, v, w_q, b_q, w_k, b_k, cos,
     return out.reshape(B, H, S, D)
 
 
+_COUNTED = (flash_fwd_static, qk_norm_rope, flash_fwd, qk_ln_rope,
+            flash_attn_train_fwd, flash_attn_train_bwd)
+
+
 def reset_launch_counts():
-    flash_fwd.launches = 0
-    flash_fwd_static.launches = 0
-    qk_norm_rope.launches = 0
-    qk_ln_rope.launches = 0
+    for fn in _COUNTED:
+        fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {"flash_fwd_static": flash_fwd_static.launches,
-            "qk_norm_rope": qk_norm_rope.launches,
-            "flash_fwd": flash_fwd.launches,
-            "qk_ln_rope": qk_ln_rope.launches}
+    return {fn.__name__: fn.launches for fn in _COUNTED}
 

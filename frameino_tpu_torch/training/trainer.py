@@ -1,0 +1,187 @@
+"""Wan FrameINO Stage-2 trainer: the flow-matching train step (counterpart
+of ``frameino_tpu/training/trainer.py``).
+
+Reference hot loop ``train_code/train_wan_motion_FrameINO.py:1128-1253``,
+reproduced as the JAX package does:
+  1. frozen-VAE encodes of video / masked first frame / trajectory / ID,
+     posterior mode, latents_mean/std normalization, one encode at a time;
+  2. first-frame substitution into BOTH x0 and the noisy input;
+  3. scalar timesteps per example (stratified indices into the training
+     sigma table), FM noising ``(1 - sigma) x0 + sigma eps``;
+  4. ID frame appended on the frame axis with zero trajectory channels,
+     trajectory latents on the channel axis;
+  5. the DiT forward in the compute dtype (differentiable, K6, optional
+     remat), ID predictions dropped, fp32 MSE against ``eps - x0``;
+  6. global-norm clip + AdamW (``training/optim.py``).
+
+One card, so no mesh and dp = 1. The JAX step is one jit program with the
+step folded into its key (``fold_in(key, step)``); here each step draws
+its timestep indices and then its noise from a ``torch.Generator`` seeded
+from (seed, step), or takes them as arguments (the parity tests feed in
+JAX's draws). The VAE encodes run on the full sequence (the JAX default,
+a chunked in-graph encode, equals it numerically and exists to fit a
+16 GB chip) in the VAE's own dtype.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from frameino_tpu_torch.models import wan_vae
+from frameino_tpu_torch.models.wan_dit import WanDiT
+from frameino_tpu_torch.schedulers.flow_match_euler import (
+    FlowMatchEulerConfig, flow_match_sigmas)
+from frameino_tpu_torch.training.noise_sampler import \
+    stratified_timestep_indices
+from frameino_tpu_torch.training.optim import (Optimizer, OptimizerConfig,
+                                               global_norm, make_optimizer)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerConfig:
+    scheduler: FlowMatchEulerConfig = FlowMatchEulerConfig()
+    optimizer: OptimizerConfig = OptimizerConfig()
+    train_sampling_steps: int = 1000
+    use_frame_in: bool = True
+    compute_dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: WanDiT
+    optimizer: Optimizer
+    step: int = 0
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        return dict(self.model.named_parameters())
+
+
+def init_train_state(model: WanDiT, opt_cfg: OptimizerConfig) -> TrainState:
+    model.train()
+    return TrainState(model=model,
+                      optimizer=make_optimizer(opt_cfg,
+                                               dict(model.named_parameters())))
+
+
+@torch.no_grad()
+def encode_training_batch(vae: wan_vae.WanVAE, batch: Dict[str, torch.Tensor]
+                          ) -> Tuple[torch.Tensor, ...]:
+    """Frozen-VAE encodes (reference :507-657, posterior mode and
+    normalization), in the VAE's dtype on its device, one at a time.
+
+    batch tensors, reference dataset layout:
+      video_tensor       [B, F, C, H, W] in [-1, 1]
+      first_frame_tensor [B, C, H, W]    masked unbounded canvas
+      traj_tensor        [B, F, C, H, W]
+      ID_tensor          [B, N_id, C, H, W] (optional)
+    Returns (video, first frame, trajectory, ID or None) latents, fp32.
+    """
+    p = next(vae.parameters())
+
+    def enc(x):
+        z = vae.encode(x.to(p.device, p.dtype))
+        return wan_vae.normalize_latents(vae.cfg, z).float()
+
+    video_latents = enc(batch["video_tensor"].permute(0, 2, 1, 3, 4))
+    first_frame_latent = enc(batch["first_frame_tensor"][:, :, None])
+    traj_latents = enc(batch["traj_tensor"].permute(0, 2, 1, 3, 4))
+    id_latents = None
+    if batch.get("ID_tensor") is not None:
+        idt = batch["ID_tensor"].permute(0, 2, 1, 3, 4)       # B,C,N,H,W
+        id_latents = torch.cat([enc(idt[:, :, i:i + 1])
+                                for i in range(idt.shape[2])], dim=2)
+    return video_latents, first_frame_latent, traj_latents, id_latents
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The step's generator: seeded from (seed, step), as the JAX step
+    folds the step into its key."""
+    s = int(np.random.SeedSequence([seed, step]).generate_state(1,
+                                                                np.uint64)[0])
+    return torch.Generator(device).manual_seed(s & (2 ** 63 - 1))
+
+
+def wan_fm_loss(model: WanDiT, cfg: TrainerConfig, video_latents,
+                first_frame_latent, traj_latents, id_latents, prompt_embeds,
+                generator: Optional[torch.Generator] = None, *,
+                idx: Optional[torch.Tensor] = None,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Flow-matching loss (reference :1185-1237), a scalar fp32 tensor
+    under autograd. Timestep indices and noise come from ``generator``
+    unless both are given."""
+    dev = video_latents.device
+    B = video_latents.shape[0]
+    num_gen_frames = video_latents.shape[2]
+    sigmas_table = torch.from_numpy(flow_match_sigmas(cfg.scheduler)).to(dev)
+    timesteps_table = sigmas_table * cfg.scheduler.num_train_timesteps
+
+    # first-frame substitution into x0 (reference :1155)
+    x0 = torch.cat([first_frame_latent, video_latents[:, :, 1:]], dim=2)
+    if idx is None or noise is None:
+        # indices, then noise, from the step's generator
+        idx = stratified_timestep_indices(generator, B,
+                                          cfg.train_sampling_steps)
+        noise = torch.randn(x0.shape, generator=generator,
+                            device=generator.device, dtype=torch.float32)
+    idx = idx.to(dev)
+    noise = noise.to(dev, torch.float32)
+    timesteps = timesteps_table[idx]                       # [B] scalar ts
+    sigma = sigmas_table[idx].reshape(B, 1, 1, 1, 1)
+    noisy = (1.0 - sigma) * x0 + sigma * noise
+    # clean first frame in the model input (reference :1198)
+    noisy = torch.cat([first_frame_latent, noisy[:, :, 1:]], dim=2)
+
+    if id_latents is not None:
+        model_in = torch.cat([noisy, id_latents], dim=2)
+        traj_in = torch.cat([traj_latents, torch.zeros_like(id_latents)],
+                            dim=2)
+    else:
+        model_in, traj_in = noisy, traj_latents
+    model_in = torch.cat([model_in, traj_in], dim=1).to(cfg.compute_dtype)
+
+    pred = model(model_in, timesteps, prompt_embeds.to(dev, cfg.compute_dtype),
+                 differentiable=True, remat=cfg.remat)
+    pred = pred[:, :, :num_gen_frames]
+    target = noise - x0
+    return torch.mean(torch.square(pred.float() - target))
+
+
+def train_step(state: TrainState, vae: Optional[wan_vae.WanVAE],
+               cfg: TrainerConfig, batch: Dict[str, torch.Tensor], seed: int,
+               draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+               ) -> Dict[str, torch.Tensor]:
+    """One optimizer step: encode (unless the batch carries ``*_latents``),
+    loss and gradients, clip + AdamW. ``draws`` = (indices, noise) replaces
+    the step generator's. Returns {"loss", "grad_norm"} as device scalars
+    (grad_norm before clipping)."""
+    model = state.model
+    dev = model.proj_out.weight.device
+    if "video_latents" in batch:
+        enc = tuple(None if batch.get(k) is None else batch[k].to(dev)
+                    for k in ("video_latents", "first_frame_latent",
+                              "traj_latents", "id_latents"))
+    else:
+        enc = encode_training_batch(vae, batch)
+    gen = None if draws is not None else step_generator(seed, state.step, dev)
+    idx, noise = draws if draws is not None else (None, None)
+
+    params = state.params()
+    for p in params.values():
+        p.grad = None
+    loss = wan_fm_loss(model, cfg, *enc, batch["prompt_embeds"], gen,
+                       idx=idx, noise=noise)
+    loss.backward()
+    grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+             for n, p in params.items()}
+    grad_norm = global_norm(grads.values())
+    state.optimizer.step(params, grads)
+    for p in params.values():
+        p.grad = None
+    del grads
+    state.step += 1
+    return {"loss": loss.detach(), "grad_norm": grad_norm}

@@ -110,7 +110,8 @@ def test_dit_on_cuda_runs_the_kernels(dev):
     counts = A.launch_counts()
     ref = cpu(x, t, ctx, timestep_mask=mask)
     assert counts == {"flash_fwd_static": 2, "qk_norm_rope": 4,
-                      "flash_fwd": 2, "qk_ln_rope": 0}
+                      "flash_fwd": 2, "qk_ln_rope": 0,
+                      "flash_attn_train_fwd": 0, "flash_attn_train_bwd": 0}
     assert torch.isfinite(got).all()
     # both bf16 through 2 blocks; the kernels round p to bf16 at another
     # shift than the plain softmax: 5e-2
@@ -190,8 +191,102 @@ def test_cogvideox_dit_on_cuda_runs_the_kernels(dev):
     counts = A.launch_counts()
     ref = cpu(x, ctx, t, rope)
     assert counts == {"flash_fwd_static": 2, "qk_norm_rope": 0,
-                      "flash_fwd": 0, "qk_ln_rope": 4}
+                      "flash_fwd": 0, "qk_ln_rope": 4,
+                      "flash_attn_train_fwd": 0, "flash_attn_train_bwd": 0}
     assert torch.isfinite(got).all()
     # both bf16 through 2 blocks; the kernels round p to bf16 at another
     # shift than the plain softmax: 5e-2
     torch.testing.assert_close(got, ref, atol=5e-2, rtol=5e-2)
+
+
+def _rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,skv", [(100, 37), (130, 512), (64, 64),
+                                    (1111, 1111)])
+def test_flash_attention_train_matches_plain(dev, d, sq, skv):
+    """K6 forward and dQ/dK/dV against the plain version's fp32 autograd
+    on the same bf16 inputs, at ragged and whole-tile lengths."""
+    g = torch.Generator(dev).manual_seed(3)
+    q, do = (torch.randn(2, 3, sq, d, device=dev, dtype=torch.bfloat16,
+                         generator=g) for _ in range(2))
+    k, v = (torch.randn(2, 3, skv, d, device=dev, dtype=torch.bfloat16,
+                        generator=g) for _ in range(2))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = A.launch_counts()
+    out = A.flash_attention_train(*leaves)
+    out.backward(do)
+    torch.cuda.synchronize()
+    after = A.launch_counts()
+    ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = A.flash_attention_train_ref(*ref_leaves)
+    ref.backward(do.float())
+    assert after["flash_attn_train_fwd"] == before["flash_attn_train_fwd"] + 1
+    assert after["flash_attn_train_bwd"] == before["flash_attn_train_bwd"] + 1
+    # bf16 o, P and dS against fp32: ~2.4e-3 measured; the limits of
+    # chip_smoke.py (5e-3 forward, 1e-2 gradients)
+    assert _rel_l2(out, ref) <= 5e-3
+    for got, want in zip(leaves, ref_leaves):
+        assert torch.isfinite(got.grad).all()
+        assert _rel_l2(got.grad, want.grad) <= 1e-2
+
+
+def test_flash_attention_train_rejects_what_the_kernel_does_not_take(dev):
+    q = torch.randn(1, 2, 64, 128, device=dev)
+    with pytest.raises(TypeError):
+        A.flash_attention_train(q, q, q)                    # fp32
+    qb = q.to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        A.flash_attention_train(qb.transpose(2, 3).contiguous()
+                                .transpose(2, 3), qb, qb)   # not contiguous
+    with pytest.raises(ValueError):
+        A.flash_attention_train(torch.randn(1, 2, 64, 96, device=dev,
+                                            dtype=torch.bfloat16),
+                                qb[..., :96].contiguous(),
+                                qb[..., :96].contiguous())   # head_dim 96
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_differentiable_dit_on_cuda_runs_k6(dev, remat):
+    """A 2-block DiT at head_dim 128 in bf16 under autograd: every
+    attention goes through K6 (2 forward launches per block, 2 more when
+    remat recomputes it, 2 backward), none of K1-K4; the loss and
+    gradients agree with the CPU plain path on the same bf16 weights."""
+    cfg = tdit.tiny_config(num_attention_heads=2, attention_head_dim=128,
+                           ffn_dim=256, in_channels=8, out_channels=4)
+    cpu = tdit.init_wan_dit(cfg, torch.Generator().manual_seed(0),
+                            dtype=torch.bfloat16)
+    gpu = tdit.WanDiT(cfg, device="meta", dtype=torch.bfloat16)
+    gpu.load_state_dict({k: v.to(dev) for k, v in cpu.state_dict().items()},
+                        assign=True)
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(1, 8, 3, 8, 10).astype(np.float32))
+    t = torch.tensor([700.0])
+    ctx = torch.from_numpy(rs.randn(1, 7, 16).astype(np.float32))
+
+    def loss_and_grads(model, device):
+        out = model(x.to(device), t.to(device), ctx.to(device),
+                    differentiable=True, remat=remat and device != "cpu")
+        loss = out.square().mean()
+        params = [p for _, p in model.named_parameters()]
+        return loss, torch.autograd.grad(loss, params)
+
+    A.reset_launch_counts()
+    loss, grads = loss_and_grads(gpu, dev)
+    torch.cuda.synchronize()
+    counts = A.launch_counts()
+    assert counts == {"flash_fwd_static": 0, "qk_norm_rope": 0,
+                      "flash_fwd": 0, "qk_ln_rope": 0,
+                      "flash_attn_train_fwd": 8 if remat else 4,
+                      "flash_attn_train_bwd": 4}
+    ref_loss, ref_grads = loss_and_grads(cpu, "cpu")
+    # both bf16; the kernels round P and dS to bf16 where the plain path
+    # keeps fp32: 2e-2 on the loss, 5e-2 relative L2 over all gradients
+    assert abs(loss.item() - ref_loss.item()) <= 2e-2 * abs(ref_loss.item())
+    num = sum(float((g.float().cpu() - r.float()).norm() ** 2)
+              for g, r in zip(grads, ref_grads))
+    den = sum(float(r.float().norm() ** 2) for r in ref_grads)
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert (num / den) ** 0.5 <= 5e-2

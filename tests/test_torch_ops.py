@@ -339,6 +339,10 @@ def test_kernel_wrappers_count_no_launch_on_cpu():
                        torch.ones(8, 32), torch.zeros(8, 32), 2, 1e-6)
     tattn.qk_ln_rope(torch.randn(1, 8, 128), torch.ones(64), torch.zeros(64),
                      torch.ones(8, 32), torch.zeros(8, 32), 2, 1e-6)
+    qg = torch.randn(1, 2, 8, 64, requires_grad=True)
+    tattn.flash_attention_train(qg, qg, qg).sum().backward()
     assert tattn.launch_counts() == {"flash_fwd_static": 0,
                                      "qk_norm_rope": 0, "flash_fwd": 0,
-                                     "qk_ln_rope": 0}
+                                     "qk_ln_rope": 0,
+                                     "flash_attn_train_fwd": 0,
+                                     "flash_attn_train_bwd": 0}

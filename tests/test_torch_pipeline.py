@@ -235,15 +235,21 @@ def test_serve_args():
         serve.parse_args(["--smoke", "--random_init"])
 
 
-def test_port_never_imports_jax():
-    """Importing the package, its server and entry point, and serving one
-    smoke request of each family leaves jax unimported."""
+def test_port_never_imports_jax(tmp_path):
+    """Importing the package, its server and entry points, serving one
+    smoke request of each family and taking one smoke train step leaves
+    jax and every module of the JAX package (frameino_tpu) unimported."""
     code = textwrap.dedent("""
-        import base64, io, sys
+        import base64, io, json, os, sys
         import numpy as np
         import frameino_tpu_torch
-        from frameino_tpu_torch import serve
+        from frameino_tpu_torch import serve, train
         from frameino_tpu_torch.app.server import PipelineServer
+        from frameino_tpu_torch.core import checkpoint, config  # noqa: F401
+        from frameino_tpu_torch.data import prompt_cache  # noqa: F401
+        from frameino_tpu_torch.data.fixture import write_fixture_dataset
+        from frameino_tpu_torch.training import (optim, surgery,  # noqa
+                                                 trainer, validation)
         from frameino_tpu_torch.models import weights  # noqa: F401
         from frameino_tpu_torch.models import cogvideox_vae_streaming  # noqa
         from frameino_tpu_torch.ops import attention  # noqa: F401
@@ -263,13 +269,31 @@ def test_port_never_imports_jax():
                 "num_frames": 5, "num_inference_steps": 1,
                 "trajectories": [[[2, 2], [10, 12]]]})
             assert out["num_frames"] == 5, out
+        root = sys.argv[1]
+        data = write_fixture_dataset(root, 32, 32, 12)
+        cfg = {"download_folder_path": data,
+               "train_csv_relative_path": "csvs",
+               "train_video_relative_path": "videos",
+               "train_ID_relative_path": "ids", "target_height": 16,
+               "target_width": 16, "sample_accelerate_factor": 1,
+               "train_frame_num_range": [9, 9], "min_train_frame_num": 9,
+               "dot_radius": 40, "max_train_steps": 1, "seed": 0,
+               "output_folder": os.path.join(root, "ckpts"),
+               "max_text_seq_length": 8, "resume_from_checkpoint": "latest"}
+        with open(os.path.join(root, "t.yaml"), "w") as f:
+            json.dump(cfg, f)
+        assert train.main(["--config_path", os.path.join(root, "t.yaml"),
+                           "--smoke"])["step"] == 1
         bad = sorted(m for m in sys.modules
-                     if m == "jax" or m.startswith(("jax.", "jaxlib")))
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "frameino_tpu"
+                     or m.startswith("frameino_tpu."))
         assert not bad, bad
         print("OK")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
-    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=120)
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
     assert res.stdout.strip().endswith("OK")
