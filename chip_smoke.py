@@ -7,43 +7,55 @@
 
 Phases (any failure exits non-zero; there is no CPU path):
  1. device: the card's name and `nvidia-smi` name, power limit;
- 2. build: compile the two CUDA sources (nvcc, sm_90a, both at once: the
-    serving flash kernels and K6) and the two Triton producers
+ 2. build: compile the three CUDA sources (nvcc, sm_90a, all at once: the
+    serving flash kernels, K6 and K7) and the two Triton producers
     (qk-norm/RoPE, qk-LayerNorm/RoPE) from the sources in the checkout;
  3. kernels: each kernel against its plain PyTorch version at the shapes
     the Wan serving path gives it (Wan2.2-TI2V-5B, 49 frames at 480x832:
     CFG batch 2, 24 heads of 128, 5,460 tokens, 512 text tokens), with
     CUDA event times of both (the flash kernels also within FLASH_REL_L2
-    relative L2);
- 4. serve: the full-width Wan2.2-TI2V-5B-motion pipeline with seeded
+    relative L2); K7 bit-equal to its plain version at the int8 paths'
+    rows (Wan [10920, 3072 | 14336], CogVideoX [38252, 3072 | 12288]) and
+    a ragged [17, 200], each with a half-way row (round half to even) and
+    a zero row (the 1e-12 scale floor);
+ 4. dense_int8: the card's int8 dense (K7, torch._int_mm, the epilogue)
+    within one bf16 ulp of the CPU's at [10920, 3072] x [3072, 3072] and
+    [10920, 14336] x [14336, 3072], its pieces timed beside the bf16 dense;
+ 5. serve: the full-width Wan2.2-TI2V-5B-motion pipeline with seeded
     random weights behind the HTTP server; three POST /generate requests;
     each must return 200 with the requested frames and size, and must
-    launch the kernels exactly 30 (K1), 60 (K2), 30 (K3) and 0 (K4) times
-    per denoise step;
- 5. reference: a small Wan pipeline (2 blocks at head_dim 128) in bf16 on
-    the card against the same weights in fp32 on the CPU's plain path;
- 6. CogVideoX kernels: K4 and K1 at head_dim 64 against their plain
+    launch the kernels exactly 30 (K1), 60 (K2), 30 (K3) and 0 (K4, K7)
+    times per denoise step; then one CFG DiT forward at 5,460 tokens timed
+    in bf16, the DiT quantized to int8 in place, the same forward timed in
+    int8 and held to INT8_REL_L2 of the bf16 output, and requests (a) and
+    (b) served again with 240 K7 launches per step and 60 per request;
+ 6. reference: a small Wan pipeline (2 blocks at head_dim 128) in bf16 on
+    the card against the same weights in fp32 on the CPU's plain path, and
+    the same pipeline with quantize="int8" against its int8 weights;
+ 7. CogVideoX kernels: K4 and K1 at head_dim 64 against their plain
     versions at the CogVideoX-5B shapes (49 frames at 480x720 plus the ID
     frame: CFG batch 2, 48 heads of 64, 226 + 18,900 = 19,126 tokens);
     K1's plain version runs on 4 of the 96 batch-head rows;
- 7. serve CogVideoX: the full-width CogVideoX-5B-I2V-FrameINO pipeline
+ 8. serve CogVideoX: the full-width CogVideoX-5B-I2V-FrameINO pipeline
     (bf16 DiT and VAE, seeded random weights) behind the HTTP server; two
     requests, each 42 (K1) and 84 (K4) launches per step, none of K2/K3;
- 8. reference CogVideoX: a small pipeline (2 blocks at head_dim 64) in
+    then the int8 forward against bf16 at 19,546 tokens as in 5, and
+    request (d) again in int8 with 252 K7 launches per step;
+ 9. reference CogVideoX: a small pipeline (2 blocks at head_dim 64) in
     bf16 on the card against fp32 on the CPU;
- 9. train kernels: K6 forward and backward against the plain version's
+10. train kernels: K6 forward and backward against the plain version's
     fp32 autograd at the Wan training shapes (self [1, 24, 5460, 128],
     cross [1, 24, 5460, 128] x [1, 24, 512, 128]) and a ragged head_dim-64
     shape, within FLASH_REL_L2 (forward) and GRAD_REL_L2 (gradients); the
     limits are shown to reject three planted faults each run;
-10. train entry: ``frameino_tpu_torch.train.main`` at full width, 2
+11. train entry: ``frameino_tpu_torch.train.main`` at full width, 2
     blocks, 49 frames at 480x832 from a synthetic dataset in build/: 3
     steps and a checkpoint, then a rerun that resumes and takes one more
     step; exactly 8 K6 forward and 4 backward launches per step;
-11. train: the full-width, full-depth Wan2.2-TI2V-5B-motion trainer (bf16
+12. train: the full-width, full-depth Wan2.2-TI2V-5B-motion trainer (bf16
     parameters and Adam moments, remat), 3 steps through the same
     functions, exactly 120 forward and 60 backward K6 launches per step;
-12. train reference: a small bf16 train step on the card against fp32 on
+13. train reference: a small bf16 train step on the card against fp32 on
     the CPU (loss and every gradient).
 
 Each serving or training phase sets the launch counts to 0 just before
@@ -100,25 +112,43 @@ KERNELS = {
         label="K6", route="cuda",
         source="frameino_tpu_torch/csrc/flash_attn_train.cu",
         replaces="frameino_tpu/ops/attention.py:893"),
+    # K7, the int8 path's activation quantizer (counted as
+    # dynamic_quantize_rows)
+    "dyn_quant": dict(
+        label="K7", route="cuda", source="frameino_tpu_torch/csrc/dyn_quant.cu",
+        replaces="frameino_tpu/ops/dyn_quant.py:46"),
 }
+K7 = "dynamic_quantize_rows"
 NO_TRAIN = {"flash_attn_train_fwd": 0, "flash_attn_train_bwd": 0}
 # launches per denoise step of the 30-block Wan DiT at CFG batch 2
 PER_STEP = {"flash_fwd_static": 30, "qk_norm_rope": 60, "flash_fwd": 30,
-            "qk_ln_rope": 0, **NO_TRAIN}
-# ... and of the 42-block CogVideoX DiT at CFG batch 2
+            "qk_ln_rope": 0, **NO_TRAIN, K7: 0}
+# ... with the DiT in int8: K7 on the input of attn1 q, k, v, out, attn2 q,
+# out, fc1 and fc2 of every block; and per request, the hoisted text K/V
+# (attn2 k, v of every block, once per segment)
+PER_STEP_INT8 = dict(PER_STEP, **{K7: 8 * 30})
+PER_REQUEST_INT8 = {K7: 2 * 30}
+# ... and of the 42-block CogVideoX DiT at CFG batch 2 (int8: q, k, v, out,
+# fc1, fc2 of every block)
 PER_STEP_COG = {"flash_fwd_static": 42, "qk_norm_rope": 0, "flash_fwd": 0,
-                "qk_ln_rope": 84, **NO_TRAIN}
+                "qk_ln_rope": 84, **NO_TRAIN, K7: 0}
+PER_STEP_COG_INT8 = dict(PER_STEP_COG, **{K7: 6 * 42})
 # launches per train step of an n-block Wan DiT with remat, at B = 1: each
 # block's self- and cross-attention run forward, again when the block is
 # recomputed in the backward, and backward once
 NO_SERVE = {"flash_fwd_static": 0, "qk_norm_rope": 0, "flash_fwd": 0,
-            "qk_ln_rope": 0}
+            "qk_ln_rope": 0, K7: 0}
 
 
 def per_train_step(blocks):
     return {**NO_SERVE, "flash_attn_train_fwd": 4 * blocks,
             "flash_attn_train_bwd": 2 * blocks}
 
+
+# Relative L2 limit of the int8 DiT's CFG forward against the bf16 one on
+# the same weights, at full depth and the serving shapes (the JAX package
+# holds its tiny int8 forward to 5e-2 mean-relative, tests/test_quant.py)
+INT8_REL_L2 = 0.1
 
 # H100 SXM data-sheet peaks (the bound of every kernel below)
 PEAK_BF16_FLOPS = 989e12
@@ -185,7 +215,7 @@ def phase_device():
 
 
 def phase_build():
-    """nvcc of both CUDA sources (one process each, all at once) on a
+    """nvcc of the three CUDA sources (one process each, all at once) on a
     thread while the Triton producers compile here."""
     import torch
     from frameino_tpu_torch.ops import attention as A
@@ -212,7 +242,8 @@ def phase_build():
     t_triton = time.time() - t0
     th.join()
     check(not errors, f"nvcc: {errors[0] if errors else ''}")
-    print(f"build: nvcc flash_fwd.cu + flash_attn_train.cu and triton "
+    print(f"build: nvcc flash_fwd.cu + flash_attn_train.cu + dyn_quant.cu "
+          f"and triton "
           f"qk_norm_rope + qk_ln_rope {time.time() - t0:.1f} s (triton "
           f"{t_triton:.1f} s)")
     for src, log in A.BUILD_LOG.items():
@@ -449,6 +480,154 @@ def phase_kernels_cog():
     return results
 
 
+# ---------------------------------------------------------------------------
+# int8: K7 and the w8a8 dense
+# ---------------------------------------------------------------------------
+
+# the rows K7 quantizes on the int8 serving paths: every dense input of the
+# Wan CFG pair (2 x 5,460 tokens; fc2 takes the 14,336-wide FFN) and of
+# the CogVideoX one (2 x 19,126 tokens; fc2 takes 4 x 3,072), and a
+# ragged shape
+K7_SHAPES = {"wan": (2 * S, H * D), "wan_fc2": (2 * S, 14336),
+             "cog": (2 * COG_S, COG_H * COG_D),
+             "cog_fc2": (2 * COG_S, 4 * COG_H * COG_D), "ragged": (17, 200)}
+# row 0 of every input: 127 * fp32(1/127) rounds to exactly 1.0, so its
+# scale is 1 and its halves sit on half-way points (round half to even);
+# row 1 is zeros, whose scale takes the 1e-12 floor
+K7_HALFWAY = [127, 2.5, 3.5, -2.5, -0.5, 0.5, 126.5, -126.5, 1.5, -1.5,
+              64.5, -64.5]
+K7_HALFWAY_CODES = [127, 2, 4, -2, 0, 0, 126, -126, 2, -2, 64, -64]
+
+
+def phase_kernels_k7():
+    """K7 against its plain version at the int8 paths' shapes: codes and
+    scales bit-equal, the half-way and zero rows as they must be."""
+    import numpy as np
+    import torch
+    from frameino_tpu_torch.ops import dyn_quant as DQ
+    g = torch.Generator("cuda").manual_seed(99)
+    shapes = {}
+    for tag, (n, d) in K7_SHAPES.items():
+        x = (torch.randn(n, d, device="cuda", generator=g)
+             * torch.randn(n, 1, device="cuda", generator=g).exp()
+             ).to(torch.bfloat16)
+        x[0] = torch.tensor(K7_HALFWAY * (d // 12 + 1))[:d]
+        x[1] = 0
+        q, sc = DQ.dynamic_quantize_rows(x)
+        q_ref, s_ref = DQ.dynamic_quantize_rows_ref(x)
+        torch.cuda.synchronize()
+        bad_q = int((q != q_ref).sum())
+        bad_s = int((sc != s_ref).sum())
+        err = max((q.int() - q_ref.int()).abs().max().item(),
+                  (sc - s_ref).abs().max().item())
+        check(bad_q == 0 and bad_s == 0,
+              f"K7 {tag} [{n}, {d}]: {bad_q} codes and {bad_s} scales "
+              f"differ from its plain version")
+        check(q[0, :12].tolist() == K7_HALFWAY_CODES and sc[0].item() == 1.0,
+              f"K7 {tag}: the half-way row gave {q[0, :12].tolist()} at "
+              f"scale {sc[0].item()!r}")
+        check(not q[1].any() and sc[1].item() == float(np.float32(1e-12)),
+              f"K7 {tag}: the zero row gave scale {sc[1].item()!r}")
+        del q, sc, q_ref, s_ref
+        # ~4 fp32 operations per element (abs, max, divide, round); bf16
+        # in, int8 out, one fp32 scale per row
+        bound = bound_ms(4 * n * d, 3 * n * d + 4 * n, PEAK_FP32_FLOPS)
+        shapes[tag] = dict(
+            shape=[n, d], max_abs_err=err, ms=cuda_ms(lambda: DQ.dynamic_quantize_rows(x), 20),
+            plain_ms=cuda_ms(lambda: DQ.dynamic_quantize_rows_ref(x), 5),
+            bound_ms=bound[0], bound_by=bound[1])
+        r = shapes[tag]
+        print(f"K7 {tag} [{n}, {d}]: bit-equal; kernel {r['ms']:.4f} ms  "
+              f"plain {r['plain_ms']:.3f} ms  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
+        del x
+    torch.cuda.empty_cache()
+    main = shapes["wan"]
+    return {"dyn_quant": dict(
+        max_abs_err=max(r["max_abs_err"] for r in shapes.values()),
+        ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=None, shapes=shapes)}
+
+
+# the dense shapes of the int8 paths as (rows, in, out, held against the
+# CPU): Wan q/k/v/out (6 a block with attn2's q and out), fc1, fc2;
+# CogVideoX q/k/v/out (4 a block), fc1, fc2 (timed only)
+DENSE_INT8_SHAPES = {
+    "wan_qkvo": (2 * S, H * D, H * D, True),
+    "wan_fc1": (2 * S, H * D, 14336, True),
+    "wan_fc2": (2 * S, 14336, H * D, True),
+    "cog_qkvo": (2 * COG_S, COG_H * COG_D, COG_H * COG_D, False),
+    "cog_fc1": (2 * COG_S, COG_H * COG_D, 4 * COG_H * COG_D, False),
+    "cog_fc2": (2 * COG_S, 4 * COG_H * COG_D, COG_H * COG_D, False)}
+# the denses of one CFG step: blocks x (uses of each shape in a block)
+DENSES_PER_STEP = {"wan": (30, {"wan_qkvo": 6, "wan_fc1": 1, "wan_fc2": 1}),
+                   "cogvideox": (42, {"cog_qkvo": 4, "cog_fc1": 1,
+                                      "cog_fc2": 1})}
+DENSE_TIMES = ("ms", "k7_ms", "int_mm_ms", "epilogue_ms", "bf16_dense_ms")
+
+
+def phase_dense_int8():
+    """The same bf16 x and int8 weights through the card's ``dense_int8``
+    (K7, ``torch._int_mm``, the epilogue) and the CPU's plain one: within
+    one bf16 ulp at the Wan shapes. Times the pieces and the bf16 ``dense``
+    beside at every shape, and sums them over one CFG step's denses."""
+    import torch
+    from frameino_tpu_torch.models.quant import quantize_weight
+    from frameino_tpu_torch.ops import dyn_quant as DQ
+    from frameino_tpu_torch.ops import linear as L
+    out = {}
+    for tag, (n, k, m, on_cpu) in DENSE_INT8_SHAPES.items():
+        # drawn where the first dense_int8 runs: the CPU, or the card
+        dev = "cpu" if on_cpu else "cuda"
+        g = torch.Generator(dev).manual_seed(8)
+        x = (torch.randn(n, k, generator=g, device=dev)
+             * torch.randn(n, 1, generator=g, device=dev).exp()
+             ).to(torch.bfloat16)
+        w = ((torch.rand(m, k, generator=g, device=dev) * 2 - 1) * k ** -0.5
+             ).to(torch.bfloat16)
+        b = ((torch.rand(m, generator=g, device=dev) * 2 - 1) * k ** -0.5
+             ).to(torch.bfloat16)
+        wq, sc = quantize_weight(w)
+        xd, wd, wqd, scd, bd = (t.cuda() for t in (x, w, wq, sc, b))
+        err = equal = cpu_s = None
+        if on_cpu:
+            t0 = time.time()
+            want = L.dense_int8(x, wq, sc, b)
+            cpu_s = time.time() - t0
+            got = L.dense_int8(xd, wqd, scd, bd).cpu()
+            err, _ = _check_ulp(f"dense_int8 {tag}", got, want)
+            equal = float((got == want).float().mean())
+            del want, got
+        xq, s_x = DQ.dynamic_quantize_rows(xd)
+        y = torch._int_mm(xq, wqd.t())
+        row = dict(
+            shape=[n, k, m], max_abs_err=err, equal_share=equal,
+            cpu_s=cpu_s,
+            ms=cuda_ms(lambda: L.dense_int8(xd, wqd, scd, bd), 10),
+            k7_ms=cuda_ms(lambda: DQ.dynamic_quantize_rows(xd), 10),
+            int_mm_ms=cuda_ms(lambda: torch._int_mm(xq, wqd.t()), 10),
+            epilogue_ms=cuda_ms(lambda: L.dequantize_epilogue(
+                y, s_x, scd, bd, torch.bfloat16), 10),
+            bf16_dense_ms=cuda_ms(lambda: L.dense(xd, wd, bd), 10))
+        out[tag] = row
+        vs_cpu = (f"card vs CPU max abs {err:.3e}, {equal:.6f} of outputs "
+                  f"equal" if on_cpu else "timed only")
+        print(f"dense_int8 {tag} [{n}, {k}] x [{k}, {m}]: {vs_cpu}; "
+              f"{row['ms']:.3f} ms (K7 {row['k7_ms']:.3f}, _int_mm "
+              f"{row['int_mm_ms']:.3f}, epilogue {row['epilogue_ms']:.3f}); "
+              f"bf16 dense {row['bf16_dense_ms']:.3f} ms")
+        del x, w, b, wq, sc, xd, wd, wqd, scd, bd, xq, s_x, y
+        torch.cuda.empty_cache()
+    for family, (blocks, uses) in DENSES_PER_STEP.items():
+        step = {t: blocks * sum(n * out[tag][t] for tag, n in uses.items())
+                for t in DENSE_TIMES}
+        out[f"{family}_step"] = step
+        print(f"dense_int8 over one {family} CFG step's denses: "
+              + ", ".join(f"{t} {v:.1f}" for t, v in step.items()))
+    return out
+
+
 # Relative L2 limit of K6's dQ, dK and dV against the plain version's fp32
 # autograd. The kernel reads ~2.4e-3 (bf16 P and dS in the products, bf16
 # outputs); each run also shows that three planted faults exceed it: the
@@ -643,9 +822,10 @@ def read_mp4(path):
     return np.stack(frames) if frames else np.zeros((0, 0, 0, 3), np.uint8)
 
 
-def serve_requests(port, requests, per_step=None):
+def serve_requests(port, requests, per_step=None, per_request=None):
     """POST each (tag, request); check status, frames, size, the decoded
-    mp4 and, with ``per_step``, the kernel launches of each request."""
+    mp4 and, with ``per_step`` (and ``per_request``, launches made once a
+    request), the kernel launches of each request."""
     import numpy as np
     import torch
     from frameino_tpu_torch.ops import attention as A
@@ -678,6 +858,7 @@ def serve_requests(port, requests, per_step=None):
         launches = {k: v - before[k] for k, v in A.launch_counts().items()}
         if per_step is not None:
             want = {k: n * req["num_inference_steps"]
+                    + (per_request or {}).get(k, 0)
                     for k, n in per_step.items()}
             check(launches == want, f"request {tag}: kernel launches "
                                     f"{launches}, expected {want}")
@@ -709,6 +890,119 @@ SERVE = {
 }
 
 
+def _dit_inputs(family, pipe):
+    """One CFG-batch DiT input at the serving shape of request (a) (Wan,
+    5,460 tokens) or (d) (CogVideoX at 480x736, 19,546 tokens), seeded."""
+    import torch
+    from frameino_tpu_torch.models.cogvideox_dit import cogvideox_rope
+    g = torch.Generator("cuda").manual_seed(21)
+    cfg = pipe.dit_cfg
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+    t = torch.full((2,), 900.0, device="cuda")
+    if family == "wan":
+        mask = torch.ones(2, S, device="cuda")
+        mask[:, :S // 14] = 0                       # the condition frame
+        return (randn(2, cfg.in_channels, 14, 30, 52), t, mask,
+                randn(2, L_TEXT, cfg.text_dim))
+    return (randn(2, 14, cfg.in_channels, 60, 92),
+            randn(2, COG_L_TEXT, cfg.text_embed_dim), t,
+            cogvideox_rope(cfg, 13, 60, 92, duplicate_first_frame_for_id=True,
+                           device="cuda"))
+
+
+def _time_forward(family, dit, inputs, warm, iters):
+    """CUDA-event ms of one DiT forward (Wan with its text K/V hoisted, as
+    the pipeline runs it) and its output."""
+    import torch
+    if family == "wan":
+        x, t, mask, ctx = inputs
+        kv = dit.precompute_text_kv(ctx)
+
+        def run():
+            return dit(x, t, timestep_mask=mask, text_kv=kv)
+    else:
+        def run():
+            return dit(*inputs)
+    for _ in range(warm):
+        out = run()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        out = run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, out
+
+
+def _module_bytes(m):
+    import itertools
+    return sum(t.numel() * t.element_size()
+               for t in itertools.chain(m.parameters(), m.buffers()))
+
+
+# per family: (int8 per-step launches, per-request launches, the bf16
+# requests served again in int8, warm-up and timed DiT forwards)
+SERVE_INT8 = {"wan": (PER_STEP_INT8, PER_REQUEST_INT8, ("a", "b"), 1, 3),
+              "cogvideox": (PER_STEP_COG_INT8, None, ("d",), 1, 1)}
+
+
+def serve_int8(family, pipe, port, requests):
+    """Time one full-depth CFG DiT forward in bf16, quantize the serving
+    pipeline's DiT to int8 in place, time the same forward in int8 and
+    hold it to INT8_REL_L2 of the bf16 output, then serve requests again
+    with exact launch counts."""
+    import torch
+    from frameino_tpu_torch.models import quant
+    from frameino_tpu_torch.ops import attention as A
+    per_step, per_request, tags, warm, iters = SERVE_INT8[family]
+    dit = pipe.dit
+    inputs = _dit_inputs(family, pipe)
+    torch.cuda.reset_peak_memory_stats()
+    bf16_ms, want = _time_forward(family, dit, inputs, warm, iters)
+    bf16_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    before = _module_bytes(dit)
+    alloc_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    quant.quantize_dit_int8(dit)
+    torch.cuda.synchronize()
+    quantize_s = time.time() - t0
+    quantize_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    after = _module_bytes(dit)
+    alloc_after = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    int8_ms, got = _time_forward(family, dit, inputs, warm, iters)
+    int8_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(bool(torch.isfinite(got).all()), f"{family} int8 DiT: non-finite "
+                                           f"output")
+    rel = ((got - want).norm() / want.norm()).item()
+    del inputs, got, want
+    row = dict(bf16_forward_ms=bf16_ms, int8_forward_ms=int8_ms,
+               rel_l2=rel, rel_l2_limit=INT8_REL_L2,
+               dit_bytes_bf16=before, dit_bytes_int8=after,
+               allocated_gib_before=alloc_before / 2 ** 30,
+               allocated_gib_after=alloc_after / 2 ** 30,
+               quantize_s=quantize_s, quantize_peak_gib=quantize_peak,
+               bf16_forward_peak_gib=bf16_peak,
+               int8_forward_peak_gib=int8_peak)
+    print(f"{family} int8 DiT: CFG forward {int8_ms:.1f} ms vs bf16 "
+          f"{bf16_ms:.1f} ms, relative L2 {rel:.4e} (limit {INT8_REL_L2}); "
+          f"DiT {before / 2 ** 30:.3f} -> {after / 2 ** 30:.3f} GiB, "
+          f"quantized in {quantize_s:.2f} s (peak {quantize_peak:.2f} GiB); "
+          f"forward peak bf16 {bf16_peak:.2f}, int8 {int8_peak:.2f} GiB")
+    check(rel <= INT8_REL_L2, f"{family} int8 DiT: relative L2 {rel:.4e} "
+                              f"from bf16 over {INT8_REL_L2}")
+    A.reset_launch_counts()
+    rows = serve_requests(port, [r for r in requests if r[0] in tags],
+                          per_step, per_request)
+    totals = A.launch_counts()
+    check(totals[K7] > 0, f"K7 was not launched on the {family} int8 path")
+    return dict(row, requests=rows, launches=totals)
+
+
 def phase_serve(family):
     import numpy as np
     import torch
@@ -735,6 +1029,7 @@ def phase_serve(family):
         A.reset_launch_counts()
         rows = serve_requests(port, requests, per_step)
         totals = A.launch_counts()
+        int8 = serve_int8(family, pipe, port, requests)
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -749,13 +1044,19 @@ def phase_serve(family):
     del pipe, server, httpd
     gc.collect()
     torch.cuda.empty_cache()
-    return rows, totals
+    return rows, totals, int8
 
 
-def _load(cls, cfg, sd, device, dtype=None):
-    import torch
+def _load(cls, cfg, sd, device, dtype=None, int8=False):
+    """A model of ``cls`` with the state dict ``sd`` on ``device``, its
+    float tensors cast to ``dtype``; ``int8``: quantized first, so that it
+    takes an int8 state dict (int8 codes stay int8)."""
+    from frameino_tpu_torch.models import quant
     m = cls(cfg, device="meta", dtype=dtype)
+    if int8:
+        quant.quantize_dit_int8(m)
     m.load_state_dict({k: v.to(device, dtype or v.dtype)
+                       if v.is_floating_point() else v.to(device)
                        for k, v in sd.items()}, assign=True)
     return m.eval()
 
@@ -793,13 +1094,17 @@ def _hold_against_cpu(label, fp32, cpu16, card, args):
     return err_card
 
 
-def phase_reference():
+def phase_reference(quantize=None):
     """A small Wan pipeline (head_dim 128, so the kernels run) in bf16 on
     the card, held against the same weights in fp32 on the CPU's plain
-    path."""
+    path. ``quantize="int8"``: the CPU's bf16 pipeline quantizes its DiT,
+    and the fp32 and card DiTs load those int8 weights; the card must
+    launch K7 on every dense input (8 a block and step, 2 a block for the
+    hoisted text K/V)."""
     import numpy as np
     import torch
     from frameino_tpu_torch.models import wan_dit, wan_vae
+    from frameino_tpu_torch.ops import attention as A
     from frameino_tpu_torch.pipelines.wan_i2v import WanImageToVideoPipeline
     from frameino_tpu_torch.serve import smoke_configs
     _, vae_cfg = smoke_configs()
@@ -810,12 +1115,14 @@ def phase_reference():
     gen = torch.Generator().manual_seed(5)
     dit16 = wan_dit.init_wan_dit(dit_cfg, gen, dtype=torch.bfloat16)
     vae = wan_vae.init_wan_vae(vae_cfg, gen)
+    cpu16 = WanImageToVideoPipeline(dit16, vae, quantize=quantize)
     sd16 = dit16.state_dict()
+    int8 = quantize == "int8"
     fp32 = WanImageToVideoPipeline(
-        _load(wan_dit.WanDiT, dit_cfg, sd16, "cpu", torch.float32), vae)
-    cpu16 = WanImageToVideoPipeline(dit16, vae)
+        _load(wan_dit.WanDiT, dit_cfg, sd16, "cpu", torch.float32, int8),
+        vae)
     card = WanImageToVideoPipeline(
-        _load(wan_dit.WanDiT, dit_cfg, sd16, "cuda"),
+        _load(wan_dit.WanDiT, dit_cfg, sd16, "cuda", int8=int8),
         _load(wan_vae.WanVAE, vae_cfg, vae.state_dict(), "cuda"))
     arr = _randn_args(np.random.RandomState(0))
     Hs, Ws, Fs = 32, 48, 9
@@ -826,7 +1133,14 @@ def phase_reference():
                 latents=arr(1, 4, 5, Hs // 2, Ws // 2, tanh=False),
                 height=Hs, width=Ws, num_frames=Fs, num_inference_steps=3,
                 guidance_scale=5.0, output_type="latent")
-    return _hold_against_cpu("reference", fp32, cpu16, card, args)
+    label = "reference" + (" int8" if int8 else "")
+    A.reset_launch_counts()
+    err = _hold_against_cpu(label, fp32, cpu16, card, args)
+    k7 = A.launch_counts()[K7]
+    want = (8 * 3 + 2) * 2 if int8 else 0
+    check(k7 == want, f"{label}: {k7} K7 launches, expected {want} (3 steps "
+                      f"and the text K/V of 2 blocks)")
+    return err
 
 
 def phase_reference_cog():
@@ -1222,10 +1536,13 @@ def main():
     name, _ = phase_device()
     phase_build()
     kernel_results = phase_kernels()
-    rows, totals = phase_serve("wan")
+    kernel_results.update(phase_kernels_k7())
+    dense_int8 = phase_dense_int8()
+    rows, totals, int8_wan = phase_serve("wan")
     ref_err = phase_reference()
+    ref_err_int8 = phase_reference("int8")
     kernel_results.update(phase_kernels_cog())
-    rows_cog, totals_cog = phase_serve("cogvideox")
+    rows_cog, totals_cog, int8_cog = phase_serve("cogvideox")
     ref_err_cog = phase_reference_cog()
     k6_results, k6_shapes = phase_kernels_train()
     kernel_results.update(k6_results)
@@ -1235,10 +1552,13 @@ def main():
     train_ref = phase_train_reference()
 
     # each kernel's launches on its path (K1 twice: Wan at head_dim 128,
-    # CogVideoX at 64; K6 over the 3 full-depth train steps)
+    # CogVideoX at 64; K6 over the 3 full-depth train steps; K7 over the
+    # int8 requests of both families)
     steps = train["steps"]
     launches = dict(totals, qk_ln_rope=totals_cog["qk_ln_rope"],
                     flash_fwd_static_d64=totals_cog["flash_fwd_static"],
+                    dyn_quant=int8_wan["launches"][K7]
+                    + int8_cog["launches"][K7],
                     **{k: sum(r["launches"][k] for r in steps)
                        for k in NO_TRAIN})
     summary = {"kernels": [
@@ -1247,7 +1567,9 @@ def main():
              **kernel_results[k])
         for k in KERNELS],
         "requests": rows + rows_cog, "reference_rel_l2": ref_err,
-        "reference_cog_rel_l2": ref_err_cog, "k6_shapes": k6_shapes,
+        "reference_int8_rel_l2": ref_err_int8,
+        "reference_cog_rel_l2": ref_err_cog, "dense_int8": dense_int8,
+        "int8_wan": int8_wan, "int8_cog": int8_cog, "k6_shapes": k6_shapes,
         "train_entry": entry, "train": train, "train_reference": train_ref,
         "seconds": time.time() - t_start}
     out_dir = os.path.join(REPO, "build")

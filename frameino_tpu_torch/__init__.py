@@ -6,15 +6,19 @@ The first slice is Wan2.2-TI2V-5B FrameINO serving: the HTTP server
 (``pipelines/wan_i2v.py``), the Wan2.2 VAE (``models/wan_vae.py``), the
 FlowMatch-Euler scheduler and the 5B DiT (``models/wan_dit.py``). Its three
 attention kernels are written by hand for sm_90a (``ops/attention.py``,
-``csrc/flash_fwd.cu``, ``ops/qk_norm_rope_triton.py``).
+``csrc/flash_fwd.cu``, ``ops/qk_norm_rope_triton.py``). Later slices add
+CogVideoX-5B-I2V serving, Wan2.2 training and int8 w8a8 DiT serving
+(``models/quant.py``, K7 in ``csrc/dyn_quant.cu``).
 
 Module paths mirror ``frameino_tpu``; this package never imports jax.
 
 Layout:
     core/        shape buckets
-    ops/         norms, dense, embeddings, rope, conv, attention kernels
+    ops/         norms, dense and int8 dense, embeddings, rope, conv,
+                 attention kernels, the int8 row quantizer, the CUDA build
     csrc/        CUDA C++ sources, built into build/ at first use
-    models/      wan_dit, wan_vae, weights (bridge from the JAX trees)
+    models/      wan_dit, wan_vae, weights (bridge from the JAX trees),
+                 quant (int8 DiT layers)
     schedulers/  flow_match_euler
     pipelines/   wan_i2v
     app/         HTTP server

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from frameino_tpu_torch.models.quant import linear as _lin
 from frameino_tpu_torch.ops import attention as attn_ops
 from frameino_tpu_torch.ops.embeddings import (cogvideox_3d_sincos_pos_embed,
                                                sinusoidal_timestep_embedding,
@@ -219,10 +220,6 @@ class _FeedForward(nn.Module):
         super().__init__()
         self.net = nn.ModuleList([_GeluProj(d, 4 * d, **kw), nn.Dropout(0.0),
                                   nn.Linear(4 * d, d, **kw)])
-
-
-def _lin(x, layer, out_dtype=None):
-    return dense(x, layer.weight, layer.bias, out_dtype=out_dtype)
 
 
 def _split_heads(x, num_heads):

@@ -33,6 +33,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from frameino_tpu_torch.models.quant import linear as _lin
 from frameino_tpu_torch.ops import attention as attn_ops
 from frameino_tpu_torch.ops.embeddings import (pixart_text_projection,
                                                sinusoidal_timestep_embedding,
@@ -130,10 +131,6 @@ def _split_heads(x, num_heads):
 def _merge_heads(x):
     B, H, S, Dh = x.shape
     return x.permute(0, 2, 1, 3).reshape(B, S, H * Dh)
-
-
-def _lin(x, layer, out_dtype=None):
-    return dense(x, layer.weight, layer.bias, out_dtype=out_dtype)
 
 
 class WanBlock(nn.Module):

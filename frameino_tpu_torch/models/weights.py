@@ -3,7 +3,10 @@ state dicts, under diffusers names (counterpart of
 ``frameino_tpu/models/weights.py``, which maps diffusers checkpoints into
 the JAX trees).
 
-- JAX dense kernels [in, out] -> torch Linear weights [out, in];
+- JAX dense kernels [in, out] -> torch Linear weights [out, in]; the int8
+  ``{kernel_q, scale}`` of ``frameino_tpu.models.quant.quantize_dit_int8``
+  -> a ``QuantLinear``'s ``weight_q`` [out, in] and ``scale`` [out]
+  (load them into a DiT on which ``models/quant.quantize_dit_int8`` ran);
 - the DiTs' scanned ``blocks`` axis is unstacked into ``blocks.{i}``
   (Wan) or ``transformer_blocks.{i}`` (CogVideoX);
 - the patch embeddings' dense rows -> Conv3d weight [D, C, pt, ph, pw]
@@ -35,14 +38,21 @@ def _t(a) -> torch.Tensor:
 
 
 def _put_lin(sd: StateDict, name: str, p: Dict[str, Any]):
-    sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).T)
+    if "kernel_q" in p:
+        # int8 dense of ``quantize_dit_int8``: kernel_q [in, out], scale
+        # [out] -> a QuantLinear's weight_q [out, in] and scale
+        sd[f"{name}.weight_q"] = _t(np.asarray(p["kernel_q"]).T)
+        sd[f"{name}.scale"] = _t(p["scale"])
+    else:
+        sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).T)
     if "bias" in p:
         sd[f"{name}.bias"] = _t(p["bias"])
 
 
 def wan_dit_from_jax(params_np: Dict[str, Any],
                      cfg: WanDiTConfig) -> StateDict:
-    """JAX ``init_wan_dit``-layout tree -> ``WanDiT`` state dict."""
+    """JAX ``init_wan_dit``-layout tree, float or int8-quantized ->
+    ``WanDiT`` state dict."""
     d = cfg.inner_dim
     sd: StateDict = {}
     pe = params_np["patch_embedding"]
@@ -201,8 +211,9 @@ def _put_norm(sd: StateDict, name: str, p):
 
 def cogvideox_dit_from_jax(params_np: Dict[str, Any],
                            cfg: CogVideoXConfig) -> StateDict:
-    """JAX ``init_cogvideox_dit``-layout tree -> ``CogVideoXDiT`` state
-    dict (the names of ``weights.cogvideox_dit_to_state_dict``)."""
+    """JAX ``init_cogvideox_dit``-layout tree, float or int8-quantized ->
+    ``CogVideoXDiT`` state dict (the names of
+    ``weights.cogvideox_dit_to_state_dict``)."""
     d, p = cfg.inner_dim, cfg.patch_size
     sd: StateDict = {}
     pe = params_np["patch_embed"]

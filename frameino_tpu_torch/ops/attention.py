@@ -32,24 +32,18 @@ raw q/k are [B, S, H*D].
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
+from frameino_tpu_torch.ops import dyn_quant
+from frameino_tpu_torch.ops.cuda_build import (  # noqa: F401 (re-exported)
+    BUILD_DIR, BUILD_LOG, build_cuda_libs, check_cuda_bf16 as _check_cuda_bf16,
+    lib as _lib)
+
 LOG2E = 1.4426950408889634
 _EXP_FLOOR = -120.0
-
-_REPO_ROOT = Path(__file__).resolve().parents[2]
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = _REPO_ROOT / "build"
 
 
 def _default_scale(head_dim: int) -> float:
@@ -74,99 +68,8 @@ def attention_ref(q, k, v, scale: Optional[float] = None):
 
 
 # ---------------------------------------------------------------------------
-# Building the CUDA sources (csrc/*.cu) with nvcc into build/
+# K1 / K3: CUDA flash forward (csrc/flash_fwd.cu; built by ops/cuda_build.py)
 # ---------------------------------------------------------------------------
-
-# source -> {C function: argtypes}; every function returns a CUDA error code
-_VP, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_CUDA_SOURCES = {
-    "flash_fwd": {"flash_fwd_bf16": [_VP] * 5 + [_INT] * 5 + [_F32, _VP]},
-    "flash_attn_train": {
-        "attn_train_fwd_bf16": [_VP] * 5 + [_INT] * 4 + [_F32, _VP],
-        "attn_train_bwd_bf16": [_VP] * 10 + [_INT] * 4 + [_F32, _VP]},
-}
-
-_lib_lock = threading.Lock()
-_libs: dict = {}
-BUILD_LOG: dict = {}      # source -> nvcc's output (registers, spills)
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-
-
-def _so_path(name: str) -> Path:
-    digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes()
-                            ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
-
-
-def build_cuda_libs(names=None) -> dict:
-    """Compile the CUDA sources for sm_90a into ``build/`` (once per source
-    content; one nvcc per source, all started together) and load them with
-    ctypes. Returns {source: CDLL}."""
-    names = list(_CUDA_SOURCES) if names is None else list(names)
-    with _lib_lock:
-        todo = [n for n in names if n not in _libs]
-        procs = {}
-        for n in todo:
-            so = _so_path(n)
-            if so.exists():
-                continue
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-Xptxas=-v", "-shared",
-                   "-Xcompiler", "-fPIC", "-o", str(tmp),
-                   str(_CSRC / f"{n}.cu")]
-            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                         stderr=subprocess.STDOUT,
-                                         text=True), tmp, so)
-        failed = []
-        for n, (proc, tmp, so) in procs.items():
-            BUILD_LOG[n] = proc.communicate()[0]
-            if proc.returncode != 0:
-                failed.append(f"nvcc {n}.cu failed ({proc.returncode}):\n"
-                              f"{BUILD_LOG[n]}")
-            else:
-                os.replace(tmp, so)
-        if failed:
-            raise RuntimeError("\n".join(failed))
-        for n in todo:
-            lib = ctypes.CDLL(str(_so_path(n)))
-            for fn_name, argtypes in _CUDA_SOURCES[n].items():
-                fn = getattr(lib, fn_name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _libs[n] = lib
-        return {n: _libs[n] for n in names}
-
-
-def _lib(name: str):
-    lib = _libs.get(name)
-    return lib if lib is not None else build_cuda_libs([name])[name]
-
-
-# ---------------------------------------------------------------------------
-# K1 / K3: CUDA flash forward (csrc/flash_fwd.cu)
-# ---------------------------------------------------------------------------
-
-def _check_cuda_bf16(name: str, *tensors):
-    for t in tensors:
-        if not t.is_cuda:
-            raise ValueError(f"{name}: mixed devices ({t.device})")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: the CUDA kernel takes bfloat16, got "
-                            f"{t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: tensor must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: tensor must be 16-byte aligned")
-
 
 def _launch_flash(q, k, v, bound, q_scale: float):
     """q [BH, Sq, D], k/v [BH, Skv, D] bf16 CUDA; bound: 1-element fp32
@@ -582,8 +485,11 @@ def fused_ln_qk_flash_attention(q_raw, k_raw, v, w_q, b_q, w_k, b_k, cos,
     return out.reshape(B, H, S, D)
 
 
+# the launch counts of every kernel of the port, K7 (the int8 path's
+# row quantizer, ops/dyn_quant.py) among them
 _COUNTED = (flash_fwd_static, qk_norm_rope, flash_fwd, qk_ln_rope,
-            flash_attn_train_fwd, flash_attn_train_bwd)
+            flash_attn_train_fwd, flash_attn_train_bwd,
+            dyn_quant.dynamic_quantize_rows)
 
 
 def reset_launch_counts():

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from frameino_tpu_torch.models import cogvideox_vae_streaming as VS
+from frameino_tpu_torch.models import quant
 from frameino_tpu_torch.models.cogvideox_dit import (CogVideoXDiT,
                                                      cogvideox_rope)
 from frameino_tpu_torch.models.cogvideox_vae import CogVideoXVAE
@@ -140,12 +141,18 @@ class CogVideoXImageToVideoPipeline:
     ``pipeline_cogvideox_i2v_motion_FrameINO.py:604-959``).
 
     The DiT runs in its weights' dtype and the VAE in its own; inputs are
-    moved to the DiT's device.
+    moved to the DiT's device. ``quantize="int8"`` swaps the DiT's block
+    matmuls for int8 w8a8 layers, in place
+    (``models/quant.quantize_dit_int8``).
     """
 
     def __init__(self, dit: CogVideoXDiT, vae: CogVideoXVAE,
                  pipe_cfg: CogPipelineConfig = CogPipelineConfig(),
-                 text_encoder_fn=None):
+                 text_encoder_fn=None, quantize: Optional[str] = None):
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unsupported quantize={quantize!r}")
+        if quantize == "int8":
+            quant.quantize_dit_int8(dit)
         self.dit = dit
         self.vae = vae
         self.pipe_cfg = pipe_cfg

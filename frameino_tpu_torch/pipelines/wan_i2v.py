@@ -21,7 +21,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from frameino_tpu_torch.models import wan_vae
+from frameino_tpu_torch.models import quant, wan_vae
 from frameino_tpu_torch.models.wan_dit import WanDiT
 from frameino_tpu_torch.schedulers.flow_match_euler import (
     FlowMatchEulerConfig, euler_step, inference_sigmas)
@@ -200,12 +200,24 @@ class WanImageToVideoPipeline:
     ``pipeline_wan_i2v_motion_FrameINO.py:581-936``).
 
     The DiT runs in its weights' dtype and the VAE in fp32; inputs are
-    moved to the DiT's device.
+    moved to the DiT's device. ``quantize="int8"`` swaps the block matmuls
+    of ``dit`` and ``dit_2`` for int8 w8a8 layers, in place
+    (``models/quant.quantize_dit_int8``); ``quantize_vae`` (the int8 VAE)
+    is not ported and raises.
     """
 
     def __init__(self, dit: WanDiT, vae: wan_vae.WanVAE,
                  pipe_cfg: WanPipelineConfig = WanPipelineConfig(),
-                 text_encoder_fn=None, dit_2: Optional[WanDiT] = None):
+                 text_encoder_fn=None, dit_2: Optional[WanDiT] = None,
+                 quantize: Optional[str] = None, quantize_vae: bool = False):
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unsupported quantize={quantize!r}")
+        if quantize_vae:
+            quant.quantize_wan_vae_int8(vae)          # raises: not ported
+        if quantize == "int8":
+            quant.quantize_dit_int8(dit)
+            if dit_2 is not None and dit_2 is not dit:
+                quant.quantize_dit_int8(dit_2)
         self.dit = dit
         self.dit_2 = dit_2
         self.vae = vae

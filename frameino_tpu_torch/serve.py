@@ -5,10 +5,12 @@
     python -m frameino_tpu_torch.serve --random_init          # 5B, CUDA
     python -m frameino_tpu_torch.serve --family cogvideox --smoke
     python -m frameino_tpu_torch.serve --family cogvideox --random_init
+    python -m frameino_tpu_torch.serve --random_init --quantize int8
 
 ``--random_init`` serves the family's 5B FrameINO model at full width with
 weights drawn from seed 0: Wan2.2-TI2V-5B-motion (bf16 DiT, fp32 VAE) or
-CogVideoX-5B-I2V-FrameINO (bf16 DiT, bf16 VAE). Outputs are noise, for
+CogVideoX-5B-I2V-FrameINO (bf16 DiT, bf16 VAE). ``--quantize int8`` serves
+the DiT's block matmuls as int8 w8a8 (either family). Outputs are noise, for
 latency and memory measurement of the real serving path. Requests carry
 ``prompt_embeds_b64`` (the UMT5 and T5 encoders are not ported yet):
 [512, 4096] for Wan, [226, 4096] for CogVideoX.
@@ -23,9 +25,6 @@ import torch
 NOT_PORTED = {
     "text_encoder": "--text_encoder: the UMT5 text encoder is ROADMAP.md "
                     "queue 1, item 1; send prompt_embeds_b64 instead",
-    "quantize": "--quantize: int8 serving is ROADMAP.md queue 1, item 3",
-    "cogvideox_int8": "--quantize int8 --family cogvideox: int8 CogVideoX "
-                      "is ROADMAP.md queue 1, item 5 (after item 3)",
     "checkpoint": "loading released checkpoints is ROADMAP.md queue 1, "
                   "item 7; use --smoke or --random_init",
 }
@@ -79,13 +78,9 @@ def configure_cuda_numerics():
 def build_pipeline(*, smoke: bool, random_init: bool, family: str = "wan",
                    text_encoder=None, quantize=None):
     """The port's FrameINO pipeline of ``family`` with random weights from
-    seed 0."""
+    seed 0, its DiT quantized when ``quantize="int8"``."""
     if text_encoder:
         raise NotImplementedError(NOT_PORTED["text_encoder"])
-    if quantize:
-        raise NotImplementedError(NOT_PORTED["cogvideox_int8"
-                                             if family == "cogvideox"
-                                             else "quantize"])
     if family not in ("wan", "cogvideox"):
         raise ValueError(f"family must be 'wan' or 'cogvideox', got "
                          f"{family!r}")
@@ -114,7 +109,8 @@ def build_pipeline(*, smoke: bool, random_init: bool, family: str = "wan",
         # the VAE in the DiT's dtype, as the JAX server keeps it for this
         # family (bf16 at full width)
         vae = cogvideox_vae.init_cogvideox_vae(vae_cfg, gen, dtype=dit_dtype)
-        return CogVideoXImageToVideoPipeline(dit, vae, CogPipelineConfig())
+        return CogVideoXImageToVideoPipeline(dit, vae, CogPipelineConfig(),
+                                             quantize=quantize)
     from frameino_tpu_torch.models import wan_dit, wan_vae
     from frameino_tpu_torch.pipelines.wan_i2v import (WanImageToVideoPipeline,
                                                       WanPipelineConfig)
@@ -125,7 +121,8 @@ def build_pipeline(*, smoke: bool, random_init: bool, family: str = "wan",
         vae_cfg = wan_vae.WAN22_VAE_CONFIG
     dit = wan_dit.init_wan_dit(dit_cfg, gen, dtype=dit_dtype)
     vae = wan_vae.init_wan_vae(vae_cfg, gen)
-    return WanImageToVideoPipeline(dit, vae, WanPipelineConfig())
+    return WanImageToVideoPipeline(dit, vae, WanPipelineConfig(),
+                                   quantize=quantize)
 
 
 def main(argv=None):

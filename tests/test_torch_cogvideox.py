@@ -598,6 +598,9 @@ def test_serve_builds_the_cogvideox_smoke_pipeline():
     assert pipe.device.type == "cpu"
     a = serve.parse_args(["--family", "cogvideox", "--smoke"])
     assert a.family == "cogvideox" and a.smoke
-    with pytest.raises(NotImplementedError, match="item 5"):
-        serve.build_pipeline(smoke=True, random_init=False,
+    # int8 CogVideoX is served now: the same tiny pipeline, quantized
+    q = serve.build_pipeline(smoke=True, random_init=False,
                              family="cogvideox", quantize="int8")
+    assert isinstance(q, tpipe.CogVideoXImageToVideoPipeline)
+    assert q.dit_cfg == tdit.tiny_config() and q.device.type == "cpu"
+    assert any(type(m).__name__ == "QuantLinear" for m in q.dit.modules())

@@ -8,8 +8,11 @@ import pytest
 import torch
 
 from frameino_tpu_torch.models import cogvideox_dit as cdit
+from frameino_tpu_torch.models import quant
 from frameino_tpu_torch.models import wan_dit as tdit
 from frameino_tpu_torch.ops import attention as A
+from frameino_tpu_torch.ops import dyn_quant
+from frameino_tpu_torch.ops.linear import dense_int8
 from frameino_tpu_torch.ops.rope import cogvideox_rope_table
 
 pytestmark = pytest.mark.cuda
@@ -111,7 +114,8 @@ def test_dit_on_cuda_runs_the_kernels(dev):
     ref = cpu(x, t, ctx, timestep_mask=mask)
     assert counts == {"flash_fwd_static": 2, "qk_norm_rope": 4,
                       "flash_fwd": 2, "qk_ln_rope": 0,
-                      "flash_attn_train_fwd": 0, "flash_attn_train_bwd": 0}
+                      "flash_attn_train_fwd": 0, "flash_attn_train_bwd": 0,
+                      "dynamic_quantize_rows": 0}
     assert torch.isfinite(got).all()
     # both bf16 through 2 blocks; the kernels round p to bf16 at another
     # shift than the plain softmax: 5e-2
@@ -192,7 +196,8 @@ def test_cogvideox_dit_on_cuda_runs_the_kernels(dev):
     ref = cpu(x, ctx, t, rope)
     assert counts == {"flash_fwd_static": 2, "qk_norm_rope": 0,
                       "flash_fwd": 0, "qk_ln_rope": 4,
-                      "flash_attn_train_fwd": 0, "flash_attn_train_bwd": 0}
+                      "flash_attn_train_fwd": 0, "flash_attn_train_bwd": 0,
+                      "dynamic_quantize_rows": 0}
     assert torch.isfinite(got).all()
     # both bf16 through 2 blocks; the kernels round p to bf16 at another
     # shift than the plain softmax: 5e-2
@@ -280,7 +285,7 @@ def test_differentiable_dit_on_cuda_runs_k6(dev, remat):
     assert counts == {"flash_fwd_static": 0, "qk_norm_rope": 0,
                       "flash_fwd": 0, "qk_ln_rope": 0,
                       "flash_attn_train_fwd": 8 if remat else 4,
-                      "flash_attn_train_bwd": 4}
+                      "flash_attn_train_bwd": 4, "dynamic_quantize_rows": 0}
     ref_loss, ref_grads = loss_and_grads(cpu, "cpu")
     # both bf16; the kernels round P and dS to bf16 where the plain path
     # keeps fp32: 2e-2 on the loss, 5e-2 relative L2 over all gradients
@@ -290,3 +295,106 @@ def test_differentiable_dit_on_cuda_runs_k6(dev, remat):
     den = sum(float(r.float().norm() ** 2) for r in ref_grads)
     assert all(torch.isfinite(g).all() for g in grads)
     assert (num / den) ** 0.5 <= 5e-2
+
+
+# ---------------------------------------------------------------------------
+# K7 and the int8 dense
+# ---------------------------------------------------------------------------
+
+def _halfway_and_zero_rows(d, dev):
+    """Row 0 has scale exactly 1.0 (127 * fp32(1/127) rounds to 1), so
+    its halves must round to even; row 1 is zeros (scale 1e-12)."""
+    row = torch.tensor([127, 2.5, 3.5, -2.5, -0.5, 0.5, 126.5, -126.5, 1.5,
+                        -1.5, 64.5, -64.5]).repeat(d // 12 + 1)[:d]
+    return torch.stack([row, torch.zeros(d)]).to(dev, torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", [(17, 200), (5, 13), (2, 150, 3072),
+                                   (40, 14336), "halfway+zero"])
+def test_dyn_quant_kernel_is_bit_equal_to_plain(dev, shape):
+    """K7 against its plain version: every code and scale bit-equal, at a
+    ragged width (200), a width off the 16-byte vectors (13: the scalar
+    loops), the path's widths, and the half-way and zero rows."""
+    if shape == "halfway+zero":
+        x = _halfway_and_zero_rows(256, dev)
+    else:
+        g = torch.Generator(dev).manual_seed(4)
+        x = (torch.randn(shape, device=dev, generator=g)
+             * torch.randn(*shape[:-1], 1, device=dev, generator=g).exp()
+             ).to(torch.bfloat16)
+    before = A.launch_counts()["dynamic_quantize_rows"]
+    q, s = dyn_quant.dynamic_quantize_rows(x)
+    torch.cuda.synchronize()
+    assert A.launch_counts()["dynamic_quantize_rows"] == before + 1
+    rq, rs = dyn_quant.dynamic_quantize_rows_ref(x)
+    assert q.dtype == torch.int8 and s.shape == (*x.shape[:-1], 1)
+    assert torch.equal(q, rq) and torch.equal(s, rs)
+    if shape == "halfway+zero":
+        assert q[0, :12].tolist() == [127, 2, 4, -2, 0, 0, 126, -126, 2, -2,
+                                      64, -64]
+        assert s[0].item() == 1.0 and not q[1].any()
+
+
+@pytest.mark.parametrize("rows,n_in,n_out", [(120, 256, 128), (5, 64, 40)])
+def test_dense_int8_on_cuda_matches_cpu(dev, rows, n_in, n_out):
+    """The card's dense_int8 (K7, torch._int_mm, the epilogue) against the
+    CPU's plain one on the same bf16 x and int8 weights: the integer
+    product is exact and the epilogue the same IEEE operations, so within
+    one bf16 ulp (equal expected). 5 rows take the padded _int_mm."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(rows, n_in, generator=g).to(torch.bfloat16)
+    wq, scale = quant.quantize_weight(0.05 * torch.randn(n_out, n_in,
+                                                         generator=g))
+    bias = torch.randn(n_out, generator=g)
+    ref = dense_int8(x, wq, scale, bias).float()
+    got = dense_int8(x.to(dev), wq.to(dev), scale.to(dev),
+                     bias.to(dev)).float().cpu()
+    assert torch.all((got - ref).abs()
+                     <= torch.maximum(_bf16_ulp(got), _bf16_ulp(ref)))
+
+
+def test_int8_wrappers_reject_what_the_kernel_does_not_take(dev):
+    x = torch.randn(32, 64, device=dev)
+    with pytest.raises(TypeError):
+        dyn_quant.dynamic_quantize_rows(x)                    # fp32
+    xb = x.to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        dyn_quant.dynamic_quantize_rows(xb.t())               # not contiguous
+    wq, scale = quant.quantize_weight(torch.randn(16, 64))
+    with pytest.raises(ValueError):
+        dense_int8(xb, wq, scale)                             # CPU weights
+    wq9, scale9 = quant.quantize_weight(torch.randn(9, 64, device=dev))
+    with pytest.raises(ValueError):
+        dense_int8(xb, wq9, scale9)                           # out 9
+
+
+def test_int8_dit_on_cuda_runs_k7(dev):
+    """A 2-block DiT at head_dim 128 quantized to int8: the CUDA forward
+    quantizes the input of every int8 dense through K7 (10 a block, the
+    text K/V projected in the forward) besides K1-K3, and agrees with the
+    CPU plain path on the same int8 weights."""
+    cfg = tdit.tiny_config(num_attention_heads=2, attention_head_dim=128,
+                           ffn_dim=256, in_channels=8, out_channels=4)
+    cpu = quant.quantize_dit_int8(tdit.init_wan_dit(
+        cfg, torch.Generator().manual_seed(0), dtype=torch.bfloat16))
+    gpu = quant.quantize_dit_int8(tdit.WanDiT(cfg, device="meta",
+                                              dtype=torch.bfloat16))
+    gpu.load_state_dict({k: v.to(dev) for k, v in cpu.state_dict().items()},
+                        assign=True)
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(2, 8, 3, 8, 10).astype(np.float32))
+    t = torch.tensor([900.0, 900.0])
+    ctx = torch.from_numpy(rs.randn(2, 7, 16).astype(np.float32))
+    A.reset_launch_counts()
+    got = gpu(x.to(dev), t.to(dev), ctx.to(dev)).cpu()
+    counts = A.launch_counts()
+    ref = cpu(x, t, ctx)
+    assert counts == {"flash_fwd_static": 2, "qk_norm_rope": 4,
+                      "flash_fwd": 2, "qk_ln_rope": 0,
+                      "flash_attn_train_fwd": 0, "flash_attn_train_bwd": 0,
+                      "dynamic_quantize_rows": 20}
+    assert torch.isfinite(got).all()
+    # both bf16 through 2 blocks (5e-2 as the float test); a code that
+    # flips where the kernels' bf16 activations differ moves one element
+    # of a dense's input by one step of its row's scale
+    torch.testing.assert_close(got, ref, atol=5e-2, rtol=5e-2)

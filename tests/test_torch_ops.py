@@ -341,8 +341,10 @@ def test_kernel_wrappers_count_no_launch_on_cpu():
                      torch.ones(8, 32), torch.zeros(8, 32), 2, 1e-6)
     qg = torch.randn(1, 2, 8, 64, requires_grad=True)
     tattn.flash_attention_train(qg, qg, qg).sum().backward()
+    tattn.dyn_quant.dynamic_quantize_rows(q)
     assert tattn.launch_counts() == {"flash_fwd_static": 0,
                                      "qk_norm_rope": 0, "flash_fwd": 0,
                                      "qk_ln_rope": 0,
                                      "flash_attn_train_fwd": 0,
-                                     "flash_attn_train_bwd": 0}
+                                     "flash_attn_train_bwd": 0,
+                                     "dynamic_quantize_rows": 0}

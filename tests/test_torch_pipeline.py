@@ -4,6 +4,7 @@ entry point, and the port's independence from jax.
 """
 
 import base64
+import copy
 import io
 import json
 import os
@@ -13,19 +14,27 @@ import textwrap
 import urllib.error
 import urllib.request
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from frameino_tpu.models import cogvideox_dit as jcdit
+from frameino_tpu.models import cogvideox_vae as jcvae
 from frameino_tpu.models import wan_dit as jdit
 from frameino_tpu.models import wan_vae as jvae
 from frameino_tpu.models import weights as jweights
+from frameino_tpu.pipelines import cogvideox_i2v as jcpipe
 from frameino_tpu.pipelines import wan_i2v as jpipe
 from frameino_tpu_torch import serve
 from frameino_tpu_torch.app.server import PipelineServer
+from frameino_tpu_torch.models import cogvideox_dit as tcdit
+from frameino_tpu_torch.models import cogvideox_vae as tcvae
 from frameino_tpu_torch.models import wan_dit as tdit
 from frameino_tpu_torch.models import wan_vae as tvae
+from frameino_tpu_torch.models.quant import QuantLinear
+from frameino_tpu_torch.pipelines import cogvideox_i2v as tcpipe
 from frameino_tpu_torch.pipelines import wan_i2v as tpipe
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -126,6 +135,85 @@ def test_cfg_modes_and_expert_split_agree(pipes):
     torch.testing.assert_close(batch[:, :, :1], cond, atol=0, rtol=0)
 
 
+def _device_tree(params):
+    """Fresh device arrays of a numpy tree: the JAX pipelines then
+    quantize on the device under jit, as they serve (a numpy tree takes
+    the host quantizer, whose scales may differ by one ulp)."""
+    return jax.tree.map(lambda a: jnp.array(a, copy=True), params)
+
+
+def test_int8_pipeline_matches_jax(pipes):
+    """quantize="int8" on both sides, the same float weights quantized by
+    each, trajectory + ID frame, batch CFG, 3 steps, decoded video. The
+    int8 weights are bit-equal (tests/test_torch_quant.py); activations in
+    fp32 reach the quantizer through sums in another order, and one that
+    lands on the other side of a rounding boundary moves its code by one
+    step of its row's scale. None does here: the fp32 pipeline test's
+    1e-3 holds unwidened."""
+    jp, tp = pipes
+    jq = jpipe.WanImageToVideoPipeline(
+        jp.dit_cfg, _device_tree(jp.dit_params), jp.vae_cfg, jp.vae_params,
+        jpipe.WanPipelineConfig(), quantize="int8")
+    tq = tpipe.WanImageToVideoPipeline(copy.deepcopy(tp.dit), tp.vae,
+                                       tpipe.WanPipelineConfig(),
+                                       quantize="int8")
+    assert sum(isinstance(m, QuantLinear) for m in tq.dit.modules()) == 20
+    ref, got = _run_both(jq, tq, steps=3, guidance=5.0)
+    assert got.shape == ref.shape == (1, 3, F, H, W)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, atol=1e-3, rtol=1e-3)
+    # and int8 moved the output: the float pipeline is not what matched
+    _, fp = _run_both(jp, tp, steps=3, guidance=5.0)
+    assert np.abs(fp - got).max() > 1e-3
+
+
+def test_int8_cogvideox_pipeline_matches_jax():
+    """The tiny CogVideoX FrameINO pipeline with quantize="int8" on both
+    sides (DDIM, trajectory + ID frame, dynamic CFG, 3 steps, latents);
+    the fp32 CogVideoX pipeline test's 1e-3, unwidened as above."""
+    dcfg = tcdit.tiny_config(use_frame_in=True)
+    vcfg = tcvae.tiny_vae_config()
+    gen = torch.Generator().manual_seed(11)
+    dit = tcdit.init_cogvideox_dit(dcfg, gen)
+    vae = tcvae.init_cogvideox_vae(vcfg, gen)
+    with torch.no_grad():
+        # posterior std 3e-7: the two sides' different noise does not count
+        vae.encoder.conv_out.conv.bias[vcfg.latent_channels:] = -100.0
+
+    def np_sd(m):
+        return {k: v.numpy() for k, v in m.state_dict().items()}
+
+    jdcfg = jcdit.tiny_config(use_frame_in=True)
+    jvcfg = jcvae.tiny_vae_config()
+    jp = jcpipe.CogVideoXImageToVideoPipeline(
+        jdcfg, _device_tree(jweights.cogvideox_dit_from_state_dict(
+            np_sd(dit), jdcfg)),
+        jvcfg, jweights.cogvideox_vae_from_state_dict(np_sd(vae), jvcfg),
+        quantize="int8")
+    tp = tcpipe.CogVideoXImageToVideoPipeline(dit, vae, quantize="int8")
+    assert sum(isinstance(m, QuantLinear) for m in dit.modules()) == 12
+    rs = np.random.RandomState(9)
+    image = np.tanh(rs.randn(1, 3, 16, 16)).astype(np.float32)
+    traj = np.tanh(rs.randn(1, 3, 9, 16, 16)).astype(np.float32)
+    idf = np.tanh(rs.randn(1, 3, 16, 16)).astype(np.float32)
+    text = rs.randn(1, 8, 16).astype(np.float32)
+    latents = rs.randn(1, 3, 4, 4, 4).astype(np.float32)
+    common = dict(height=16, width=16, num_frames=9, num_inference_steps=3,
+                  guidance_scale=6.0, output_type="latent")
+    ref = np.asarray(jp(jnp.asarray(image), prompt_embeds=jnp.asarray(text),
+                        traj_tensor=jnp.asarray(traj),
+                        id_tensor=jnp.asarray(idf),
+                        latents=jnp.asarray(latents), attn_impl="xla",
+                        **common))
+    got = tp(torch.from_numpy(image), prompt_embeds=torch.from_numpy(text),
+             traj_tensor=torch.from_numpy(traj),
+             id_tensor=torch.from_numpy(idf),
+             latents=torch.from_numpy(latents), **common).numpy()
+    assert got.shape == ref.shape == (1, 3, 4, 4, 4)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, atol=1e-3, rtol=1e-3)
+
+
 def test_unported_decode_modes_raise(pipes):
     _, tp = pipes
     image, _, _, text, _ = _conditions()
@@ -218,14 +306,39 @@ def test_unported_decode_mode_is_400(server):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(smoke=True, random_init=False, text_encoder="umt5"), "item 1"),
-    (dict(smoke=True, random_init=False, quantize="int8"), "item 3"),
-    (dict(smoke=True, random_init=False, family="cogvideox",
-          quantize="int8"), "item 5"),
     (dict(smoke=False, random_init=False), "item 7"),
 ])
 def test_serve_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         serve.build_pipeline(**kw)
+
+
+def _smoke_request(frames=5):
+    img = np.random.default_rng(1).integers(0, 255, (16, 16, 3),
+                                            dtype=np.uint8)
+    # 8 text tokens: the tiny CogVideoX's max_text_seq_length
+    return {"image_b64": _b64_png(img),
+            "prompt_embeds_b64": _b64_npy(np.zeros((8, 16), np.float32)),
+            "num_frames": frames, "num_inference_steps": 1,
+            "trajectories": [[[2, 2], [10, 12]]],
+            "id_image_b64": _b64_png(img[:8, :8].copy())}
+
+
+@pytest.mark.parametrize("family,per_block", [("wan", 10),
+                                              ("cogvideox", 6)])
+def test_serve_int8_smoke_pipeline_answers(family, per_block):
+    """``build_pipeline(smoke=True, quantize="int8")`` quantizes the DiT's
+    block matmuls and serves a request through the server."""
+    pipe = serve.build_pipeline(smoke=True, random_init=False, family=family,
+                                quantize="int8")
+    n_q = sum(isinstance(m, QuantLinear) for m in pipe.dit.modules())
+    assert n_q == per_block * pipe.dit_cfg.num_layers
+    out = PipelineServer(pipe).handle_generate(_smoke_request())
+    assert out["num_frames"] == 5 and len(base64.b64decode(
+        out["video_b64"])) > 100
+    a = serve.parse_args(["--smoke", "--quantize", "int8", "--family",
+                          family])
+    assert a.quantize == "int8" and a.family == family
 
 
 def test_serve_args():
@@ -237,8 +350,9 @@ def test_serve_args():
 
 def test_port_never_imports_jax(tmp_path):
     """Importing the package, its server and entry points, serving one
-    smoke request of each family and taking one smoke train step leaves
-    jax and every module of the JAX package (frameino_tpu) unimported."""
+    smoke request of each family and one of the int8 Wan pipeline, and
+    taking one smoke train step leaves jax and every module of the JAX
+    package (frameino_tpu) unimported."""
     code = textwrap.dedent("""
         import base64, io, json, os, sys
         import numpy as np
@@ -260,9 +374,10 @@ def test_port_never_imports_jax(tmp_path):
         e = io.BytesIO()
         # 8 text tokens: the tiny CogVideoX's max_text_seq_length
         np.save(e, np.zeros((8, 16), np.float32))
-        for family in ("wan", "cogvideox"):
+        for family, q in (("wan", None), ("cogvideox", None),
+                          ("wan", "int8")):
             srv = PipelineServer(serve.build_pipeline(
-                smoke=True, random_init=False, family=family))
+                smoke=True, random_init=False, family=family, quantize=q))
             out = srv.handle_generate({
                 "image_b64": base64.b64encode(b.getvalue()).decode(),
                 "prompt_embeds_b64": base64.b64encode(e.getvalue()).decode(),
