@@ -7,9 +7,10 @@
 
 Phases (any failure exits non-zero; there is no CPU path):
  1. device: the card's name and `nvidia-smi` name, power limit;
- 2. build: compile the three CUDA sources (nvcc, sm_90a, all at once: the
-    serving flash kernels, K6 and K7) and the two Triton producers
-    (qk-norm/RoPE, qk-LayerNorm/RoPE) from the sources in the checkout;
+ 2. build: compile the five CUDA sources (nvcc, sm_90a, all at once: the
+    serving flash kernels, K6, K7, the experiment variants K9-K12 and the
+    packed K8) and the two Triton producers (qk-norm/RoPE,
+    qk-LayerNorm/RoPE) from the sources in the checkout;
  3. kernels: each kernel against its plain PyTorch version at the shapes
     the Wan serving path gives it (Wan2.2-TI2V-5B, 49 frames at 480x832:
     CFG batch 2, 24 heads of 128, 5,460 tokens, 512 text tokens), with
@@ -56,7 +57,21 @@ Phases (any failure exits non-zero; there is no CPU path):
     parameters and Adam moments, remat), 3 steps through the same
     functions, exactly 120 forward and 60 backward K6 launches per step;
 13. train reference: a small bf16 train step on the card against fp32 on
-    the CPU (loss and every gradient).
+    the CPU (loss and every gradient);
+14. experiment kernels: K9 (v1), K10 (v2, v12), K12 (v3), K11 (v123) and
+    K8 (packed) against their plain versions at the two experiment shapes
+    (CogVideoX protocol [2, 48, 15906, 64], the plain version on 4 of the
+    96 rows; Wan eval [2, 24, 5590, 128]) and at a ragged 777 tokens for
+    both head dims, within FLASH_REL_L2 and the elementwise limit of K1;
+    the int8 variants on the same codes and scales as their plain
+    version; the limits are shown to reject a dropped ragged key tail and,
+    for K11/K12, key scales of one and q scales without the softmax
+    scale; times beside K3 (v0), SDPA and the bound;
+15. experiment scripts: ``scripts.bench_flash_variants.main`` and
+    ``scripts.bench_attn_d64.main`` in this process with their default
+    arguments (both shapes, all variants, all three experiments): every
+    check against K3 finite and under its limit, and exactly warm-up +
+    iters + 1 launches of every variant a shape.
 
 Each serving or training phase sets the launch counts to 0 just before
 its requests or steps and reads them just after. The line before the
@@ -73,6 +88,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -117,6 +133,31 @@ KERNELS = {
     "dyn_quant": dict(
         label="K7", route="cuda", source="frameino_tpu_torch/csrc/dyn_quant.cu",
         replaces="frameino_tpu/ops/dyn_quant.py:46"),
+    # K8-K12, the kernels of the two attention experiment scripts
+    "flash_v1": dict(
+        label="K9", route="cuda",
+        source="frameino_tpu_torch/csrc/flash_variants.cu",
+        replaces="scripts/bench_flash_variants.py:82"),
+    "flash_v2": dict(
+        label="K10", route="cuda",
+        source="frameino_tpu_torch/csrc/flash_variants.cu",
+        replaces="scripts/bench_flash_variants.py:117"),
+    "flash_v12": dict(
+        label="K10", route="cuda",
+        source="frameino_tpu_torch/csrc/flash_variants.cu",
+        replaces="scripts/bench_flash_variants.py:146"),
+    "flash_v3": dict(
+        label="K12", route="cuda",
+        source="frameino_tpu_torch/csrc/flash_variants.cu",
+        replaces="scripts/bench_flash_variants.py:174"),
+    "flash_v123": dict(
+        label="K11", route="cuda",
+        source="frameino_tpu_torch/csrc/flash_variants.cu",
+        replaces="scripts/bench_flash_variants.py:211"),
+    "packed_flash": dict(
+        label="K8", route="cuda",
+        source="frameino_tpu_torch/csrc/flash_packed.cu",
+        replaces="scripts/bench_attn_d64.py:96"),
 }
 K7 = "dynamic_quantize_rows"
 NO_TRAIN = {"flash_attn_train_fwd": 0, "flash_attn_train_bwd": 0}
@@ -152,6 +193,7 @@ INT8_REL_L2 = 0.1
 
 # H100 SXM data-sheet peaks (the bound of every kernel below)
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -215,7 +257,7 @@ def phase_device():
 
 
 def phase_build():
-    """nvcc of the three CUDA sources (one process each, all at once) on a
+    """nvcc of the five CUDA sources (one process each, all at once) on a
     thread while the Triton producers compile here."""
     import torch
     from frameino_tpu_torch.ops import attention as A
@@ -242,14 +284,25 @@ def phase_build():
     t_triton = time.time() - t0
     th.join()
     check(not errors, f"nvcc: {errors[0] if errors else ''}")
-    print(f"build: nvcc flash_fwd.cu + flash_attn_train.cu + dyn_quant.cu "
-          f"and triton "
-          f"qk_norm_rope + qk_ln_rope {time.time() - t0:.1f} s (triton "
-          f"{t_triton:.1f} s)")
+    print(f"build: nvcc " + " + ".join(f"{n}.cu" for n in A.BUILD_LOG)
+          + f" and triton qk_norm_rope + qk_ln_rope {time.time() - t0:.1f} s "
+          f"(triton {t_triton:.1f} s)")
     for src, log in A.BUILD_LOG.items():
         print(src + ":\n" + "\n".join(
-            line for line in log.splitlines()
-            if "registers" in line or "spill" in line))
+            _kernel_tag(line) if "Compiling entry" in line else line
+            for line in log.splitlines()
+            if "registers" in line or "spill" in line
+            or "Compiling entry" in line))
+
+
+def _kernel_tag(line):
+    """ptxas's "Compiling entry function '<mangled>'" line cut down to the
+    kernel's name and its integer and bool template arguments."""
+    m = re.search(r"([a-z_]+kernel[a-z_]*)(?:I((?:L[ib]\d+E)+)E)?", line)
+    if not m:
+        return line
+    args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
+    return f"  {m.group(1)}" + (f"<{', '.join(args)}>" if args else "")
 
 
 def bound_ms(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
@@ -760,6 +813,274 @@ def phase_kernels_train():
             cross_bound_ms=cr[f"{dirn}_bound"][0],
             cross_library_ms=cr[f"{dirn}_library_ms"])
     return results, shapes
+
+
+# ---------------------------------------------------------------------------
+# the attention experiment kernels (K8-K12) and scripts
+# ---------------------------------------------------------------------------
+
+# the (batch, head) rows of the CogVideoX protocol shape [2, 48, 15906, 64]
+# that the plain versions run on: the fp32 logits fit for 4 of the 96
+COG_PLAIN_ROWS = ((0, 0), (0, 31), (1, 16), (1, 47))
+# a sequence that is no multiple of the 64-key tile, as (B, H, S, D)
+RAGGED_SHAPES = {"ragged_d64": (1, 4, 777, 64), "ragged_d128": (1, 3, 777, 128)}
+INT8_VARIANTS = ("flash_v3", "flash_v123")
+# max abs of a variant from K3 on the scripts' check slice: a little above
+# what the JAX scripts read on the CPU (2-4e-3; int8 8e-3-1.2e-2; the
+# packed script's own assertion)
+SCRIPT_LIMITS = {"v1": 2e-2, "v2": 2e-2, "v12": 2e-2, "v3": 5e-2,
+                 "v123": 5e-2, "packed": 5e-2}
+
+
+def attn_bound_int8(bh, s, d):
+    """Bound of the int8-logit attention: QK^T at the int8 peak, P.V at
+    the bf16 one; q, k, v read and o written once in bf16."""
+    half = 2 * bh * s * s * d
+    t_ops = half / PEAK_INT8_OPS + half / PEAK_BF16_FLOPS
+    t_bytes = 2 * 2 * bh * d * 2 * s / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _variant_faults(FV, name, plain, q, k, v, scale, want):
+    """Relative L2, from the plain version's output, of planted faults
+    computed with the plain versions on the same inputs: the ragged key
+    tail dropped; for the int8 variants also key scales of one and q
+    scales without softmax scale * log2(e) (the bound follows them). None
+    stands for a fault whose output is not finite (under a bound that far
+    above the logits every p underflows): the finiteness check rejects it."""
+    import torch
+    S = k.shape[2]
+    tail = S // 64 * 64
+    out = {}
+
+    def fault(tag, got):
+        rel = _rel_l2(got, want)
+        out[tag] = rel if math.isfinite(rel) else None
+
+    if tail < S:
+        fault("no_ragged_tail",
+              plain(q, k[:, :, :tail], v[:, :, :tail], scale=scale))
+    if name in INT8_VARIANTS:
+        qi, qs, ki, ks = FV.quantize_qk(q, k, scale)
+        for tag, qs2, ks2 in (("ks_ones", qs, torch.ones_like(ks)),
+                              ("qs_unfolded", qs / (scale * FV.LOG2E), ks)):
+            bound = (FV.int8_bound(qi, qs2, ki, ks2)
+                     if name == "flash_v123" else None)
+            fault(tag, FV.int8_flash_ref(qi, qs2, ki, ks2, v, bound))
+    return out
+
+
+def phase_kernels_experiment():
+    """K8-K12 against their plain versions at the experiment shapes, the
+    planted faults, and times beside K3 (v0), SDPA and the bound."""
+    import torch
+    from frameino_tpu_torch.ops import attention as A
+    from frameino_tpu_torch.ops import flash_variants as FV
+    from frameino_tpu_torch.scripts import bench_flash_variants
+    variants = {
+        "flash_v1": (FV.flash_v1, FV.flash_v1_ref),
+        "flash_v2": (FV.flash_v2, FV.flash_v2_ref),
+        "flash_v12": (FV.flash_v12, FV.flash_v12_ref),
+        "flash_v3": (FV.flash_v3, FV.flash_v3_ref),
+        "flash_v123": (FV.flash_v123, FV.flash_v123_ref),
+        "packed_flash": (lambda q, k, v, scale: FV.packed_flash(q, k, v),
+                         lambda q, k, v, scale: FV.packed_flash_ref(q, k, v))}
+    # the scripts' two shapes (CogVideoX protocol, Wan eval), then the ragged
+    exp_shapes = {tag: (c["B"], c["H"], c["S"], c["D"])
+                  for tag, c in bench_flash_variants.SHAPES.items()}
+    exp_shapes.update(RAGGED_SHAPES)
+    g = torch.Generator("cuda").manual_seed(2468)
+    shapes = {}
+    for tag, (b, h, s, d) in exp_shapes.items():
+        picks = COG_PLAIN_ROWS if tag == "cog" else None
+        scale = d ** -0.5
+        q, k, v = (torch.randn(b, h, s, d, device="cuda",
+                               dtype=torch.bfloat16, generator=g)
+                   for _ in range(3))
+        if picks is None:
+            qs, ks, vs = q, k, v
+        else:
+            qs, ks, vs = (torch.stack([t[i, j] for i, j in picks])[None]
+                          for t in (q, k, v))
+        timed = not tag.startswith("ragged")
+        rows, sub = b * h, qs.shape[0] * qs.shape[1]
+        shape_row = dict(shape=[b, h, s, d], plain_rows=sub)
+        if timed:
+            def flat(t):
+                return t.reshape(-1, s, d)
+            shape_row.update(
+                v0_ms=cuda_ms(lambda: A.flash_attention_inference(
+                    q, k, v, scale), 5),
+                sdpa_ms=cuda_ms(lambda: _sdpa(scale)(flat(q), flat(k),
+                                                     flat(v)), 5),
+                v0_plain_rows_ms=cuda_ms(lambda: A.flash_attention_inference(
+                    qs, ks, vs, scale), 5),
+                sdpa_plain_rows_ms=cuda_ms(lambda: _sdpa(scale)(
+                    flat(qs), flat(ks), flat(vs)), 5),
+                bound_ms=attn_bound(rows, s, s, d)[0],
+                # what the wrappers compute outside their kernels
+                outside_ms=dict(
+                    bound=cuda_ms(lambda: FV._bound(q, k, scale), 5),
+                    quantize_qk=cuda_ms(lambda: FV.quantize_qk(q, k, scale),
+                                        5)))
+            if d == 64:
+                packed = [FV.pack(t).contiguous() for t in (q, k, v)]
+                shape_row["outside_ms"]["pack_unpack"] = cuda_ms(
+                    lambda: [FV.pack(t).contiguous() for t in (q, k, v)]
+                    + [FV.unpack(packed[0], b).contiguous()], 5)
+                del packed
+        for name, (kernel, plain) in variants.items():
+            if name == "packed_flash" and d != 64:
+                continue
+            label = f"{KERNELS[name]['label']} {name} ({tag})"
+            got = kernel(qs, ks, vs, scale=scale)
+            want = plain(qs, ks, vs, scale=scale)
+            err, rel, rel_l2 = _check_close(label, got, want)
+            faults = _variant_faults(FV, name, plain, qs, ks, vs, scale, want)
+            check(faults and all(x is None or x > FLASH_REL_L2
+                                 for x in faults.values()),
+                  f"{label}: a planted fault passes the limit "
+                  f"{FLASH_REL_L2:g}: {faults}")
+            row = dict(max_abs_err=err, max_rel=rel, rel_l2=rel_l2,
+                       faults=faults)
+            if picks is not None:
+                # the full launch agrees with the launch on the picked rows
+                # (the static bodies take another bound from all rows)
+                full = kernel(q, k, v, scale=scale)
+                check(bool(torch.isfinite(full).all()),
+                      f"{label}: non-finite output on the {rows} rows")
+                same = _rel_l2(torch.stack([full[i, j] for i, j in picks]),
+                               got[0])
+                check(same <= FLASH_REL_L2,
+                      f"{label}: the {sub}-row launch differs from the same "
+                      f"rows of the {rows}-row launch by {same:.3e}")
+                del full
+            if timed:
+                bound = (attn_bound_int8 if name in INT8_VARIANTS
+                         else lambda bh, s_, d_: attn_bound(bh, s_, s_, d_))
+                row.update(
+                    ms=cuda_ms(lambda: kernel(q, k, v, scale=scale), 5),
+                    bound_ms=bound(rows, s, d)[0],
+                    plain_rows_ms=cuda_ms(
+                        lambda: kernel(qs, ks, vs, scale=scale), 5),
+                    plain_ms=cuda_ms(lambda: plain(qs, ks, vs, scale=scale),
+                                     2),
+                    plain_rows_bound=bound(sub, s, d))
+            shape_row[name] = row
+            print(f"{label} [{b}, {h}, {s}, {d}]: rel L2 {rel_l2:.3e} max_abs "
+                  f"{err:.3e} on {sub} rows | planted faults "
+                  + ", ".join(f"{n} " + ("not finite" if x is None
+                                         else f"{x:.3e}")
+                              for n, x in faults.items())
+                  + (f" | {row['ms']:.3f} ms on {rows} rows (bound "
+                     f"{row['bound_ms']:.3f}); {row['plain_rows_ms']:.3f} ms "
+                     f"on {sub} (plain {row['plain_ms']:.3f})"
+                     if timed else ""))
+            del got, want
+        if timed:
+            print(f"experiment shape {tag} [{b}, {h}, {s}, {d}]: K3 (v0) "
+                  f"{shape_row['v0_ms']:.3f} ms, SDPA "
+                  f"{shape_row['sdpa_ms']:.3f} ms, bound "
+                  f"{shape_row['bound_ms']:.3f} ms; outside the kernels "
+                  + ", ".join(f"{n} {x:.3f} ms" for n, x in
+                              shape_row["outside_ms"].items()))
+        shapes[tag] = shape_row
+        del q, k, v, qs, ks, vs
+        torch.cuda.empty_cache()
+    # the kernels line: each kernel on the cog rows its plain version ran
+    # on (4 of 96), the 96-row and Wan times beside
+    cog, wan = shapes["cog"], shapes["wan"]
+    results = {}
+    for name in variants:
+        r, w = cog[name], wan.get(name)
+        results[name] = dict(
+            max_abs_err=max(sh[name]["max_abs_err"] for sh in shapes.values()
+                            if name in sh),
+            ms=r["plain_rows_ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["plain_rows_bound"][0],
+            bound_by=r["plain_rows_bound"][1],
+            library_ms=cog["sdpa_plain_rows_ms"], v0_ms=cog["v0_plain_rows_ms"],
+            ms_96_rows=r["ms"], bound_ms_96_rows=r["bound_ms"],
+            v0_ms_96_rows=cog["v0_ms"], library_ms_96_rows=cog["sdpa_ms"])
+        if w is not None:
+            results[name].update(
+                wan_ms=w["ms"], wan_plain_ms=w["plain_ms"],
+                wan_bound_ms=w["bound_ms"], wan_v0_ms=wan["v0_ms"],
+                wan_library_ms=wan["sdpa_ms"])
+    return results, shapes
+
+
+def phase_experiment_scripts():
+    """The two ported experiment scripts in this process with their
+    default arguments: the checks against K3 under their limits, and the
+    launch counts that the arguments imply."""
+    import torch
+    from frameino_tpu_torch import scripts
+    from frameino_tpu_torch.ops import attention as A
+    from frameino_tpu_torch.ops import flash_variants as FV
+    from frameino_tpu_torch.scripts import bench_attn_d64, \
+        bench_flash_variants
+    idle = {k: 0 for k in A.launch_counts() if k != "flash_fwd"}
+
+    def run(main):
+        A.reset_launch_counts()
+        FV.reset_launch_counts()
+        t0 = time.time()
+        rows = main([])
+        torch.cuda.synchronize()
+        return rows, dict(A.launch_counts(), **FV.launch_counts()), \
+            time.time() - t0
+
+    # per shape: the check (K3 once as the reference), then warm-up + iters
+    n_shapes = len(bench_flash_variants.SHAPES)
+    each = n_shapes * (1 + scripts.WARMUP + bench_flash_variants.ITERS)
+    rows_v, counts_v, seconds_v = run(bench_flash_variants.main)
+    want = dict(idle, flash_fwd=each, flash_v1=each, flash_v2=each,
+                flash_v12=each, flash_v3=each, flash_v123=each,
+                packed_flash=0)
+    check(counts_v == want, f"bench_flash_variants: launches {counts_v}, "
+                            f"expected {want}")
+    checks = [r for r in rows_v if "max_abs" in r]
+    times = [r for r in rows_v if "ms" in r]
+    check(len(checks) == 5 * n_shapes and len(times) == 6 * n_shapes,
+          f"bench_flash_variants: {len(checks)} checks and {len(times)} "
+          f"times printed")
+    for r in checks:
+        check(math.isfinite(r["max_abs"])
+              and r["max_abs"] <= SCRIPT_LIMITS[r["variant"]],
+              f"bench_flash_variants: {r['variant']} at {r['shape']} is "
+              f"{r['max_abs']:.3e} from K3 (limit "
+              f"{SCRIPT_LIMITS[r['variant']]:g})")
+    check(all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in times),
+          "bench_flash_variants: a time is not positive")
+
+    # sweep: K3 warm-up + iters a tile; packed: the check (K8 and K3 once
+    # each), K8 and K3 warm-up + iters each; int8rate: library calls only
+    rows_d, counts_d, seconds_d = run(bench_attn_d64.main)
+    timed = scripts.WARMUP + bench_attn_d64.ITERS
+    want = dict(idle, flash_fwd=len(bench_attn_d64.K3_TILES) * timed + 1
+                + timed, flash_v1=0, flash_v2=0, flash_v12=0, flash_v3=0,
+                flash_v123=0, packed_flash=1 + timed)
+    check(counts_d == want, f"bench_attn_d64: launches {counts_d}, expected "
+                            f"{want}")
+    err = [r["check_max_abs"] for r in rows_d if "check_max_abs" in r]
+    check(len(err) == 1 and math.isfinite(err[0])
+          and err[0] <= SCRIPT_LIMITS["packed"],
+          f"bench_attn_d64: packed is {err} from K3 (limit "
+          f"{SCRIPT_LIMITS['packed']:g})")
+    rates = [r for r in rows_d if r["exp"] == "int8rate"]
+    check(len(rates) == 4 and all(r["rate"] > 0 for r in rates),
+          f"bench_attn_d64: int8rate printed {len(rates)} rows")
+    print(f"experiment scripts: bench_flash_variants {seconds_v:.1f} s, "
+          f"bench_attn_d64 {seconds_d:.1f} s; launches {counts_v} and "
+          f"{counts_d}")
+    launches = {k: counts_v[k] + counts_d[k] for k in FV.launch_counts()}
+    torch.cuda.empty_cache()
+    return dict(bench_flash_variants=rows_v, bench_attn_d64=rows_d,
+                launches_flash_variants=counts_v,
+                launches_attn_d64=counts_d,
+                seconds=[seconds_v, seconds_d]), launches
 
 
 def _b64_png(arr):
@@ -1550,17 +1871,23 @@ def main():
     entry = phase_train_entry(data)
     train = phase_train(data, profile)
     train_ref = phase_train_reference()
+    exp_results, exp_shapes = phase_kernels_experiment()
+    kernel_results.update(exp_results)
+    exp_scripts, exp_launches = phase_experiment_scripts()
 
     # each kernel's launches on its path (K1 twice: Wan at head_dim 128,
     # CogVideoX at 64; K6 over the 3 full-depth train steps; K7 over the
-    # int8 requests of both families)
+    # int8 requests of both families; K8-K12 over the two experiment
+    # scripts' runs)
     steps = train["steps"]
     launches = dict(totals, qk_ln_rope=totals_cog["qk_ln_rope"],
                     flash_fwd_static_d64=totals_cog["flash_fwd_static"],
                     dyn_quant=int8_wan["launches"][K7]
                     + int8_cog["launches"][K7],
                     **{k: sum(r["launches"][k] for r in steps)
-                       for k in NO_TRAIN})
+                       for k in NO_TRAIN}, **exp_launches)
+    for k, n in exp_launches.items():
+        check(n > 0, f"kernel {k} was not launched by the experiment scripts")
     summary = {"kernels": [
         dict(name=k, route=KERNELS[k]["route"], source=KERNELS[k]["source"],
              replaces=KERNELS[k]["replaces"], launches=launches[k],
@@ -1571,6 +1898,7 @@ def main():
         "reference_cog_rel_l2": ref_err_cog, "dense_int8": dense_int8,
         "int8_wan": int8_wan, "int8_cog": int8_cog, "k6_shapes": k6_shapes,
         "train_entry": entry, "train": train, "train_reference": train_ref,
+        "experiment_kernels": exp_shapes, "experiment_scripts": exp_scripts,
         "seconds": time.time() - t_start}
     out_dir = os.path.join(REPO, "build")
     os.makedirs(out_dir, exist_ok=True)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -32,6 +33,11 @@ _CUDA_SOURCES = {
         "attn_train_fwd_bf16": [_VP] * 5 + [_INT] * 4 + [_F32, _VP],
         "attn_train_bwd_bf16": [_VP] * 10 + [_INT] * 4 + [_F32, _VP]},
     "dyn_quant": {"dyn_quant_rows_bf16": [_VP] * 3 + [_INT] * 2 + [_VP]},
+    "flash_variants": {
+        "flash_variant_bf16": [_VP] * 5 + [_INT] * 5 + [_F32, _VP],
+        "flash_variant_int8": [_VP] * 7 + [_INT] * 5 + [_VP]},
+    "flash_packed": {"flash_packed_bf16": [_VP] * 4 + [_INT] * 3
+                     + [_F32, _VP]},
 }
 
 _lib_lock = threading.Lock()
@@ -47,8 +53,25 @@ def _nvcc() -> str:
                         "bin", "nvcc")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _source_bytes(path: Path, seen: set) -> bytes:
+    """A source and, after it, every header of ``csrc/`` that it includes
+    with quotes (transitively, each once)."""
+    seen.add(path)
+    data = path.read_bytes()
+    for inc in _LOCAL_INCLUDE.findall(data):
+        header = _CSRC / inc.decode()
+        if header not in seen:
+            data += _source_bytes(header, seen)
+    return data
+
+
 def _so_path(name: str) -> Path:
-    digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes()
+    # the digest covers the included headers too, so that an edit to a
+    # shared header never loads a stale library
+    digest = hashlib.sha256(_source_bytes(_CSRC / f"{name}.cu", set())
                             ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 

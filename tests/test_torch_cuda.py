@@ -12,6 +12,7 @@ from frameino_tpu_torch.models import quant
 from frameino_tpu_torch.models import wan_dit as tdit
 from frameino_tpu_torch.ops import attention as A
 from frameino_tpu_torch.ops import dyn_quant
+from frameino_tpu_torch.ops import flash_variants as FV
 from frameino_tpu_torch.ops.linear import dense_int8
 from frameino_tpu_torch.ops.rope import cogvideox_rope_table
 
@@ -398,3 +399,96 @@ def test_int8_dit_on_cuda_runs_k7(dev):
     # flips where the kernels' bf16 activations differ moves one element
     # of a dense's input by one step of its row's scale
     torch.testing.assert_close(got, ref, atol=5e-2, rtol=5e-2)
+
+
+# ---------------------------------------------------------------------------
+# K8-K12: the experiment flash forwards
+# ---------------------------------------------------------------------------
+
+def _rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+VARIANTS = {"v1": (FV.flash_v1, FV.flash_v1_ref),
+            "v2": (FV.flash_v2, FV.flash_v2_ref),
+            "v12": (FV.flash_v12, FV.flash_v12_ref),
+            "v3": (FV.flash_v3, FV.flash_v3_ref),
+            "v123": (FV.flash_v123, FV.flash_v123_ref)}
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [64, 100, 777])
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_flash_variants_match_plain(dev, name, d, s):
+    """Each variant kernel against its plain version on the same inputs
+    (the int8 ones on the same codes: ``_quant_rows`` is deterministic),
+    at sequence lengths on and off the 64-row tile."""
+    g = torch.Generator(dev).manual_seed(3)
+    q, k, v = (torch.randn(2, 3, s, d, device=dev, dtype=torch.bfloat16,
+                           generator=g) for _ in range(3))
+    kernel, plain = VARIANTS[name]
+    before = kernel.launches
+    got = kernel(q, k, v, scale=d ** -0.5)
+    ref = plain(q, k, v, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    # bf16 outputs of fp32 sums in another order; the online bodies round
+    # p to bf16 against a running maximum: 2e-2 elementwise, 5e-3 in L2
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    assert _rel_l2(got, ref) <= 5e-3
+
+
+def test_flash_variant_switches_dispatch(dev):
+    q = torch.randn(1, 2, 70, 64, device=dev, dtype=torch.bfloat16)
+    FV.reset_launch_counts()
+    a = FV.flash_v2(q, q, q, scale=0.125, block_q=1024, block_k=1024,
+                    ones_col=True)
+    b = FV.flash_v3(q, q, q, scale=0.125, static_ones=True)
+    assert torch.equal(a, FV.flash_v12(q, q, q, scale=0.125))
+    assert torch.equal(b, FV.flash_v123(q, q, q, scale=0.125))
+    assert FV.launch_counts() == {"flash_v1": 0, "flash_v2": 0,
+                                  "flash_v12": 2, "flash_v3": 0,
+                                  "flash_v123": 2, "packed_flash": 0}
+
+
+@pytest.mark.parametrize("heads,s", [(2, 64), (4, 300), (6, 777)])
+def test_packed_flash_matches_plain(dev, heads, s):
+    g = torch.Generator(dev).manual_seed(4)
+    q, k, v = (torch.randn(2, heads, s, 64, device=dev,
+                           dtype=torch.bfloat16, generator=g)
+               for _ in range(3))
+    before = FV.packed_flash.launches
+    got = FV.packed_flash(q, k, v)
+    ref = FV.packed_flash_ref(q, k, v)
+    k3 = A.flash_attention_inference(q, k, v)
+    torch.cuda.synchronize()
+    assert FV.packed_flash.launches == before + 1
+    assert got.shape == q.shape
+    # as the variants: 2e-2 elementwise, 5e-3 in L2; K3 computes the same
+    # function head by head
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    assert _rel_l2(got, ref) <= 5e-3
+    assert _rel_l2(got, k3) <= 5e-3
+
+
+def test_flash_variants_reject_what_the_kernels_do_not_take(dev):
+    q = torch.randn(1, 2, 64, 64, device=dev)
+    qb = q.to(torch.bfloat16)
+    for fn in (FV.flash_v1, FV.flash_v2, FV.flash_v12, FV.flash_v3,
+               FV.flash_v123):
+        with pytest.raises(TypeError):
+            fn(q, q, q, scale=0.125)                      # fp32
+        with pytest.raises(ValueError):
+            fn(qb, qb[:, :, :32], qb, scale=0.125)        # k shorter than q
+        with pytest.raises(ValueError):
+            fn(qb[..., :48], qb[..., :48], qb[..., :48], scale=0.125)
+    with pytest.raises(TypeError):
+        FV.packed_flash(q, q, q)
+    q128 = torch.randn(1, 2, 64, 128, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        FV.packed_flash(q128, q128, q128)                 # head_dim 128
+    with pytest.raises(ValueError):
+        FV.packed_flash(qb[:, :1], qb[:, :1], qb[:, :1])  # one head

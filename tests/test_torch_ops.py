@@ -22,6 +22,7 @@ from frameino_tpu_torch.core import shape_buckets as tsb
 from frameino_tpu_torch.ops import attention as tattn
 from frameino_tpu_torch.ops import conv as tconv
 from frameino_tpu_torch.ops import embeddings as temb
+from frameino_tpu_torch.ops import flash_variants as tfv
 from frameino_tpu_torch.ops import linear as tlin
 from frameino_tpu_torch.ops import norms as tnorms
 from frameino_tpu_torch.ops import rope as trope
@@ -342,6 +343,17 @@ def test_kernel_wrappers_count_no_launch_on_cpu():
     qg = torch.randn(1, 2, 8, 64, requires_grad=True)
     tattn.flash_attention_train(qg, qg, qg).sum().backward()
     tattn.dyn_quant.dynamic_quantize_rows(q)
+    # the experiment kernels K8-K12 count in their own module
+    tfv.reset_launch_counts()
+    q4 = q[None]
+    tfv.flash_v1(q4, q4, q4, scale=0.125)
+    for ones_col in (False, True):
+        tfv.flash_v2(q4, q4, q4, scale=0.125, ones_col=ones_col)
+        tfv.flash_v3(q4, q4, q4, scale=0.125, static_ones=ones_col)
+    tfv.packed_flash(q4, q4, q4)
+    assert tfv.launch_counts() == {"flash_v1": 0, "flash_v2": 0,
+                                   "flash_v12": 0, "flash_v3": 0,
+                                   "flash_v123": 0, "packed_flash": 0}
     assert tattn.launch_counts() == {"flash_fwd_static": 0,
                                      "qk_norm_rope": 0, "flash_fwd": 0,
                                      "qk_ln_rope": 0,
