@@ -9,8 +9,8 @@ Phases (any failure exits non-zero; there is no CPU path):
  1. device: the card's name and `nvidia-smi` name, power limit;
  2. build: compile the five CUDA sources (nvcc, sm_90a, all at once: the
     serving flash kernels, K6, K7, the experiment variants K9-K12 and the
-    packed K8) and the two Triton producers (qk-norm/RoPE,
-    qk-LayerNorm/RoPE) from the sources in the checkout;
+    packed K8) and the Triton producers (qk-norm/RoPE K2 and K5,
+    qk-LayerNorm/RoPE K4) from the sources in the checkout;
  3. kernels: each kernel against its plain PyTorch version at the shapes
     the Wan serving path gives it (Wan2.2-TI2V-5B, 49 frames at 480x832:
     CFG batch 2, 24 heads of 128, 5,460 tokens, 512 text tokens), with
@@ -18,7 +18,11 @@ Phases (any failure exits non-zero; there is no CPU path):
     relative L2); K7 bit-equal to its plain version at the int8 paths'
     rows (Wan [10920, 3072 | 14336], CogVideoX [38252, 3072 | 12288]) and
     a ragged [17, 200], each with a half-way row (round half to even) and
-    a zero row (the 1e-12 scale floor);
+    a zero row (the 1e-12 scale floor); K5 bit-equal to its plain version
+    at the Wan tp shards ([2, 5460, 1536] at tp = 2, [2, 5460, 768] at
+    tp = 4) and a ragged [2, 777, 640], on the tp path's rstd, the shards
+    on K2's rstd equal to K2 on the full rows, and the neighbouring
+    token's rstd (a planted fault) rejected;
  4. dense_int8: the card's int8 dense (K7, torch._int_mm, the epilogue)
     within one bf16 ulp of the CPU's at [10920, 3072] x [3072, 3072] and
     [10920, 14336] x [14336, 3072], its pieces timed beside the bf16 dense;
@@ -33,6 +37,14 @@ Phases (any failure exits non-zero; there is no CPU path):
  6. reference: a small Wan pipeline (2 blocks at head_dim 128) in bf16 on
     the card against the same weights in fp32 on the CPU's plain path, and
     the same pipeline with quantize="int8" against its int8 weights;
+    then tp: the full-width Wan DiT over dp x tp meshes (tp = 2, tp = 4,
+    dp = 2 x tp = 2), one process a rank on this card over gloo: one CFG
+    forward at 5,460 tokens each, within TP_REL_L2 of the single-process
+    bf16 forward on the same seeded weights, with exact launches on every
+    rank (K5 60, K1 30, K3 30, K2 0) and its time in collectives; at
+    tp = 2 the row-parallel biases added on every rank must exceed the
+    limit, and request (a) runs through WanImageToVideoPipeline(mesh=) in
+    2 steps, the VAE on rank 0;
  7. CogVideoX kernels: K4 and K1 at head_dim 64 against their plain
     versions at the CogVideoX-5B shapes (49 frames at 480x720 plus the ID
     frame: CFG batch 2, 48 heads of 64, 226 + 18,900 = 19,126 tokens);
@@ -114,6 +126,11 @@ KERNELS = {
         label="K4", route="triton",
         source="frameino_tpu_torch/ops/qk_ln_rope_triton.py",
         replaces="frameino_tpu/ops/attention.py:704"),
+    # K5, the tp path's producer: K2's kernel with a precomputed rstd
+    "qk_norm_rope_rstd": dict(
+        label="K5", route="triton",
+        source="frameino_tpu_torch/ops/qk_norm_rope_triton.py",
+        replaces="frameino_tpu/ops/attention.py:378"),
     # K1 again, at head_dim 64 on the CogVideoX path
     "flash_fwd_static_d64": dict(
         label="K1", route="cuda", source="frameino_tpu_torch/csrc/flash_fwd.cu",
@@ -159,11 +176,14 @@ KERNELS = {
         source="frameino_tpu_torch/csrc/flash_packed.cu",
         replaces="scripts/bench_attn_d64.py:96"),
 }
+K5 = "qk_norm_rope_rstd"
 K7 = "dynamic_quantize_rows"
 NO_TRAIN = {"flash_attn_train_fwd": 0, "flash_attn_train_bwd": 0}
 # launches per denoise step of the 30-block Wan DiT at CFG batch 2
 PER_STEP = {"flash_fwd_static": 30, "qk_norm_rope": 60, "flash_fwd": 30,
-            "qk_ln_rope": 0, **NO_TRAIN, K7: 0}
+            "qk_ln_rope": 0, **NO_TRAIN, K7: 0, K5: 0}
+# ... on every rank of a tp > 1 mesh (dp = 1 or 2): K5 in place of K2
+PER_STEP_TP = dict(PER_STEP, qk_norm_rope=0, **{K5: 60})
 # ... with the DiT in int8: K7 on the input of attn1 q, k, v, out, attn2 q,
 # out, fc1 and fc2 of every block; and per request, the hoisted text K/V
 # (attn2 k, v of every block, once per segment)
@@ -172,19 +192,34 @@ PER_REQUEST_INT8 = {K7: 2 * 30}
 # ... and of the 42-block CogVideoX DiT at CFG batch 2 (int8: q, k, v, out,
 # fc1, fc2 of every block)
 PER_STEP_COG = {"flash_fwd_static": 42, "qk_norm_rope": 0, "flash_fwd": 0,
-                "qk_ln_rope": 84, **NO_TRAIN, K7: 0}
+                "qk_ln_rope": 84, **NO_TRAIN, K7: 0, K5: 0}
 PER_STEP_COG_INT8 = dict(PER_STEP_COG, **{K7: 6 * 42})
 # launches per train step of an n-block Wan DiT with remat, at B = 1: each
 # block's self- and cross-attention run forward, again when the block is
 # recomputed in the backward, and backward once
 NO_SERVE = {"flash_fwd_static": 0, "qk_norm_rope": 0, "flash_fwd": 0,
-            "qk_ln_rope": 0, K7: 0}
+            "qk_ln_rope": 0, K7: 0, K5: 0}
 
 
 def per_train_step(blocks):
     return {**NO_SERVE, "flash_attn_train_fwd": 4 * blocks,
             "flash_attn_train_bwd": 2 * blocks}
 
+
+# Relative L2 limit of the sharded full-width CFG forward (bf16, gloo
+# collectives) against the single-process one on the same seeded weights.
+# Its arithmetic differs only in where it rounds: the row-parallel partial
+# products are summed in another order, the qk statistic is an fp32 sum
+# (K2's is fp64), and each rank's static bound covers its own heads, so
+# bf16 roundings flip and the flips compound over 30 blocks. A bias
+# added on every rank ((tp - 1) x bias too much) must exceed it.
+TP_REL_L2 = 2e-2
+# the dp x tp meshes of the tp phase, one set of processes each; the
+# tp = 2 set also serves a request through the pipeline
+TP_MESHES = {"tp2": dict(tp=2), "tp4": dict(tp=4),
+             "dp2xtp2": dict(dp=2, tp=2)}
+TP_REQUEST = dict(height=480, width=832, num_frames=49,
+                  num_inference_steps=2)
 
 # Relative L2 limit of the int8 DiT's CFG forward against the bf16 one on
 # the same weights, at full depth and the serving shapes (the JAX package
@@ -280,12 +315,17 @@ def phase_build():
                  torch.zeros(D // 4, device="cuda"),
                  torch.ones(4, D // 8, device="cuda"),
                  torch.zeros(4, D // 8, device="cuda"), 8, 1e-6)
+    A.qk_norm_rope_rstd(x, torch.ones(1, 4, device="cuda"),
+                        torch.ones(2 * D, device="cuda"),
+                        torch.ones(4, D // 2, device="cuda"),
+                        torch.zeros(4, D // 2, device="cuda"), 2)
     torch.cuda.synchronize()
     t_triton = time.time() - t0
     th.join()
     check(not errors, f"nvcc: {errors[0] if errors else ''}")
     print(f"build: nvcc " + " + ".join(f"{n}.cu" for n in A.BUILD_LOG)
-          + f" and triton qk_norm_rope + qk_ln_rope {time.time() - t0:.1f} s "
+          + f" and triton qk_norm_rope (K2, K5) + qk_ln_rope "
+          f"{time.time() - t0:.1f} s "
           f"(triton {t_triton:.1f} s)")
     for src, log in A.BUILD_LOG.items():
         print(src + ":\n" + "\n".join(
@@ -450,6 +490,112 @@ def phase_kernels():
     del q, k, v
     torch.cuda.empty_cache()
     return results
+
+
+# K5 at the Wan tp shards: [2, 5460, 3072 / tp] for tp = 2 (12 heads) and
+# tp = 4 (6 heads), and a ragged shape with an odd head count
+K5_SHAPES = {"tp2": (S, 2), "tp4": (S, 4)}
+K5_RAGGED = (777, 5)          # tokens, heads of the rank
+
+
+def _k2_rstd(raw, eps=1e-6):
+    """K2's statistic: fp64 sum of squares over the full row, rounded once
+    to fp32 (the rstd handed to K5 for the shards to equal K2)."""
+    import numpy as np
+    import torch
+    return (1.0 / torch.sqrt(raw.double().square().sum(-1) / raw.shape[-1]
+                             + float(np.float32(eps)))).float()
+
+
+def phase_kernels_k5():
+    """K5 bit-equal to its plain version on the tp path's rstd (each
+    shard's fp32 sum of squares, summed where the all-reduce sums them,
+    then rsqrt) at the Wan tp shards and a ragged shape; the shards, handed
+    K2's own statistic, concatenated within one bf16 ulp of K2 on the full
+    rows; the neighbouring token's rstd (a planted fault) rejected by the
+    check. Times beside the plain version and the bound."""
+    import torch
+    from frameino_tpu_torch.ops import attention as A
+    from frameino_tpu_torch.ops.rope import wan_rope_table
+    g = torch.Generator("cuda").manual_seed(55)
+    dev = "cuda"
+    cos_np, sin_np = wan_rope_table(D, 14, 15, 26)
+    gain = D ** -0.5 * A.LOG2E
+    cq = (torch.from_numpy(cos_np).to(dev) * gain).contiguous()
+    sq = (torch.from_numpy(sin_np).to(dev) * gain).contiguous()
+    raw = torch.randn(B, S, H * D, device=dev, dtype=torch.bfloat16,
+                      generator=g)
+    w = 1 + 0.1 * torch.randn(H * D, device=dev, generator=g)
+    shapes = {}
+
+    def hold(tag, part, rstd, w_r, c, s_, hl):
+        out = A.qk_norm_rope_rstd(part, rstd, w_r, c, s_, hl)
+        ref = A.qk_norm_rope_rstd_ref(part, rstd, w_r, c, s_, hl)
+        torch.cuda.synchronize()
+        n_diff = int((out != ref).sum())
+        check(n_diff == 0, f"K5 {tag}: {n_diff} outputs differ from its "
+                           f"plain version")
+        # the planted fault: the neighbouring token's statistic
+        bad = A.qk_norm_rope_rstd(part, rstd.roll(1, dims=1).contiguous(),
+                                  w_r, c, s_, hl)
+        check(not torch.equal(bad, ref), f"K5 {tag}: the check did not "
+                                         f"reject the neighbour's rstd")
+        fault = (bad.float() - ref.float()).abs().max().item()
+        # ~5 fp32 operations per element (norm, gain, rotation); bf16 raw
+        # in and out, fp32 rstd, gain and tables
+        bound = bound_ms(5 * out.numel(), _nbytes(part, rstd, w_r, c, s_, out),
+                         PEAK_FP32_FLOPS)
+        row = dict(shape=list(part.shape), heads=hl, max_abs_err=0.0,
+                   fault_max_abs=fault,
+                   ms=cuda_ms(lambda: A.qk_norm_rope_rstd(part, rstd, w_r, c,
+                                                          s_, hl), 20),
+                   plain_ms=cuda_ms(lambda: A.qk_norm_rope_rstd_ref(
+                       part, rstd, w_r, c, s_, hl), 5),
+                   bound_ms=bound[0], bound_by=bound[1])
+        print(f"K5 {tag} {row['shape']}: bit-equal to its plain version; "
+              f"the neighbour's rstd rejected (max abs {fault:.3e}); kernel "
+              f"{row['ms']:.4f} ms  plain {row['plain_ms']:.3f} ms  bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        return out, row
+
+    k2 = A.qk_norm_rope(raw, w, cq, sq, H, 1e-6)
+    k2_rstd = _k2_rstd(raw)
+    for tag, (_, tp) in K5_SHAPES.items():
+        hd, hl = H * D // tp, H // tp
+        parts = [raw[..., r * hd:(r + 1) * hd].contiguous()
+                 for r in range(tp)]
+        gains = [w[r * hd:(r + 1) * hd].contiguous() for r in range(tp)]
+        ssq = sum(p.float().square().sum(-1) for p in parts)
+        rstd = torch.rsqrt(ssq / (H * D) + 1e-6)
+        _, shapes[tag] = hold(tag, parts[0], rstd, gains[0], cq, sq, hl)
+        for r in range(1, tp):
+            hold(f"{tag} rank {r}", parts[r], rstd, gains[r], cq, sq, hl)
+        cat = torch.cat([A.qk_norm_rope_rstd(p, k2_rstd, g_, cq, sq, hl)
+                         .reshape(B, hl, S, D)
+                         for p, g_ in zip(parts, gains)], 1)
+        err, _ = _check_ulp(f"K5 {tag} shards vs K2", cat.reshape(-1, S, D),
+                            k2)
+        shapes[tag].update(vs_k2_max_abs=err,
+                           vs_k2_unequal=int((cat.reshape(-1, S, D) != k2)
+                                             .sum()))
+        print(f"K5 {tag}: {tp} shards on K2's rstd vs K2 on the full rows: "
+              f"max abs {err:.3e}, {shapes[tag]['vs_k2_unequal']} of "
+              f"{k2.numel()} elements unequal")
+        del parts, cat
+    s_r, hl = K5_RAGGED
+    part = torch.randn(B, s_r, hl * D, device=dev, dtype=torch.bfloat16,
+                       generator=g)
+    rstd = torch.rsqrt(torch.rand(B, s_r, device=dev, generator=g) + 0.5)
+    _, shapes["ragged"] = hold("ragged", part, rstd, w[:hl * D].contiguous(),
+                               cq[:s_r].contiguous(), sq[:s_r].contiguous(),
+                               hl)
+    del raw, k2, part
+    torch.cuda.empty_cache()
+    main = shapes["tp2"]
+    return {K5: dict(max_abs_err=0.0, ms=main["ms"],
+                     plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                     bound_by=main["bound_by"], library_ms=None,
+                     shapes=shapes)}
 
 
 def phase_kernels_cog():
@@ -1841,6 +1987,257 @@ def phase_train_reference():
     return err
 
 
+# ---------------------------------------------------------------------------
+# tp: the Wan DiT and pipeline over dp x tp process meshes on this card
+# ---------------------------------------------------------------------------
+
+TP_DIR = os.path.join(REPO, "build", "chip_smoke_tp")
+
+
+@contextlib.contextmanager
+def _timed_collectives(acc):
+    """Adds to acc[0] the host seconds spent in dist.all_reduce and
+    dist.all_gather (the card synchronized on both sides of each)."""
+    import torch
+    import torch.distributed as dist
+    orig = {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
+
+    def timed(fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            acc[0] += time.time() - t0
+            return out
+        return call
+
+    for n, fn in orig.items():
+        setattr(dist, n, timed(fn))
+    try:
+        yield
+    finally:
+        for n, fn in orig.items():
+            setattr(dist, n, fn)
+
+
+def _tp_request_inputs(rank):
+    """Request (a)'s inputs from a seed: every rank's prompt embeddings;
+    rank 0's image, trajectory video and ID frame (only rank 0 encodes)."""
+    import numpy as np
+    import torch
+    rs = np.random.RandomState(5)
+    text = torch.from_numpy(rs.randn(1, L_TEXT, 4096).astype(np.float32))
+    if rank:
+        return None, text, None, None
+    h, w, f = (TP_REQUEST[k] for k in ("height", "width", "num_frames"))
+
+    def video(*shape):
+        return torch.from_numpy(np.tanh(rs.randn(*shape)).astype(np.float32))
+    return video(1, 3, h, w), text, video(1, 3, f, h, w), video(1, 3, 1, h, w)
+
+
+def _tp_worker(rank, world, tag, mesh_kw, inputs, pg_path):
+    """One rank of a dp x tp mesh on this card (gloo collectives, staged
+    through host memory): the rank's slice of the seeded full-width DiT,
+    one CFG forward checked for its launches, one timed with its time in
+    collectives; at tp2 also the duplicated-bias fault and request (a)
+    through the pipeline, the VAE on rank 0."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from frameino_tpu_torch.core.meshes import MeshConfig, make_mesh
+    from frameino_tpu_torch.models import wan_dit, wan_vae
+    from frameino_tpu_torch.ops import attention as A
+    from frameino_tpu_torch.parallel import multihost
+    from frameino_tpu_torch.pipelines.wan_i2v import WanImageToVideoPipeline
+    from frameino_tpu_torch.serve import configure_cuda_numerics
+    torch.cuda.set_device(0)
+    configure_cuda_numerics()
+    multihost.initialize(f"file://{pg_path}", world, rank, backend="gloo")
+    try:
+        mesh = make_mesh(MeshConfig(**mesh_kw))
+        t0 = time.time()
+        # one rank at a time: the full seeded DiT (9.3 GiB) is built, cut
+        # to the rank's slice and freed before the next rank builds its
+        gen = torch.Generator("cuda").manual_seed(0)
+        for r in range(world):
+            if r == rank:
+                dit = wan_dit.init_wan_dit(wan_dit.WAN22_TI2V_5B_MOTION, gen,
+                                           dtype=torch.bfloat16, mesh=mesh)
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        build_s = time.time() - t0
+        resident = torch.cuda.memory_allocated() / 2 ** 30
+        x, t, mask, ctx = (a.cuda() for a in inputs)
+        kv = dit.precompute_text_kv(ctx)
+
+        def forward():
+            out = dit(x, t, timestep_mask=mask, text_kv=kv)
+            torch.cuda.synchronize()
+            return out
+
+        torch.cuda.reset_peak_memory_stats()
+        A.reset_launch_counts()
+        out = forward()
+        counts = A.launch_counts()
+        multihost.assert_same_across_processes(float(out.double().sum()))
+        coll = [0.0]
+        with _timed_collectives(coll):
+            t0 = time.time()
+            forward()
+            seconds = time.time() - t0
+        row = dict(rank=rank, coords=mesh.coords, build_s=build_s,
+                   resident_gib=resident, launches=counts, forward_s=seconds,
+                   collective_s=coll[0],
+                   forward_peak_gib=torch.cuda.max_memory_allocated()
+                   / 2 ** 30)
+        if rank == 0:
+            torch.save(out.cpu(), os.path.join(TP_DIR, f"{tag}_out.pt"))
+        if tag == "tp2":
+            # the fault: every rank adds the row-parallel biases before the
+            # sum, i.e. tp x bias; scaling by 2 and back is exact in bf16
+            biases = [p for b in dit.blocks for p in (
+                b.attn1.to_out[0].bias, b.attn2.to_out[0].bias,
+                b.ffn.net[2].bias)]
+            with torch.no_grad():
+                for p in biases:
+                    p.mul_(mesh.tp)
+                fault = forward()
+                for p in biases:
+                    p.div_(mesh.tp)
+            if rank == 0:
+                torch.save(fault.cpu(), os.path.join(TP_DIR,
+                                                     f"{tag}_fault.pt"))
+            del fault, out, x, t, mask, ctx, kv
+            torch.cuda.empty_cache()
+            vae = (wan_vae.init_wan_vae(wan_vae.WAN22_VAE_CONFIG, gen)
+                   if rank == 0 else None)
+            pipe = WanImageToVideoPipeline(dit, vae, mesh=mesh)
+            image, text, traj, ids = _tp_request_inputs(rank)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            A.reset_launch_counts()
+            t0 = time.time()
+            video = pipe(image, prompt_embeds=text, traj_tensor=traj,
+                         id_tensor=ids,
+                         generator=torch.Generator("cuda").manual_seed(0),
+                         **TP_REQUEST)
+            torch.cuda.synchronize()
+            request_s = time.time() - t0
+            launches = A.launch_counts()
+            if rank:
+                # nothing left to do here while rank 0 decodes
+                torch.cuda.empty_cache()
+            dist.barrier()
+            row.update(request_s=request_s, request_launches=launches,
+                       request_peak_gib=torch.cuda.max_memory_allocated()
+                       / 2 ** 30)
+            if rank == 0:
+                row.update(video_shape=list(video.shape),
+                           video_finite=bool(np.isfinite(video).all()),
+                           video_mean=float(video.mean()))
+            else:
+                row.update(video_none=video is None)
+        with open(os.path.join(TP_DIR, f"{tag}_{rank}.json"), "w") as f:
+            json.dump(row, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp():
+    """The full-width Wan2.2-TI2V-5B-motion DiT over each mesh of
+    TP_MESHES, one process a rank on this card: one CFG forward at 5,460
+    tokens held to the single-process bf16 forward on the same seeded
+    weights within TP_REL_L2, with exact launches on every rank (K5 60, K1
+    30, K3 30, K2 0) and its time in collectives; at tp2 the
+    duplicated-bias fault must exceed the limit, and request (a) runs
+    through WanImageToVideoPipeline(mesh=) in 2 steps."""
+    import types
+    import torch
+    import torch.multiprocessing as mp
+    from frameino_tpu_torch.models import wan_dit
+    from frameino_tpu_torch.serve import configure_cuda_numerics
+    configure_cuda_numerics()
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    os.makedirs(TP_DIR)
+    cfg = wan_dit.WAN22_TI2V_5B_MOTION
+    dit = wan_dit.init_wan_dit(cfg, torch.Generator("cuda").manual_seed(0),
+                               dtype=torch.bfloat16)
+    inputs = _dit_inputs("wan", types.SimpleNamespace(dit_cfg=cfg))
+    single_ms, want = _time_forward("wan", dit, inputs, 1, 3)
+    want = want.cpu()
+    inputs = [a.cpu() for a in inputs]
+    del dit
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"tp: single-process bf16 CFG forward {single_ms:.1f} ms")
+
+    def rel_l2(name):
+        got = torch.load(os.path.join(TP_DIR, name))
+        check(bool(torch.isfinite(got).all()), f"tp {name}: non-finite")
+        return ((got - want).norm() / want.norm()).item()
+
+    out = {"single_forward_ms": single_ms, "rel_l2_limit": TP_REL_L2}
+    for tag, mesh_kw in TP_MESHES.items():
+        world = math.prod(mesh_kw.values())
+        t0 = time.time()
+        mp.spawn(_tp_worker, args=(world, tag, mesh_kw, inputs,
+                                   os.path.join(TP_DIR, f"{tag}_pg")),
+                 nprocs=world, join=True)
+        wall = time.time() - t0
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(TP_DIR, f"{tag}_{r}.json")) as f:
+                ranks.append(json.load(f))
+        rel = rel_l2(f"{tag}_out.pt")
+        row = dict(mesh=mesh_kw, rel_l2=rel, ranks=ranks, wall_s=wall)
+        share = max(k["collective_s"] / k["forward_s"] for k in ranks)
+        print(f"tp {tag}: {world} processes in {wall:.1f} s; CFG forward "
+              f"{max(k['forward_s'] for k in ranks):.2f} s, collectives "
+              f"{share:.3f} of it; relative L2 from the single process "
+              f"{rel:.3e} (limit {TP_REL_L2}); peak per rank "
+              + ", ".join(f"{k['forward_peak_gib']:.2f}" for k in ranks)
+              + " GiB")
+        check(rel <= TP_REL_L2, f"tp {tag}: relative L2 {rel:.3e} from the "
+                                f"single-process forward over {TP_REL_L2}")
+        for k in ranks:
+            check(k["launches"] == PER_STEP_TP,
+                  f"tp {tag} rank {k['rank']}: launches {k['launches']}, "
+                  f"expected {PER_STEP_TP}")
+        if tag == "tp2":
+            row["fault_rel_l2"] = rel_l2(f"{tag}_fault.pt")
+            print(f"tp {tag}: the biases added on every rank read "
+                  f"{row['fault_rel_l2']:.3e} relative L2 (must exceed "
+                  f"{TP_REL_L2})")
+            check(row["fault_rel_l2"] > TP_REL_L2,
+                  f"tp {tag}: the duplicated-bias fault ("
+                  f"{row['fault_rel_l2']:.3e}) is within the limit")
+            steps = TP_REQUEST["num_inference_steps"]
+            want_req = {k: n * steps for k, n in PER_STEP_TP.items()}
+            r0 = ranks[0]
+            check(r0["video_finite"] and r0["video_shape"] == [
+                1, 3, TP_REQUEST["num_frames"], TP_REQUEST["height"],
+                TP_REQUEST["width"]], f"tp {tag} request: video "
+                                      f"{r0['video_shape']}, finite "
+                                      f"{r0['video_finite']}")
+            check(all(k["video_none"] for k in ranks[1:]),
+                  f"tp {tag} request: a rank other than 0 returned a video")
+            for k in ranks:
+                check(k["request_launches"] == want_req,
+                      f"tp {tag} request, rank {k['rank']}: launches "
+                      f"{k['request_launches']}, expected {want_req}")
+            print(f"tp {tag} request (a) "
+                  f"{TP_REQUEST['height']}x{TP_REQUEST['width']}x"
+                  f"{TP_REQUEST['num_frames']}, {steps} steps: "
+                  f"{r0['request_s']:.2f} s; peak per rank "
+                  + ", ".join(f"{k['request_peak_gib']:.2f}" for k in ranks)
+                  + " GiB")
+        out[tag] = row
+    return out
+
+
 def main():
     import torch
     profile = "--profile" in sys.argv[1:]
@@ -1854,14 +2251,16 @@ def main():
         fail(f"frameino_tpu_torch is not importable from {REPO}: {e}")
 
     t_start = time.time()
-    name, _ = phase_device()
+    name, smi = phase_device()
     phase_build()
     kernel_results = phase_kernels()
+    kernel_results.update(phase_kernels_k5())
     kernel_results.update(phase_kernels_k7())
     dense_int8 = phase_dense_int8()
     rows, totals, int8_wan = phase_serve("wan")
     ref_err = phase_reference()
     ref_err_int8 = phase_reference("int8")
+    tp = phase_tp()
     kernel_results.update(phase_kernels_cog())
     rows_cog, totals_cog, int8_cog = phase_serve("cogvideox")
     ref_err_cog = phase_reference_cog()
@@ -1876,11 +2275,12 @@ def main():
     exp_scripts, exp_launches = phase_experiment_scripts()
 
     # each kernel's launches on its path (K1 twice: Wan at head_dim 128,
-    # CogVideoX at 64; K6 over the 3 full-depth train steps; K7 over the
-    # int8 requests of both families; K8-K12 over the two experiment
-    # scripts' runs)
+    # CogVideoX at 64; K5 on rank 0 over the tp = 2 request; K6 over the 3
+    # full-depth train steps; K7 over the int8 requests of both families;
+    # K8-K12 over the two experiment scripts' runs)
     steps = train["steps"]
     launches = dict(totals, qk_ln_rope=totals_cog["qk_ln_rope"],
+                    **{K5: tp["tp2"]["ranks"][0]["request_launches"][K5]},
                     flash_fwd_static_d64=totals_cog["flash_fwd_static"],
                     dyn_quant=int8_wan["launches"][K7]
                     + int8_cog["launches"][K7],
@@ -1888,13 +2288,13 @@ def main():
                        for k in NO_TRAIN}, **exp_launches)
     for k, n in exp_launches.items():
         check(n > 0, f"kernel {k} was not launched by the experiment scripts")
-    summary = {"kernels": [
+    summary = {"device": {"name": name, "nvidia_smi": smi}, "kernels": [
         dict(name=k, route=KERNELS[k]["route"], source=KERNELS[k]["source"],
              replaces=KERNELS[k]["replaces"], launches=launches[k],
              **kernel_results[k])
         for k in KERNELS],
         "requests": rows + rows_cog, "reference_rel_l2": ref_err,
-        "reference_int8_rel_l2": ref_err_int8,
+        "reference_int8_rel_l2": ref_err_int8, "tp": tp,
         "reference_cog_rel_l2": ref_err_cog, "dense_int8": dense_int8,
         "int8_wan": int8_wan, "int8_cog": int8_cog, "k6_shapes": k6_shapes,
         "train_entry": entry, "train": train, "train_reference": train_ref,

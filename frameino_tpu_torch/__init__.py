@@ -7,13 +7,15 @@ The first slice is Wan2.2-TI2V-5B FrameINO serving: the HTTP server
 FlowMatch-Euler scheduler and the 5B DiT (``models/wan_dit.py``). Its three
 attention kernels are written by hand for sm_90a (``ops/attention.py``,
 ``csrc/flash_fwd.cu``, ``ops/qk_norm_rope_triton.py``). Later slices add
-CogVideoX-5B-I2V serving, Wan2.2 training and int8 w8a8 DiT serving
-(``models/quant.py``, K7 in ``csrc/dyn_quant.cu``).
+CogVideoX-5B-I2V serving, Wan2.2 training, int8 w8a8 DiT serving
+(``models/quant.py``, K7 in ``csrc/dyn_quant.cu``) and Wan2.2 serving over
+a dp x tp process mesh on ``torch.distributed`` (``core/meshes.py``,
+``parallel/``, K5 beside K2 in ``ops/qk_norm_rope_triton.py``).
 
 Module paths mirror ``frameino_tpu``; this package never imports jax.
 
 Layout:
-    core/        shape buckets
+    core/        shape buckets, the dp x tp process mesh
     ops/         norms, dense and int8 dense, embeddings, rope, conv,
                  attention kernels, the int8 row quantizer, the CUDA build
     csrc/        CUDA C++ sources, built into build/ at first use
@@ -22,6 +24,7 @@ Layout:
     schedulers/  flow_match_euler
     pipelines/   wan_i2v
     app/         HTTP server
+    parallel/    process start-up and checks, tensor-parallel sharding
 """
 
 __version__ = "0.1.0"

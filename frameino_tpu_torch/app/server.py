@@ -174,8 +174,11 @@ class PipelineServer:
                 "bucket": [Fb, Hb, Wb]}
 
     def health(self) -> dict:
+        """JAX's keys (``backend`` named as ``jax.default_backend()`` names
+        the platform: "gpu" for a CUDA card) and the torch device."""
         dev = self.pipeline.device
         info = {"status": "ok", "generations": self.generations,
+                "backend": "gpu" if dev.type == "cuda" else dev.type,
                 "device": str(dev),
                 "pipeline": type(self.pipeline).__name__}
         if dev.type == "cuda":

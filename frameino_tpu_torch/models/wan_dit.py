@@ -20,7 +20,19 @@ qk RMS-norm and RoPE run as plain ops, every attention goes through K6
 and ``remat`` recomputes each block in the backward
 (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``).
 
-Not ported: the Wan2.1 image-KV branch and the pp/sp mesh paths.
+Under a dp x tp ``mesh`` (``core/meshes.py``), one process runs per rank
+and ``WanDiT(cfg, mesh=mesh)`` holds layers of the rank's width
+(``parallel/sharding.py``): each tp rank computes its contiguous slice of
+the heads and of the FFN hidden width, the qk RMS statistic across heads
+is completed by an all-reduce of the fp32 sum of squares (self-attention:
+K5 then K1, ``fused_qk_flash_attention_sharded``; cross-attention and the
+text K: plain ops, then K3), each row-parallel output is all-reduced in
+fp32 before its bias is added once, and each dp rank runs its slice of
+the batch, the output being gathered over dp. Every rank is called with
+the same full-batch arguments and returns the same full-batch output.
+
+Not ported: the Wan2.1 image-KV branch, the fsdp/pp/sp mesh paths and
+training under a mesh.
 """
 
 from __future__ import annotations
@@ -30,9 +42,11 @@ import math
 from typing import List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from frameino_tpu_torch.core.meshes import Mesh, check_supported
 from frameino_tpu_torch.models.quant import linear as _lin
 from frameino_tpu_torch.ops import attention as attn_ops
 from frameino_tpu_torch.ops.embeddings import (pixart_text_projection,
@@ -41,6 +55,11 @@ from frameino_tpu_torch.ops.embeddings import (pixart_text_projection,
 from frameino_tpu_torch.ops.linear import dense, gelu_tanh, silu
 from frameino_tpu_torch.ops.norms import layer_norm, rms_norm
 from frameino_tpu_torch.ops.rope import apply_rope_interleaved, wan_rope_table
+from frameino_tpu_torch.parallel.sharding import shard_state_dict
+
+SHARDED_TRAINING_NOT_PORTED = (
+    "training under a mesh is not ported: sharded training is ROADMAP.md "
+    "queue 1, item 12")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,14 +119,19 @@ class _ConditionEmbedder(nn.Module):
 
 
 class _Attention(nn.Module):
-    def __init__(self, d, eps, **kw):
+    """q/k/v column-parallel and to_out row-parallel over ``tp`` ranks: a
+    rank holds d/tp of their heads (and of the norm gains)."""
+
+    def __init__(self, d, eps, tp=1, **kw):
         super().__init__()
-        self.to_q = nn.Linear(d, d, **kw)
-        self.to_k = nn.Linear(d, d, **kw)
-        self.to_v = nn.Linear(d, d, **kw)
-        self.to_out = nn.ModuleList([nn.Linear(d, d, **kw), nn.Dropout(0.0)])
-        self.norm_q = nn.RMSNorm(d, eps=eps, **kw)
-        self.norm_k = nn.RMSNorm(d, eps=eps, **kw)
+        d_l = d // tp
+        self.to_q = nn.Linear(d, d_l, **kw)
+        self.to_k = nn.Linear(d, d_l, **kw)
+        self.to_v = nn.Linear(d, d_l, **kw)
+        self.to_out = nn.ModuleList([nn.Linear(d_l, d, **kw),
+                                     nn.Dropout(0.0)])
+        self.norm_q = nn.RMSNorm(d_l, eps=eps, **kw)
+        self.norm_k = nn.RMSNorm(d_l, eps=eps, **kw)
 
 
 class _GeluProj(nn.Module):
@@ -117,10 +141,11 @@ class _GeluProj(nn.Module):
 
 
 class _FeedForward(nn.Module):
-    def __init__(self, d, ffn_dim, **kw):
+    def __init__(self, d, ffn_dim, tp=1, **kw):
         super().__init__()
-        self.net = nn.ModuleList([_GeluProj(d, ffn_dim, **kw), nn.Dropout(0.0),
-                                  nn.Linear(ffn_dim, d, **kw)])
+        self.net = nn.ModuleList([_GeluProj(d, ffn_dim // tp, **kw),
+                                  nn.Dropout(0.0),
+                                  nn.Linear(ffn_dim // tp, d, **kw)])
 
 
 def _split_heads(x, num_heads):
@@ -136,31 +161,54 @@ def _merge_heads(x):
 class WanBlock(nn.Module):
     """WanTransformerBlock (reference transformer_wan.py:308-350)."""
 
-    def __init__(self, cfg: WanDiTConfig, **kw):
+    def __init__(self, cfg: WanDiTConfig, mesh: Optional[Mesh] = None, **kw):
         super().__init__()
         d = cfg.inner_dim
+        tp = 1 if mesh is None else mesh.tp
         self.cfg = cfg
+        self.mesh = mesh
+        self.tp = tp
+        # the tp group of the row-parallel sums and the qk statistics
+        self.tp_group = mesh.tp_group if tp > 1 else None
+        self.heads = cfg.num_attention_heads // tp        # this rank's
         self.scale_shift_table = nn.Parameter(torch.empty(1, 6, d, **kw))
-        self.attn1 = _Attention(d, cfg.eps, **kw)
-        self.attn2 = _Attention(d, cfg.eps, **kw)
+        self.attn1 = _Attention(d, cfg.eps, tp, **kw)
+        self.attn2 = _Attention(d, cfg.eps, tp, **kw)
         if cfg.cross_attn_norm:
             self.norm2 = nn.LayerNorm(d, eps=cfg.eps, **kw)
-        self.ffn = _FeedForward(d, cfg.ffn_dim, **kw)
+        self.ffn = _FeedForward(d, cfg.ffn_dim, tp, **kw)
+
+    def _row_parallel(self, x, layer):
+        """A row-parallel layer (to_out, ffn.net.2): under tp, the rank's
+        fp32 partial product is summed over the tp group and the bias,
+        held by every rank, is added once after the sum."""
+        if self.tp == 1:
+            return _lin(x, layer)
+        y = dense(x, layer.weight, out_dtype=torch.float32)
+        dist.all_reduce(y, group=self.tp_group)
+        return (y + layer.bias.float()).to(x.dtype)
 
     def text_kv(self, context) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Cross-attention K/V [B, H, L, Dh] for a fixed text context."""
+        """Cross-attention K/V [B, H, L, Dh] for a fixed text context (this
+        rank's H/tp heads under tp)."""
         a = self.attn2
-        k = rms_norm(_lin(context, a.to_k), a.norm_k.weight, self.cfg.eps)
+        k = rms_norm(_lin(context, a.to_k), a.norm_k.weight, self.cfg.eps,
+                     group=self.tp_group)
         v = _lin(context, a.to_v)
-        H = self.cfg.num_attention_heads
-        return (_split_heads(k, H).contiguous(),
-                _split_heads(v, H).contiguous())
+        return (_split_heads(k, self.heads).contiguous(),
+                _split_heads(v, self.heads).contiguous())
 
     def _self_attention(self, x, cos, sin, differentiable):
         cfg, a = self.cfg, self.attn1
-        H = cfg.num_attention_heads
+        H = self.heads
         q, k, v = _lin(x, a.to_q), _lin(x, a.to_k), _lin(x, a.to_v)
-        if x.is_cuda and not differentiable:
+        if self.tp > 1:
+            # the across-heads statistic all-reduced -> K5 -> bound -> K1
+            o = attn_ops.fused_qk_flash_attention_sharded(
+                q, k, _split_heads(v, H).contiguous(), a.norm_q.weight,
+                a.norm_k.weight, cos, sin, self.mesh,
+                num_heads=cfg.num_attention_heads, eps=cfg.eps)
+        elif x.is_cuda and not differentiable:
             # K2 (norm + RoPE producer) -> bound -> K1
             o = attn_ops.fused_qk_flash_attention(
                 q, k, _split_heads(v, H).contiguous(), a.norm_q.weight,
@@ -176,12 +224,13 @@ class WanBlock(nn.Module):
                     _split_heads(v, H).contiguous())
             else:
                 o = attn_ops.attention_ref(q, k, _split_heads(v, H))
-        return _lin(_merge_heads(o), a.to_out[0])
+        return self._row_parallel(_merge_heads(o), a.to_out[0])
 
     def _cross_attention(self, x, context, kv, differentiable):
         cfg, a = self.cfg, self.attn2
-        q = rms_norm(_lin(x, a.to_q), a.norm_q.weight, cfg.eps)
-        qh = _split_heads(q, cfg.num_attention_heads)
+        q = rms_norm(_lin(x, a.to_q), a.norm_q.weight, cfg.eps,
+                     group=self.tp_group)
+        qh = _split_heads(q, self.heads)
         kh, vh = kv if kv is not None else self.text_kv(context)
         if differentiable:
             o = attn_ops.flash_attention_train(qh.contiguous(), kh, vh)  # K6
@@ -189,7 +238,7 @@ class WanBlock(nn.Module):
             o = attn_ops.flash_attention_inference(qh, kh, vh)   # K3
         else:
             o = attn_ops.attention_ref(qh, kh, vh)
-        return _lin(_merge_heads(o), a.to_out[0])
+        return self._row_parallel(_merge_heads(o), a.to_out[0])
 
     def forward(self, x, context, timestep_proj, cos, sin, kv=None,
                 differentiable=False):
@@ -224,7 +273,7 @@ class WanBlock(nn.Module):
 
         norm_x = layer_norm(x, eps=eps) * (1 + c_scale) + c_shift
         h = _lin(norm_x.to(x.dtype), self.ffn.net[0].proj)
-        h = _lin(gelu_tanh(h), self.ffn.net[2])
+        h = self._row_parallel(gelu_tanh(h), self.ffn.net[2])
         return (x.float() + h.float() * c_gate).to(x.dtype)
 
 
@@ -253,17 +302,27 @@ class WanDiT(nn.Module):
 
     Build with ``device="meta"`` and then ``to_empty`` + ``init_random_``
     or ``load_state_dict(..., assign=True)`` to skip torch's default init.
+    With a dp x tp ``mesh`` the block layers have this rank's width: load
+    ``parallel.sharding.shard_state_dict`` of a full state dict.
     """
 
-    def __init__(self, cfg: WanDiTConfig, device=None, dtype=None):
+    def __init__(self, cfg: WanDiTConfig, device=None, dtype=None,
+                 mesh: Optional[Mesh] = None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         d = cfg.inner_dim
+        if mesh is not None:
+            check_supported(mesh.cfg)
+            if cfg.num_attention_heads % mesh.tp or cfg.ffn_dim % mesh.tp:
+                raise ValueError(f"{cfg.num_attention_heads} heads and FFN "
+                                 f"width {cfg.ffn_dim} must divide over "
+                                 f"tp={mesh.tp}")
         self.cfg = cfg
+        self.mesh = mesh
         self.patch_embedding = nn.Conv3d(cfg.in_channels, d, cfg.patch_size,
                                          stride=cfg.patch_size, **kw)
         self.condition_embedder = _ConditionEmbedder(cfg, **kw)
-        self.blocks = nn.ModuleList([WanBlock(cfg, **kw)
+        self.blocks = nn.ModuleList([WanBlock(cfg, mesh, **kw)
                                      for _ in range(cfg.num_layers)])
         self.scale_shift_table = nn.Parameter(torch.empty(1, 2, d, **kw))
         self.proj_out = nn.Linear(
@@ -329,17 +388,49 @@ class WanDiT(nn.Module):
         ``differentiable``: the training forward, under autograd, through
         K6 (no ``text_kv``: the text K/V are projected in the graph).
         ``remat``: with ``differentiable``, recompute each block in the
-        backward instead of keeping its activations."""
+        backward instead of keeping its activations.
+
+        Under a mesh with dp > 1 each dp rank runs its slice of the batch
+        (of every argument, ``text_kv`` included) and the output is
+        gathered over the dp group."""
         if not differentiable:
             with torch.no_grad():
-                return self._forward(hidden_states, timestep,
-                                     encoder_hidden_states, timestep_mask,
-                                     text_kv, False, False)
+                if self.mesh is None or self.mesh.dp == 1:
+                    return self._forward(hidden_states, timestep,
+                                         encoder_hidden_states, timestep_mask,
+                                         text_kv, False, False)
+                return self._forward_dp(hidden_states, timestep,
+                                        encoder_hidden_states, timestep_mask,
+                                        text_kv)
+        if self.mesh is not None:
+            raise NotImplementedError(SHARDED_TRAINING_NOT_PORTED)
         if text_kv is not None:
             raise ValueError("the differentiable forward projects the text "
                              "K/V in the graph; pass encoder_hidden_states")
         return self._forward(hidden_states, timestep, encoder_hidden_states,
                              timestep_mask, None, True, remat)
+
+    def _forward_dp(self, hidden_states, timestep, encoder_hidden_states,
+                    timestep_mask, text_kv):
+        """The dp rank's batch slice through ``_forward``, then the slices
+        of every dp rank gathered into the full batch."""
+        dp, r = self.mesh.dp, self.mesh.dp_rank
+        B = hidden_states.shape[0]
+        if B % dp:
+            raise ValueError(f"batch {B} does not divide over dp={dp}")
+        sl = slice(r * (B // dp), (r + 1) * (B // dp))
+
+        def cut(t):
+            return None if t is None else t[sl]
+
+        if text_kv is not None:
+            text_kv = [(k[sl], v[sl]) for k, v in text_kv]
+        out = self._forward(hidden_states[sl], cut(timestep),
+                            cut(encoder_hidden_states), cut(timestep_mask),
+                            text_kv, False, False)
+        parts = [torch.empty_like(out) for _ in range(dp)]
+        dist.all_gather(parts, out, group=self.mesh.dp_group)
+        return torch.cat(parts)
 
     def _forward(self, hidden_states, timestep, encoder_hidden_states,
                  timestep_mask, text_kv, differentiable, remat):
@@ -412,8 +503,16 @@ class WanDiT(nn.Module):
 
 
 def init_wan_dit(cfg: WanDiTConfig, generator: torch.Generator,
-                 dtype: torch.dtype = torch.float32) -> WanDiT:
-    """Seeded random WanDiT on ``generator``'s device."""
+                 dtype: torch.dtype = torch.float32,
+                 mesh: Optional[Mesh] = None) -> WanDiT:
+    """Seeded random WanDiT on ``generator``'s device. With a ``mesh``, the
+    rank's slice of the same full model (built whole, cut, and freed)."""
     model = WanDiT(cfg, device="meta", dtype=dtype)
     model.to_empty(device=generator.device)
-    return model.init_random_(generator).eval()
+    model.init_random_(generator)
+    if mesh is None:
+        return model.eval()
+    local = WanDiT(cfg, device="meta", dtype=dtype, mesh=mesh)
+    local.load_state_dict(shard_state_dict(model.state_dict(), mesh),
+                          assign=True)
+    return local.eval()

@@ -20,15 +20,17 @@ static ``Meta`` tags.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from frameino_tpu_torch.core.meshes import Mesh
 from frameino_tpu_torch.models.cogvideox_dit import CogVideoXConfig
 from frameino_tpu_torch.models.cogvideox_vae import CogVideoXVAEConfig
 from frameino_tpu_torch.models.wan_dit import WanDiTConfig
 from frameino_tpu_torch.models.wan_vae import WanVAEConfig
+from frameino_tpu_torch.parallel.sharding import shard_state_dict
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -49,10 +51,15 @@ def _put_lin(sd: StateDict, name: str, p: Dict[str, Any]):
         sd[f"{name}.bias"] = _t(p["bias"])
 
 
-def wan_dit_from_jax(params_np: Dict[str, Any],
-                     cfg: WanDiTConfig) -> StateDict:
+def wan_dit_from_jax(params_np: Dict[str, Any], cfg: WanDiTConfig,
+                     mesh: Optional[Mesh] = None) -> StateDict:
     """JAX ``init_wan_dit``-layout tree, float or int8-quantized ->
-    ``WanDiT`` state dict."""
+    ``WanDiT`` state dict. With a dp x tp ``mesh``, this rank's slice of it
+    (``parallel.sharding.shard_state_dict``), for ``WanDiT(cfg,
+    mesh=mesh)``: the slice of the same tree that JAX's ``shard_pytree``
+    places on the rank's device, with the qk-norm gains cut to its heads."""
+    if mesh is not None:
+        return shard_state_dict(wan_dit_from_jax(params_np, cfg), mesh)
     d = cfg.inner_dim
     sd: StateDict = {}
     pe = params_np["patch_embedding"]

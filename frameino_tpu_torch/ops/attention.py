@@ -36,6 +36,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from frameino_tpu_torch.ops import dyn_quant
 from frameino_tpu_torch.ops.cuda_build import (  # noqa: F401 (re-exported)
@@ -153,11 +154,14 @@ flash_fwd_static.launches = 0
 
 
 def flash_attention_inference(q, k, v, scale: Optional[float] = None):
-    """Non-causal flash attention, forward only. q/k/v: [B, H, S, D]."""
+    """Non-causal flash attention, forward only. q/k/v: [B, H, S, D], any
+    strides (a head-split view of a batch of one reshapes to a view that
+    is not contiguous; the kernel takes contiguous rows)."""
     B, H, Sq, D = q.shape
     scale = scale if scale is not None else _default_scale(D)
-    out = flash_fwd(q.reshape(B * H, Sq, D), k.reshape(B * H, -1, D),
-                    v.reshape(B * H, -1, D), scale * LOG2E)
+    out = flash_fwd(q.reshape(B * H, Sq, D).contiguous(),
+                    k.reshape(B * H, -1, D).contiguous(),
+                    v.reshape(B * H, -1, D).contiguous(), scale * LOG2E)
     return out.reshape(B, H, Sq, D)
 
 
@@ -282,24 +286,23 @@ def flash_attention_train(q, k, v, scale: Optional[float] = None):
 
 
 # ---------------------------------------------------------------------------
-# K2: Triton qk RMS-norm (across heads) + interleaved RoPE producer
+# K2 / K5: Triton qk RMS-norm (across heads) + interleaved RoPE producers
 # ---------------------------------------------------------------------------
-# The kernel and its design note are in ops/qk_norm_rope_triton.py.
+# The kernel (one source, two statistics) and its design note are in
+# ops/qk_norm_rope_triton.py.
 
-def qk_norm_rope_ref(raw, weight, cos, sin, num_heads: int, eps: float):
-    """Plain version of K2. raw [B, S, H*D]; weight [H*D]; cos/sin [S, D/2]
-    fp32 (any softmax gain already folded in). Returns [B*H, S, D] in
-    raw's dtype."""
+def qk_norm_rope_rstd_ref(raw, rstd, weight, cos, sin, num_heads: int):
+    """Plain version of K5. raw [B, S, H*D]; rstd [B, S] fp32, the per-token
+    reciprocal RMS over ALL heads (the tp path all-reduces it); weight
+    [H*D]; cos/sin [S, D/2] fp32 (any softmax gain already folded in).
+    ``(raw * rstd) * gain`` in fp32, rounded to raw's dtype (RMSNorm returns
+    x.dtype), then the rotation with each product rounded before the sum.
+    Returns [B*H, S, D] in raw's dtype."""
     B, S, HD = raw.shape
     H = num_heads
     D = HD // H
-    xf = raw.float()
-    # fp64 sum of squares and rsqrt, rounded once to fp32 (as the kernel);
-    # eps is the fp32 value the TPU kernel adds
-    ssq = xf.double().square().sum(-1, keepdim=True)
-    rstd = (1.0 / torch.sqrt(ssq / HD + float(np.float32(eps)))).float()
-    f = (xf * rstd * weight.float()).to(raw.dtype).float()
-    f = f.reshape(B, S, H, D // 2, 2)
+    f = (raw.float() * rstd[..., None] * weight.float()).to(raw.dtype)
+    f = f.float().reshape(B, S, H, D // 2, 2)
     fe, fo = f[..., 0], f[..., 1]
     c = cos.float()[None, :, None, :]
     s = sin.float()[None, :, None, :]
@@ -308,36 +311,75 @@ def qk_norm_rope_ref(raw, weight, cos, sin, num_heads: int, eps: float):
     return out.reshape(B * H, S, D).to(raw.dtype).contiguous()
 
 
+def qk_norm_rope_ref(raw, weight, cos, sin, num_heads: int, eps: float):
+    """Plain version of K2: K5's with the statistic of the row itself.
+    raw [B, S, H*D]; weight [H*D]; cos/sin [S, D/2] fp32. Returns
+    [B*H, S, D] in raw's dtype."""
+    HD = raw.shape[-1]
+    # fp64 sum of squares and rsqrt, rounded once to fp32 (as the kernel);
+    # eps is the fp32 value the TPU kernel adds
+    ssq = raw.double().square().sum(-1)
+    rstd = (1.0 / torch.sqrt(ssq / HD + float(np.float32(eps)))).float()
+    return qk_norm_rope_rstd_ref(raw, rstd, weight, cos, sin, num_heads)
+
+
+def _check_producer(name, raw, weight, cos, sin, num_heads: int):
+    B, S, HD = raw.shape
+    H = num_heads
+    D = HD // H
+    if H * D != HD or D % 2 or (D & (D - 1)):
+        raise ValueError(f"{name}: H*D={HD} with H={H} needs a "
+                         f"power-of-two head_dim")
+    if weight.shape != (HD,) or cos.shape != (S, D // 2) \
+            or sin.shape != cos.shape:
+        raise ValueError(f"{name}: weight must be [H*D] and cos/sin "
+                         f"[S, D/2]")
+    _check_cuda_bf16(name, raw)
+    for t in (weight, cos, sin):
+        if not t.is_cuda or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: weight/cos/sin must be contiguous "
+                             f"fp32 CUDA tensors")
+    return torch.empty((B * H, S, D), dtype=raw.dtype, device=raw.device)
+
+
 def qk_norm_rope(raw, weight, cos, sin, num_heads: int, eps: float):
     """K2 (replaces ``_qk_producer_fullrow``): RMS-norm across all heads,
     gain, round to raw's dtype, interleaved RoPE -> [B*H, S, D]. CUDA:
     Triton kernel; CPU: ``qk_norm_rope_ref``."""
     if not raw.is_cuda:
         return qk_norm_rope_ref(raw, weight, cos, sin, num_heads, eps)
-    B, S, HD = raw.shape
-    H = num_heads
-    D = HD // H
-    if H * D != HD or D % 2 or (D & (D - 1)):
-        raise ValueError(f"qk_norm_rope: H*D={HD} with H={H} needs a "
-                         f"power-of-two head_dim")
-    if weight.shape != (HD,) or cos.shape != (S, D // 2) \
-            or sin.shape != cos.shape:
-        raise ValueError("qk_norm_rope: weight must be [H*D] and cos/sin "
-                         "[S, D/2]")
-    _check_cuda_bf16("qk_norm_rope", raw)
-    for t in (weight, cos, sin):
-        if not t.is_cuda or t.dtype != torch.float32 \
-                or not t.is_contiguous():
-            raise ValueError("qk_norm_rope: weight/cos/sin must be "
-                             "contiguous fp32 CUDA tensors")
+    out = _check_producer("qk_norm_rope", raw, weight, cos, sin, num_heads)
     from frameino_tpu_torch.ops import qk_norm_rope_triton   # needs triton
-    out = torch.empty((B * H, S, D), dtype=raw.dtype, device=raw.device)
-    qk_norm_rope_triton.launch(raw, weight, cos, sin, out, H, eps)
+    qk_norm_rope_triton.launch(raw, weight, cos, sin, out, num_heads, eps)
     qk_norm_rope.launches += 1
     return out
 
 
 qk_norm_rope.launches = 0
+
+
+def qk_norm_rope_rstd(raw, rstd, weight, cos, sin, num_heads: int):
+    """K5 (replaces ``_qk_producer``): the norm with a precomputed per-token
+    ``rstd`` [B, S] fp32, gain, round to raw's dtype, interleaved RoPE ->
+    [B*H, S, D] over the H heads of raw (a tp rank's slice). CUDA: the
+    Triton kernel K2 shares; CPU: ``qk_norm_rope_rstd_ref``."""
+    if not raw.is_cuda:
+        return qk_norm_rope_rstd_ref(raw, rstd, weight, cos, sin, num_heads)
+    out = _check_producer("qk_norm_rope_rstd", raw, weight, cos, sin,
+                          num_heads)
+    if (not rstd.is_cuda or rstd.dtype != torch.float32
+            or rstd.shape != raw.shape[:2] or not rstd.is_contiguous()):
+        raise ValueError("qk_norm_rope_rstd: rstd must be a contiguous fp32 "
+                         "CUDA [B, S] tensor")
+    from frameino_tpu_torch.ops import qk_norm_rope_triton   # needs triton
+    qk_norm_rope_triton.launch(raw, weight, cos, sin, out, num_heads, 0.0,
+                               rstd=rstd)
+    qk_norm_rope_rstd.launches += 1
+    return out
+
+
+qk_norm_rope_rstd.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -407,7 +449,7 @@ qk_ln_rope.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Fused self-attention paths: K2 or K4 (q, k) -> bound -> K1
+# Fused self-attention paths: K2, K5 or K4 (q, k) -> bound -> K1
 # ---------------------------------------------------------------------------
 
 def _rowmax_norm(x):
@@ -415,19 +457,12 @@ def _rowmax_norm(x):
     return torch.linalg.vector_norm(x, dim=-1, dtype=torch.float32).amax()
 
 
-def fused_qk_flash_attention(q_raw, k_raw, v, w_q, w_k, cos, sin, *,
-                             num_heads: int, eps: float,
-                             scale: Optional[float] = None,
-                             static_softmax: bool = True):
-    """Self-attention with the qk-norm + interleaved-RoPE producers
-    (counterpart of ``_fused_qk_flash_impl``).
-
-    q_raw/k_raw: [B, S, H*D] straight out of the to_q/to_k denses. v:
-    [B, H, S, D]. w_q/w_k: [H*D] RMSNorm gains. cos/sin: [S, D/2] fp32 rope
-    pair tables. Returns [B, H, S, D]. The softmax scale * log2(e) is
-    folded into q's rope tables, as on the TPU; with ``static_softmax``
-    the bound max||q_i|| * max||k_j|| (Cauchy-Schwarz) stays on the device.
-    """
+def _fused_qk_flash(q_raw, k_raw, v, w_q, w_k, cos, sin, num_heads: int,
+                    eps: float, scale: Optional[float], static_softmax: bool,
+                    rstd=None):
+    """Shared body of the fused paths (counterpart of
+    ``_fused_qk_flash_impl``): with ``rstd`` [2, B, S] (q's, k's), K5
+    applies the precomputed statistic; without it, K2 reduces it."""
     B, S, HD = q_raw.shape
     H = num_heads
     D = HD // H
@@ -435,12 +470,16 @@ def fused_qk_flash_attention(q_raw, k_raw, v, w_q, w_k, cos, sin, *,
     gain = scale * LOG2E
     cos = cos.float()
     sin = sin.float()
+    tables_q = ((cos * gain).contiguous(), (sin * gain).contiguous())
+    tables_k = (cos.contiguous(), sin.contiguous())
     w_q = w_q.float().contiguous()
     w_k = w_k.float().contiguous()
-    qh = qk_norm_rope(q_raw, w_q, (cos * gain).contiguous(),
-                      (sin * gain).contiguous(), H, eps)
-    kh = qk_norm_rope(k_raw, w_k, cos.contiguous(), sin.contiguous(), H,
-                      eps)
+    if rstd is None:
+        qh = qk_norm_rope(q_raw, w_q, *tables_q, H, eps)
+        kh = qk_norm_rope(k_raw, w_k, *tables_k, H, eps)
+    else:
+        qh = qk_norm_rope_rstd(q_raw, rstd[0], w_q, *tables_q, H)
+        kh = qk_norm_rope_rstd(k_raw, rstd[1], w_k, *tables_k, H)
     vh = v.reshape(B * H, S, D)
     if static_softmax:
         bound = _rowmax_norm(qh) * _rowmax_norm(kh)
@@ -448,6 +487,61 @@ def fused_qk_flash_attention(q_raw, k_raw, v, w_q, w_k, cos, sin, *,
     else:
         out = flash_fwd(qh, kh, vh, 1.0)
     return out.reshape(B, H, S, D)
+
+
+def fused_qk_flash_attention(q_raw, k_raw, v, w_q, w_k, cos, sin, *,
+                             num_heads: int, eps: float,
+                             scale: Optional[float] = None,
+                             static_softmax: bool = True):
+    """Self-attention with the qk-norm + interleaved-RoPE producers
+    (counterpart of ``fused_qk_flash_attention``): K2 (q, k) -> bound ->
+    K1.
+
+    q_raw/k_raw: [B, S, H*D] straight out of the to_q/to_k denses. v:
+    [B, H, S, D]. w_q/w_k: [H*D] RMSNorm gains. cos/sin: [S, D/2] fp32 rope
+    pair tables. Returns [B, H, S, D]. The softmax scale * log2(e) is
+    folded into q's rope tables, as on the TPU; with ``static_softmax``
+    the bound max||q_i|| * max||k_j|| (Cauchy-Schwarz) stays on the device.
+    """
+    return _fused_qk_flash(q_raw, k_raw, v, w_q, w_k, cos, sin, num_heads,
+                           eps, scale, static_softmax)
+
+
+def fused_qk_flash_attention_sharded(q_raw, k_raw, v, w_q, w_k, cos, sin,
+                                     mesh, *, num_heads: int, eps: float,
+                                     scale: Optional[float] = None):
+    """``fused_qk_flash_attention`` on one rank of a dp x tp mesh: the body
+    of JAX's ``fused_qk_flash_attention_sharded`` shard_map, on the rank's
+    own tensors.
+
+    q_raw/k_raw: [B_l, S, H_l*D], the rank's batch slice and contiguous
+    head slice straight out of its column-parallel to_q/to_k; v
+    [B_l, H_l, S, D]; w_q/w_k [H_l*D], the rank's slice of the gains;
+    ``num_heads`` counts ALL heads (H = H_l * tp). Returns
+    [B_l, H_l, S, D].
+
+    tp == 1: every head is local, and K2 reduces the statistic. tp > 1:
+    the RMS statistic runs across every head, so each rank reduces the
+    fp32 sum of squares of its H_l heads, one all-reduce over the tp group
+    completes it (q's and k's together), ``rsqrt(ssq / (H*D) + eps)`` in
+    fp32 gives rstd, and K5 applies it. The static bound is the rank's own
+    (from its heads only, not all-reduced), as each JAX shard computes it;
+    then K1.
+    """
+    tp = mesh.tp
+    if num_heads % tp:
+        raise ValueError(f"{num_heads} heads do not divide over tp={tp}")
+    h_local = num_heads // tp
+    if tp == 1:
+        return fused_qk_flash_attention(q_raw, k_raw, v, w_q, w_k, cos, sin,
+                                        num_heads=h_local, eps=eps,
+                                        scale=scale)
+    ssq = torch.stack([q_raw.float().square().sum(-1),
+                       k_raw.float().square().sum(-1)])    # [2, B_l, S]
+    dist.all_reduce(ssq, group=mesh.tp_group)
+    rstd = torch.rsqrt(ssq / (tp * q_raw.shape[-1]) + eps)
+    return _fused_qk_flash(q_raw, k_raw, v, w_q, w_k, cos, sin, h_local, eps,
+                           scale, True, rstd=rstd)
 
 
 def fused_ln_qk_flash_attention(q_raw, k_raw, v, w_q, b_q, w_k, b_k, cos,
@@ -489,7 +583,7 @@ def fused_ln_qk_flash_attention(q_raw, k_raw, v, w_q, b_q, w_k, b_k, cos,
 # row quantizer, ops/dyn_quant.py) among them
 _COUNTED = (flash_fwd_static, qk_norm_rope, flash_fwd, qk_ln_rope,
             flash_attn_train_fwd, flash_attn_train_bwd,
-            dyn_quant.dynamic_quantize_rows)
+            dyn_quant.dynamic_quantize_rows, qk_norm_rope_rstd)
 
 
 def reset_launch_counts():

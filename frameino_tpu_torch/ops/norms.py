@@ -7,6 +7,7 @@ All statistics in fp32, matching the reference's ``FP32LayerNorm`` and
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 
 def layer_norm(x, weight=None, bias=None, eps: float = 1e-6):
@@ -26,11 +27,21 @@ def layer_norm(x, weight=None, bias=None, eps: float = 1e-6):
     return y
 
 
-def rms_norm(x, weight=None, eps: float = 1e-6):
+def rms_norm(x, weight=None, eps: float = 1e-6, group=None):
     """RMSNorm over the last dim, fp32 statistics, result in x's dtype
-    (Wan's ``qk_norm="rms_norm_across_heads"`` over the full inner_dim)."""
+    (Wan's ``qk_norm="rms_norm_across_heads"`` over the full inner_dim).
+
+    ``group``: the tensor-parallel process group over whose ranks the last
+    dim is cut in equal slices (x and weight are this rank's): the fp32
+    sum of squares is all-reduced over it before the mean, as GSPMD
+    completes the statistic of a sharded dim in JAX."""
     xf = x.float()
-    ms = xf.square().mean(-1, keepdim=True)
+    if group is None:
+        ms = xf.square().mean(-1, keepdim=True)
+    else:
+        ms = xf.square().sum(-1, keepdim=True)
+        dist.all_reduce(ms, group=group)
+        ms = ms / (xf.shape[-1] * dist.get_world_size(group))
     y = xf * torch.reciprocal(torch.sqrt(ms + eps))
     if weight is not None:
         y = y * weight.float()

@@ -1,0 +1,64 @@
+"""Multi-process runtime (counterpart of
+``frameino_tpu/parallel/multihost.py``).
+
+One process runs per rank, started by ``torch.multiprocessing`` or any
+launcher that knows the rank and the world size. ``initialize`` joins
+them into the default process group; ``core.meshes.make_mesh`` then lays
+them out. The caller names the collective backend: NCCL with one card a
+rank, gloo on the CPU or with several ranks on one card (NCCL refuses two
+ranks on one GPU; gloo stages CUDA tensors through host memory).
+
+JAX's ``global_batch`` (per-host input shards of a sharded train step)
+waits for sharded training, which is not ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+def initialize(init_method: str, world_size: int, rank: int, *,
+               backend: str) -> None:
+    """``dist.init_process_group`` with everything named by the caller:
+    ``init_method`` as ``tcp://host:port`` or ``file:///path``,
+    ``backend`` "nccl" or "gloo"."""
+    dist.init_process_group(backend=backend, init_method=init_method,
+                            world_size=world_size, rank=rank)
+
+
+def assert_same_across_processes(value: float, atol: float = 0.0) -> None:
+    """Raise on every process if a host-side scalar differs across the
+    processes: a gather of one float from each, compared everywhere. It
+    catches desynchronized seeds or inputs before they diverge silently."""
+    # NCCL takes tensors on the current card, gloo on the host
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend() == "nccl" else torch.device("cpu"))
+    t = torch.tensor([float(value)], dtype=torch.float64, device=dev)
+    gathered = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(gathered, t)
+    vals = np.array([float(g) for g in gathered])
+    if not np.allclose(vals, vals[0], atol=atol):
+        raise AssertionError(f"cross-process divergence: {vals.tolist()}")
+
+
+def broadcast_from_rank0(tensors, device) -> list:
+    """Rank 0's ``tensors`` (any of them None) on every process of the
+    default group: their shapes and dtypes first, as one object, then each
+    tensor, received into new tensors on ``device``. What the other ranks
+    pass is ignored."""
+    rank = dist.get_rank()
+    meta = [[None if t is None else (tuple(t.shape), t.dtype)
+             for t in tensors] if rank == 0 else None]
+    dist.broadcast_object_list(meta, src=0)
+    out = []
+    for i, m in enumerate(meta[0]):
+        if m is None:
+            out.append(None)
+            continue
+        buf = (tensors[i].contiguous() if rank == 0
+               else torch.empty(m[0], dtype=m[1], device=device))
+        dist.broadcast(buf, src=0)
+        out.append(buf)
+    return out

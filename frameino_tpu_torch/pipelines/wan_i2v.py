@@ -9,8 +9,19 @@ latents appended on the frame axis and trajectory latents on channels; ID
 predictions dropped; final re-blend. The JAX ``lax.scan`` over steps is a
 Python loop here, with the text K/V computed once per segment.
 
+Under a dp x tp ``mesh`` (``core/meshes.py``) one process runs per rank
+and every rank calls the pipeline with the same arguments, as every JAX
+process calls the jitted program. The VAE encodes and decodes on the
+mesh's rank 0 only (the other ranks may pass ``vae=None``), as JAX's
+single controller runs it once; rank 0 broadcasts the condition latents
+and the initial noise; the denoise loop runs the sharded DiTs on every
+rank, and a checksum of the final latents must agree on every process.
+Rank 0 returns the video and the other ranks return None
+(``output_type="latent"``: every rank returns the latents).
+
 Not ported: the Wan2.1 branch (``prepare_conditions_wan21``,
-``denoise_segment_wan21``) and the tiled, hybrid and streaming decodes.
+``denoise_segment_wan21``), the tiled, hybrid and streaming decodes, and
+the int8 DiT under tp > 1.
 """
 
 from __future__ import annotations
@@ -21,14 +32,21 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from frameino_tpu_torch.core.meshes import Mesh
 from frameino_tpu_torch.models import quant, wan_vae
 from frameino_tpu_torch.models.wan_dit import WanDiT
+from frameino_tpu_torch.parallel.multihost import (
+    assert_same_across_processes, broadcast_from_rank0)
 from frameino_tpu_torch.schedulers.flow_match_euler import (
     FlowMatchEulerConfig, euler_step, inference_sigmas)
 
 DECODE_NOT_PORTED = (
     "decode_mode={!r} is not ported yet: the tiled, hybrid and streaming "
     "VAE paths are ROADMAP.md queue 1, item 2; use decode_mode='full'")
+INT8_TP_NOT_PORTED = (
+    "quantize='int8' under tp > 1 is not ported: the row-parallel layers' "
+    "activation quantizer needs the row amax all-reduced over tp before "
+    "K7 (ROADMAP.md queue 1, item 12)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,14 +222,28 @@ class WanImageToVideoPipeline:
     of ``dit`` and ``dit_2`` for int8 w8a8 layers, in place
     (``models/quant.quantize_dit_int8``); ``quantize_vae`` (the int8 VAE)
     is not ported and raises.
+
+    ``mesh``: serve over a dp x tp process mesh (module docstring). Both
+    experts must be built on it (``WanDiT(cfg, mesh=mesh)``, sharded by
+    the same rules); ``vae`` may be None on every rank but the mesh's
+    rank 0.
     """
 
-    def __init__(self, dit: WanDiT, vae: wan_vae.WanVAE,
+    def __init__(self, dit: WanDiT, vae: Optional[wan_vae.WanVAE],
                  pipe_cfg: WanPipelineConfig = WanPipelineConfig(),
                  text_encoder_fn=None, dit_2: Optional[WanDiT] = None,
-                 quantize: Optional[str] = None, quantize_vae: bool = False):
+                 quantize: Optional[str] = None, quantize_vae: bool = False,
+                 mesh: Optional[Mesh] = None):
         if quantize not in (None, "int8"):
             raise ValueError(f"unsupported quantize={quantize!r}")
+        if any(m is not None and m.mesh != mesh for m in (dit, dit_2)):
+            raise ValueError("dit and dit_2 must be built on the pipeline's "
+                             "mesh")
+        if quantize == "int8" and mesh is not None and mesh.tp > 1:
+            raise NotImplementedError(INT8_TP_NOT_PORTED)
+        if vae is None and (mesh is None or mesh.rank == 0):
+            raise ValueError("the VAE is needed on the mesh's rank 0 (or "
+                             "without a mesh)")
         if quantize_vae:
             quant.quantize_wan_vae_int8(vae)          # raises: not ported
         if quantize == "int8":
@@ -223,6 +255,7 @@ class WanImageToVideoPipeline:
         self.vae = vae
         self.pipe_cfg = pipe_cfg
         self.text_encoder_fn = text_encoder_fn
+        self.mesh = mesh
 
     @property
     def dit_cfg(self):
@@ -250,9 +283,8 @@ class WanImageToVideoPipeline:
         if decode_mode != "full":
             raise NotImplementedError(DECODE_NOT_PORTED.format(decode_mode))
         dev = self.device
-        vae_cfg = self.vae_cfg
-        num_frames = round_num_frames(num_frames,
-                                      vae_cfg.scale_factor_temporal)
+        # the VAE runs here: without a mesh, or on the mesh's rank 0
+        encoder = self.mesh is None or self.mesh.rank == 0
 
         if prompt_embeds is None:
             if self.text_encoder_fn is None:
@@ -265,8 +297,53 @@ class WanImageToVideoPipeline:
             negative_prompt_embeds = torch.zeros_like(prompt_embeds)
         negative_prompt_embeds = negative_prompt_embeds.to(dev)
 
-        B = prompt_embeds.shape[0]
-        shape = latent_shape(vae_cfg, B, num_frames, height, width)
+        sched = self.pipe_cfg.scheduler
+        sigmas, timesteps = inference_sigmas(sched, num_inference_steps)
+        conds = [None] * 4
+        if encoder:
+            conds = self._noise_and_conditions(
+                image, traj_tensor, id_tensor, prompt_embeds.shape[0],
+                num_frames, height, width, generator, latents)
+        if self.mesh is not None:
+            conds = broadcast_from_rank0(conds, dev)
+        latents, condition, traj_latents, id_latents = conds
+        mask = build_first_frame_mask(*latents.shape[2:], device=dev)
+
+        split_idx = 0
+        if self.pipe_cfg.boundary_ratio is not None \
+                and self.dit_2 is not None:
+            boundary_t = self.pipe_cfg.boundary_ratio \
+                * sched.num_train_timesteps
+            split_idx = int(np.sum(timesteps >= boundary_t))
+        latents = denoise(
+            self.dit, latents, condition, traj_latents, id_latents, mask,
+            prompt_embeds, negative_prompt_embeds, sigmas, timesteps,
+            guidance_scale=float(guidance_scale), dit_2=self.dit_2,
+            guidance_scale_2=(None if guidance_scale_2 is None
+                              else float(guidance_scale_2)),
+            split_idx=split_idx, cfg_mode=cfg_mode)
+        if self.mesh is not None:
+            assert_same_across_processes(float(latents.double().sum()))
+
+        if output_type == "latent":
+            return latents
+        if not encoder:
+            return None
+        z = wan_vae.denormalize_latents(self.vae_cfg, latents)
+        video = self.vae.decode(z)
+        if output_type == "np":
+            return video.cpu().numpy()
+        return video
+
+    def _noise_and_conditions(self, image, traj_tensor, id_tensor, batch,
+                              num_frames, height, width, generator, latents):
+        """The initial noise (drawn from ``generator`` unless ``latents``
+        is given) and the VAE-encoded conditions, on the DiT's device."""
+        dev = self.device
+        vae_cfg = self.vae_cfg
+        num_frames = round_num_frames(num_frames,
+                                      vae_cfg.scale_factor_temporal)
+        shape = latent_shape(vae_cfg, batch, num_frames, height, width)
         if latents is None:
             if generator is None:
                 generator = torch.Generator(dev).manual_seed(0)
@@ -284,31 +361,6 @@ class WanImageToVideoPipeline:
         def f32(x):
             return None if x is None else x.to(dev, torch.float32)
 
-        sched = self.pipe_cfg.scheduler
-        sigmas, timesteps = inference_sigmas(sched, num_inference_steps)
-        condition, traj_latents, id_latents = prepare_conditions(
-            self.vae, f32(image), f32(traj_tensor), f32(id_tensor))
-        mask = build_first_frame_mask(shape[2], shape[3], shape[4], dev)
-
-        split_idx = 0
-        if self.pipe_cfg.boundary_ratio is not None \
-                and self.dit_2 is not None:
-            boundary_t = self.pipe_cfg.boundary_ratio \
-                * sched.num_train_timesteps
-            split_idx = int(np.sum(timesteps >= boundary_t))
-        latents = denoise(
-            self.dit, latents, condition, traj_latents, id_latents, mask,
-            prompt_embeds, negative_prompt_embeds, sigmas, timesteps,
-            guidance_scale=float(guidance_scale), dit_2=self.dit_2,
-            guidance_scale_2=(None if guidance_scale_2 is None
-                              else float(guidance_scale_2)),
-            split_idx=split_idx, cfg_mode=cfg_mode)
-
-        if output_type == "latent":
-            return latents
-        z = wan_vae.denormalize_latents(vae_cfg, latents)
-        video = self.vae.decode(z)
-        if output_type == "np":
-            return video.cpu().numpy()
-        return video
+        return [latents, *prepare_conditions(
+            self.vae, f32(image), f32(traj_tensor), f32(id_tensor))]
 

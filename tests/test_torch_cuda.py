@@ -57,6 +57,23 @@ def test_flash_kernels_match_plain(dev, d, sq, skv):
     assert after["flash_fwd_static"] == before["flash_fwd_static"] + 1
 
 
+def test_flash_attention_inference_takes_a_head_split_batch_of_one(dev):
+    """q as the DiTs make it, a head-split view [1, H, S, D] of [1, S, H*D]
+    (a batch of one per dp rank, or sequential CFG): its [H, S, D] reshape
+    is a view that is not contiguous, and the wrapper hands K3 a copy."""
+    g = torch.Generator(dev).manual_seed(3)
+    x = torch.randn(1, 100, 2 * 128, device=dev, dtype=torch.bfloat16,
+                    generator=g)
+    q = x.reshape(1, 100, 2, 128).permute(0, 2, 1, 3)
+    k, v = (torch.randn(1, 2, 77, 128, device=dev, dtype=torch.bfloat16,
+                        generator=g) for _ in range(2))
+    got = A.flash_attention_inference(q, k, v)
+    ref = A.flash_fwd_ref(q.reshape(2, 100, 128), k[0], v[0],
+                          128 ** -0.5 * A.LOG2E)
+    torch.testing.assert_close(got[0].float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
 @pytest.mark.parametrize("heads,s", [(3, 100), (24, 257)])
 def test_qk_norm_rope_kernel_within_one_ulp(dev, heads, s):
     g = torch.Generator(dev).manual_seed(1)
@@ -70,6 +87,41 @@ def test_qk_norm_rope_kernel_within_one_ulp(dev, heads, s):
     # the same roundings to bf16; fp32 reassociation may flip one: 1 ulp
     assert torch.all((got - ref).abs()
                      <= torch.maximum(_bf16_ulp(got), _bf16_ulp(ref)))
+
+
+@pytest.mark.parametrize("heads,s", [(12, 300), (6, 257), (1, 100)])
+def test_qk_norm_rope_rstd_kernel_bit_equal(dev, heads, s):
+    """K5 on a tp rank's heads (12 and 6 of 24: not powers of two) against
+    its plain version on the same rstd: the same fp32 products in the same
+    order, no FMA contraction, so every bf16 output is equal. Handed K2's
+    statistic (fp64 sum of squares, rounded once), the concatenated shards
+    are K2 on the full rows, within one bf16 ulp (K2's fp64 sum runs in
+    another order than the plain version's)."""
+    g = torch.Generator(dev).manual_seed(2)
+    hd = heads * 128
+    raw = torch.randn(2, s, 2 * hd, device=dev, dtype=torch.bfloat16,
+                      generator=g)
+    w = 1 + 0.1 * torch.randn(2 * hd, device=dev, generator=g)
+    ang = torch.rand(s, 64, device=dev, generator=g) * 6.3
+    cos, sin = ang.cos() * 0.5, ang.sin() * 0.5
+    tp_rstd = torch.rsqrt(raw.float().square().sum(-1) / (2 * hd) + 1e-6)
+    k2_rstd = (1.0 / torch.sqrt(raw.double().square().sum(-1) / (2 * hd)
+                                + float(np.float32(1e-6)))).float()
+    for rstd in (tp_rstd, k2_rstd):
+        shards = []
+        for r in range(2):
+            raw_r, w_r = (t[..., r * hd:(r + 1) * hd].contiguous()
+                          for t in (raw, w))
+            before = A.launch_counts()["qk_norm_rope_rstd"]
+            got = A.qk_norm_rope_rstd(raw_r, rstd, w_r, cos, sin, heads)
+            assert A.launch_counts()["qk_norm_rope_rstd"] == before + 1
+            assert torch.equal(got, A.qk_norm_rope_rstd_ref(
+                raw_r, rstd, w_r, cos, sin, heads))
+            shards.append(got.reshape(2, heads, s, 128))
+    got = torch.cat(shards, 1).reshape(-1, s, 128).float()
+    full = A.qk_norm_rope(raw, w, cos, sin, 2 * heads, 1e-6).float()
+    assert torch.all((got - full).abs()
+                     <= torch.maximum(_bf16_ulp(got), _bf16_ulp(full)))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -116,7 +168,8 @@ def test_dit_on_cuda_runs_the_kernels(dev):
     assert counts == {"flash_fwd_static": 2, "qk_norm_rope": 4,
                       "flash_fwd": 2, "qk_ln_rope": 0,
                       "flash_attn_train_fwd": 0, "flash_attn_train_bwd": 0,
-                      "dynamic_quantize_rows": 0}
+                      "dynamic_quantize_rows": 0,
+                      "qk_norm_rope_rstd": 0}
     assert torch.isfinite(got).all()
     # both bf16 through 2 blocks; the kernels round p to bf16 at another
     # shift than the plain softmax: 5e-2
@@ -198,7 +251,8 @@ def test_cogvideox_dit_on_cuda_runs_the_kernels(dev):
     assert counts == {"flash_fwd_static": 2, "qk_norm_rope": 0,
                       "flash_fwd": 0, "qk_ln_rope": 4,
                       "flash_attn_train_fwd": 0, "flash_attn_train_bwd": 0,
-                      "dynamic_quantize_rows": 0}
+                      "dynamic_quantize_rows": 0,
+                      "qk_norm_rope_rstd": 0}
     assert torch.isfinite(got).all()
     # both bf16 through 2 blocks; the kernels round p to bf16 at another
     # shift than the plain softmax: 5e-2
@@ -286,7 +340,8 @@ def test_differentiable_dit_on_cuda_runs_k6(dev, remat):
     assert counts == {"flash_fwd_static": 0, "qk_norm_rope": 0,
                       "flash_fwd": 0, "qk_ln_rope": 0,
                       "flash_attn_train_fwd": 8 if remat else 4,
-                      "flash_attn_train_bwd": 4, "dynamic_quantize_rows": 0}
+                      "flash_attn_train_bwd": 4, "dynamic_quantize_rows": 0,
+                      "qk_norm_rope_rstd": 0}
     ref_loss, ref_grads = loss_and_grads(cpu, "cpu")
     # both bf16; the kernels round P and dS to bf16 where the plain path
     # keeps fp32: 2e-2 on the loss, 5e-2 relative L2 over all gradients
@@ -393,7 +448,8 @@ def test_int8_dit_on_cuda_runs_k7(dev):
     assert counts == {"flash_fwd_static": 2, "qk_norm_rope": 4,
                       "flash_fwd": 2, "qk_ln_rope": 0,
                       "flash_attn_train_fwd": 0, "flash_attn_train_bwd": 0,
-                      "dynamic_quantize_rows": 20}
+                      "dynamic_quantize_rows": 20,
+                      "qk_norm_rope_rstd": 0}
     assert torch.isfinite(got).all()
     # both bf16 through 2 blocks (5e-2 as the float test); a code that
     # flips where the kernels' bf16 activations differ moves one element

@@ -300,6 +300,50 @@ def test_qk_norm_rope_matches_pallas_producer(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("heads", [1, 3, 4])
+def test_qk_norm_rope_rstd_matches_pallas_producer(dtype, heads):
+    """K5's plain version == _qk_producer (interpret) on the same rstd, at
+    300 tokens (ragged against its 256-row blocks: JAX pads to 512 with
+    rstd 1 and the pad rows are dropped) and a tp rank's 1, 3 or 4 heads.
+    The rstd is a tp path's: the fp32 sum of squares over twice the
+    rank's heads (the other rank's half included) and rsqrt."""
+    B, S, D, block_s = 2, 300, 32, 256
+    rs = np.random.RandomState(13)
+    raw = rs.randn(B, S, heads * D).astype(np.float32)
+    other = rs.randn(B, S, heads * D).astype(np.float32)
+    ssq = np.square(raw).sum(-1) + np.square(other).sum(-1)
+    rstd = (1.0 / np.sqrt(ssq / (2 * heads * D) + np.float32(1e-6))
+            ).astype(np.float32)
+    w = (1.0 + 0.1 * rs.randn(heads * D)).astype(np.float32)
+    ang = rs.uniform(0, 2 * np.pi, (S, D // 2)).astype(np.float32)
+    gain = np.float32(D ** -0.5 * tattn.LOG2E)
+    cos, sin = np.cos(ang) * gain, np.sin(ang) * gain
+    rj, rt = _pair(raw, dtype)
+    c2, s2 = jattn._rope_expand(jnp.asarray(cos), jnp.asarray(sin))
+    pad = 2 * block_s - S
+    with pltpu.force_tpu_interpret_mode():
+        ref = jattn._qk_producer(
+            jnp.pad(rj, ((0, 0), (0, pad), (0, 0))),
+            jnp.pad(jnp.asarray(rstd)[:, None], ((0, 0), (0, 0), (0, pad)),
+                    constant_values=1.0),
+            jnp.asarray(w).reshape(heads, 1, D),
+            jnp.pad(c2, ((0, pad), (0, 0))), jnp.pad(s2, ((0, pad), (0, 0))),
+            num_heads=heads, block_s=block_s, interpret=True)
+    got = tattn.qk_norm_rope_rstd(rt, torch.from_numpy(rstd),
+                                  torch.from_numpy(w), torch.from_numpy(cos),
+                                  torch.from_numpy(sin), heads)
+    assert got.shape == (B * heads, S, D) and got.dtype == DTYPES[dtype][1]
+    g, r = _np(got), _np(ref)[:, :S]
+    if dtype == "fp32":
+        # the same fp32 products in the same order: 1 fp32 ulp at most
+        np.testing.assert_allclose(g, r, atol=1e-6, rtol=1e-6)
+    else:
+        # the same roundings to bf16 on the same rstd; XLA's CPU code may
+        # contract the rotation into an FMA: within one bf16 ulp
+        assert np.all(np.abs(g - r) <= np.maximum(_bf16_ulp(g), _bf16_ulp(r)))
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("static_softmax", [True, False])
 def test_fused_qk_flash_matches_pallas(dtype, static_softmax):
     """K2 -> bound -> K1 (and the K3 fallback) == _fused_qk_flash_impl."""
@@ -338,6 +382,9 @@ def test_kernel_wrappers_count_no_launch_on_cpu():
     tattn.flash_fwd_static(q, q, q, torch.tensor(50.0))
     tattn.qk_norm_rope(torch.randn(1, 8, 128), torch.ones(128),
                        torch.ones(8, 32), torch.zeros(8, 32), 2, 1e-6)
+    tattn.qk_norm_rope_rstd(torch.randn(1, 8, 128), torch.ones(1, 8),
+                            torch.ones(128), torch.ones(8, 32),
+                            torch.zeros(8, 32), 2)
     tattn.qk_ln_rope(torch.randn(1, 8, 128), torch.ones(64), torch.zeros(64),
                      torch.ones(8, 32), torch.zeros(8, 32), 2, 1e-6)
     qg = torch.randn(1, 2, 8, 64, requires_grad=True)
@@ -359,4 +406,5 @@ def test_kernel_wrappers_count_no_launch_on_cpu():
                                      "qk_ln_rope": 0,
                                      "flash_attn_train_fwd": 0,
                                      "flash_attn_train_bwd": 0,
-                                     "dynamic_quantize_rows": 0}
+                                     "dynamic_quantize_rows": 0,
+                                     "qk_norm_rope_rstd": 0}

@@ -262,6 +262,8 @@ def test_healthz_reports_torch_device(server):
     with urllib.request.urlopen(f"http://127.0.0.1:{server}/healthz") as r:
         h = json.load(r)
     assert h["status"] == "ok" and h["device"] == "cpu"
+    # JAX's key, named as jax.default_backend() names the platform
+    assert h["backend"] == "cpu"
     assert h["pipeline"] == "WanImageToVideoPipeline"
 
 
@@ -349,10 +351,10 @@ def test_serve_args():
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Importing the package, its server and entry points, serving one
-    smoke request of each family and one of the int8 Wan pipeline, and
-    taking one smoke train step leaves jax and every module of the JAX
-    package (frameino_tpu) unimported."""
+    """Importing the package, its server and entry points, its mesh and
+    parallel modules, serving one smoke request of each family and one of
+    the int8 Wan pipeline, and taking one smoke train step leaves jax and
+    every module of the JAX package (frameino_tpu) unimported."""
     code = textwrap.dedent("""
         import base64, io, json, os, sys
         import numpy as np
@@ -367,6 +369,9 @@ def test_port_never_imports_jax(tmp_path):
         from frameino_tpu_torch.models import weights  # noqa: F401
         from frameino_tpu_torch.models import cogvideox_vae_streaming  # noqa
         from frameino_tpu_torch.ops import attention  # noqa: F401
+        from frameino_tpu_torch.core import meshes  # noqa: F401
+        from frameino_tpu_torch.parallel import (multihost,  # noqa: F401
+                                                 sharding)
         from frameino_tpu_torch.schedulers import cogvideox_dpm  # noqa: F401
         from PIL import Image
         b = io.BytesIO()
