@@ -58,9 +58,12 @@ Phases (any failure exits non-zero; there is no CPU path):
     bf16 on the card against fp32 on the CPU;
 10. train kernels: K6 forward and backward against the plain version's
     fp32 autograd at the Wan training shapes (self [1, 24, 5460, 128],
-    cross [1, 24, 5460, 128] x [1, 24, 512, 128]) and a ragged head_dim-64
-    shape, within FLASH_REL_L2 (forward) and GRAD_REL_L2 (gradients); the
-    limits are shown to reject three planted faults each run;
+    cross [1, 24, 5460, 128] x [1, 24, 512, 128]) and ragged head_dim-64
+    and -128 shapes, within FLASH_REL_L2 (forward) and GRAD_REL_L2
+    (gradients); the limits are shown to reject three planted faults each
+    run; a second backward must give bit-equal dK and dV and a dQ within
+    DQ_RERUN_REL_L2 (its fp32 sums land in scheduling order); ptxas's
+    registers and spills and each kernel's shared memory are reported;
 11. train entry: ``frameino_tpu_torch.train.main`` at full width, 2
     blocks, 49 frames at 480x832 from a synthetic dataset in build/: 3
     steps and a checkpoint, then a rerun that resumes and takes one more
@@ -833,6 +836,13 @@ def phase_dense_int8():
 # D_i term dropped, the ragged key tile's dK/dV dropped, and dK without
 # its softmax scale (PERF.md).
 GRAD_REL_L2 = 1e-2
+# Relative L2 between two backward launches' dQ: the key blocks' fp32 sums
+# (TMA reduce-adds or atomics) land in scheduling order (dK and dV must be
+# bit-equal)
+DQ_RERUN_REL_L2 = 1e-3
+# the K6 kernels, by the names the profiler and ptxas see
+K6_KERNEL_NAMES = ("attn_fwd_kernel", "attn_bwd_pre_kernel",
+                   "attn_bwd_kernel", "attn_bwd_post_kernel")
 
 
 def _rel_l2(a, b):
@@ -866,18 +876,64 @@ def _planted_faults(q, k, v, do, ref_grads, scale):
     return out
 
 
+def _ptxas_kernels(log):
+    """{kernel: {registers, spill_stores, spill_loads}} from nvcc's
+    -Xptxas=-v output."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            cur = _kernel_tag(line).strip()
+            out[cur] = {}
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                out[cur].update(spill_stores=int(m[1]),
+                                spill_loads=int(m[2]))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[cur]["registers"] = int(m[1])
+    return out
+
+
+def _k6_build_report():
+    """The K6 kernels' registers and spills (ptxas) and the dynamic shared
+    memory each launches with (from the library)."""
+    from frameino_tpu_torch.ops import attention as A
+    lib = A._lib("flash_attn_train")
+    report = {k: v for k, v in _ptxas_kernels(
+        A.BUILD_LOG.get("flash_attn_train", "")).items()
+        if k.startswith(K6_KERNEL_NAMES)}
+    smem = {"attn_fwd_kernel<128>": (128, 0), "attn_fwd_kernel<64>": (64, 0),
+            "attn_bwd_kernel<128, 1>": (128, 1),
+            "attn_bwd_kernel<128, 2>": (128, 2),
+            "attn_bwd_kernel<64, 1>": (64, 1)}
+    for name, (d, which) in smem.items():
+        report.setdefault(name, {})["smem_bytes"] = \
+            lib.attn_train_smem_bytes(d, which)
+    for name, row in sorted(report.items()):
+        print(f"K6 build {name}: " + ", ".join(f"{k} {v}"
+                                               for k, v in row.items()))
+    check(all(row.get("spill_stores", 0) == 0 for row in report.values()),
+          f"K6: a kernel spills registers: {report}")
+    return report
+
+
 def phase_kernels_train():
     """K6 forward and backward against the plain version's fp32 autograd
     at the Wan training shapes (B = 1, 24 heads of 128: self-attention
-    over 5,460 tokens, cross-attention to 512 text tokens) and at a
-    ragged head_dim-64 shape; the planted faults must fail the limit."""
+    over 5,460 tokens, cross-attention to 512 text tokens) and at ragged
+    shapes of both head dims; the planted faults must fail the limit, and
+    a second backward must repeat dK and dV bit for bit."""
     import torch
     from frameino_tpu_torch.ops import attention as A
     g = torch.Generator("cuda").manual_seed(777)
-    results, shapes = {}, {}
+    results, shapes = {}, {"build": _k6_build_report()}
+    num_sms = torch.cuda.get_device_properties(0).multi_processor_count
     for tag, (bh, sq, skv, d) in (("self", (H, S, S, D)),
                                   ("cross", (H, S, L_TEXT, D)),
-                                  ("ragged_d64", (6, 1111, 1111, 64))):
+                                  ("ragged_d64", (6, 1111, 1111, 64)),
+                                  ("ragged_d128", (3, 777, 777, 128))):
         q, do = (torch.randn(bh, sq, d, device="cuda", dtype=torch.bfloat16,
                              generator=g) for _ in range(2))
         k, v = (torch.randn(bh, skv, d, device="cuda", dtype=torch.bfloat16,
@@ -885,6 +941,16 @@ def phase_kernels_train():
         scale = d ** -0.5
         o, lse = A.flash_attn_train_fwd(q, k, v, scale)
         grads = A.flash_attn_train_bwd(q, k, v, o, lse, do, scale)
+        again = A.flash_attn_train_bwd(q, k, v, o, lse, do, scale)
+        rerun_dkdv_equal = bool(torch.equal(grads[1], again[1])
+                                and torch.equal(grads[2], again[2]))
+        rerun_dq = _rel_l2(again[0], grads[0])
+        del again
+        check(rerun_dkdv_equal, f"K6 backward ({tag}): dK or dV differ "
+                                f"between two launches")
+        check(rerun_dq <= DQ_RERUN_REL_L2,
+              f"K6 backward ({tag}): dQ of two launches differ by "
+              f"{rerun_dq:.3e} relative L2 (limit {DQ_RERUN_REL_L2:g})")
         leaves = [t.float().requires_grad_() for t in (q, k, v)]
         o_ref = A.flash_attention_train_ref(*(t[None] for t in leaves),
                                             scale)[0]
@@ -911,7 +977,10 @@ def phase_kernels_train():
                        for a, b in zip(grads, ref))
         row = dict(fwd_err=err, fwd_rel=rel, fwd_rel_l2=rel_o,
                    bwd_err=grad_err, bwd_rel_l2=rel_g, faults=faults,
-                   lse_max_abs=lse_err,
+                   lse_max_abs=lse_err, rerun_dkdv_equal=rerun_dkdv_equal,
+                   rerun_dq_rel_l2=rerun_dq,
+                   bwd_keys_per_block=A._k6_bwd_keys_per_block(
+                       bh, skv, num_sms, d),
                    fwd_ms=cuda_ms(lambda: A.flash_attn_train_fwd(
                        q, k, v, scale), 10),
                    bwd_ms=cuda_ms(lambda: A.flash_attn_train_bwd(
@@ -943,7 +1012,9 @@ def phase_kernels_train():
               f"bound {row['bwd_bound'][0]:.3f}) rel L2 "
               + ", ".join(f"{n} {x:.3e}" for n, x in rel_g.items())
               + " | planted faults " + ", ".join(
-                  f"{n} {x:.3e}" for n, x in faults.items()))
+                  f"{n} {x:.3e}" for n, x in faults.items())
+              + f" | {row['bwd_keys_per_block']} keys a backward block; "
+              f"rerun dK/dV bit-equal, dQ {rerun_dq:.3e}")
         del q, k, v, do, o, lse, grads
         torch.cuda.empty_cache()
     me, cr = shapes["self"], shapes["cross"]
@@ -1797,7 +1868,7 @@ def _profile_step(state, vae, tcfg, batch):
 
     def kind(name):
         n = name.lower()
-        if "attn_fwd_kernel" in n or "attn_bwd_" in n:
+        if any(k in n for k in K6_KERNEL_NAMES):
             return "K6"
         if any(w in n for w in ("conv", "fprop", "dgrad", "wgrad", "cudnn")):
             return "convolution"

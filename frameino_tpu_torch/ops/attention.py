@@ -20,7 +20,9 @@ and a backward giving dQ, dK, dV), behind a ``torch.autograd.Function``.
 
 K1 and K3 are one CUDA C++ kernel (``csrc/flash_fwd.cu``) templated on
 the softmax variant and head_dim; K6 is a second CUDA C++ source
-(``csrc/flash_attn_train.cu``); K2 and K4 are Triton kernels. Each
+(``csrc/flash_attn_train.cu``: warp-specialised wgmma kernels fed by TMA,
+on the Hopper helpers of ``csrc/sm90_common.cuh``); K2 and K4 are Triton
+kernels. Each
 wrapper launches its kernel for CUDA tensors (bf16, contiguous) and
 raises on anything else; for CPU tensors it runs the plain PyTorch
 version beside it. Each wrapper counts its kernel launches in
@@ -188,8 +190,9 @@ def _check_train_shapes(name, q, k, v):
 
 
 def flash_attn_train_fwd(q, k, v, scale: float):
-    """K6 forward kernel on q [BH, Sq, D], k/v [BH, Skv, D] bf16 CUDA:
-    returns (o [BH, Sq, D] bf16, lse [BH, Sq] fp32, natural log)."""
+    """K6 forward kernel on q [BH, Sq, D], k/v [BH, Skv, D] bf16 CUDA
+    (a block per 128 q rows, 128-key tiles): returns (o [BH, Sq, D] bf16,
+    lse [BH, Sq] fp32, natural log)."""
     _check_train_shapes("flash_attn_train_fwd", q, k, v)
     _check_cuda_bf16("flash_attn_train_fwd", q, k, v)
     bh, sq, d = q.shape
@@ -209,26 +212,50 @@ def flash_attn_train_fwd(q, k, v, scale: float):
 flash_attn_train_fwd.launches = 0
 
 
+def _k6_bwd_keys_per_block(bh: int, skv: int, num_sms: int,
+                           head_dim: int = 128) -> int:
+    """Keys a block of K6's backward main kernel: 128 (two consumer
+    warpgroups) when ``bh * ceil(skv / 128)`` blocks fill the card's
+    ``num_sms`` SMs, else 64 (one warpgroup, twice the blocks, two of them
+    an SM). head_dim 64 always takes 64: its dQ product splits no further
+    across two warpgroups."""
+    if head_dim != 128 or bh * -(-skv // 128) < num_sms:
+        return 64
+    return 128
+
+
 def flash_attn_train_bwd(q, k, v, o, lse, do, scale: float):
-    """K6 backward kernels (row dot, dK/dV, dQ) on the forward's inputs,
-    its o and lse, and dO like o: returns (dq, dk, dv) bf16."""
+    """K6 backward kernels (pre: D_i and the staged statistics; main: the
+    five products once per (key block, q tile); post: dQ to bf16) on the
+    forward's inputs, its o and lse, and dO like o: returns (dq, dk, dv)
+    bf16. The key blocks' dQ shares are summed in fp32 in scheduling order
+    (TMA reduce-adds or atomics), so dQ's low bits may differ between
+    runs; dK and dV are bit-reproducible."""
     _check_train_shapes("flash_attn_train_bwd", q, k, v)
     _check_cuda_bf16("flash_attn_train_bwd", q, k, v, o, do)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError("flash_attn_train_bwd: o and dO must be shaped "
                          "like q")
     bh, sq, d = q.shape
+    skv = k.shape[1]
     if (not lse.is_cuda or lse.dtype != torch.float32
             or lse.shape != (bh, sq) or not lse.is_contiguous()):
         raise ValueError("flash_attn_train_bwd: lse must be a contiguous "
                          "fp32 CUDA [BH, Sq] tensor")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    di = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    # the fp32 dQ accumulator (zeroed by the pre-kernel) and the q tiles'
+    # lse * log2(e) and D_i, padded to whole 64-row tiles
+    dq_acc = torch.empty((bh, sq, d), dtype=torch.float32, device=q.device)
+    stats = torch.empty((2, bh, -(-sq // 64) * 64), dtype=torch.float32,
+                        device=q.device)
+    keys = _k6_bwd_keys_per_block(
+        bh, skv, torch.cuda.get_device_properties(
+            q.device).multi_processor_count, d)
     err = _lib("flash_attn_train").attn_train_bwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), di.data_ptr(), bh, sq, k.shape[1], d, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        dv.data_ptr(), dq_acc.data_ptr(), stats.data_ptr(), bh, sq, skv, d,
+        keys, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"attn_train_bwd_bf16 launch failed: CUDA error "
                            f"{err}")

@@ -31,7 +31,8 @@ _CUDA_SOURCES = {
     "flash_fwd": {"flash_fwd_bf16": [_VP] * 5 + [_INT] * 5 + [_F32, _VP]},
     "flash_attn_train": {
         "attn_train_fwd_bf16": [_VP] * 5 + [_INT] * 4 + [_F32, _VP],
-        "attn_train_bwd_bf16": [_VP] * 10 + [_INT] * 4 + [_F32, _VP]},
+        "attn_train_bwd_bf16": [_VP] * 11 + [_INT] * 5 + [_F32, _VP],
+        "attn_train_smem_bytes": [_INT] * 2},
     "dyn_quant": {"dyn_quant_rows_bf16": [_VP] * 3 + [_INT] * 2 + [_VP]},
     "flash_variants": {
         "flash_variant_bf16": [_VP] * 5 + [_INT] * 5 + [_F32, _VP],

@@ -107,7 +107,13 @@ def main(argv=None, dit_cfg=None) -> dict:
         epsilon=float(config.get("adam_epsilon", 1e-10)),
         lr_scheduler=config.get("lr_scheduler", "constant_with_warmup"),
         lr_warmup_steps=int(config.get("lr_warmup_steps", 100)),
-        max_train_steps=int(config.get("max_train_steps", 1000)))
+        max_train_steps=int(config.get("max_train_steps", 1000)),
+        # read here, unlike the JAX CLI, which leaves them at their defaults
+        # (the shipped config accumulates 2 micro-batches an update)
+        optimizer=str(config.get("optimizer", "adamw")),
+        max_grad_norm=float(config.get("max_grad_norm", 1.0)),
+        gradient_accumulation_steps=int(
+            config.get("gradient_accumulation_steps", 1)))
     tcfg = TrainerConfig(scheduler=sched_cfg, optimizer=opt_cfg,
                          use_frame_in=not args.stage1, compute_dtype=dtype,
                          remat=bool(config.get("gradient_checkpointing",

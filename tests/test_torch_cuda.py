@@ -293,6 +293,57 @@ def test_flash_attention_train_matches_plain(dev, d, sq, skv):
         assert _rel_l2(got.grad, want.grad) <= 1e-2
 
 
+@pytest.mark.parametrize("shape", [
+    (1, 3, 777, 777, 128),     # ragged at head_dim 128
+    (2, 3, 300, 40, 128),      # Skv under one key tile
+    (2, 3, 40, 777, 64),       # Sq under one q tile, head_dim 64
+    (1, 24, 1000, 512, 128),   # the cross shape's keys: 64-key blocks
+    (1, 48, 300, 777, 128)])   # 48 x 7 = 336 blocks: 128-key blocks
+def test_flash_attention_train_kernels_at_ragged_and_cross_shapes(dev, shape):
+    """K6's forward (o within 5e-3, lse within 1e-3) and backward (1e-2)
+    against fp32 autograd, at the shapes that exercise the tails of the
+    TMA tiles and both of the backward's block sizes."""
+    b, h, sq, skv, d = shape
+    g = torch.Generator(dev).manual_seed(11)
+    q, do = (torch.randn(b * h, sq, d, device=dev, dtype=torch.bfloat16,
+                         generator=g) for _ in range(2))
+    k, v = (torch.randn(b * h, skv, d, device=dev, dtype=torch.bfloat16,
+                        generator=g) for _ in range(2))
+    scale = d ** -0.5
+    o, lse = A.flash_attn_train_fwd(q, k, v, scale)
+    grads = A.flash_attn_train_bwd(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = A.flash_attention_train_ref(*(t[None] for t in leaves), scale)[0]
+    ref_grads = torch.autograd.grad(ref, leaves, do.float())
+    lse_ref = torch.logsumexp(leaves[0].detach()
+                              @ leaves[1].detach().transpose(1, 2) * scale, -1)
+    assert _rel_l2(o, ref) <= 5e-3
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    for got, want in zip(grads, ref_grads):
+        assert torch.isfinite(got).all()
+        assert _rel_l2(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("skv", [512, 777])
+def test_flash_attention_train_backward_repeats(dev, skv):
+    """Two backward launches on the same inputs: dK and dV bit-equal (each
+    block owns its keys), dQ within 1e-3 relative L2 (its fp32 atomics sum
+    in scheduling order)."""
+    g = torch.Generator(dev).manual_seed(12)
+    q, do = (torch.randn(24, 1000, 128, device=dev, dtype=torch.bfloat16,
+                         generator=g) for _ in range(2))
+    k, v = (torch.randn(24, skv, 128, device=dev, dtype=torch.bfloat16,
+                        generator=g) for _ in range(2))
+    o, lse = A.flash_attn_train_fwd(q, k, v, 128 ** -0.5)
+    first = A.flash_attn_train_bwd(q, k, v, o, lse, do, 128 ** -0.5)
+    second = A.flash_attn_train_bwd(q, k, v, o, lse, do, 128 ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2],
+                                                            second[2])
+    assert _rel_l2(second[0], first[0]) <= 1e-3
+
+
 def test_flash_attention_train_rejects_what_the_kernel_does_not_take(dev):
     q = torch.randn(1, 2, 64, 128, device=dev)
     with pytest.raises(TypeError):

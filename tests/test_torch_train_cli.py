@@ -90,3 +90,35 @@ def test_unported_and_unavailable_paths_raise(smoke_env, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--config_path", path])
+
+
+def test_optimizer_keys_of_the_config_reach_the_optimizer(smoke_env,
+                                                          monkeypatch):
+    """gradient_accumulation_steps, max_grad_norm and optimizer are read
+    from the YAML: with 2 micro-batches an update a watched weight moves
+    on every second step only; adafactor raises as not ported."""
+    from frameino_tpu_torch.training import trainer
+    root, data = smoke_env
+    orig, seen = trainer.train_step, []
+
+    def step(state, *args, **kw):
+        watched = state.model.blocks[0].attn1.to_q.weight
+        before = watched.detach().clone()
+        out = orig(state, *args, **kw)
+        seen.append((state.optimizer.cfg, not torch.equal(before, watched)))
+        return out
+
+    monkeypatch.setattr(trainer, "train_step", step)
+    path = _config(root, data, max_train_steps=4, lr_scheduler="constant",
+                   first_iter_validation=False, max_grad_norm=0.5,
+                   gradient_accumulation_steps=2, optimizer="adamw")
+    out = train.main(["--config_path", path, "--smoke"])
+    assert out["step"] == 4
+    assert [moved for _, moved in seen] == [False, True, False, True]
+    cfg = seen[0][0]
+    assert cfg.gradient_accumulation_steps == 2
+    assert cfg.max_grad_norm == 0.5 and cfg.optimizer == "adamw"
+
+    path = _config(root, data, optimizer="adafactor")
+    with pytest.raises(NotImplementedError, match="adafactor"):
+        train.main(["--config_path", path, "--smoke"])

@@ -55,6 +55,19 @@ def test_flash_attention_train_ref_matches_jax_kernel(skv):
                                    atol=2e-3, rtol=2e-3)
 
 
+@pytest.mark.parametrize("bh,skv,d,keys", [
+    (24, 5460, 128, 128),   # Wan self-attention: 24 x 43 = 1,032 blocks
+    (24, 512, 128, 64),     # Wan cross-attention: 24 x 4 = 96 < 132 SMs
+    (3, 777, 128, 64),      # ragged, 3 x 7 = 21 blocks
+    (22, 777, 128, 128),    # ragged, 22 x 7 = 154 blocks fill 132 SMs
+    (24, 5460, 64, 64),     # head_dim 64 always takes one warpgroup
+    (6, 1111, 64, 64)])
+def test_k6_backward_keys_per_block(bh, skv, d, keys):
+    """K6's backward takes 128 keys a block (two consumer warpgroups)
+    only where those blocks fill an H100's 132 SMs, and head_dim 128."""
+    assert A._k6_bwd_keys_per_block(bh, skv, 132, d) == keys
+
+
 @pytest.fixture(scope="module")
 def dit_pair():
     jcfg = jdit.tiny_config(in_channels=8, out_channels=4)
