@@ -15,8 +15,13 @@ Phases (any failure exits non-zero; there is no CPU path):
     the Wan serving path gives it (Wan2.2-TI2V-5B, 49 frames at 480x832:
     CFG batch 2, 24 heads of 128, 5,460 tokens, 512 text tokens), with
     CUDA event times of both (the flash kernels also within FLASH_REL_L2
-    relative L2); K7 bit-equal to its plain version at the int8 paths'
-    rows (Wan [10920, 3072 | 14336], CogVideoX [38252, 3072 | 12288]) and
+    relative L2); K1 and K3 also at a ragged shape of both head dims, the
+    limit shown each run to reject planted faults (a dropped ragged key
+    tail, K1's p not zeroed past Skv, P V accumulated in bf16, K3
+    without its q pre-scale), and their kernels' registers, spills
+    (none allowed) and shared memory reported; K7 bit-equal to its plain
+    version at the int8 paths' rows (Wan [10920, 3072 | 14336],
+    CogVideoX [38252, 3072 | 12288]) and
     a ragged [17, 200], each with a half-way row (round half to even) and
     a zero row (the 1e-12 scale floor); K5 bit-equal to its plain version
     at the Wan tp shards ([2, 5460, 1536] at tp = 2, [2, 5460, 768] at
@@ -31,8 +36,9 @@ Phases (any failure exits non-zero; there is no CPU path):
     each must return 200 with the requested frames and size, and must
     launch the kernels exactly 30 (K1), 60 (K2), 30 (K3) and 0 (K4, K7)
     times per denoise step; then one CFG DiT forward at 5,460 tokens timed
-    in bf16, the DiT quantized to int8 in place, the same forward timed in
-    int8 and held to INT8_REL_L2 of the bf16 output, and requests (a) and
+    in bf16 and profiled (device time by kernel kind, idle share), the
+    DiT quantized to int8 in place, the same forward timed in int8 and
+    held to INT8_REL_L2 of the bf16 output, and requests (a) and
     (b) served again with 240 K7 launches per step and 60 per request;
  6. reference: a small Wan pipeline (2 blocks at head_dim 128) in bf16 on
     the card against the same weights in fp32 on the CPU's plain path, and
@@ -48,7 +54,8 @@ Phases (any failure exits non-zero; there is no CPU path):
  7. CogVideoX kernels: K4 and K1 at head_dim 64 against their plain
     versions at the CogVideoX-5B shapes (49 frames at 480x720 plus the ID
     frame: CFG batch 2, 48 heads of 64, 226 + 18,900 = 19,126 tokens);
-    K1's plain version runs on 4 of the 96 batch-head rows;
+    K1's plain version runs on 4 of the 96 batch-head rows, with the
+    planted faults;
  8. serve CogVideoX: the full-width CogVideoX-5B-I2V-FrameINO pipeline
     (bf16 DiT and VAE, seeded random weights) behind the HTTP server; two
     requests, each 42 (K1) and 84 (K4) launches per step, none of K2/K3;
@@ -363,6 +370,13 @@ def attn_bound(bh, sq, skv, d, passes=4, extra_bytes=0):
                     2 * 2 * bh * d * (sq + skv) + extra_bytes)
 
 
+def exp2_floor_ms(bh, sq, skv, sms=132, clock_hz=1.83e9):
+    """The least time of one exp2 per logit on the special-function units
+    (16 a clock per SM) of an H100 SXM at the clock of its 989 TFLOP/s
+    peak: a second floor of a flash forward beside ``attn_bound``."""
+    return 1e3 * bh * sq * skv / (16 * sms * clock_hz)
+
+
 def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -425,6 +439,115 @@ def _sdpa(scale):
         q[None], k[None], v[None], scale=scale)[0]
 
 
+# keys a K/V tile of csrc/flash_fwd.cu (the ragged tail a fault drops)
+FLASH_TILE = 128
+
+
+def _flash_plain(q, k, v, bound=None, q_scale=None, keep=None, pad=0,
+                 bf16_pv=False):
+    """K1's plain version (``bound``) or K3's (``q_scale``), with a planted
+    fault where asked: only the first ``keep`` keys; ``pad`` zero keys
+    appended (K1's p not zeroed past Skv: their logit is 0); P V
+    accumulated in bf16, 16 keys (one wgmma k-step) at a time."""
+    import torch
+    if keep is not None:
+        k, v = k[:, :keep], v[:, :keep]
+    if pad:
+        z = k.new_zeros(k.shape[0], pad, k.shape[2])
+        k, v = torch.cat([k, z], 1), torch.cat([v, z], 1)
+    if bound is not None:
+        s = torch.matmul(q.float(), k.float().transpose(1, 2))
+        p = torch.exp2(torch.clamp(s - bound.reshape(()).float(), min=-120.0))
+    else:
+        qs = q * torch.tensor(q_scale, dtype=q.dtype)
+        s = torch.matmul(qs.float(), k.float().transpose(1, 2))
+        p = torch.exp2(s - s.amax(-1, keepdim=True))
+    del s
+    pb = p.to(v.dtype)
+    if bf16_pv:
+        acc = torch.zeros(*q.shape, device=q.device, dtype=torch.bfloat16)
+        for j in range(0, pb.shape[-1], 16):
+            acc = (acc.float() + torch.matmul(pb[..., j:j + 16].float(),
+                                              v[:, j:j + 16].float())
+                   ).to(torch.bfloat16)
+        out = acc.float()
+    else:
+        out = torch.matmul(pb.float(), v.float())
+    del pb
+    return (out / p.sum(-1, keepdim=True)).to(q.dtype)
+
+
+def _flash_faults(label, q, k, v, want, **arg):
+    """Relative L2 from ``want`` (the plain version's output) of each
+    planted fault that applies to these shapes: the ragged key tail
+    dropped; K1's p not zeroed past Skv; P V accumulated in bf16; K3
+    without its q pre-scale. Each is held to exceed FLASH_REL_L2 where
+    it is planted to show: the tail and the q scale everywhere; the
+    unzeroed p where the padding is >= 10% of the keys (at Wan's 5,460
+    keys its 44 zero-logit keys add ~0.5% to l, at the limit's edge);
+    the bf16 accumulator from 512 keys (32 roundings) on."""
+    skv = k.shape[1]
+    tail = skv % FLASH_TILE
+    static = "bound" in arg
+    faults, planted = {}, []
+    if tail:
+        faults["tail_dropped"] = _rel_l2(
+            _flash_plain(q, k, v, keep=skv - tail, **arg), want)
+        planted.append("tail_dropped")
+        if static:
+            pad = FLASH_TILE - tail
+            faults["p_not_zeroed"] = _rel_l2(
+                _flash_plain(q, k, v, pad=pad, **arg), want)
+            if 10 * pad >= skv:
+                planted.append("p_not_zeroed")
+    faults["pv_bf16"] = _rel_l2(_flash_plain(q, k, v, bf16_pv=True, **arg),
+                                want)
+    if skv >= 512:
+        planted.append("pv_bf16")
+    if not static:
+        faults["no_prescale"] = _rel_l2(_flash_plain(q, k, v, q_scale=1.0),
+                                        want)
+        planted.append("no_prescale")
+    print(f"{label}: planted faults " + ", ".join(
+        f"{n} {x:.3e}" + ("" if n in planted else " (not held)")
+        for n, x in faults.items()))
+    check(all(faults[n] > FLASH_REL_L2 for n in planted),
+          f"{label}: a planted fault passes the limit {FLASH_REL_L2:g}: "
+          f"{faults}")
+    return dict(faults=faults, planted=planted)
+
+
+# ragged shapes of K1 and K3 (batch*heads, Sq, Skv): a ragged last q tile
+# (of three at head_dim 128, two at 64) and a one-key tail
+FLASH_RAGGED = (8, 300, 129)
+
+
+def _flash_ragged(checks):
+    """K1 and K3 at FLASH_RAGGED, both head dims, against their plain
+    versions, with the planted faults."""
+    import torch
+    from frameino_tpu_torch.ops import attention as A
+    g = torch.Generator("cuda").manual_seed(99)
+    bh, sq, skv = FLASH_RAGGED
+    for d in (128, 64):
+        q, k, v = (torch.randn(bh, n, d, device="cuda", dtype=torch.bfloat16,
+                               generator=g) for n in (sq, skv, skv))
+        c = d ** -0.5 * A.LOG2E
+        qp = (q.float() * c).to(torch.bfloat16)
+        bound = A._rowmax_norm(qp) * A._rowmax_norm(k)
+        for label, got, want, arg, qq in (
+                ("K1", A.flash_fwd_static(qp, k, v, bound),
+                 A.flash_fwd_static_ref(qp, k, v, bound), dict(bound=bound),
+                 qp),
+                ("K3", A.flash_fwd(q, k, v, c), A.flash_fwd_ref(q, k, v, c),
+                 dict(q_scale=c), q)):
+            tag = f"{label} ragged [{bh}, {sq}|{skv}, {d}]"
+            err, _, rel_l2 = _check_close(tag, got, want)
+            row = _flash_faults(tag, qq, k, v, want, **arg)
+            checks[tag] = dict(row, max_abs_err=err, rel_l2=rel_l2)
+            print(f"{tag}: max_abs {err:.3e} rel L2 {rel_l2:.3e}")
+
+
 def phase_kernels():
     """Each kernel vs its plain version at the Wan slice's shapes."""
     import torch
@@ -457,10 +580,18 @@ def phase_kernels():
                      PEAK_FP32_FLOPS), None)
     del out
 
-    def compare(name, kernel, plain, library, bound):
-        err, rel, rel_l2 = _check_close(name, kernel(), plain())
+    checks = {"build": _flash_build_report()}
+
+    def compare(name, kernel, plain, library, least, q, k, v, **arg):
+        want = plain()
+        err, rel, rel_l2 = _check_close(name, kernel(), want)
+        checks[name] = _flash_faults(KERNELS[name]["label"] + f" {name}", q,
+                                     k, v, want, **arg)
+        checks[name]["exp2_floor_ms"] = exp2_floor_ms(q.shape[0], q.shape[1],
+                                                      k.shape[1])
+        del want
         _report(results, name, err, rel, cuda_ms(kernel, 10),
-                cuda_ms(plain, 3), bound, cuda_ms(library, 10),
+                cuda_ms(plain, 3), least, cuda_ms(library, 10),
                 rel_l2=rel_l2)
 
     # K1: self-attention over the normed, roped q/k (unit-scale rows); the
@@ -472,7 +603,8 @@ def phase_kernels():
     bound = A._rowmax_norm(qh) * A._rowmax_norm(kh)
     compare("flash_fwd_static", lambda: A.flash_fwd_static(qh, kh, vh, bound),
             lambda: A.flash_fwd_static_ref(qh, kh, vh, bound),
-            lambda: _sdpa(math.log(2))(qh, kh, vh), attn_bound(B * H, S, S, D))
+            lambda: _sdpa(math.log(2))(qh, kh, vh), attn_bound(B * H, S, S, D),
+            qh, kh, vh, bound=bound)
     del qh, kh, vh, q_raw, k_raw
 
     # K3: cross-attention of the RMS-normed video q to 512 text tokens
@@ -489,10 +621,12 @@ def phase_kernels():
     compare("flash_fwd", lambda: A.flash_fwd(q, k, v, c),
             lambda: A.flash_fwd_ref(q, k, v, c),
             lambda: _sdpa(D ** -0.5)(q, k, v),
-            attn_bound(B * H, S, L_TEXT, D))
+            attn_bound(B * H, S, L_TEXT, D), q, k, v, q_scale=c)
     del q, k, v
     torch.cuda.empty_cache()
-    return results
+    _flash_ragged(checks)
+    torch.cuda.empty_cache()
+    return results, checks
 
 
 # K5 at the Wan tp shards: [2, 5460, 3072 / tp] for tp = 2 (12 heads) and
@@ -662,7 +796,14 @@ def phase_kernels_cog():
     def plain():
         return A.flash_fwd_static_ref(qs, ks, vs, bound)
 
-    err, rel, rel_l2 = _check_close("K1 (D=64)", kernel(), plain())
+    want = plain()
+    err, rel, rel_l2 = _check_close("K1 (D=64)", kernel(), want)
+    checks = {"flash_fwd_static_d64": _flash_faults(
+        "K1 flash_fwd_static_d64 (4 of the 96 rows)", qs, ks, vs, want,
+        bound=bound)}
+    checks["flash_fwd_static_d64"]["exp2_floor_ms_96_rows"] = exp2_floor_ms(
+        B * Hc, Sc, Sc)
+    del want
     all_out = A.flash_fwd_static(qh, kh, vh, bound)
     check(bool(torch.isfinite(all_out).all()), "K1 (D=64): non-finite "
                                                "output on the 96 rows")
@@ -676,10 +817,12 @@ def phase_kernels_cog():
             rel_l2=rel_l2,
             ms_96_rows=cuda_ms(lambda: A.flash_fwd_static(qh, kh, vh, bound),
                                5),
-            bound_ms_96_rows=attn_bound(B * Hc, Sc, Sc, Dc)[0])
+            bound_ms_96_rows=attn_bound(B * Hc, Sc, Sc, Dc)[0],
+            library_ms_96_rows=cuda_ms(
+                lambda: _sdpa(math.log(2))(qh, kh, vh), 5))
     del qh, kh, vh, qs, ks, vs
     torch.cuda.empty_cache()
-    return results
+    return results, checks
 
 
 # ---------------------------------------------------------------------------
@@ -896,27 +1039,50 @@ def _ptxas_kernels(log):
     return out
 
 
+def _build_report(label, source, prefixes, smem_bytes):
+    """The kernels of ``csrc/<source>.cu`` whose names start with one of
+    ``prefixes``: registers and spills (ptxas, from BUILD_LOG) and the
+    dynamic shared memory each launches with (``smem_bytes(tag)``, from
+    the library; None for a kernel without). Fails on a spill."""
+    from frameino_tpu_torch.ops import attention as A
+    report = {k: v for k, v in _ptxas_kernels(
+        A.BUILD_LOG.get(source, "")).items() if k.startswith(prefixes)}
+    for name, row in report.items():
+        nbytes = smem_bytes(name)
+        if nbytes is not None:
+            row["smem_bytes"] = nbytes
+    for name, row in sorted(report.items()):
+        print(f"{label} build {name}: " + ", ".join(f"{k} {v}"
+                                                   for k, v in row.items()))
+    check(report, f"{label}: no ptxas report of {source}.cu's kernels")
+    check(all(row.get("spill_stores", 0) == 0 for row in report.values()),
+          f"{label}: a kernel spills registers: {report}")
+    return report
+
+
 def _k6_build_report():
-    """The K6 kernels' registers and spills (ptxas) and the dynamic shared
-    memory each launches with (from the library)."""
+    """The K6 kernels' registers, spills and shared memory."""
     from frameino_tpu_torch.ops import attention as A
     lib = A._lib("flash_attn_train")
-    report = {k: v for k, v in _ptxas_kernels(
-        A.BUILD_LOG.get("flash_attn_train", "")).items()
-        if k.startswith(K6_KERNEL_NAMES)}
     smem = {"attn_fwd_kernel<128>": (128, 0), "attn_fwd_kernel<64>": (64, 0),
             "attn_bwd_kernel<128, 1>": (128, 1),
             "attn_bwd_kernel<128, 2>": (128, 2),
             "attn_bwd_kernel<64, 1>": (64, 1)}
-    for name, (d, which) in smem.items():
-        report.setdefault(name, {})["smem_bytes"] = \
-            lib.attn_train_smem_bytes(d, which)
-    for name, row in sorted(report.items()):
-        print(f"K6 build {name}: " + ", ".join(f"{k} {v}"
-                                               for k, v in row.items()))
-    check(all(row.get("spill_stores", 0) == 0 for row in report.values()),
-          f"K6: a kernel spills registers: {report}")
-    return report
+    return _build_report(
+        "K6", "flash_attn_train", K6_KERNEL_NAMES,
+        lambda tag: lib.attn_train_smem_bytes(*smem[tag]) if tag in smem
+        else None)
+
+
+def _flash_build_report():
+    """K1's and K3's kernels (flash_fwd_kernel<D, static, consumer
+    warpgroups>): registers, spills, shared memory."""
+    from frameino_tpu_torch.ops import attention as A
+    lib = A._lib("flash_fwd")
+    return _build_report(
+        "K1/K3", "flash_fwd", ("flash_fwd_kernel",),
+        lambda tag: lib.flash_fwd_config(int(tag.split("<")[1].split(",")[0]),
+                                         0))
 
 
 def phase_kernels_train():
@@ -1450,19 +1616,20 @@ def _dit_inputs(family, pipe):
                            device="cuda"))
 
 
-def _time_forward(family, dit, inputs, warm, iters):
-    """CUDA-event ms of one DiT forward (Wan with its text K/V hoisted, as
-    the pipeline runs it) and its output."""
-    import torch
+def _forward_fn(family, dit, inputs):
+    """One DiT forward on ``inputs`` (Wan with its text K/V hoisted, as the
+    pipeline runs it)."""
     if family == "wan":
         x, t, mask, ctx = inputs
         kv = dit.precompute_text_kv(ctx)
+        return lambda: dit(x, t, timestep_mask=mask, text_kv=kv)
+    return lambda: dit(*inputs)
 
-        def run():
-            return dit(x, t, timestep_mask=mask, text_kv=kv)
-    else:
-        def run():
-            return dit(*inputs)
+
+def _time_forward(family, dit, inputs, warm, iters):
+    """CUDA-event ms of one DiT forward and its output."""
+    import torch
+    run = _forward_fn(family, dit, inputs)
     for _ in range(warm):
         out = run()
     start = torch.cuda.Event(enable_timing=True)
@@ -1473,6 +1640,55 @@ def _time_forward(family, dit, inputs, warm, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters, out
+
+
+def _forward_kind(name):
+    """The kind of a CUDA kernel of a serving forward, by its name."""
+    n = name.lower()
+    if "flash_fwd_kernel" in n:
+        # flash_fwd_kernel<D, static bound, ...>: K1 or K3
+        static = n.split("flash_fwd_kernel")[1].split(",")[1].strip()
+        return "K1" if static in ("true", "1") else "K3"
+    for key, kind in (("_qk_norm_rope_kernel", "K2"),
+                      ("_qk_ln_rope_kernel", "K4"), ("dyn_quant", "K7")):
+        if key in n:
+            return kind
+    if any(w in n for w in ("gemm", "xmma", "nvjet", "cutlass")):
+        return "GEMM"
+    if "memcpy" in n or "memset" in n:
+        return "copy"
+    return "elementwise, reductions"
+
+
+def _profile_forward(family, dit, inputs):
+    """One CFG DiT forward under torch.profiler: its device ms by kind, the
+    device's busy seconds and idle share; written to
+    build/<family>_forward_profile.json."""
+    import torch
+    from torch.autograd import DeviceType
+    run = _forward_fn(family, dit, inputs)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    by_kind = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            k = _forward_kind(e.key)
+            by_kind[k] = by_kind.get(k, 0.0) + e.self_device_time_total / 1e3
+    busy = sum(by_kind.values()) / 1e3
+    out = {"wall_s": wall, "device_ms_by_kind": by_kind,
+           "device_busy_s": busy, "idle_share": 1 - busy / wall,
+           "share_of_busy": {k: v / 1e3 / busy for k, v in by_kind.items()}}
+    with open(os.path.join(REPO, "build", f"{family}_forward_profile.json"),
+              "w") as f:
+        json.dump(out, f, indent=1)
+    print(f"{family} CFG forward profile: " + json.dumps(out))
+    return out
 
 
 def _module_bytes(m):
@@ -1501,6 +1717,7 @@ def serve_int8(family, pipe, port, requests):
     torch.cuda.reset_peak_memory_stats()
     bf16_ms, want = _time_forward(family, dit, inputs, warm, iters)
     bf16_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    bf16_profile = _profile_forward(family, dit, inputs)
     before = _module_bytes(dit)
     alloc_before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1525,7 +1742,7 @@ def serve_int8(family, pipe, port, requests):
                allocated_gib_after=alloc_after / 2 ** 30,
                quantize_s=quantize_s, quantize_peak_gib=quantize_peak,
                bf16_forward_peak_gib=bf16_peak,
-               int8_forward_peak_gib=int8_peak)
+               int8_forward_peak_gib=int8_peak, bf16_profile=bf16_profile)
     print(f"{family} int8 DiT: CFG forward {int8_ms:.1f} ms vs bf16 "
           f"{bf16_ms:.1f} ms, relative L2 {rel:.4e} (limit {INT8_REL_L2}); "
           f"DiT {before / 2 ** 30:.3f} -> {after / 2 ** 30:.3f} GiB, "
@@ -2324,7 +2541,7 @@ def main():
     t_start = time.time()
     name, smi = phase_device()
     phase_build()
-    kernel_results = phase_kernels()
+    kernel_results, flash_checks = phase_kernels()
     kernel_results.update(phase_kernels_k5())
     kernel_results.update(phase_kernels_k7())
     dense_int8 = phase_dense_int8()
@@ -2332,7 +2549,9 @@ def main():
     ref_err = phase_reference()
     ref_err_int8 = phase_reference("int8")
     tp = phase_tp()
-    kernel_results.update(phase_kernels_cog())
+    cog_results, cog_checks = phase_kernels_cog()
+    kernel_results.update(cog_results)
+    flash_checks.update(cog_checks)
     rows_cog, totals_cog, int8_cog = phase_serve("cogvideox")
     ref_err_cog = phase_reference_cog()
     k6_results, k6_shapes = phase_kernels_train()
@@ -2366,6 +2585,7 @@ def main():
         for k in KERNELS],
         "requests": rows + rows_cog, "reference_rel_l2": ref_err,
         "reference_int8_rel_l2": ref_err_int8, "tp": tp,
+        "flash_checks": flash_checks,
         "reference_cog_rel_l2": ref_err_cog, "dense_int8": dense_int8,
         "int8_wan": int8_wan, "int8_cog": int8_cog, "k6_shapes": k6_shapes,
         "train_entry": entry, "train": train, "train_reference": train_ref,

@@ -20,9 +20,9 @@ and a backward giving dQ, dK, dV), behind a ``torch.autograd.Function``.
 
 K1 and K3 are one CUDA C++ kernel (``csrc/flash_fwd.cu``) templated on
 the softmax variant and head_dim; K6 is a second CUDA C++ source
-(``csrc/flash_attn_train.cu``: warp-specialised wgmma kernels fed by TMA,
-on the Hopper helpers of ``csrc/sm90_common.cuh``); K2 and K4 are Triton
-kernels. Each
+(``csrc/flash_attn_train.cu``). Both are warp-specialised wgmma kernels
+fed by TMA, on the Hopper helpers of ``csrc/sm90_common.cuh``; K2 and K4
+are Triton kernels. Each
 wrapper launches its kernel for CUDA tensors (bf16, contiguous) and
 raises on anything else; for CPU tensors it runs the plain PyTorch
 version beside it. Each wrapper counts its kernel launches in

@@ -28,7 +28,8 @@ BUILD_DIR = _REPO_ROOT / "build"
 # source -> {C function: argtypes}; every function returns a CUDA error code
 _VP, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _CUDA_SOURCES = {
-    "flash_fwd": {"flash_fwd_bf16": [_VP] * 5 + [_INT] * 5 + [_F32, _VP]},
+    "flash_fwd": {"flash_fwd_bf16": [_VP] * 5 + [_INT] * 5 + [_F32, _VP],
+                  "flash_fwd_config": [_INT] * 2},
     "flash_attn_train": {
         "attn_train_fwd_bf16": [_VP] * 5 + [_INT] * 4 + [_F32, _VP],
         "attn_train_bwd_bf16": [_VP] * 11 + [_INT] * 5 + [_F32, _VP],
@@ -69,54 +70,82 @@ def _source_bytes(path: Path, seen: set) -> bytes:
     return data
 
 
-def _so_path(name: str) -> Path:
+def _so_path(name: str, src: Path | None = None) -> Path:
     # the digest covers the included headers too, so that an edit to a
     # shared header never loads a stale library
-    digest = hashlib.sha256(_source_bytes(_CSRC / f"{name}.cu", set())
-                            ).hexdigest()[:16]
+    src = _CSRC / f"{name}.cu" if src is None else Path(src)
+    digest = hashlib.sha256(_source_bytes(src, set())).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def build_cuda_libs(names=None) -> dict:
+def _load(so: Path, source: str, partial: bool = False):
+    """The library at ``so``, with the C functions of ``csrc/<source>.cu``
+    typed; with ``partial`` (an alternative version of the source) those
+    it lacks are left out."""
+    lib = ctypes.CDLL(str(so))
+    for fn_name, argtypes in _CUDA_SOURCES[source].items():
+        if partial and not hasattr(lib, fn_name):
+            continue
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def build_cuda_libs(names=None, alts=None) -> dict:
     """Compile the CUDA sources for sm_90a into ``build/`` (once per source
     content; one nvcc per source, all started together) and load them with
     ctypes. nvcc's defaults are kept: IEEE division and square root, no
-    flush to zero. Returns {source: CDLL}."""
+    flush to zero. nvcc's output (ptxas's registers and spills) is kept
+    beside each library and read into ``BUILD_LOG`` whether the library is
+    built now or was built before.
+
+    ``alts`` ({key: (source, path)}) builds other files with the C
+    interface of ``csrc/<source>.cu`` beside them, such as an older
+    version of it, under their own keys (not kept for ``lib``). Returns
+    {source or key: CDLL}."""
     names = list(_CUDA_SOURCES) if names is None else list(names)
+    alts = dict(alts or {})
+    if set(alts) & set(_CUDA_SOURCES):
+        raise ValueError(f"an alternative takes a source's name: {alts}")
     with _lib_lock:
-        todo = [n for n in names if n not in _libs]
+        jobs = {n: (n, _CSRC / f"{n}.cu") for n in names if n not in _libs}
+        jobs.update({key: (source, Path(path))
+                     for key, (source, path) in alts.items()})
         procs = {}
-        for n in todo:
-            so = _so_path(n)
-            if so.exists():
+        for key, (_, src) in jobs.items():
+            so = _so_path(key, src)
+            log = so.with_suffix(".log")
+            # a library without its log (an older build/) is built again
+            if so.exists() and log.exists():
+                BUILD_LOG[key] = log.read_text()
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                    "-std=c++17", "-O3", "-Xptxas=-v", "-shared",
-                   "-Xcompiler", "-fPIC", "-o", str(tmp),
-                   str(_CSRC / f"{n}.cu")]
-            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                         stderr=subprocess.STDOUT,
-                                         text=True), tmp, so)
+                   "-Xcompiler", "-fPIC", f"-I{_CSRC}", "-o", str(tmp),
+                   str(src)]
+            procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True), tmp, so, log)
         failed = []
-        for n, (proc, tmp, so) in procs.items():
-            BUILD_LOG[n] = proc.communicate()[0]
+        for key, (proc, tmp, so, log) in procs.items():
+            BUILD_LOG[key] = proc.communicate()[0]
             if proc.returncode != 0:
-                failed.append(f"nvcc {n}.cu failed ({proc.returncode}):\n"
-                              f"{BUILD_LOG[n]}")
+                failed.append(f"nvcc {jobs[key][1].name} failed "
+                              f"({proc.returncode}):\n{BUILD_LOG[key]}")
             else:
+                # the log first, so that a library always has one
+                log.write_text(BUILD_LOG[key])
                 os.replace(tmp, so)
         if failed:
             raise RuntimeError("\n".join(failed))
-        for n in todo:
-            lib = ctypes.CDLL(str(_so_path(n)))
-            for fn_name, argtypes in _CUDA_SOURCES[n].items():
-                fn = getattr(lib, fn_name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _libs[n] = lib
-        return {n: _libs[n] for n in names}
+        built = {key: _load(_so_path(key, src), source, key in alts)
+                 for key, (source, src) in jobs.items()}
+        _libs.update({n: built[n] for n in names if n in built})
+        return {**{n: _libs[n] for n in names},
+                **{key: built[key] for key in alts}}
 
 
 def lib(name: str):

@@ -7,9 +7,9 @@ experiments at the protocol shape (B=2, H=48, D=64, S=15,906 joint
 tokens):
 
 1. ``sweep``    the online-softmax forward K3 at each tile it is compiled
-   for. The CUDA source has one (64 q rows x 64 keys,
-   ``csrc/flash_fwd.cu``), so today this is one line: the baseline the
-   other two are read against.
+   for. The CUDA source has one at head_dim 64 (192 q rows, three
+   consumer warpgroups of 64, x 128 keys, ``csrc/flash_fwd.cu``), so
+   today this is one line: the baseline the other two are read against.
 2. ``packed``   head-pair packing (K8, ``ops/flash_variants.packed_flash``):
    two heads a block from 128-wide packed rows, checked against K3 on a
    slice and timed against it.
@@ -40,7 +40,9 @@ from frameino_tpu_torch.scripts import clock_tag, pick_device, timed
 B, H, D = 2, 48, 64
 S = 226 + 14 * 28 * 40
 ITERS = 8                       # timed launches of an attention
-K3_TILES = [(64, 64)]           # the tiles csrc/flash_fwd.cu is compiled for
+# the (q rows, keys) tiles csrc/flash_fwd.cu is compiled for at head_dim 64
+# (its flash_fwd_config(64, 2) q rows)
+K3_TILES = [(192, 128)]
 PACKED_CHECK = (4, 1024)        # heads and tokens of the numerics slice
 INT8RATE = dict(M=2048, N=4096, iters=50)
 

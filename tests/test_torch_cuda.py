@@ -32,12 +32,32 @@ def _bf16_ulp(x):
     return torch.exp2(torch.floor(torch.log2(ax)) - 7)
 
 
+def _rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _assert_flash_close(got, ref):
+    # bf16 outputs of fp32 softmax sums in another order: 2e-2
+    # elementwise, and the relative L2 limit chip_smoke.py holds them to
+    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    assert _rel_l2(got, ref) <= 5e-3
+
+
+def _flash_inputs(dev, d, sq, skv, seed=0, bh=3):
+    g = torch.Generator(dev).manual_seed(seed)
+    return tuple(torch.randn(bh, n, d, device=dev, dtype=torch.bfloat16,
+                             generator=g) for n in (sq, skv, skv))
+
+
+# (1, 1) and (1, 77): a single ragged q row; (77, 1): one key; (300, 129):
+# 3 q tiles and a 1-key tail; (384, 684 = 5 * 128 + 44): ragged key tiles
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("sq,skv", [(100, 77), (130, 512), (64, 64)])
+@pytest.mark.parametrize("sq,skv", [(100, 77), (130, 512), (64, 64), (1, 1),
+                                    (1, 77), (77, 1), (300, 129),
+                                    (384, 684)])
 def test_flash_kernels_match_plain(dev, d, sq, skv):
-    g = torch.Generator(dev).manual_seed(0)
-    q, k, v = (torch.randn(3, n, d, device=dev, dtype=torch.bfloat16,
-                           generator=g) for n in (sq, skv, skv))
+    q, k, v = _flash_inputs(dev, d, sq, skv)
     c = d ** -0.5 * A.LOG2E
     before = A.launch_counts()
     got = A.flash_fwd(q, k, v, c)
@@ -47,14 +67,67 @@ def test_flash_kernels_match_plain(dev, d, sq, skv):
     got_s = A.flash_fwd_static(qs, k, v, bound)
     ref_s = A.flash_fwd_static_ref(qs, k, v, bound)
     torch.cuda.synchronize()
-    # bf16 outputs of fp32 softmax sums in another order: 2e-2
-    torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
-                               rtol=2e-2)
-    torch.testing.assert_close(got_s.float(), ref_s.float(), atol=2e-2,
-                               rtol=2e-2)
+    _assert_flash_close(got, ref)
+    _assert_flash_close(got_s, ref_s)
     after = A.launch_counts()
     assert after["flash_fwd"] == before["flash_fwd"] + 1
     assert after["flash_fwd_static"] == before["flash_fwd_static"] + 1
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,skv", [(300, 129), (130, 512)])
+def test_flash_k3_with_a_unit_q_scale(dev, d, sq, skv):
+    """K3 with q_scale == 1 (the fused paths' call; the kernel skips its
+    rescale pass) equals its plain version, and equals K3 on the same q
+    pre-scaled outside with the scale passed in."""
+    q, k, v = _flash_inputs(dev, d, sq, skv, seed=5)
+    got = A.flash_fwd(q, k, v, 1.0)
+    _assert_flash_close(got, A.flash_fwd_ref(q, k, v, 1.0))
+    c = d ** -0.5 * A.LOG2E
+    pre = q * torch.tensor(c, dtype=torch.bfloat16)
+    assert torch.equal(A.flash_fwd(pre, k, v, 1.0), A.flash_fwd(q, k, v, c))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,skv", [(300, 129), (384, 684)])
+def test_flash_static_floor_keeps_far_rows_finite(dev, d, sq, skv):
+    """A bound far above every logit: exp2(max(s - bound, -120)) is 2^-120
+    for every key, and K1 averages V (its plain version does the same)
+    where an exp2 without the floor would give 0 / 0."""
+    q, k, v = _flash_inputs(dev, d, sq, skv, seed=6)
+    bound = torch.full((1,), 500.0, device=dev)
+    got = A.flash_fwd_static(q, k, v, bound)
+    assert bool(torch.isfinite(got).all())
+    _assert_flash_close(got, A.flash_fwd_static_ref(q, k, v, bound))
+    mean_v = v.float().mean(1, keepdim=True).expand_as(got)
+    torch.testing.assert_close(got.float(), mean_v, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_kernels_repeat_and_slice_bit_equal(dev, d):
+    """Nothing is summed with atomics: two launches give equal bits, and a
+    launch on some heads gives the same bits as those heads of the full
+    launch (the persistent grid hands them to other blocks)."""
+    q, k, v = _flash_inputs(dev, d, 300, 684, seed=7, bh=6)
+    c = d ** -0.5 * A.LOG2E
+    bound = A._rowmax_norm(q) * A._rowmax_norm(k)
+    for run in (lambda q, k, v: A.flash_fwd(q, k, v, c),
+                lambda q, k, v: A.flash_fwd_static(q, k, v, bound)):
+        full = run(q, k, v)
+        assert torch.equal(full, run(q, k, v))
+        part = run(*(t[2:5].contiguous() for t in (q, k, v)))
+        assert torch.equal(part, full[2:5])
+
+
+def test_attn_d64_script_names_the_compiled_tile(dev):
+    """The head_dim-64 experiment script labels K3's row with the tile the
+    source is built for: q rows (64 a consumer warpgroup) x 128 keys."""
+    from frameino_tpu_torch.scripts import bench_attn_d64
+    lib = A._lib("flash_fwd")
+    assert bench_attn_d64.K3_TILES == [(lib.flash_fwd_config(64, 2), 128)]
+    assert lib.flash_fwd_config(64, 2) == 64 * lib.flash_fwd_config(64, 1)
+    assert lib.flash_fwd_config(128, 1) == 2
+    assert lib.flash_fwd_config(96, 0) == -1
 
 
 def test_flash_attention_inference_takes_a_head_split_batch_of_one(dev):
@@ -257,10 +330,6 @@ def test_cogvideox_dit_on_cuda_runs_the_kernels(dev):
     # both bf16 through 2 blocks; the kernels round p to bf16 at another
     # shift than the plain softmax: 5e-2
     torch.testing.assert_close(got, ref, atol=5e-2, rtol=5e-2)
-
-
-def _rel_l2(a, b):
-    return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
 @pytest.mark.parametrize("d", [64, 128])
@@ -511,10 +580,6 @@ def test_int8_dit_on_cuda_runs_k7(dev):
 # ---------------------------------------------------------------------------
 # K8-K12: the experiment flash forwards
 # ---------------------------------------------------------------------------
-
-def _rel_l2(a, b):
-    return ((a.float() - b.float()).norm() / b.float().norm()).item()
-
 
 VARIANTS = {"v1": (FV.flash_v1, FV.flash_v1_ref),
             "v2": (FV.flash_v2, FV.flash_v2_ref),

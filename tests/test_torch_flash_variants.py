@@ -257,7 +257,7 @@ def test_ported_attn_d64_script_on_cpu(capsys, monkeypatch):
     out = capsys.readouterr().out
     assert [line for line in out.splitlines() if line.startswith("===")] \
         == ["=== sweep ===", "=== packed ===", "=== int8rate ==="]
-    assert out.count("bq=") == 2 and "direct D=64 (64,64):" in out
+    assert out.count("bq=") == 2 and "direct D=64 (192,128):" in out
     assert out.count("dot bf16 K=") == 2 and out.count("dot int8 K=") == 2
     assert [r["exp"] for r in rows] == ["sweep"] + ["packed"] * 3 \
         + ["int8rate"] * 4
