@@ -4,18 +4,25 @@
     python3 chip_smoke.py            # from the repository root, one card
     python3 chip_smoke.py --profile  # also profile one full-depth train
                                      # step (build/train_profile.json)
+    python3 chip_smoke.py --triton-parent DIR
+        # also time the Triton producers that K2/K5/K4 replaced, from
+        # qk_norm_rope_triton.py and qk_ln_rope_triton.py in DIR (copies
+        # of frameino_tpu_torch/ops/ before the CUDA producers)
 
 Phases (any failure exits non-zero; there is no CPU path):
  1. device: the card's name and `nvidia-smi` name, power limit;
- 2. build: compile the five CUDA sources (nvcc, sm_90a, all at once: the
-    serving flash kernels, K6, K7, the experiment variants K9-K12 and the
-    packed K8) and the Triton producers (qk-norm/RoPE K2 and K5,
-    qk-LayerNorm/RoPE K4) from the sources in the checkout;
+ 2. build: compile the six CUDA sources (nvcc, sm_90a, all at once: the
+    serving flash kernels, the qk-norm/RoPE producers K2, K5 and
+    qk-LayerNorm/RoPE K4, K6, K7, the experiment variants K9-K12 and the
+    packed K8) from the sources in the checkout;
  3. kernels: each kernel against its plain PyTorch version at the shapes
     the Wan serving path gives it (Wan2.2-TI2V-5B, 49 frames at 480x832:
     CFG batch 2, 24 heads of 128, 5,460 tokens, 512 text tokens), with
     CUDA event times of both (the flash kernels also within FLASH_REL_L2
-    relative L2); K1 and K3 also at a ragged shape of both head dims, the
+    relative L2; the producers beside a device copy of their input, the
+    bandwidth yardstick, and their registers and spills reported, none
+    allowed; K2's check shown to reject the neighbour pair's cos/sin, a
+    planted fault); K1 and K3 also at a ragged shape of both head dims, the
     limit shown each run to reject planted faults (a dropped ragged key
     tail, K1's p not zeroed past Skv, P V accumulated in bf16, K3
     without its q pre-scale), and their kernels' registers, spills
@@ -27,7 +34,9 @@ Phases (any failure exits non-zero; there is no CPU path):
     at the Wan tp shards ([2, 5460, 1536] at tp = 2, [2, 5460, 768] at
     tp = 4) and a ragged [2, 777, 640], on the tp path's rstd, the shards
     on K2's rstd equal to K2 on the full rows, and the neighbouring
-    token's rstd (a planted fault) rejected;
+    token's rstd and, at the ragged shape (5 heads: a team of 3 slots
+    with idle ones), the last head left unwritten (planted faults)
+    rejected;
  4. dense_int8: the card's int8 dense (K7, torch._int_mm, the epilogue)
     within one bf16 ulp of the CPU's at [10920, 3072] x [3072, 3072] and
     [10920, 14336] x [14336, 3072], its pieces timed beside the bf16 dense;
@@ -55,7 +64,8 @@ Phases (any failure exits non-zero; there is no CPU path):
     versions at the CogVideoX-5B shapes (49 frames at 480x720 plus the ID
     frame: CFG batch 2, 48 heads of 64, 226 + 18,900 = 19,126 tokens);
     K1's plain version runs on 4 of the 96 batch-head rows, with the
-    planted faults;
+    planted faults; K4's check shown to reject each head normed with its
+    neighbour's statistics;
  8. serve CogVideoX: the full-width CogVideoX-5B-I2V-FrameINO pipeline
     (bf16 DiT and VAE, seeded random weights) behind the HTTP server; two
     requests, each 42 (K1) and 84 (K4) launches per step, none of K2/K3;
@@ -114,7 +124,6 @@ import re
 import shutil
 import subprocess
 import sys
-import threading
 import time
 import urllib.error
 import urllib.request
@@ -126,20 +135,20 @@ KERNELS = {
         label="K1", route="cuda", source="frameino_tpu_torch/csrc/flash_fwd.cu",
         replaces="frameino_tpu/ops/attention.py:120"),
     "qk_norm_rope": dict(
-        label="K2", route="triton",
-        source="frameino_tpu_torch/ops/qk_norm_rope_triton.py",
+        label="K2", route="cuda",
+        source="frameino_tpu_torch/csrc/qk_producers.cu",
         replaces="frameino_tpu/ops/attention.py:420"),
     "flash_fwd": dict(
         label="K3", route="cuda", source="frameino_tpu_torch/csrc/flash_fwd.cu",
         replaces="frameino_tpu/ops/attention.py:70"),
     "qk_ln_rope": dict(
-        label="K4", route="triton",
-        source="frameino_tpu_torch/ops/qk_ln_rope_triton.py",
+        label="K4", route="cuda",
+        source="frameino_tpu_torch/csrc/qk_producers.cu",
         replaces="frameino_tpu/ops/attention.py:704"),
     # K5, the tp path's producer: K2's kernel with a precomputed rstd
     "qk_norm_rope_rstd": dict(
-        label="K5", route="triton",
-        source="frameino_tpu_torch/ops/qk_norm_rope_triton.py",
+        label="K5", route="cuda",
+        source="frameino_tpu_torch/csrc/qk_producers.cu",
         replaces="frameino_tpu/ops/attention.py:378"),
     # K1 again, at head_dim 64 on the CogVideoX path
     "flash_fwd_static_d64": dict(
@@ -302,47 +311,67 @@ def phase_device():
 
 
 def phase_build():
-    """nvcc of the five CUDA sources (one process each, all at once) on a
-    thread while the Triton producers compile here."""
-    import torch
+    """nvcc of the six CUDA sources, one process each, all at once."""
     from frameino_tpu_torch.ops import attention as A
-    errors = []
-
-    def nvcc():
-        try:
-            A.build_cuda_libs()
-        except Exception as e:  # noqa: BLE001 - reported below
-            errors.append(e)
-
     t0 = time.time()
-    th = threading.Thread(target=nvcc)
-    th.start()
-    x = torch.randn(1, 4, 2 * D, device="cuda", dtype=torch.bfloat16)
-    A.qk_norm_rope(x, torch.ones(2 * D, device="cuda"),
-                   torch.ones(4, D // 2, device="cuda"),
-                   torch.zeros(4, D // 2, device="cuda"), 2, 1e-6)
-    A.qk_ln_rope(x, torch.ones(D // 4, device="cuda"),
-                 torch.zeros(D // 4, device="cuda"),
-                 torch.ones(4, D // 8, device="cuda"),
-                 torch.zeros(4, D // 8, device="cuda"), 8, 1e-6)
-    A.qk_norm_rope_rstd(x, torch.ones(1, 4, device="cuda"),
-                        torch.ones(2 * D, device="cuda"),
-                        torch.ones(4, D // 2, device="cuda"),
-                        torch.zeros(4, D // 2, device="cuda"), 2)
-    torch.cuda.synchronize()
-    t_triton = time.time() - t0
-    th.join()
-    check(not errors, f"nvcc: {errors[0] if errors else ''}")
+    try:
+        A.build_cuda_libs()
+    except RuntimeError as e:
+        fail(f"nvcc: {e}")
     print(f"build: nvcc " + " + ".join(f"{n}.cu" for n in A.BUILD_LOG)
-          + f" and triton qk_norm_rope (K2, K5) + qk_ln_rope "
-          f"{time.time() - t0:.1f} s "
-          f"(triton {t_triton:.1f} s)")
+          + f" {time.time() - t0:.1f} s")
     for src, log in A.BUILD_LOG.items():
         print(src + ":\n" + "\n".join(
             _kernel_tag(line) if "Compiling entry" in line else line
             for line in log.splitlines()
             if "registers" in line or "spill" in line
             or "Compiling entry" in line))
+
+
+def _parent_triton():
+    """The Triton producers K2/K5/K4 replaced (the modules
+    qk_norm_rope_triton.py and qk_ln_rope_triton.py from the directory
+    after --triton-parent), timed beside them as their yardstick; None
+    without the flag."""
+    if "--triton-parent" not in sys.argv:
+        return None
+    import importlib.util
+    src = sys.argv[sys.argv.index("--triton-parent") + 1]
+    mods = {}
+    for name in ("qk_norm_rope_triton", "qk_ln_rope_triton"):
+        spec = importlib.util.spec_from_file_location(
+            f"parent_{name}", os.path.join(src, f"{name}.py"))
+        mods[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods[name])
+    return mods
+
+
+def _producer_yardsticks(raw, out, kernel_ms, bound, parent_launch):
+    """A device copy of the producer's input (the bandwidth yardstick),
+    the parent's Triton producer on the same tensors (``parent_launch``,
+    None without --triton-parent) and the share of the bound; printed on
+    a line of their own."""
+    import torch
+    copy_ms = cuda_ms(lambda: torch.empty_like(raw).copy_(raw), 20)
+    parent_ms = (None if parent_launch is None
+                 else cuda_ms(lambda: parent_launch(out), 20))
+    row = dict(copy_ms=copy_ms, parent_triton_ms=parent_ms,
+               bound_share=bound / kernel_ms)
+    print(f"  {list(raw.shape)}: copy of raw {copy_ms:.4f} ms "
+          f"({2 * _nbytes(raw) / copy_ms / 1e6:.0f} GB/s); kernel "
+          f"{kernel_ms:.4f} ms at {100 * bound / kernel_ms:.1f}% of its "
+          f"bound; parent's Triton "
+          + ("not measured" if parent_ms is None else f"{parent_ms:.4f} ms"))
+    return row
+
+
+def _producer_build_report():
+    """K2/K5's and K4's kernels (qk_norm_rope_kernel<vectors a thread,
+    rstd>, qk_ln_rope_kernel<vectors a thread>): registers, spills and
+    static shared memory."""
+    return _build_report("K2/K4/K5", "qk_producers",
+                         ("qk_norm_rope_kernel", "qk_ln_rope_kernel"),
+                         lambda tag: None)
 
 
 def _kernel_tag(line):
@@ -390,16 +419,25 @@ def _report(results, name, err, rel, ms, plain_ms, bound, library_ms,
     print(f"{KERNELS[name]['label']} {name}: max_abs {err:.3e} "
           f"max_rel {rel:.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
           f"bound {bound[0]:.3f} ms ({bound[1]})  library {lib}"
-          + "".join(f"  {k} {v:.4g}" for k, v in extra.items()))
+          + "".join(f"  {k} {v:.4g}" if isinstance(v, float)
+                    else f"  {k} {v}" for k, v in extra.items()))
+
+
+def _ulp_over(got, ref):
+    """The elements of got more than one bf16 ulp (of either side) from
+    ref."""
+    import torch
+    got, ref = got.float(), ref.float()
+    return int(((got - ref).abs()
+                > torch.maximum(bf16_ulp(got), bf16_ulp(ref))).sum())
 
 
 def _check_ulp(label, got, ref):
     """Every element within one bf16 ulp (of either side); returns the
     max abs and max relative difference."""
-    import torch
+    over = _ulp_over(got, ref)
     got, ref = got.float(), ref.float()
     diff = (got - ref).abs()
-    over = int((diff > torch.maximum(bf16_ulp(got), bf16_ulp(ref))).sum())
     check(over == 0, f"{label} differs from its plain version by more than "
                      f"one bf16 ulp at {over} elements (max abs "
                      f"{diff.max().item():.3e})")
@@ -548,8 +586,9 @@ def _flash_ragged(checks):
             print(f"{tag}: max_abs {err:.3e} rel L2 {rel_l2:.3e}")
 
 
-def phase_kernels():
-    """Each kernel vs its plain version at the Wan slice's shapes."""
+def phase_kernels(parent):
+    """Each kernel vs its plain version at the Wan slice's shapes;
+    ``parent``: the Triton producers of --triton-parent, or None."""
     import torch
     from frameino_tpu_torch.ops import attention as A
     from frameino_tpu_torch.ops.rope import wan_rope_table
@@ -569,18 +608,32 @@ def phase_kernels():
     gain = D ** -0.5 * A.LOG2E
     cq, sq = (cos * gain).contiguous(), (sin * gain).contiguous()
     out = A.qk_norm_rope(q_raw, w_q, cq, sq, H, 1e-6)
-    err, rel = _check_ulp("K2", out,
-                          A.qk_norm_rope_ref(q_raw, w_q, cq, sq, H, 1e-6))
+    ref = A.qk_norm_rope_ref(q_raw, w_q, cq, sq, H, 1e-6)
+    err, rel = _check_ulp("K2", out, ref)
+    # the planted fault: each pair rotated by its neighbour pair's cos/sin
+    fault = _ulp_over(A.qk_norm_rope(q_raw, w_q, cq.roll(1, 1).contiguous(),
+                                     sq.roll(1, 1).contiguous(), H, 1e-6),
+                      ref)
+    check(fault > 0, "K2: the check did not reject the neighbour pair's "
+                     "cos/sin")
+    print(f"K2: the neighbour pair's cos/sin rejected ({fault} of "
+          f"{ref.numel()} elements over one bf16 ulp)")
+    del ref
+    ms = cuda_ms(lambda: A.qk_norm_rope(q_raw, w_q, cq, sq, H, 1e-6), 20)
     # ~12 fp32 operations per output element (square-sum, scale, rotate)
-    _report(results, "qk_norm_rope", err, rel,
-            cuda_ms(lambda: A.qk_norm_rope(q_raw, w_q, cq, sq, H, 1e-6), 20),
+    bound = bound_ms(12 * out.numel(), _nbytes(q_raw, w_q, cq, sq, out),
+                     PEAK_FP32_FLOPS)
+    parent_k2 = None if parent is None else (
+        lambda o: parent["qk_norm_rope_triton"].launch(q_raw, w_q, cq, sq, o,
+                                                       H, 1e-6))
+    _report(results, "qk_norm_rope", err, rel, ms,
             cuda_ms(lambda: A.qk_norm_rope_ref(q_raw, w_q, cq, sq, H, 1e-6),
-                    5),
-            bound_ms(12 * out.numel(), _nbytes(q_raw, w_q, cq, sq, out),
-                     PEAK_FP32_FLOPS), None)
+                    5), bound, None, fault_elements=fault,
+            **_producer_yardsticks(q_raw, out, ms, bound[0], parent_k2))
     del out
 
-    checks = {"build": _flash_build_report()}
+    checks = {"build": _flash_build_report(),
+              "producers_build": _producer_build_report()}
 
     def compare(name, kernel, plain, library, least, q, k, v, **arg):
         want = plain()
@@ -644,13 +697,15 @@ def _k2_rstd(raw, eps=1e-6):
                              + float(np.float32(eps)))).float()
 
 
-def phase_kernels_k5():
+def phase_kernels_k5(parent):
     """K5 bit-equal to its plain version on the tp path's rstd (each
     shard's fp32 sum of squares, summed where the all-reduce sums them,
     then rsqrt) at the Wan tp shards and a ragged shape; the shards, handed
     K2's own statistic, concatenated within one bf16 ulp of K2 on the full
     rows; the neighbouring token's rstd (a planted fault) rejected by the
-    check. Times beside the plain version and the bound."""
+    check; at the ragged shape the last head left unwritten rejected
+    too. Times beside the plain version, the bound, a device copy of the
+    input and ``parent``'s Triton kernel (--triton-parent)."""
     import torch
     from frameino_tpu_torch.ops import attention as A
     from frameino_tpu_torch.ops.rope import wan_rope_table
@@ -689,10 +744,27 @@ def phase_kernels_k5():
                    plain_ms=cuda_ms(lambda: A.qk_norm_rope_rstd_ref(
                        part, rstd, w_r, c, s_, hl), 5),
                    bound_ms=bound[0], bound_by=bound[1])
+        if tag == "ragged":
+            # the planted fault: the last head (of a 5-head team with idle
+            # slots) left unwritten
+            dropped = out.clone()
+            dropped.view(B, hl, -1, D)[:, -1] = 0
+            check(not torch.equal(dropped, ref), "K5 ragged: the check did "
+                                                 "not reject a dropped last "
+                                                 "head")
+            row["last_head_dropped_unequal"] = int((dropped != ref).sum())
         print(f"K5 {tag} {row['shape']}: bit-equal to its plain version; "
               f"the neighbour's rstd rejected (max abs {fault:.3e}); kernel "
               f"{row['ms']:.4f} ms  plain {row['plain_ms']:.3f} ms  bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+              + (f"; the dropped last head rejected "
+                 f"({row['last_head_dropped_unequal']} elements unequal)"
+                 if tag == "ragged" else ""))
+        if " rank " not in tag:
+            row.update(_producer_yardsticks(
+                part, out, row["ms"], bound[0], None if parent is None
+                else lambda o: parent["qk_norm_rope_triton"].launch(
+                    part, w_r, c, s_, o, hl, 0.0, rstd=rstd)))
         return out, row
 
     k2 = A.qk_norm_rope(raw, w, cq, sq, H, 1e-6)
@@ -732,13 +804,41 @@ def phase_kernels_k5():
     return {K5: dict(max_abs_err=0.0, ms=main["ms"],
                      plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                      bound_by=main["bound_by"], library_ms=None,
+                     **{k: main[k] for k in ("copy_ms", "parent_triton_ms",
+                                             "bound_share")},
                      shapes=shapes)}
 
 
-def phase_kernels_cog():
+def _qk_ln_rope_neighbour_stats(raw, weight, bias, cos, sin, num_heads,
+                                eps):
+    """K4's plain version (``qk_ln_rope_ref``) with a planted fault: each
+    head normed with the mean and rstd of the head before it."""
+    import numpy as np
+    import torch
+    B_, S_, HD = raw.shape
+    D_ = HD // num_heads
+    xf = raw.float().reshape(B_, S_, num_heads, D_)
+    xd = xf.double()
+    mean = xd.sum(-1, keepdim=True) / D_
+    var = (xd - mean).square().sum(-1, keepdim=True) / D_
+    rstd = (1.0 / torch.sqrt(var + float(np.float32(eps)))).float()
+    mean, rstd = mean.roll(1, dims=2), rstd.roll(1, dims=2)
+    f = (xf - mean.float()) * rstd * weight.float() + bias.float()
+    f = f.to(raw.dtype).float().reshape(B_, S_, num_heads, D_ // 2, 2)
+    fe, fo = f[..., 0], f[..., 1]
+    c, s_ = cos.float()[None, :, None, :], sin.float()[None, :, None, :]
+    out = torch.stack([fe * c - fo * s_, fo * c + fe * s_], dim=-1)
+    return out.reshape(B_, S_, num_heads, D_).permute(0, 2, 1, 3).reshape(
+        B_ * num_heads, S_, D_).to(raw.dtype)
+
+
+def phase_kernels_cog(parent):
     """K4 and K1 at head_dim 64 vs their plain versions at the CogVideoX-5B
     shapes: raw q/k [2, 19126, 3072] with a 226-row text prefix whose RoPE
-    rows are identity (q's tables times softmax scale * log2(e))."""
+    rows are identity (q's tables times softmax scale * log2(e)); K4's
+    check shown to reject each head normed with its neighbour's
+    statistics; K4 beside a device copy of its input and ``parent``'s
+    Triton kernel (--triton-parent)."""
     import torch
     from frameino_tpu_torch.ops import attention as A
     from frameino_tpu_torch.ops.rope import cogvideox_rope_table
@@ -761,22 +861,32 @@ def phase_kernels_cog():
     gain = Dc ** -0.5 * A.LOG2E
     cq, sq = (cos * gain).contiguous(), (sin * gain).contiguous()
     out_q = A.qk_ln_rope(raw_q, w_q, b_q, cq, sq, Hc, 1e-6)
-    err_q, rel_q = _check_ulp("K4 (q)", out_q,
-                              A.qk_ln_rope_ref(raw_q, w_q, b_q, cq, sq, Hc,
-                                               1e-6))
+    ref_q = A.qk_ln_rope_ref(raw_q, w_q, b_q, cq, sq, Hc, 1e-6)
+    err_q, rel_q = _check_ulp("K4 (q)", out_q, ref_q)
     err_k, rel_k = _check_ulp("K4 (k)", A.qk_ln_rope(raw_k, w_k, b_k, cos,
                                                      sin, Hc, 1e-6),
                               A.qk_ln_rope_ref(raw_k, w_k, b_k, cos, sin, Hc,
                                                1e-6))
+    # the planted fault: each head normed with its neighbour's statistics
+    fault = _ulp_over(_qk_ln_rope_neighbour_stats(raw_q, w_q, b_q, cq, sq,
+                                                  Hc, 1e-6), ref_q)
+    check(fault > 0, "K4: the check did not reject the neighbour head's "
+                     "statistics")
+    print(f"K4: the neighbour head's statistics rejected ({fault} of "
+          f"{ref_q.numel()} elements over one bf16 ulp)")
+    del ref_q
+    ms = cuda_ms(lambda: A.qk_ln_rope(raw_q, w_q, b_q, cq, sq, Hc, 1e-6), 20)
     # ~14 fp32 operations per output element (moments, normalize, rotate)
-    _report(results, "qk_ln_rope", max(err_q, err_k), max(rel_q, rel_k),
-            cuda_ms(lambda: A.qk_ln_rope(raw_q, w_q, b_q, cq, sq, Hc, 1e-6),
-                    20),
+    bound = bound_ms(14 * out_q.numel(),
+                     _nbytes(raw_q, w_q, b_q, cq, sq, out_q), PEAK_FP32_FLOPS)
+    parent_k4 = None if parent is None else (
+        lambda o: parent["qk_ln_rope_triton"].launch(raw_q, w_q, b_q, cq, sq,
+                                                     o, Hc, 1e-6))
+    _report(results, "qk_ln_rope", max(err_q, err_k), max(rel_q, rel_k), ms,
             cuda_ms(lambda: A.qk_ln_rope_ref(raw_q, w_q, b_q, cq, sq, Hc,
-                                             1e-6), 3),
-            bound_ms(14 * out_q.numel(),
-                     _nbytes(raw_q, w_q, b_q, cq, sq, out_q),
-                     PEAK_FP32_FLOPS), None)
+                                             1e-6), 3), bound, None,
+            fault_elements=fault,
+            **_producer_yardsticks(raw_q, out_q, ms, bound[0], parent_k4))
     del out_q
 
     # K1 at [96, 19126, 64]; the plain version's [rows, S, S] fp32 logits
@@ -1036,6 +1146,9 @@ def _ptxas_kernels(log):
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 out[cur]["registers"] = int(m[1])
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                out[cur]["static_smem_bytes"] = int(m[1])
     return out
 
 
@@ -1649,8 +1762,11 @@ def _forward_kind(name):
         # flash_fwd_kernel<D, static bound, ...>: K1 or K3
         static = n.split("flash_fwd_kernel")[1].split(",")[1].strip()
         return "K1" if static in ("true", "1") else "K3"
-    for key, kind in (("_qk_norm_rope_kernel", "K2"),
-                      ("_qk_ln_rope_kernel", "K4"), ("dyn_quant", "K7")):
+    if "qk_norm_rope_kernel" in n:
+        # qk_norm_rope_kernel<vectors a thread, rstd>: K2 or K5
+        rstd = n.split("qk_norm_rope_kernel")[1].split(",")[1].strip()
+        return "K5" if rstd.startswith(("true", "1")) else "K2"
+    for key, kind in (("qk_ln_rope_kernel", "K4"), ("dyn_quant", "K7")):
         if key in n:
             return kind
     if any(w in n for w in ("gemm", "xmma", "nvjet", "cutlass")):
@@ -2541,15 +2657,16 @@ def main():
     t_start = time.time()
     name, smi = phase_device()
     phase_build()
-    kernel_results, flash_checks = phase_kernels()
-    kernel_results.update(phase_kernels_k5())
+    parent = _parent_triton()
+    kernel_results, flash_checks = phase_kernels(parent)
+    kernel_results.update(phase_kernels_k5(parent))
     kernel_results.update(phase_kernels_k7())
     dense_int8 = phase_dense_int8()
     rows, totals, int8_wan = phase_serve("wan")
     ref_err = phase_reference()
     ref_err_int8 = phase_reference("int8")
     tp = phase_tp()
-    cog_results, cog_checks = phase_kernels_cog()
+    cog_results, cog_checks = phase_kernels_cog(parent)
     kernel_results.update(cog_results)
     flash_checks.update(cog_checks)
     rows_cog, totals_cog, int8_cog = phase_serve("cogvideox")

@@ -6,11 +6,11 @@ The first slice is Wan2.2-TI2V-5B FrameINO serving: the HTTP server
 (``pipelines/wan_i2v.py``), the Wan2.2 VAE (``models/wan_vae.py``), the
 FlowMatch-Euler scheduler and the 5B DiT (``models/wan_dit.py``). Its three
 attention kernels are written by hand for sm_90a (``ops/attention.py``,
-``csrc/flash_fwd.cu``, ``ops/qk_norm_rope_triton.py``). Later slices add
+``csrc/flash_fwd.cu``, ``csrc/qk_producers.cu``). Later slices add
 CogVideoX-5B-I2V serving, Wan2.2 training, int8 w8a8 DiT serving
 (``models/quant.py``, K7 in ``csrc/dyn_quant.cu``) and Wan2.2 serving over
 a dp x tp process mesh on ``torch.distributed`` (``core/meshes.py``,
-``parallel/``, K5 beside K2 in ``ops/qk_norm_rope_triton.py``).
+``parallel/``, K5 beside K2 in ``csrc/qk_producers.cu``).
 
 Module paths mirror ``frameino_tpu``; this package never imports jax.
 

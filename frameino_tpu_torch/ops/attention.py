@@ -21,8 +21,8 @@ and a backward giving dQ, dK, dV), behind a ``torch.autograd.Function``.
 K1 and K3 are one CUDA C++ kernel (``csrc/flash_fwd.cu``) templated on
 the softmax variant and head_dim; K6 is a second CUDA C++ source
 (``csrc/flash_attn_train.cu``). Both are warp-specialised wgmma kernels
-fed by TMA, on the Hopper helpers of ``csrc/sm90_common.cuh``; K2 and K4
-are Triton kernels. Each
+fed by TMA, on the Hopper helpers of ``csrc/sm90_common.cuh``; K2 (with
+K5) and K4 are the two kernels of ``csrc/qk_producers.cu``. Each
 wrapper launches its kernel for CUDA tensors (bf16, contiguous) and
 raises on anything else; for CPU tensors it runs the plain PyTorch
 version beside it. Each wrapper counts its kernel launches in
@@ -34,6 +34,7 @@ raw q/k are [B, S, H*D].
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -313,10 +314,112 @@ def flash_attention_train(q, k, v, scale: Optional[float] = None):
 
 
 # ---------------------------------------------------------------------------
-# K2 / K5: Triton qk RMS-norm (across heads) + interleaved RoPE producers
+# K2 / K5 / K4: qk-norm + RoPE producers (csrc/qk_producers.cu)
 # ---------------------------------------------------------------------------
-# The kernel (one source, two statistics) and its design note are in
-# ops/qk_norm_rope_triton.py.
+# The kernels and their design note are in the CUDA source; their launch
+# geometry is chosen here, where the CPU tests check its index map.
+
+_PRODUCER_THREADS = 256     # a block's threads, at most (kMaxThreads)
+_PRODUCER_MAX_VPT = 4       # 16-byte vectors a thread, at most (kMaxVpt)
+_PRODUCER_KINDS = {"qk_norm_rope": 0, "qk_norm_rope_rstd": 1,
+                   "qk_ln_rope": 2}
+_producer_resident: dict = {}   # (device, kind, vpt, threads) -> blocks
+
+
+@functools.lru_cache(maxsize=None)
+def _producer_geometry(num_heads: int, head_dim: int):
+    """(team, vpt, teams_per_block) of the producers on rows of
+    ``num_heads`` heads of ``head_dim``: a team of ``team`` threads takes a
+    token, thread t holding the row's 16-byte vectors v = j * team + t
+    (j < vpt); a block holds ``teams_per_block`` teams. team is a multiple
+    of a head's head_dim / 8 vectors, so a thread's vectors sit at one
+    offset in every head (its gains and tables stay in registers), and a
+    power of two up to a warp or a whole number of warps (K2's reduction
+    tree). Among those: the fewest idle vector slots, then the most
+    vectors a thread."""
+    if head_dim < 8 or head_dim > 256 or head_dim & (head_dim - 1):
+        raise ValueError(f"qk producers: head_dim {head_dim} is not a power "
+                         f"of two in [8, 256]")
+    per_head = head_dim // 8
+    nv = num_heads * per_head
+    best = None
+    for vpt in range(_PRODUCER_MAX_VPT, 0, -1):
+        team = -(-nv // vpt)
+        team = (max(1 << (team - 1).bit_length(), per_head) if team <= 32
+                else -(-team // 32) * 32)
+        if team > _PRODUCER_THREADS:
+            continue
+        used = -(-nv // team)
+        key = (team * used - nv, -used)
+        if best is None or key < best[0]:
+            best = (key, team, used)
+    if best is None:
+        raise ValueError(f"qk producers: a row of {num_heads} heads of "
+                         f"{head_dim} is wider than "
+                         f"{_PRODUCER_THREADS * _PRODUCER_MAX_VPT * 8}")
+    _, team, vpt = best
+    return team, vpt, _PRODUCER_THREADS // team
+
+
+def _producer_grid(n_tokens: int, teams_per_block: int,
+                   resident_blocks: int) -> int:
+    """The persistent grid: every block the card holds at once, but no
+    more than there are token groups (one token a team)."""
+    return max(1, min(-(-n_tokens // teams_per_block), resident_blocks))
+
+
+def _check_producer(name, raw, num_heads: int, params, param_len: int,
+                    cos, sin):
+    """Raise unless the kernel takes these tensors: raw [B, S, H*D] bf16,
+    the fp32 ``params`` (gains, or gamma and beta) [param_len] and cos/sin
+    [S, D/2], each contiguous and 16-byte aligned (the kernel's vector
+    accesses). Returns the output [B*H, S, D]."""
+    B, S, HD = raw.shape
+    H = num_heads
+    D = HD // H
+    if H * D != HD or D % 2 or (D & (D - 1)):
+        raise ValueError(f"{name}: H*D={HD} with H={H} needs a "
+                         f"power-of-two head_dim")
+    if any(t.shape != (param_len,) for t in params) \
+            or cos.shape != (S, D // 2) or sin.shape != cos.shape:
+        raise ValueError(f"{name}: gains must be [{param_len}] and cos/sin "
+                         f"[S, D/2]")
+    _check_cuda_bf16(name, raw)
+    for t in (*params, cos, sin):
+        if not t.is_cuda or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: gains and cos/sin must be contiguous "
+                             f"fp32 CUDA tensors")
+    out = torch.empty((B * H, S, D), dtype=raw.dtype, device=raw.device)
+    if any(t.data_ptr() % 16 for t in (out, *params, cos, sin)):
+        raise ValueError(f"{name}: gains, cos/sin and the output must be "
+                         f"16-byte aligned")
+    return out
+
+
+def _launch_producer(kind: str, raw, out, ptrs, num_heads: int, eps: float):
+    """Launch the producer ``kind`` on raw -> out with the other pointers
+    ``ptrs`` (rstd, gain or gamma, beta as the C function orders them)."""
+    B, S, HD = raw.shape
+    team, vpt, tpb = _producer_geometry(num_heads, HD // num_heads)
+    lib = _lib("qk_producers")
+    key = (raw.device, kind, vpt, team * tpb)
+    if key not in _producer_resident:
+        per_sm = lib.qk_producer_blocks_per_sm(_PRODUCER_KINDS[kind], vpt,
+                                               team * tpb)
+        if per_sm <= 0:
+            raise RuntimeError(f"{kind}: no block of {team * tpb} threads "
+                               f"fits an SM")
+        _producer_resident[key] = per_sm * torch.cuda.get_device_properties(
+            raw.device).multi_processor_count
+    fn = lib.qk_ln_rope_bf16 if kind == "qk_ln_rope" else lib.qk_norm_rope_bf16
+    err = fn(raw.data_ptr(), *ptrs, out.data_ptr(), B, S, num_heads,
+             HD // num_heads, float(eps), team, vpt, tpb,
+             _producer_grid(B * S, tpb, _producer_resident[key]),
+             torch.cuda.current_stream(raw.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kind} launch failed: CUDA error {err}")
+
 
 def qk_norm_rope_rstd_ref(raw, rstd, weight, cos, sin, num_heads: int):
     """Plain version of K5. raw [B, S, H*D]; rstd [B, S] fp32, the per-token
@@ -350,35 +453,17 @@ def qk_norm_rope_ref(raw, weight, cos, sin, num_heads: int, eps: float):
     return qk_norm_rope_rstd_ref(raw, rstd, weight, cos, sin, num_heads)
 
 
-def _check_producer(name, raw, weight, cos, sin, num_heads: int):
-    B, S, HD = raw.shape
-    H = num_heads
-    D = HD // H
-    if H * D != HD or D % 2 or (D & (D - 1)):
-        raise ValueError(f"{name}: H*D={HD} with H={H} needs a "
-                         f"power-of-two head_dim")
-    if weight.shape != (HD,) or cos.shape != (S, D // 2) \
-            or sin.shape != cos.shape:
-        raise ValueError(f"{name}: weight must be [H*D] and cos/sin "
-                         f"[S, D/2]")
-    _check_cuda_bf16(name, raw)
-    for t in (weight, cos, sin):
-        if not t.is_cuda or t.dtype != torch.float32 \
-                or not t.is_contiguous():
-            raise ValueError(f"{name}: weight/cos/sin must be contiguous "
-                             f"fp32 CUDA tensors")
-    return torch.empty((B * H, S, D), dtype=raw.dtype, device=raw.device)
-
-
 def qk_norm_rope(raw, weight, cos, sin, num_heads: int, eps: float):
     """K2 (replaces ``_qk_producer_fullrow``): RMS-norm across all heads,
     gain, round to raw's dtype, interleaved RoPE -> [B*H, S, D]. CUDA:
-    Triton kernel; CPU: ``qk_norm_rope_ref``."""
+    ``csrc/qk_producers.cu``; CPU: ``qk_norm_rope_ref``."""
     if not raw.is_cuda:
         return qk_norm_rope_ref(raw, weight, cos, sin, num_heads, eps)
-    out = _check_producer("qk_norm_rope", raw, weight, cos, sin, num_heads)
-    from frameino_tpu_torch.ops import qk_norm_rope_triton   # needs triton
-    qk_norm_rope_triton.launch(raw, weight, cos, sin, out, num_heads, eps)
+    out = _check_producer("qk_norm_rope", raw, num_heads, (weight,),
+                          raw.shape[-1], cos, sin)
+    _launch_producer("qk_norm_rope", raw, out,
+                     (0, weight.data_ptr(), cos.data_ptr(), sin.data_ptr()),
+                     num_heads, eps)
     qk_norm_rope.launches += 1
     return out
 
@@ -389,30 +474,26 @@ qk_norm_rope.launches = 0
 def qk_norm_rope_rstd(raw, rstd, weight, cos, sin, num_heads: int):
     """K5 (replaces ``_qk_producer``): the norm with a precomputed per-token
     ``rstd`` [B, S] fp32, gain, round to raw's dtype, interleaved RoPE ->
-    [B*H, S, D] over the H heads of raw (a tp rank's slice). CUDA: the
-    Triton kernel K2 shares; CPU: ``qk_norm_rope_rstd_ref``."""
+    [B*H, S, D] over the H heads of raw (a tp rank's slice). CUDA: K2's
+    kernel with the rstd (``csrc/qk_producers.cu``); CPU:
+    ``qk_norm_rope_rstd_ref``."""
     if not raw.is_cuda:
         return qk_norm_rope_rstd_ref(raw, rstd, weight, cos, sin, num_heads)
-    out = _check_producer("qk_norm_rope_rstd", raw, weight, cos, sin,
-                          num_heads)
+    out = _check_producer("qk_norm_rope_rstd", raw, num_heads, (weight,),
+                          raw.shape[-1], cos, sin)
     if (not rstd.is_cuda or rstd.dtype != torch.float32
             or rstd.shape != raw.shape[:2] or not rstd.is_contiguous()):
         raise ValueError("qk_norm_rope_rstd: rstd must be a contiguous fp32 "
                          "CUDA [B, S] tensor")
-    from frameino_tpu_torch.ops import qk_norm_rope_triton   # needs triton
-    qk_norm_rope_triton.launch(raw, weight, cos, sin, out, num_heads, 0.0,
-                               rstd=rstd)
+    _launch_producer("qk_norm_rope_rstd", raw, out,
+                     (rstd.data_ptr(), weight.data_ptr(), cos.data_ptr(),
+                      sin.data_ptr()), num_heads, 0.0)
     qk_norm_rope_rstd.launches += 1
     return out
 
 
 qk_norm_rope_rstd.launches = 0
 
-
-# ---------------------------------------------------------------------------
-# K4: Triton per-head qk LayerNorm + joint-sequence RoPE producer
-# ---------------------------------------------------------------------------
-# The kernel and its design note are in ops/qk_ln_rope_triton.py.
 
 def qk_ln_rope_ref(raw, weight, bias, cos, sin, num_heads: int, eps: float):
     """Plain version of K4. raw [B, S, H*D]; weight/bias [D] (one LayerNorm
@@ -446,28 +527,14 @@ def qk_ln_rope_ref(raw, weight, bias, cos, sin, num_heads: int, eps: float):
 def qk_ln_rope(raw, weight, bias, cos, sin, num_heads: int, eps: float):
     """K4 (replaces ``_qk_producer_ln``): per-head LayerNorm with a shared
     [D] gamma/beta, round to raw's dtype, interleaved RoPE -> [B*H, S, D].
-    CUDA: Triton kernel; CPU: ``qk_ln_rope_ref``."""
+    CUDA: ``csrc/qk_producers.cu``; CPU: ``qk_ln_rope_ref``."""
     if not raw.is_cuda:
         return qk_ln_rope_ref(raw, weight, bias, cos, sin, num_heads, eps)
-    B, S, HD = raw.shape
-    H = num_heads
-    D = HD // H
-    if H * D != HD or D % 2 or (D & (D - 1)):
-        raise ValueError(f"qk_ln_rope: H*D={HD} with H={H} needs a "
-                         f"power-of-two head_dim")
-    if weight.shape != (D,) or bias.shape != (D,) \
-            or cos.shape != (S, D // 2) or sin.shape != cos.shape:
-        raise ValueError("qk_ln_rope: weight/bias must be [D] and cos/sin "
-                         "[S, D/2]")
-    _check_cuda_bf16("qk_ln_rope", raw)
-    for t in (weight, bias, cos, sin):
-        if not t.is_cuda or t.dtype != torch.float32 \
-                or not t.is_contiguous():
-            raise ValueError("qk_ln_rope: weight/bias/cos/sin must be "
-                             "contiguous fp32 CUDA tensors")
-    from frameino_tpu_torch.ops import qk_ln_rope_triton   # needs triton
-    out = torch.empty((B * H, S, D), dtype=raw.dtype, device=raw.device)
-    qk_ln_rope_triton.launch(raw, weight, bias, cos, sin, out, H, eps)
+    out = _check_producer("qk_ln_rope", raw, num_heads, (weight, bias),
+                          raw.shape[-1] // num_heads, cos, sin)
+    _launch_producer("qk_ln_rope", raw, out,
+                     (weight.data_ptr(), bias.data_ptr(), cos.data_ptr(),
+                      sin.data_ptr()), num_heads, eps)
     qk_ln_rope.launches += 1
     return out
 

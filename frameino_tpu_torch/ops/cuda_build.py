@@ -40,6 +40,12 @@ _CUDA_SOURCES = {
         "flash_variant_int8": [_VP] * 7 + [_INT] * 5 + [_VP]},
     "flash_packed": {"flash_packed_bf16": [_VP] * 4 + [_INT] * 3
                      + [_F32, _VP]},
+    "qk_producers": {
+        "qk_norm_rope_bf16": [_VP] * 6 + [_INT] * 4 + [_F32] + [_INT] * 4
+        + [_VP],
+        "qk_ln_rope_bf16": [_VP] * 6 + [_INT] * 4 + [_F32] + [_INT] * 4
+        + [_VP],
+        "qk_producer_blocks_per_sm": [_INT] * 3},
 }
 
 _lib_lock = threading.Lock()

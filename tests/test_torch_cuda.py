@@ -22,8 +22,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA and Triton kernels have "
-                    "no CPU mode")
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU "
+                    "mode")
     return torch.device("cuda")
 
 
@@ -147,24 +147,30 @@ def test_flash_attention_inference_takes_a_head_split_batch_of_one(dev):
                                rtol=2e-2)
 
 
-@pytest.mark.parametrize("heads,s", [(3, 100), (24, 257)])
-def test_qk_norm_rope_kernel_within_one_ulp(dev, heads, s):
+# ragged S (1, 7, 777), B = 1, and head counts whose team idles slots (3)
+@pytest.mark.parametrize("batch,heads,s", [(2, 3, 100), (2, 24, 257),
+                                           (2, 24, 1), (1, 24, 777),
+                                           (1, 3, 777), (2, 1, 7)])
+def test_qk_norm_rope_kernel_within_one_ulp(dev, batch, heads, s):
     g = torch.Generator(dev).manual_seed(1)
-    raw = torch.randn(2, s, heads * 128, device=dev, dtype=torch.bfloat16,
-                      generator=g)
+    raw = torch.randn(batch, s, heads * 128, device=dev,
+                      dtype=torch.bfloat16, generator=g)
     w = 1 + 0.1 * torch.randn(heads * 128, device=dev, generator=g)
     ang = torch.randn(s, 64, device=dev, generator=g)
     cos, sin = ang.cos() * 0.5, ang.sin() * 0.5
+    before = A.launch_counts()["qk_norm_rope"]
     got = A.qk_norm_rope(raw, w, cos, sin, heads, 1e-6).float()
+    assert A.launch_counts()["qk_norm_rope"] == before + 1
     ref = A.qk_norm_rope_ref(raw, w, cos, sin, heads, 1e-6).float()
     # the same roundings to bf16; fp32 reassociation may flip one: 1 ulp
     assert torch.all((got - ref).abs()
                      <= torch.maximum(_bf16_ulp(got), _bf16_ulp(ref)))
 
 
-@pytest.mark.parametrize("heads,s", [(12, 300), (6, 257), (1, 100)])
+@pytest.mark.parametrize("heads,s", [(12, 300), (6, 257), (1, 100),
+                                     (5, 777), (12, 1)])
 def test_qk_norm_rope_rstd_kernel_bit_equal(dev, heads, s):
-    """K5 on a tp rank's heads (12 and 6 of 24: not powers of two) against
+    """K5 on a tp rank's heads (12, 6 and 5: not powers of two) against
     its plain version on the same rstd: the same fp32 products in the same
     order, no FMA contraction, so every bf16 output is equal. Handed K2's
     statistic (fp64 sum of squares, rounded once), the concatenated shards
@@ -297,6 +303,60 @@ def test_qk_ln_rope_rejects_what_the_kernel_does_not_take(dev):
         A.qk_ln_rope(rb, w, b, cos.t().contiguous().t(), sin, 2, 1e-6)
     with pytest.raises(ValueError):
         A.qk_ln_rope(rb, w.half(), b, cos, sin, 2, 1e-6)
+
+
+@pytest.mark.parametrize("batch,heads,s", [(1, 48, 777), (2, 48, 1),
+                                           (1, 3, 777), (2, 3, 7)])
+def test_qk_ln_rope_kernel_at_ragged_shapes(dev, batch, heads, s):
+    """K4 at head_dim 64 at ragged S (1, 7, 777), B = 1 and 48 heads,
+    on random tables, within one bf16 ulp of its plain version."""
+    g = torch.Generator(dev).manual_seed(3)
+    raw = 2 * torch.randn(batch, s, heads * 64, device=dev,
+                          dtype=torch.bfloat16, generator=g) - 0.25
+    w = 1 + 0.1 * torch.randn(64, device=dev, generator=g)
+    b = 0.1 * torch.randn(64, device=dev, generator=g)
+    ang = torch.rand(s, 32, device=dev, generator=g) * 6.3
+    cos, sin = ang.cos() * 0.3, ang.sin() * 0.3
+    got = A.qk_ln_rope(raw, w, b, cos, sin, heads, 1e-6).float()
+    ref = A.qk_ln_rope_ref(raw, w, b, cos, sin, heads, 1e-6).float()
+    assert got.shape == (batch * heads, s, 64)
+    assert torch.all((got - ref).abs()
+                     <= torch.maximum(_bf16_ulp(got), _bf16_ulp(ref)))
+
+
+def _misaligned(t):
+    """A copy of t whose data starts one element past a 16-byte line."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 and view.is_contiguous()
+    return view
+
+
+def test_producers_refuse_tensors_that_are_not_16_byte_aligned(dev):
+    """The producers read raw, gains and tables in 16-byte vectors: a view
+    at an odd offset is refused, not read across a line."""
+    raw = torch.randn(2, 9, 2 * 128, device=dev, dtype=torch.bfloat16)
+    w = torch.ones(2 * 128, device=dev)
+    cos, sin = torch.ones(9, 64, device=dev), torch.zeros(9, 64, device=dev)
+    rstd = torch.ones(2, 9, device=dev)
+    A.qk_norm_rope(raw, w, cos, sin, 2, 1e-6)
+    for args in ((_misaligned(raw), w, cos, sin), (raw, _misaligned(w), cos,
+                                                   sin),
+                 (raw, w, _misaligned(cos), sin)):
+        with pytest.raises(ValueError, match="aligned"):
+            A.qk_norm_rope(*args, 2, 1e-6)
+    with pytest.raises(ValueError, match="aligned"):
+        A.qk_norm_rope_rstd(_misaligned(raw), rstd, w, cos, sin, 2)
+    raw64 = raw.reshape(2, 9, 4 * 64)
+    g64, b64 = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    c32, s32 = torch.ones(9, 32, device=dev), torch.zeros(9, 32, device=dev)
+    A.qk_ln_rope(raw64, g64, b64, c32, s32, 4, 1e-6)
+    for args in ((_misaligned(raw64), g64, b64, c32, s32),
+                 (raw64, g64, _misaligned(b64), c32, s32),
+                 (raw64, g64, b64, c32, _misaligned(s32))):
+        with pytest.raises(ValueError, match="aligned"):
+            A.qk_ln_rope(*args, 4, 1e-6)
 
 
 def test_cogvideox_dit_on_cuda_runs_the_kernels(dev):

@@ -3,7 +3,10 @@ on the CPU, with a stand-in for nvcc: which sources it compiles, what it
 keeps of nvcc's output, and what a failed build leaves. The libraries
 themselves load and run only on a card (``tests/test_torch_cuda.py``)."""
 
+import ctypes
+import re
 import sys
+from pathlib import Path
 
 import pytest
 
@@ -114,3 +117,46 @@ def test_failed_build_raises_and_leaves_no_library(fake, monkeypatch):
     monkeypatch.delenv("FAKE_NVCC_FAIL")
     cuda_build.build_cuda_libs(["k"])
     assert len(calls()) == 2 and so.exists()
+
+
+def test_every_source_is_compiled_for_sm90a(tmp_path, monkeypatch):
+    """The real csrc/: one nvcc per registered source, all for sm_90a,
+    the qk producers (K2/K5, K4) among them."""
+    tools = tmp_path / "tools"
+    tools.mkdir()
+    nvcc = tools / "nvcc"
+    nvcc.write_text(f"#!{sys.executable}\n" + FAKE_NVCC)
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_build, "_libs", {})
+    monkeypatch.setattr(cuda_build, "BUILD_LOG", {})
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(cuda_build, "_load",
+                        lambda so, source, partial=False: source)
+    got = cuda_build.build_cuda_libs()
+    calls = (tools / "calls").read_text().splitlines()
+    compiled = sorted(Path(c.split()[-1]).name for c in calls)
+    assert compiled == sorted(f"{n}.cu" for n in cuda_build._CUDA_SOURCES)
+    assert "qk_producers.cu" in compiled and got["qk_producers"] == \
+        "qk_producers"
+    assert all("arch=compute_90a,code=sm_90a" in c for c in calls)
+
+
+_C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float}
+
+
+@pytest.mark.parametrize("source", sorted(cuda_build._CUDA_SOURCES))
+def test_argtypes_match_the_c_interface(source):
+    """Each C function's argtypes follow its declaration in the source: a
+    64-bit ``c_void_p`` for every pointer and the stream (a ``c_int``
+    would cut a device pointer), ``c_int`` and ``c_float`` for the
+    scalars; the source exports exactly the registered functions."""
+    text = (cuda_build._CSRC / f"{source}.cu").read_text()
+    decls = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text))
+    fns = cuda_build._CUDA_SOURCES[source]
+    assert sorted(decls) == sorted(fns)
+    assert ctypes.sizeof(ctypes.c_void_p) == 8
+    for name, argtypes in fns.items():
+        params = [a.strip() for a in decls[name].split(",")]
+        assert argtypes == [ctypes.c_void_p if "*" in a
+                            else _C_TYPES[a.split()[0]] for a in params], name
