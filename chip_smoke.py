@@ -8,13 +8,17 @@
         # also time the Triton producers that K2/K5/K4 replaced, from
         # qk_norm_rope_triton.py and qk_ln_rope_triton.py in DIR (copies
         # of frameino_tpu_torch/ops/ before the CUDA producers)
+    python3 chip_smoke.py --int8-parent FILE
+        # also time the mma.sync int8 kernels that K11/K12 replaced: FILE
+        # is a copy of csrc/flash_variants.cu from before csrc/flash_int8.cu
+        # (with its flash_common.cuh beside it), built beside the sources
 
 Phases (any failure exits non-zero; there is no CPU path):
  1. device: the card's name and `nvidia-smi` name, power limit;
- 2. build: compile the six CUDA sources (nvcc, sm_90a, all at once: the
+ 2. build: compile the seven CUDA sources (nvcc, sm_90a, all at once: the
     serving flash kernels, the qk-norm/RoPE producers K2, K5 and
-    qk-LayerNorm/RoPE K4, K6, K7, the experiment variants K9-K12 and the
-    packed K8) from the sources in the checkout;
+    qk-LayerNorm/RoPE K4, K6, K7, the experiment variants K9-K10, the
+    int8-QK^T K11-K12 and the packed K8) from the sources in the checkout;
  3. kernels: each kernel against its plain PyTorch version at the shapes
     the Wan serving path gives it (Wan2.2-TI2V-5B, 49 frames at 480x832:
     CFG batch 2, 24 heads of 128, 5,460 tokens, 512 text tokens), with
@@ -97,8 +101,13 @@ Phases (any failure exits non-zero; there is no CPU path):
     both head dims, within FLASH_REL_L2 and the elementwise limit of K1;
     the int8 variants on the same codes and scales as their plain
     version; the limits are shown to reject a dropped ragged key tail and,
-    for K11/K12, key scales of one and q scales without the softmax
-    scale; times beside K3 (v0), SDPA and the bound;
+    for K11/K12, key scales of one, q scales without the softmax scale,
+    the key scales of the previous 128-key tile, K codes with each row's
+    16-byte chunks swapped pairwise and the neighbour row's q scale;
+    times beside K3 (v0), SDPA, the bound and (K11/K12) the exp2 floor;
+    K11/K12 also timed alone (the kernel on codes made beforehand) beside
+    the parent's mma.sync kernels (--int8-parent), with their registers,
+    spills (none allowed) and shared memory;
 15. experiment scripts: ``scripts.bench_flash_variants.main`` and
     ``scripts.bench_attn_d64.main`` in this process with their default
     arguments (both shapes, all variants, all three experiments): every
@@ -184,11 +193,11 @@ KERNELS = {
         replaces="scripts/bench_flash_variants.py:146"),
     "flash_v3": dict(
         label="K12", route="cuda",
-        source="frameino_tpu_torch/csrc/flash_variants.cu",
+        source="frameino_tpu_torch/csrc/flash_int8.cu",
         replaces="scripts/bench_flash_variants.py:174"),
     "flash_v123": dict(
         label="K11", route="cuda",
-        source="frameino_tpu_torch/csrc/flash_variants.cu",
+        source="frameino_tpu_torch/csrc/flash_int8.cu",
         replaces="scripts/bench_flash_variants.py:211"),
     "packed_flash": dict(
         label="K8", route="cuda",
@@ -311,11 +320,17 @@ def phase_device():
 
 
 def phase_build():
-    """nvcc of the six CUDA sources, one process each, all at once."""
+    """nvcc of the seven CUDA sources (and of --int8-parent's file), one
+    process each, all at once; returns the parent's int8 library or
+    None."""
     from frameino_tpu_torch.ops import attention as A
     t0 = time.time()
+    parent = None
+    if "--int8-parent" in sys.argv:
+        parent = ("flash_int8", sys.argv[sys.argv.index("--int8-parent") + 1])
     try:
-        A.build_cuda_libs()
+        built = A.build_cuda_libs(
+            alts=None if parent is None else {INT8_PARENT: parent})
     except RuntimeError as e:
         fail(f"nvcc: {e}")
     print(f"build: nvcc " + " + ".join(f"{n}.cu" for n in A.BUILD_LOG)
@@ -326,6 +341,7 @@ def phase_build():
             for line in log.splitlines()
             if "registers" in line or "spill" in line
             or "Compiling entry" in line))
+    return built.get(INT8_PARENT)
 
 
 def _parent_triton():
@@ -372,6 +388,17 @@ def _producer_build_report():
     return _build_report("K2/K4/K5", "qk_producers",
                          ("qk_norm_rope_kernel", "qk_ln_rope_kernel"),
                          lambda tag: None)
+
+
+def _int8_build_report():
+    """K11's and K12's kernels (flash_int_qk_kernel<D, static, consumer
+    warpgroups, stages>): registers, spills, shared memory."""
+    from frameino_tpu_torch.ops import attention as A
+    lib = A._lib("flash_int8")
+    return _build_report(
+        "K11/K12", "flash_int8", ("flash_int_qk_kernel",),
+        lambda tag: lib.flash_int8_config(
+            int(tag.split("<")[1].split(",")[0]), 0))
 
 
 def _kernel_tag(line):
@@ -1321,6 +1348,8 @@ COG_PLAIN_ROWS = ((0, 0), (0, 31), (1, 16), (1, 47))
 # a sequence that is no multiple of the 64-key tile, as (B, H, S, D)
 RAGGED_SHAPES = {"ragged_d64": (1, 4, 777, 64), "ragged_d128": (1, 3, 777, 128)}
 INT8_VARIANTS = ("flash_v3", "flash_v123")
+# the key of the parent's int8 kernels (--int8-parent) among the libraries
+INT8_PARENT = "int8_parent"
 # max abs of a variant from K3 on the scripts' check slice: a little above
 # what the JAX scripts read on the CPU (2-4e-3; int8 8e-3-1.2e-2; the
 # packed script's own assertion)
@@ -1341,10 +1370,14 @@ def attn_bound_int8(bh, s, d):
 def _variant_faults(FV, name, plain, q, k, v, scale, want):
     """Relative L2, from the plain version's output, of planted faults
     computed with the plain versions on the same inputs: the ragged key
-    tail dropped; for the int8 variants also key scales of one and q
-    scales without softmax scale * log2(e) (the bound follows them). None
-    stands for a fault whose output is not finite (under a bound that far
-    above the logits every p underflows): the finiteness check rejects it."""
+    tail dropped; for the int8 variants also key scales of one, q scales
+    without softmax scale * log2(e), the key scales of the previous
+    128-key tile (a ring slot off by one; the first tile takes the last
+    one's), K codes with each row's 16-byte chunks swapped pairwise (a
+    wrong swizzle phase) and each row with its neighbour's q scale (the
+    bound follows them). None stands for a fault whose output is not
+    finite (under a bound that far above the logits every p underflows):
+    the finiteness check rejects it."""
     import torch
     S = k.shape[2]
     tail = S // 64 * 64
@@ -1359,17 +1392,44 @@ def _variant_faults(FV, name, plain, q, k, v, scale, want):
               plain(q, k[:, :, :tail], v[:, :, :tail], scale=scale))
     if name in INT8_VARIANTS:
         qi, qs, ki, ks = FV.quantize_qk(q, k, scale)
-        for tag, qs2, ks2 in (("ks_ones", qs, torch.ones_like(ks)),
-                              ("qs_unfolded", qs / (scale * FV.LOG2E), ks)):
-            bound = (FV.int8_bound(qi, qs2, ki, ks2)
+        swapped = ki.reshape(*ki.shape[:-1], -1, 2, 16).flip(-2).reshape(
+            ki.shape)
+        for tag, qs2, ki2, ks2 in (
+                ("ks_ones", qs, ki, torch.ones_like(ks)),
+                ("qs_unfolded", qs / (scale * FV.LOG2E), ki, ks),
+                ("ks_prev_tile", qs, ki, torch.roll(ks, 128, -2)),
+                ("k_chunks_swapped", qs, swapped, ks),
+                ("qs_neighbour_row", torch.roll(qs, -1, -2), ki, ks)):
+            bound = (FV.int8_bound(qi, qs2, ki2, ks2)
                      if name == "flash_v123" else None)
-            fault(tag, FV.int8_flash_ref(qi, qs2, ki, ks2, v, bound))
+            fault(tag, FV.int8_flash_ref(qi, qs2, ki2, ks2, v, bound))
     return out
 
 
-def phase_kernels_experiment():
+def _int8_alone(FV, name, q, k, v, scale, parent):
+    """K11/K12 timed alone: the kernel on codes (and a bound) made
+    beforehand, and the parent's mma.sync kernel on the same codes
+    (``parent``, None without --int8-parent), held to the port's output
+    within FLASH_REL_L2."""
+    codes = FV.quantize_qk(q, k, scale)
+    bound = (FV.int8_bound(*codes).reshape(1) if name == "flash_v123"
+             else None)
+    row = dict(kernel_alone_ms=cuda_ms(
+        lambda: FV.int8_flash(*codes, v, bound), 10), parent_ms=None)
+    if parent is not None:
+        rel = _rel_l2(FV.int8_flash(*codes, v, bound, library=parent),
+                      FV.int8_flash(*codes, v, bound))
+        check(rel <= FLASH_REL_L2, f"{name}: the parent's kernel is {rel:.3e} "
+                                   f"from the port's")
+        row["parent_ms"] = cuda_ms(
+            lambda: FV.int8_flash(*codes, v, bound, library=parent), 5)
+    return row
+
+
+def phase_kernels_experiment(int8_parent):
     """K8-K12 against their plain versions at the experiment shapes, the
-    planted faults, and times beside K3 (v0), SDPA and the bound."""
+    planted faults, and times beside K3 (v0), SDPA and the bound;
+    ``int8_parent``: the library of --int8-parent, or None."""
     import torch
     from frameino_tpu_torch.ops import attention as A
     from frameino_tpu_torch.ops import flash_variants as FV
@@ -1387,7 +1447,7 @@ def phase_kernels_experiment():
                   for tag, c in bench_flash_variants.SHAPES.items()}
     exp_shapes.update(RAGGED_SHAPES)
     g = torch.Generator("cuda").manual_seed(2468)
-    shapes = {}
+    shapes = {"build_int8": _int8_build_report()}
     for tag, (b, h, s, d) in exp_shapes.items():
         picks = COG_PLAIN_ROWS if tag == "cog" else None
         scale = d ** -0.5
@@ -1463,6 +1523,10 @@ def phase_kernels_experiment():
                     plain_ms=cuda_ms(lambda: plain(qs, ks, vs, scale=scale),
                                      2),
                     plain_rows_bound=bound(sub, s, d))
+                if name in INT8_VARIANTS:
+                    row.update(_int8_alone(FV, name, q, k, v, scale,
+                                           int8_parent),
+                               exp2_floor_ms=exp2_floor_ms(rows, s, s))
             shape_row[name] = row
             print(f"{label} [{b}, {h}, {s}, {d}]: rel L2 {rel_l2:.3e} max_abs "
                   f"{err:.3e} on {sub} rows | planted faults "
@@ -1472,7 +1536,12 @@ def phase_kernels_experiment():
                   + (f" | {row['ms']:.3f} ms on {rows} rows (bound "
                      f"{row['bound_ms']:.3f}); {row['plain_rows_ms']:.3f} ms "
                      f"on {sub} (plain {row['plain_ms']:.3f})"
-                     if timed else ""))
+                     if timed else "")
+                  + (f" | alone {row['kernel_alone_ms']:.3f} ms (exp2 floor "
+                     f"{row['exp2_floor_ms']:.3f}; the parent's mma.sync "
+                     + ("not measured" if row["parent_ms"] is None
+                        else f"{row['parent_ms']:.3f} ms") + ")"
+                     if timed and name in INT8_VARIANTS else ""))
             del got, want
         if timed:
             print(f"experiment shape {tag} [{b}, {h}, {s}, {d}]: K3 (v0) "
@@ -1504,6 +1573,14 @@ def phase_kernels_experiment():
                 wan_ms=w["ms"], wan_plain_ms=w["plain_ms"],
                 wan_bound_ms=w["bound_ms"], wan_v0_ms=wan["v0_ms"],
                 wan_library_ms=wan["sdpa_ms"])
+        if name in INT8_VARIANTS:
+            results[name].update(
+                kernel_alone_ms_96_rows=r["kernel_alone_ms"],
+                parent_ms_96_rows=r["parent_ms"],
+                exp2_floor_ms_96_rows=r["exp2_floor_ms"],
+                wan_kernel_alone_ms=w["kernel_alone_ms"],
+                wan_parent_ms=w["parent_ms"],
+                wan_exp2_floor_ms=w["exp2_floor_ms"])
     return results, shapes
 
 
@@ -2656,7 +2733,7 @@ def main():
 
     t_start = time.time()
     name, smi = phase_device()
-    phase_build()
+    int8_parent = phase_build()
     parent = _parent_triton()
     kernel_results, flash_checks = phase_kernels(parent)
     kernel_results.update(phase_kernels_k5(parent))
@@ -2677,7 +2754,7 @@ def main():
     entry = phase_train_entry(data)
     train = phase_train(data, profile)
     train_ref = phase_train_reference()
-    exp_results, exp_shapes = phase_kernels_experiment()
+    exp_results, exp_shapes = phase_kernels_experiment(int8_parent)
     kernel_results.update(exp_results)
     exp_scripts, exp_launches = phase_experiment_scripts()
 

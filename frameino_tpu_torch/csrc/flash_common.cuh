@@ -50,18 +50,6 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// d += a (16x32, row) * b (32x8, col), int8 inputs, int32 accumulate. Each
-// register holds 4 consecutive int8 of the depth; the int32 d fragment has
-// the (row, column) ownership of mma_16816's fp32 one.
-__device__ __forceinline__ void mma_16832_s8(int (&d)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Copy rows [row0, row0 + 64) of a [rows, kRowBytes]-byte matrix into
 // shared memory (row stride kRowBytes + 16 bytes, which keeps the mma
 // fragment loads free of bank conflicts); rows at or past `rows` are

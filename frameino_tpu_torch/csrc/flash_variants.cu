@@ -1,13 +1,13 @@
 // Experiment flash-attention forwards for Hopper (sm_90a): one kernel
-// template, three switches, five bodies. bf16 output, fp32 softmax
+// template, two switches, three bodies. bf16 output, fp32 softmax
 // statistics and accumulation, non-causal, no backward.
 //
-// Replaces the Pallas TPU kernels of scripts/bench_flash_variants.py:
-//   _kernel_v1    online softmax, row sum l by a ones column   <bf16, online, ones>
-//   _kernel_v2    p = exp2(s - bound), l by a lane sum         <bf16, static, lanes>
-//   _kernel_v12   p = exp2(s - bound), l by a ones column      <bf16, static, ones>
-//   _kernel_v3    int8 QK^T, online softmax, l by a lane sum   <int8, online, lanes>
-//   _kernel_v123  int8 QK^T, exp2(s - bound), ones column      <int8, static, ones>
+// Replaces the bf16-logit Pallas TPU kernels of
+// scripts/bench_flash_variants.py (the int8-logit ones, _kernel_v3 and
+// _kernel_v123, are csrc/flash_int8.cu):
+//   _kernel_v1    online softmax, row sum l by a ones column   <online, ones>
+//   _kernel_v2    p = exp2(s - bound), l by a lane sum         <static, lanes>
+//   _kernel_v12   p = exp2(s - bound), l by a ones column      <static, ones>
 //
 // The switches, as the TPU kernels define them:
 //   ones column   The TPU appends a column of ones to V, so that the P.V
@@ -23,10 +23,6 @@
 //                 floor under the exponent (K1 in flash_fwd.cu has one; the
 //                 script's kernel does not): a logit far under the bound
 //                 underflows to 0.
-//   int8 QK^T     s = (fp32(q_i8 . k_i8) * qs[row]) * ks[key], the int32
-//                 product by mma.sync m16n8k32 s8; qs (with softmax scale *
-//                 log2e folded in) stays in registers, ks is staged with
-//                 the K tile. P.V stays bf16.
 //
 // Design. The structure of flash_fwd.cu, on purpose: one block of 4 warps
 // per (batch*head, 64-row q tile), 16 q rows a warp, a loop over 64-key
@@ -36,9 +32,7 @@
 // sequence to a block multiple and mask padded keys with -1e30 before the
 // exp2; here the ragged last key tile is masked the same way (p is exactly
 // 0), rows past the end load as zeros and are not stored, and nothing is
-// padded. The byte offsets of the A and B fragments of m16n8k16 (bf16) and
-// m16n8k32 (int8) coincide (32 bytes of depth a step, 4 bytes a thread), so
-// both share the fragment loads.
+// padded.
 //
 // What bounds them on the H100: operations. At [96, 15906, 64] the two
 // products are 6.2 TFLOP against 0.8 GB of traffic; with mma.sync and
@@ -51,17 +45,15 @@ namespace {
 
 using namespace flashx;
 
-template <int D, bool kInt8, bool kStatic, bool kOnes>
+template <int D, bool kStatic, bool kOnes>
 __global__ void __launch_bounds__(kThreads)
     flash_variant_kernel(const void* __restrict__ q_ptr,
                          const void* __restrict__ k_ptr,
                          const __nv_bfloat16* __restrict__ v,
                          __nv_bfloat16* __restrict__ o,
-                         const float* __restrict__ qs,
-                         const float* __restrict__ ks,
                          const float* __restrict__ bound_ptr, int sq, int skv,
                          float q_scale) {
-  constexpr int kQKBytes = kInt8 ? D : 2 * D;  // bytes of one q or k row
+  constexpr int kQKBytes = 2 * D;              // bytes of one q or k row
   constexpr int kQKStride = kQKBytes + 16;     // shared-memory row stride
   constexpr int kVStride = D + 8;              // in bf16 elements
   constexpr int kKSteps = kQKBytes / 32;       // QK^T depth steps
@@ -70,7 +62,6 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kOTiles = D / 8;               // n-tiles of the output
   __shared__ __align__(16) unsigned char k_s[kBlockN * kQKStride];
   __shared__ __align__(16) __nv_bfloat16 v_s[kBlockN * kVStride];
-  __shared__ float ks_s[kInt8 ? kBlockN : 1];
 
   const int bh = blockIdx.y;
   const int m0 = blockIdx.x * kBlockM;
@@ -97,21 +88,10 @@ __global__ void __launch_bounds__(kThreads)
     qf[kk][1] = *reinterpret_cast<const uint32_t*>(hi);
     qf[kk][2] = *reinterpret_cast<const uint32_t*>(lo + 16);
     qf[kk][3] = *reinterpret_cast<const uint32_t*>(hi + 16);
-    if constexpr (!kInt8) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) qf[kk][r] = scale_bf16x2(qf[kk][r], q_scale);
-    }
+    for (int r = 0; r < 4; ++r) qf[kk][r] = scale_bf16x2(qf[kk][r], q_scale);
   }
   __syncthreads();
-
-  // int8: this thread's two per-row q scales (0 past the end: not stored)
-  float qs_lo = 0.0f, qs_hi = 0.0f;
-  if constexpr (kInt8) {
-    qs += (size_t)bh * sq;
-    ks += (size_t)bh * skv;
-    if (m0 + r_lo < sq) qs_lo = qs[m0 + r_lo];
-    if (m0 + r_lo + 8 < sq) qs_hi = qs[m0 + r_lo + 8];
-  }
 
   const float bound = kStatic ? *bound_ptr : 0.0f;
   float m_lo = kNegInf, m_hi = kNegInf;  // running max (online bodies)
@@ -128,48 +108,19 @@ __global__ void __launch_bounds__(kThreads)
   for (int n0 = 0; n0 < skv; n0 += kBlockN) {
     load_tile_bytes<kQKBytes>(k_s, k, n0, skv);
     load_tile_bytes<2 * D>(reinterpret_cast<unsigned char*>(v_s), vb8, n0, skv);
-    if constexpr (kInt8) {
-      if (threadIdx.x < kBlockN) {
-        const int key = n0 + threadIdx.x;
-        ks_s[threadIdx.x] = key < skv ? ks[key] : 0.0f;
-      }
-    }
     __syncthreads();
 
     // S for 16 rows x 64 keys per warp
     float s[kSTiles][4];
-    if constexpr (kInt8) {
-      int si[kSTiles][4];
 #pragma unroll
-      for (int j = 0; j < kSTiles; ++j) si[j][0] = si[j][1] = si[j][2] = si[j][3] = 0;
+    for (int j = 0; j < kSTiles; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
 #pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk) {
-#pragma unroll
-        for (int j = 0; j < kSTiles; ++j) {
-          const unsigned char* kb = k_s + (j * 8 + g) * kQKStride + kk * 32 + t * 4;
-          mma_16832_s8(si[j], qf[kk], *reinterpret_cast<const uint32_t*>(kb),
-                       *reinterpret_cast<const uint32_t*>(kb + 16));
-        }
-      }
+    for (int kk = 0; kk < kKSteps; ++kk) {
 #pragma unroll
       for (int j = 0; j < kSTiles; ++j) {
-        const float ks0 = ks_s[j * 8 + t * 2], ks1 = ks_s[j * 8 + t * 2 + 1];
-        s[j][0] = (__int2float_rn(si[j][0]) * qs_lo) * ks0;
-        s[j][1] = (__int2float_rn(si[j][1]) * qs_lo) * ks1;
-        s[j][2] = (__int2float_rn(si[j][2]) * qs_hi) * ks0;
-        s[j][3] = (__int2float_rn(si[j][3]) * qs_hi) * ks1;
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < kSTiles; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk) {
-#pragma unroll
-        for (int j = 0; j < kSTiles; ++j) {
-          const unsigned char* kb = k_s + (j * 8 + g) * kQKStride + kk * 32 + t * 4;
-          mma_16816(s[j], qf[kk], *reinterpret_cast<const uint32_t*>(kb),
-                    *reinterpret_cast<const uint32_t*>(kb + 16));
-        }
+        const unsigned char* kb = k_s + (j * 8 + g) * kQKStride + kk * 32 + t * 4;
+        mma_16816(s[j], qf[kk], *reinterpret_cast<const uint32_t*>(kb),
+                  *reinterpret_cast<const uint32_t*>(kb + 16));
       }
     }
 
@@ -253,7 +204,7 @@ __global__ void __launch_bounds__(kThreads)
       }
       if constexpr (kOnes) mma_16816(accl, pa, ones_b, ones_b);
     }
-    __syncthreads();  // before the next tile overwrites k_s / v_s / ks_s
+    __syncthreads();  // before the next tile overwrites k_s / v_s
   }
 
   if constexpr (kOnes) {
@@ -279,14 +230,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D, bool kInt8, bool kStatic, bool kOnes>
+template <int D, bool kStatic, bool kOnes>
 void launch(const void* q, const void* k, const void* v, void* o,
-            const float* qs, const float* ks, const float* bound, int bh,
-            int sq, int skv, float q_scale, cudaStream_t stream) {
+            const float* bound, int bh, int sq, int skv, float q_scale,
+            cudaStream_t stream) {
   dim3 grid((sq + kBlockM - 1) / kBlockM, bh);
-  flash_variant_kernel<D, kInt8, kStatic, kOnes><<<grid, kThreads, 0, stream>>>(
+  flash_variant_kernel<D, kStatic, kOnes><<<grid, kThreads, 0, stream>>>(
       q, k, static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      qs, ks, bound, sq, skv, q_scale);
+      bound, sq, skv, q_scale);
 }
 
 template <int D>
@@ -294,20 +245,11 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 const float* bound, int bh, int sq, int skv, int body,
                 float q_scale, cudaStream_t s) {
   switch (body) {
-    case 1: launch<D, false, false, true>(q, k, v, o, nullptr, nullptr, bound, bh, sq, skv, q_scale, s); break;
-    case 2: launch<D, false, true, false>(q, k, v, o, nullptr, nullptr, bound, bh, sq, skv, q_scale, s); break;
-    case 12: launch<D, false, true, true>(q, k, v, o, nullptr, nullptr, bound, bh, sq, skv, q_scale, s); break;
+    case 1: launch<D, false, true>(q, k, v, o, bound, bh, sq, skv, q_scale, s); break;
+    case 2: launch<D, true, false>(q, k, v, o, bound, bh, sq, skv, q_scale, s); break;
+    case 12: launch<D, true, true>(q, k, v, o, bound, bh, sq, skv, q_scale, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D>
-int launch_int8(const void* q, const float* qs, const void* k, const float* ks,
-                const void* v, void* o, const float* bound, int bh, int sq,
-                int skv, int static_ones, cudaStream_t s) {
-  if (static_ones) launch<D, true, true, true>(q, k, v, o, qs, ks, bound, bh, sq, skv, 1.0f, s);
-  else launch<D, true, false, false>(q, k, v, o, qs, ks, bound, bh, sq, skv, 1.0f, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -326,20 +268,5 @@ extern "C" int flash_variant_bf16(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 128) return launch_bf16<128>(q, k, v, o, bound, bh, sq, skv, body, q_scale, s);
   if (head_dim == 64) return launch_bf16<64>(q, k, v, o, bound, bh, sq, skv, body, q_scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// q [bh, sq, D], k [bh, skv, D]: contiguous int8 codes; qs [bh, sq], ks
-// [bh, skv]: fp32 row scales (softmax scale * log2e folded into qs); v, o
-// as above. static_ones != 0: exp2(s - *bound) with the ones column
-// (v123); else online softmax with a lane sum (v3).
-extern "C" int flash_variant_int8(const void* q, const float* qs,
-                                  const void* k, const float* ks,
-                                  const void* v, void* o, const float* bound,
-                                  int bh, int sq, int skv, int head_dim,
-                                  int static_ones, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 128) return launch_int8<128>(q, qs, k, ks, v, o, bound, bh, sq, skv, static_ones, s);
-  if (head_dim == 64) return launch_int8<64>(q, qs, k, ks, v, o, bound, bh, sq, skv, static_ones, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -4,12 +4,14 @@
 //     wait;
 //   - TMA: 3-D tensor-map loads and 1-D bulk loads that complete on an
 //     mbarrier, 3-D reduce-adds from shared memory (bulk groups), and the
-//     host-side encoding of a [batch, rows, cols] bf16 or fp32 map (found
-//     through the CUDA runtime, so no -lcuda);
-//   - wgmma: shared-memory descriptors for the 128-byte swizzle, fence /
-//     commit / wait, and m64nNk16 f32 += bf16 x bf16 with A from shared
-//     memory or from registers, B from shared memory, either K-major or
-//     MN-major (the transpose bits);
+//     host-side encoding of a [batch, rows, cols] int8, bf16 or fp32 map
+//     (found through the CUDA runtime, so no -lcuda);
+//   - wgmma: shared-memory descriptors for the 128- and 64-byte swizzles
+//     and for unswizzled operands, fence / commit / wait, m64nNk16 f32 +=
+//     bf16 x bf16 with A from shared memory or from registers, B from
+//     shared memory, either K-major or MN-major (the transpose bits), and
+//     m64n128k32 s32 += s8 x s8 with both operands K-major in shared
+//     memory (integer wgmma has no transpose bits);
 //   - setmaxnreg, named barriers, the generic -> async proxy fence.
 //
 // Tile layout. Every tile lives in shared memory as TMA writes it with
@@ -25,6 +27,10 @@
 //     depth 1024 bytes apart (SBO), 64-wide M/N atoms one column block apart
 //     (LBO); the k-th 16-deep slice starts 2048 * k bytes in.
 // An fp32 box of the same swizzle is 32 columns wide (128 bytes a row).
+// An int8 row of 128 bytes is one such box as it stands (the k-th 32-deep
+// slice starts 32 * k bytes in); an int8 row of 64 bytes takes the 64-byte
+// swizzle (CU_TENSOR_MAP_SWIZZLE_64B): row r at byte r * 64, its chunk c
+// at c ^ ((r / 2) % 4), 8-row groups 512 bytes apart.
 
 #pragma once
 
@@ -154,6 +160,30 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t smem_addr,
          (1ull << 62);
 }
 
+// ... of a 64-byte-swizzled one (8-row groups `sbo_bytes` apart, rows of 64
+// bytes; its tile must start on a 512-byte boundary) ...
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t smem_addr,
+                                              uint32_t lbo_bytes,
+                                              uint32_t sbo_bytes) {
+  return (desc_sw128(smem_addr, lbo_bytes, sbo_bytes) & ~(3ull << 62)) |
+         (2ull << 62);
+}
+
+// ... and of an unswizzled one (8-row x 16-byte core matrices, those
+// adjacent in the depth `lbo_bytes` apart, in M or N `sbo_bytes` apart).
+__device__ __forceinline__ uint64_t desc_plain(uint32_t smem_addr,
+                                               uint32_t lbo_bytes,
+                                               uint32_t sbo_bytes) {
+  return desc_sw128(smem_addr, lbo_bytes, sbo_bytes) & ~(3ull << 62);
+}
+
+// The descriptor `d` moved `bytes` (a multiple of 16) on in shared memory:
+// the start address is its low 14 bits, so only the low word changes.
+__device__ __forceinline__ uint64_t desc_add(uint64_t d, uint32_t bytes) {
+  return (d & 0xFFFFFFFF00000000ull) |
+         (static_cast<uint32_t>(d) + (bytes >> 4));
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -177,6 +207,12 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 }
 
 template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 #pragma unroll
   for (int i = 0; i < N; ++i)
@@ -189,6 +225,10 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
   SM90_F4(d, i), SM90_F4(d, i + 4), SM90_F4(d, i + 8), SM90_F4(d, i + 12)
 #define SM90_F32(d) SM90_F16(d, 0), SM90_F16(d, 16)
 #define SM90_F64(d) SM90_F16(d, 0), SM90_F16(d, 16), SM90_F16(d, 32), SM90_F16(d, 48)
+#define SM90_R4(d, i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
+#define SM90_R16(d, i) \
+  SM90_R4(d, i), SM90_R4(d, i + 4), SM90_R4(d, i + 8), SM90_R4(d, i + 12)
+#define SM90_R64(d) SM90_R16(d, 0), SM90_R16(d, 16), SM90_R16(d, 32), SM90_R16(d, 48)
 
 #define SM90_D32                                                            \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
@@ -245,6 +285,25 @@ __device__ __forceinline__ void mma_ss<128, 0, 0>(float (&d)[64], uint64_t a,
       : "memory");
 }
 
+// d (64 x N int32, the accumulator layout of mma_ss) = scale_d * d + A
+// (64 x 32 int8, descriptor a) * B (32 x N int8, descriptor b), both
+// K-major. The int32 sums are exact.
+template <int N>
+__device__ __forceinline__ void mma_ss_s8(uint32_t (&d)[N / 2], uint64_t a,
+                                          uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void mma_ss_s8<128>(uint32_t (&d)[64], uint64_t a,
+                                               uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " SM90_D64
+      ", %64, %65, p;\n}\n"
+      : SM90_R64(d)
+      : "l"(a), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
 // d (64 x N fp32) = scale_d * d + A (64 x 16 bf16 in registers, the
 // mma.m16n8k16 A fragment of each warp's 16 rows, which is also the layout
 // of two neighbouring 8-column blocks of an accumulator) * B (descriptor).
@@ -279,12 +338,28 @@ __device__ __forceinline__ void mma_rs<128, 1>(float (&d)[64],
       : "memory");
 }
 
+template <>
+__device__ __forceinline__ void mma_rs<8, 0>(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
 #undef SM90_F4
 #undef SM90_F16
 #undef SM90_F32
 #undef SM90_F64
 #undef SM90_D32
 #undef SM90_D64
+#undef SM90_R4
+#undef SM90_R16
+#undef SM90_R64
 
 // ---------------------------------------------------------------------------
 // registers, barriers, proxies
@@ -345,14 +420,16 @@ static inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// Map of a contiguous [batch, rows, cols] tensor of bf16 (elem_bytes 2) or
-// fp32 (4) whose box is 128 bytes of columns (64 bf16, 32 fp32) by
-// `box_rows` rows of one batch entry, 128-byte swizzled; reads past `rows`
-// fill zeros and writes past it are dropped (never the next batch entry's
-// rows). Returns 0, or -1 without the encoder, or -(CUresult + 1).
+// Map of a contiguous [batch, rows, cols] tensor of int8 (elem_bytes 1),
+// bf16 (2) or fp32 (4) whose box is `swizzle_bytes` (128 or 64) of columns
+// (128 bytes: 128 int8, 64 bf16, 32 fp32) by `box_rows` rows of one batch
+// entry, swizzled by as many bytes; reads past `rows` fill zeros and writes
+// past it are dropped (never the next batch entry's rows). Returns 0, or -1
+// without the encoder, or -(CUresult + 1).
 static inline int encode_rows_map(CUtensorMap* map, const void* base,
                                   int elem_bytes, int batch, int rows,
-                                  int cols, int box_rows) {
+                                  int cols, int box_rows,
+                                  int swizzle_bytes = 128) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return -1;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
@@ -361,16 +438,19 @@ static inline int encode_rows_map(CUtensorMap* map, const void* base,
   const cuuint64_t strides[2] = {
       static_cast<cuuint64_t>(cols) * elem_bytes,
       static_cast<cuuint64_t>(rows) * cols * elem_bytes};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(128 / elem_bytes),
-                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t box[3] = {
+      static_cast<cuuint32_t>(swizzle_bytes / elem_bytes),
+      static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = fn(map,
-                        elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        elem_bytes == 4   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                        : elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                          : CU_TENSOR_MAP_DATA_TYPE_UINT8,
                         3,
                         const_cast<void*>(base), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                            : CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -static_cast<int>(r) - 1;

@@ -21,11 +21,13 @@ variant ``v0``) they switch three things, and pack two heads a row:
 - ``packed_flash`` (K8): head_dim 64, two heads side by side in 128-wide
   rows ``[B*H/2, S, 128]``, two independent online softmaxes a row.
 
-K9-K12 are one CUDA C++ template (``csrc/flash_variants.cu``), K8 a second
-source (``csrc/flash_packed.cu``). Each wrapper takes the JAX function's
-arguments ([B, H, S, D] tensors), launches its kernel for CUDA tensors
-(bf16, contiguous, head_dim 64 or 128) and raises on anything else; for CPU
-tensors it runs the plain version beside it (``*_ref``). Each counts its
+K9-K10 are one CUDA C++ template (``csrc/flash_variants.cu``, ``mma.sync``),
+K11-K12 a persistent TMA + ``wgmma`` kernel on int8 codes
+(``csrc/flash_int8.cu``; ``int8_flash`` launches it on given codes), K8 a
+third source (``csrc/flash_packed.cu``). Each wrapper takes the JAX
+function's arguments ([B, H, S, D] tensors), launches its kernel for CUDA
+tensors (bf16, contiguous, head_dim 64 or 128) and raises on anything else;
+for CPU tensors it runs the plain version beside it (``*_ref``). Each counts its
 kernel launches in ``<wrapper>.launches``. ``block_q`` / ``block_k`` stay
 in the signatures for the reader of both packages and are ignored: the
 kernels have their own tiles and mask ragged edges, so nothing is padded.
@@ -181,7 +183,7 @@ def packed_flash_ref(q, k, v):
 
 
 # ---------------------------------------------------------------------------
-# K9-K12: csrc/flash_variants.cu
+# K9-K10: csrc/flash_variants.cu; K11-K12: csrc/flash_int8.cu
 # ---------------------------------------------------------------------------
 
 def _check_qkv(name, q, k, v, head_dims=(64, 128)):
@@ -217,22 +219,86 @@ def _launch_bf16(name, body: int, q, k, v, scale: float, bound=None):
     return o
 
 
+def int8_smem_layout(head_dim: int) -> dict:
+    """The shared memory of a block of ``csrc/flash_int8.cu`` at a head_dim
+    (64 or 128), as its ``Layout`` lays it out; the library's
+    ``flash_int8_config`` reports the same numbers on a card. Byte offsets
+    from the block's 1024-aligned base: two int8 Q buffers of ``q_rows``
+    rows, then ``stages`` int8 K tiles and bf16 V tiles of 128 keys,
+    ``ks_slots`` slots of 128 fp32 key scales, 512 bytes of bf16 ones (the B
+    operand of K11's ones column) and the mbarriers. An int8 row of D bytes
+    is one swizzle atom of D bytes (``swizzle``)."""
+    if head_dim not in (64, 128):
+        raise ValueError(f"head_dim {head_dim} not in (64, 128)")
+    cwg, stages, keys = (3, 4, 128) if head_dim == 64 else (2, 3, 128)
+    out = dict(consumer_wgs=cwg, q_rows=64 * cwg, stages=stages, keys=keys,
+               ks_slots=4,
+               swizzle=head_dim, q=0, q_tile=64 * cwg * head_dim,
+               k_tile=keys * head_dim, v_tile=keys * 2 * head_dim)
+    out["k"] = 2 * out["q_tile"]
+    out["v"] = out["k"] + stages * out["k_tile"]
+    out["ks"] = out["v"] + stages * out["v_tile"]
+    out["ones"] = out["ks"] + out["ks_slots"] * keys * 4
+    out["bars"] = out["ones"] + 512
+    out["smem_bytes"] = (out["bars"] + (4 + 4 * stages + 2 * out["ks_slots"])
+                         * 8 + 1024)
+    return out
+
+
+def _check_codes(qi, qs, ki, ks, v, bound):
+    if qi.ndim != 4 or ki.shape != qi.shape or v.shape != qi.shape:
+        raise ValueError(f"int8_flash: codes and v must share one [B, H, S, "
+                         f"D] shape, got {tuple(qi.shape)} {tuple(ki.shape)} "
+                         f"{tuple(v.shape)}")
+    if qi.shape[-1] not in (64, 128) or qi.shape[2] == 0:
+        raise ValueError(f"int8_flash: shape {tuple(qi.shape)}: head_dim 64 "
+                         f"or 128 and a non-empty sequence")
+    check_cuda_bf16("int8_flash", v)
+    for name, t, dtype, shape in (("qi", qi, torch.int8, qi.shape),
+                                  ("ki", ki, torch.int8, qi.shape),
+                                  ("qs", qs, torch.float32, qi.shape[:3] + (1,)),
+                                  ("ks", ks, torch.float32, qi.shape[:3] + (1,))):
+        if (not t.is_cuda or t.dtype != dtype or tuple(t.shape) != tuple(shape)
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"int8_flash: {name} must be a contiguous, "
+                             f"16-byte aligned {dtype} CUDA tensor of shape "
+                             f"{tuple(shape)}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if bound is not None and (not bound.is_cuda or bound.dtype != torch.float32
+                              or bound.numel() != 1):
+        raise ValueError("int8_flash: bound must be one fp32 on the card")
+
+
+def int8_flash(qi, qs, ki, ks, v, bound=None, *, library=None):
+    """K12 (``bound`` None: online softmax, lane sum) or K11 (``bound``:
+    static, ones column) on given codes and scales, the arguments of
+    ``int8_flash_ref``: qi/ki [B, H, S, D] int8, qs/ks [B, H, S, 1] fp32, v
+    [B, H, S, D] bf16, bound one fp32. CUDA: the kernel of
+    ``csrc/flash_int8.cu`` (or of ``library``, another build of its C
+    interface); CPU: ``int8_flash_ref``. Counts no launch: the wrappers
+    ``flash_v3`` / ``flash_v123`` do."""
+    if not v.is_cuda:
+        return int8_flash_ref(qi, qs, ki, ks, v, bound)
+    _check_codes(qi, qs, ki, ks, v, bound)
+    B, H, S, D = qi.shape
+    o = torch.empty_like(v)
+    err = (library or lib("flash_int8")).flash_variant_int8(
+        qi.data_ptr(), qs.data_ptr(), ki.data_ptr(), ks.data_ptr(),
+        v.data_ptr(), o.data_ptr(), 0 if bound is None else bound.data_ptr(),
+        B * H, S, S, D, int(bound is not None), _stream(v))
+    if err != 0:
+        raise RuntimeError(f"int8_flash: flash_variant_int8 launch failed: "
+                           f"CUDA error {err}")
+    return o
+
+
 def _launch_int8(name, q, k, v, scale: float, static_ones: bool):
     """The int8-logit bodies on [B, H, S, D]: codes, scales and (static)
     the bound are tensor ops here, the attention is the kernel."""
     _check_qkv(name, q, k, v)
-    B, H, S, D = q.shape
-    qi, qs, ki, ks = quantize_qk(q, k, scale)
-    bound = int8_bound(qi, qs, ki, ks).reshape(1) if static_ones else None
-    o = torch.empty_like(v)
-    err = lib("flash_variants").flash_variant_int8(
-        qi.data_ptr(), qs.data_ptr(), ki.data_ptr(), ks.data_ptr(),
-        v.data_ptr(), o.data_ptr(), 0 if bound is None else bound.data_ptr(),
-        B * H, S, S, D, int(static_ones), _stream(q))
-    if err != 0:
-        raise RuntimeError(f"{name}: flash_variant_int8 launch failed: CUDA "
-                           f"error {err}")
-    return o
+    codes = quantize_qk(q, k, scale)
+    bound = int8_bound(*codes).reshape(1) if static_ones else None
+    return int8_flash(*codes, v, bound)
 
 
 def flash_v1(q, k, v, *, scale: float, block_q: Optional[int] = None,

@@ -672,6 +672,58 @@ def test_flash_variants_match_plain(dev, name, d, s):
     assert _rel_l2(got, ref) <= 5e-3
 
 
+# K11/K12 (csrc/flash_int8.cu) on given codes: one row of one head, a
+# sequence of 1 and one under a key tile (100), one off the q tile (300:
+# q tiles of 128 rows at head_dim 128, 192 at 64), the ragged 777; and 96
+# rows, so that each persistent block walks several q tiles on one ring
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,h,s", [(1, 1, 1), (1, 1, 100), (1, 1, 300),
+                                   (1, 1, 777), (2, 48, 777), (2, 48, 300)])
+@pytest.mark.parametrize("static", [False, True], ids=["k12", "k11"])
+def test_int8_flash_kernel_on_codes(dev, static, d, b, h, s):
+    """The kernel against ``int8_flash_ref`` on the same codes and
+    scales, and two launches bit-identical."""
+    g = torch.Generator(dev).manual_seed(5)
+    q, k, v = (torch.randn(b, h, s, d, device=dev, dtype=torch.bfloat16,
+                           generator=g) for _ in range(3))
+    codes = FV.quantize_qk(q, k, d ** -0.5)
+    bound = FV.int8_bound(*codes).reshape(1) if static else None
+    got = FV.int8_flash(*codes, v, bound)
+    again = FV.int8_flash(*codes, v, bound)
+    ref = FV.int8_flash_ref(*codes, v, bound)
+    torch.cuda.synchronize()
+    assert got.shape == v.shape and torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    _assert_flash_close(got, ref)
+
+
+def test_int8_flash_config_matches_the_layout(dev):
+    """The library's launch shape and shared memory are the layout that
+    ``tests/test_torch_flash_int8.py`` replays on the CPU."""
+    lib = FV.lib("flash_int8")
+    for d in (64, 128):
+        lay = FV.int8_smem_layout(d)
+        assert [lib.flash_int8_config(d, w) for w in range(5)] == [
+            lay["smem_bytes"], lay["consumer_wgs"], lay["q_rows"],
+            lay["stages"], lay["swizzle"]]
+    assert lib.flash_int8_config(96, 0) == -1
+
+
+def test_int8_flash_rejects_what_the_kernel_does_not_take(dev):
+    q = torch.randn(1, 2, 64, 64, device=dev, dtype=torch.bfloat16)
+    qi, qs, ki, ks = FV.quantize_qk(q, q, 0.125)
+    with pytest.raises(ValueError):
+        FV.int8_flash(qi.float(), qs, ki, ks, q)          # codes not int8
+    with pytest.raises(ValueError):
+        FV.int8_flash(qi, qs.double(), ki, ks, q)         # fp64 scales
+    with pytest.raises(ValueError):
+        FV.int8_flash(qi, qs, ki, ks[:, :, :32], q)       # short scales
+    with pytest.raises(ValueError):
+        FV.int8_flash(qi, qs, ki, ks, q, torch.ones(2, device=dev))
+    with pytest.raises(ValueError):
+        FV.int8_flash(qi[..., :48], qs, ki[..., :48], ks, q[..., :48])
+
+
 def test_flash_variant_switches_dispatch(dev):
     q = torch.randn(1, 2, 70, 64, device=dev, dtype=torch.bfloat16)
     FV.reset_launch_counts()
