@@ -12,6 +12,10 @@
         # also time the mma.sync int8 kernels that K11/K12 replaced: FILE
         # is a copy of csrc/flash_variants.cu from before csrc/flash_int8.cu
         # (with its flash_common.cuh beside it), built beside the sources
+    python3 chip_smoke.py --variants-parent FILE
+        # also time the mma.sync bf16 kernels that K9/K10 replaced: FILE is
+        # a copy of csrc/flash_variants.cu from before its Hopper redesign
+        # (with its flash_common.cuh beside it), built beside the sources
 
 Phases (any failure exits non-zero; there is no CPU path):
  1. device: the card's name and `nvidia-smi` name, power limit;
@@ -30,10 +34,12 @@ Phases (any failure exits non-zero; there is no CPU path):
     limit shown each run to reject planted faults (a dropped ragged key
     tail, K1's p not zeroed past Skv, P V accumulated in bf16, K3
     without its q pre-scale), and their kernels' registers, spills
-    (none allowed) and shared memory reported; K7 bit-equal to its plain
-    version at the int8 paths' rows (Wan [10920, 3072 | 14336],
-    CogVideoX [38252, 3072 | 12288]) and
-    a ragged [17, 200], each with a half-way row (round half to even) and
+    (none allowed) and shared memory reported; K1 also at [48, 5460, 128]
+    on inputs whose valid logits all lie far under zero (LEAK_ALONG), where
+    its p not zeroed past Skv must read at least 10x FLASH_REL_L2; K7
+    bit-equal to its plain version at the int8 paths' rows (Wan [10920,
+    3072 | 14336], CogVideoX [38252, 3072 | 12288]) and a ragged [17,
+    200], each with a half-way row (round half to even) and
     a zero row (the 1e-12 scale floor); K5 bit-equal to its plain version
     at the Wan tp shards ([2, 5460, 1536] at tp = 2, [2, 5460, 768] at
     tp = 4) and a ragged [2, 777, 640], on the tp path's rstd, the shards
@@ -68,8 +74,9 @@ Phases (any failure exits non-zero; there is no CPU path):
     versions at the CogVideoX-5B shapes (49 frames at 480x720 plus the ID
     frame: CFG batch 2, 48 heads of 64, 226 + 18,900 = 19,126 tokens);
     K1's plain version runs on 4 of the 96 batch-head rows, with the
-    planted faults; K4's check shown to reject each head normed with its
-    neighbour's statistics;
+    planted faults, and on 4 rows of LEAK_ALONG inputs with the p_not_zeroed
+    fault held to 10x the limit; K4's check shown to reject each head
+    normed with its neighbour's statistics;
  8. serve CogVideoX: the full-width CogVideoX-5B-I2V-FrameINO pipeline
     (bf16 DiT and VAE, seeded random weights) behind the HTTP server; two
     requests, each 42 (K1) and 84 (K4) launches per step, none of K2/K3;
@@ -100,14 +107,18 @@ Phases (any failure exits non-zero; there is no CPU path):
     96 rows; Wan eval [2, 24, 5590, 128]) and at a ragged 777 tokens for
     both head dims, within FLASH_REL_L2 and the elementwise limit of K1;
     the int8 variants on the same codes and scales as their plain
-    version; the limits are shown to reject a dropped ragged key tail and,
-    for K11/K12, key scales of one, q scales without the softmax scale,
-    the key scales of the previous 128-key tile, K codes with each row's
-    16-byte chunks swapped pairwise and the neighbour row's q scale;
-    times beside K3 (v0), SDPA, the bound and (K11/K12) the exp2 floor;
-    K11/K12 also timed alone (the kernel on codes made beforehand) beside
-    the parent's mma.sync kernels (--int8-parent), with their registers,
-    spills (none allowed) and shared memory;
+    version; the limits are shown to reject the ragged key tail of the
+    kernel's tile dropped and, for K9/K10, K rows with their 16-byte chunks
+    swapped pairwise, q without its pre-scale, K9's ones-column l not
+    rescaled by alpha and (K10, on LEAK_ALONG inputs) p not zeroed past
+    Skv; for K11/K12, key scales of one, q scales without the softmax
+    scale, the key scales of the previous 128-key tile, K codes with each
+    row's 16-byte chunks swapped pairwise and the neighbour row's q scale;
+    times beside K3 (v0), SDPA, the bound and (K9-K12) the exp2 floor;
+    K9-K12 also timed alone (the kernel on a bound or codes made
+    beforehand) beside the parents' mma.sync kernels (--variants-parent,
+    --int8-parent), with their registers, spills (none allowed), serialised
+    wgmmas (K9/K10: none allowed) and shared memory;
 15. experiment scripts: ``scripts.bench_flash_variants.main`` and
     ``scripts.bench_attn_d64.main`` in this process with their default
     arguments (both shapes, all variants, all three experiments): every
@@ -320,17 +331,20 @@ def phase_device():
 
 
 def phase_build():
-    """nvcc of the seven CUDA sources (and of --int8-parent's file), one
-    process each, all at once; returns the parent's int8 library or
-    None."""
+    """nvcc of the seven CUDA sources (and of --int8-parent's and
+    --variants-parent's files), one process each, all at once; returns the
+    parents' libraries {INT8_PARENT: ..., VARIANTS_PARENT: ...}, None for
+    a flag not given."""
     from frameino_tpu_torch.ops import attention as A
     t0 = time.time()
-    parent = None
-    if "--int8-parent" in sys.argv:
-        parent = ("flash_int8", sys.argv[sys.argv.index("--int8-parent") + 1])
+    parents = {}
+    for flag, key, source in (("--int8-parent", INT8_PARENT, "flash_int8"),
+                              ("--variants-parent", VARIANTS_PARENT,
+                               "flash_variants")):
+        if flag in sys.argv:
+            parents[key] = (source, sys.argv[sys.argv.index(flag) + 1])
     try:
-        built = A.build_cuda_libs(
-            alts=None if parent is None else {INT8_PARENT: parent})
+        built = A.build_cuda_libs(alts=parents or None)
     except RuntimeError as e:
         fail(f"nvcc: {e}")
     print(f"build: nvcc " + " + ".join(f"{n}.cu" for n in A.BUILD_LOG)
@@ -341,7 +355,7 @@ def phase_build():
             for line in log.splitlines()
             if "registers" in line or "spill" in line
             or "Compiling entry" in line))
-    return built.get(INT8_PARENT)
+    return {key: built.get(key) for key in (INT8_PARENT, VARIANTS_PARENT)}
 
 
 def _parent_triton():
@@ -398,6 +412,30 @@ def _int8_build_report():
     return _build_report(
         "K11/K12", "flash_int8", ("flash_int_qk_kernel",),
         lambda tag: lib.flash_int8_config(
+            int(tag.split("<")[1].split(",")[0]), 0))
+
+
+def _variants_build_report():
+    """K9's and K10's kernels (flash_variant_kernel<D, static, ones column,
+    consumer warpgroups, stages>): registers, spills and shared memory,
+    the library's launch shape held to ``variants_smem_layout``; fails on
+    a serialised wgmma."""
+    from frameino_tpu_torch.ops import attention as A
+    from frameino_tpu_torch.ops import flash_variants as FV
+    lib = A._lib("flash_variants")
+    for d in (64, 128):
+        lay = FV.variants_smem_layout(d)
+        got = [lib.flash_variants_config(d, w) for w in range(4)]
+        want = [lay["smem_bytes"], lay["consumer_wgs"], lay["q_rows"],
+                lay["stages"]]
+        check(got == want, f"K9/K10: flash_variants_config({d}) gives {got}, "
+                           f"the layout {want}")
+    serial = [line for line in A.BUILD_LOG.get("flash_variants", "")
+              .splitlines() if "serialized" in line]
+    check(not serial, "K9/K10: ptxas serialises wgmma: " + "; ".join(serial))
+    return _build_report(
+        "K9/K10", "flash_variants", ("flash_variant_kernel",),
+        lambda tag: lib.flash_variants_config(
             int(tag.split("<")[1].split(",")[0]), 0))
 
 
@@ -549,7 +587,8 @@ def _flash_faults(label, q, k, v, want, **arg):
     without its q pre-scale. Each is held to exceed FLASH_REL_L2 where
     it is planted to show: the tail and the q scale everywhere; the
     unzeroed p where the padding is >= 10% of the keys (at Wan's 5,460
-    keys its 44 zero-logit keys add ~0.5% to l, at the limit's edge);
+    keys its 44 zero-logit keys add ~0.5% to l, at the limit's edge: the
+    serving shapes hold it on LEAK_ALONG inputs, ``_k1_leak``);
     the bf16 accumulator from 512 keys (32 roundings) on."""
     skv = k.shape[1]
     tail = skv % FLASH_TILE
@@ -580,6 +619,58 @@ def _flash_faults(label, q, k, v, want, **arg):
           f"{label}: a planted fault passes the limit {FLASH_REL_L2:g}: "
           f"{faults}")
     return dict(faults=faults, planted=planted)
+
+
+# The inputs on which a static-bound kernel that leaks p past Skv is far
+# off: in the exp2 domain (q pre-scaled) each head's q rows lie along a unit
+# direction u and its k rows along -u, q_i = LEAK_ALONG u + eps_i and k_j =
+# -LEAK_ALONG u + delta_j with noise of norm ~1, so every valid logit is
+# about -LEAK_ALONG^2 (spread ~0.4) and the bound about LEAK_ALONG^2 + 1: a
+# valid p is ~2^-33, a zero-filled key's (logit 0) ~2^-17, and the 44 (Wan)
+# or 74 (CogVideoX) keys of the last tile past Skv outweigh all valid ones
+# (while a valid p stays far above K1's 2^-120 floor).
+LEAK_ALONG = 4.0
+
+
+def _leak_inputs(shape, gain, g):
+    """q (divided by ``gain``, the softmax scale * log2(e) a kernel folds
+    in), k and v of ``shape`` (..., S, D) in bf16, as described above."""
+    import torch
+    *lead, s, d = shape
+    def randn(*size):
+        return torch.randn(*size, device=g.device, generator=g)
+    u = randn(*lead, 1, d)
+    u = u / u.norm(dim=-1, keepdim=True)
+    q = (LEAK_ALONG * u + randn(*lead, s, d) * d ** -0.5) / gain
+    k = -LEAK_ALONG * u + randn(*lead, s, d) * d ** -0.5
+    v = randn(*lead, s, d)
+    return tuple(t.to(torch.bfloat16) for t in (q, k, v))
+
+
+def _k1_leak(label, bh, s, d, g):
+    """K1 on ``_leak_inputs`` of [bh, s, d] against its plain version
+    (within FLASH_REL_L2 and the elementwise limit), and the p_not_zeroed
+    fault (the keys of the last tile past Skv at logit 0, counted) held to
+    read at least 10x FLASH_REL_L2 there."""
+    import torch
+    from frameino_tpu_torch.ops import attention as A
+    q, k, v = _leak_inputs((bh, s, d), 1.0, g)
+    bound = A._rowmax_norm(q) * A._rowmax_norm(k)
+    want = A.flash_fwd_static_ref(q, k, v, bound)
+    err, _, rel_l2 = _check_close(label, A.flash_fwd_static(q, k, v, bound),
+                                  want)
+    pad = -s % FLASH_TILE
+    fault = _rel_l2(_flash_plain(q, k, v, pad=pad, bound=bound), want)
+    print(f"{label}: max_abs {err:.3e} rel L2 {rel_l2:.3e}; planted fault "
+          f"p_not_zeroed ({pad} keys past Skv) {fault:.3e}, held to "
+          f">= {10 * FLASH_REL_L2:g}")
+    check(fault >= 10 * FLASH_REL_L2,
+          f"{label}: p_not_zeroed reads {fault:.3e}, under "
+          f"{10 * FLASH_REL_L2:g}")
+    del q, k, v, want
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, rel_l2=rel_l2, p_not_zeroed=fault,
+                keys_past_skv=pad)
 
 
 # ragged shapes of K1 and K3 (batch*heads, Sq, Skv): a ragged last q tile
@@ -705,6 +796,8 @@ def phase_kernels(parent):
     del q, k, v
     torch.cuda.empty_cache()
     _flash_ragged(checks)
+    checks["k1_leak_wan"] = _k1_leak(f"K1 leak [{B * H}, {S}, {D}]", B * H,
+                                     S, D, g)
     torch.cuda.empty_cache()
     return results, checks
 
@@ -959,6 +1052,8 @@ def phase_kernels_cog(parent):
                 lambda: _sdpa(math.log(2))(qh, kh, vh), 5))
     del qh, kh, vh, qs, ks, vs
     torch.cuda.empty_cache()
+    checks["k1_leak_cog"] = _k1_leak(f"K1 leak (D=64) [4 of {B * Hc}, {Sc}, "
+                                     f"{Dc}]", 4, Sc, Dc, g)
     return results, checks
 
 
@@ -1345,11 +1440,13 @@ def phase_kernels_train():
 # the (batch, head) rows of the CogVideoX protocol shape [2, 48, 15906, 64]
 # that the plain versions run on: the fp32 logits fit for 4 of the 96
 COG_PLAIN_ROWS = ((0, 0), (0, 31), (1, 16), (1, 47))
-# a sequence that is no multiple of the 64-key tile, as (B, H, S, D)
+# a sequence that is no multiple of a key tile (64 or 128), as (B, H, S, D)
 RAGGED_SHAPES = {"ragged_d64": (1, 4, 777, 64), "ragged_d128": (1, 3, 777, 128)}
 INT8_VARIANTS = ("flash_v3", "flash_v123")
-# the key of the parent's int8 kernels (--int8-parent) among the libraries
+# the keys of the parents' kernels (--int8-parent, --variants-parent) among
+# the libraries
 INT8_PARENT = "int8_parent"
+VARIANTS_PARENT = "variants_parent"
 # max abs of a variant from K3 on the scripts' check slice: a little above
 # what the JAX scripts read on the CPU (2-4e-3; int8 8e-3-1.2e-2; the
 # packed script's own assertion)
@@ -1367,38 +1464,76 @@ def attn_bound_int8(bh, s, d):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def _online_l_unrescaled(FV, q, k, v, scale, tile=128):
+    """K9's plain version with a planted fault: the online softmax over
+    key tiles of ``tile`` keys, O rescaled by alpha and the ones column's
+    l not."""
+    import torch
+    qs = FV._prescale(q, scale).float()
+    m = torch.full(q.shape[:-1] + (1,), -math.inf, device=q.device)
+    acc = torch.zeros(q.shape, device=q.device)
+    l = torch.zeros_like(m)
+    for n0 in range(0, k.shape[-2], tile):
+        s = torch.matmul(qs, k[..., n0:n0 + tile, :].float().transpose(-1,
+                                                                      -2))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp2(s - m_new).to(v.dtype).float()
+        acc = torch.exp2(m - m_new) * acc + torch.matmul(
+            p, v[..., n0:n0 + tile, :].float())
+        l = l + p.sum(-1, keepdim=True)
+        m = m_new
+    return (acc / l).to(q.dtype)
+
+
 def _variant_faults(FV, name, plain, q, k, v, scale, want):
     """Relative L2, from the plain version's output, of planted faults
     computed with the plain versions on the same inputs: the ragged key
-    tail dropped; for the int8 variants also key scales of one, q scales
-    without softmax scale * log2(e), the key scales of the previous
-    128-key tile (a ring slot off by one; the first tile takes the last
-    one's), K codes with each row's 16-byte chunks swapped pairwise (a
-    wrong swizzle phase) and each row with its neighbour's q scale (the
-    bound follows them). None stands for a fault whose output is not
-    finite (under a bound that far above the logits every p underflows):
-    the finiteness check rejects it."""
+    tail of the kernel's tile dropped (128 keys, K8's 64); for the bf16
+    variants K rows with their 16-byte chunks swapped pairwise (a wrong
+    swizzle phase), q without its pre-scale (the bound as the wrapper
+    computes it) and, for K9, the ones column's l not rescaled by alpha;
+    for the int8 variants key scales of one, q scales without softmax
+    scale * log2(e), the key scales of the previous 128-key tile (a ring
+    slot off by one; the first tile takes the last one's), K codes with
+    each row's 16-byte chunks swapped pairwise and each row with its
+    neighbour's q scale (the bound follows them). None stands for a fault
+    whose output is not finite (under a bound that far above the logits
+    every p underflows): the finiteness check rejects it."""
     import torch
     S = k.shape[2]
-    tail = S // 64 * 64
+    tile = 64 if name == "packed_flash" else 128
+    keep = S // tile * tile
     out = {}
 
     def fault(tag, got):
         rel = _rel_l2(got, want)
         out[tag] = rel if math.isfinite(rel) else None
 
-    if tail < S:
+    def chunks_swapped(x):
+        width = 16 // x.element_size()
+        return x.reshape(*x.shape[:-1], -1, 2, width).flip(-2).reshape(
+            x.shape)
+
+    if keep < S:
         fault("no_ragged_tail",
-              plain(q, k[:, :, :tail], v[:, :, :tail], scale=scale))
+              plain(q, k[:, :, :keep], v[:, :, :keep], scale=scale))
+    if name in FV.BF16_BODIES:
+        fault("k_chunks_swapped", plain(q, chunks_swapped(k), v,
+                                        scale=scale))
+        bound = (None if name == "flash_v1"
+                 else FV._bound(q, k, scale).reshape(1))
+        fault("q_unprescaled", FV._softmax_pv(
+            torch.matmul(q.float(), k.float().transpose(-1, -2)), v, bound,
+            name != "flash_v2", q.dtype))
+        if name == "flash_v1":
+            fault("l_not_rescaled", _online_l_unrescaled(FV, q, k, v, scale))
     if name in INT8_VARIANTS:
         qi, qs, ki, ks = FV.quantize_qk(q, k, scale)
-        swapped = ki.reshape(*ki.shape[:-1], -1, 2, 16).flip(-2).reshape(
-            ki.shape)
         for tag, qs2, ki2, ks2 in (
                 ("ks_ones", qs, ki, torch.ones_like(ks)),
                 ("qs_unfolded", qs / (scale * FV.LOG2E), ki, ks),
                 ("ks_prev_tile", qs, ki, torch.roll(ks, 128, -2)),
-                ("k_chunks_swapped", qs, swapped, ks),
+                ("k_chunks_swapped", qs, chunks_swapped(ki), ks),
                 ("qs_neighbour_row", torch.roll(qs, -1, -2), ki, ks)):
             bound = (FV.int8_bound(qi, qs2, ki2, ks2)
                      if name == "flash_v123" else None)
@@ -1406,30 +1541,62 @@ def _variant_faults(FV, name, plain, q, k, v, scale, want):
     return out
 
 
-def _int8_alone(FV, name, q, k, v, scale, parent):
-    """K11/K12 timed alone: the kernel on codes (and a bound) made
-    beforehand, and the parent's mma.sync kernel on the same codes
-    (``parent``, None without --int8-parent), held to the port's output
+def _static_leak(FV, name, kernel, plain, shape, scale, g):
+    """A K10 body (``flash_v2`` / ``flash_v12``) on ``_leak_inputs`` of
+    ``shape``: the kernel within FLASH_REL_L2 and the elementwise limit of
+    its plain version, and the relative L2 of the p_not_zeroed fault (the
+    keys of the last tile past Skv at logit 0, counted; the bound is
+    unchanged by zero rows)."""
+    import torch
+    q, k, v = _leak_inputs(shape, scale * FV.LOG2E, g)
+    want = plain(q, k, v, scale=scale)
+    _, _, rel_l2 = _check_close(f"{name} on the leak inputs {list(shape)}",
+                                kernel(q, k, v, scale=scale), want)
+    pad = -shape[-2] % 128
+    z = k.new_zeros(*shape[:-2], pad, shape[-1])
+    fault = _rel_l2(plain(q, torch.cat([k, z], -2), torch.cat([v, z], -2),
+                          scale=scale), want)
+    del q, k, v, want
+    return rel_l2, fault
+
+
+def _alone(FV, name, q, k, v, scale, parents):
+    """K9-K12 timed alone: the C entry on a bound (K10) or codes and a
+    bound (K11/K12) made beforehand, and the parent's mma.sync kernel on
+    the same inputs (``parents``: the libraries of --variants-parent and
+    --int8-parent, None where not given), held to the port's output
     within FLASH_REL_L2."""
-    codes = FV.quantize_qk(q, k, scale)
-    bound = (FV.int8_bound(*codes).reshape(1) if name == "flash_v123"
-             else None)
-    row = dict(kernel_alone_ms=cuda_ms(
-        lambda: FV.int8_flash(*codes, v, bound), 10), parent_ms=None)
+    if name in FV.BF16_BODIES:
+        body = FV.BF16_BODIES[name]
+        bound = None if body == 1 else FV._bound(q, k, scale).reshape(1)
+        parent = parents.get(VARIANTS_PARENT)
+
+        def run(library=None):
+            return FV.bf16_flash(q, k, v, bound, body, scale=scale,
+                                 library=library)
+    else:
+        codes = FV.quantize_qk(q, k, scale)
+        bound = (FV.int8_bound(*codes).reshape(1) if name == "flash_v123"
+                 else None)
+        parent = parents.get(INT8_PARENT)
+
+        def run(library=None):
+            return FV.int8_flash(*codes, v, bound, library=library)
+    row = dict(kernel_alone_ms=cuda_ms(run, 10), parent_ms=None)
     if parent is not None:
-        rel = _rel_l2(FV.int8_flash(*codes, v, bound, library=parent),
-                      FV.int8_flash(*codes, v, bound))
+        rel = _rel_l2(run(parent), run())
         check(rel <= FLASH_REL_L2, f"{name}: the parent's kernel is {rel:.3e} "
                                    f"from the port's")
-        row["parent_ms"] = cuda_ms(
-            lambda: FV.int8_flash(*codes, v, bound, library=parent), 5)
+        row.update(parent_ms=cuda_ms(lambda: run(parent), 5),
+                   parent_rel_l2=rel)
     return row
 
 
-def phase_kernels_experiment(int8_parent):
+def phase_kernels_experiment(parents):
     """K8-K12 against their plain versions at the experiment shapes, the
     planted faults, and times beside K3 (v0), SDPA and the bound;
-    ``int8_parent``: the library of --int8-parent, or None."""
+    ``parents``: the libraries of --int8-parent and --variants-parent (None
+    where not given)."""
     import torch
     from frameino_tpu_torch.ops import attention as A
     from frameino_tpu_torch.ops import flash_variants as FV
@@ -1447,7 +1614,8 @@ def phase_kernels_experiment(int8_parent):
                   for tag, c in bench_flash_variants.SHAPES.items()}
     exp_shapes.update(RAGGED_SHAPES)
     g = torch.Generator("cuda").manual_seed(2468)
-    shapes = {"build_int8": _int8_build_report()}
+    shapes = {"build_int8": _int8_build_report(),
+              "build_variants": _variants_build_report()}
     for tag, (b, h, s, d) in exp_shapes.items():
         picks = COG_PLAIN_ROWS if tag == "cog" else None
         scale = d ** -0.5
@@ -1494,12 +1662,16 @@ def phase_kernels_experiment(int8_parent):
             want = plain(qs, ks, vs, scale=scale)
             err, rel, rel_l2 = _check_close(label, got, want)
             faults = _variant_faults(FV, name, plain, qs, ks, vs, scale, want)
+            leak_rel_l2 = None
+            if name in ("flash_v2", "flash_v12"):
+                leak_rel_l2, faults["p_not_zeroed"] = _static_leak(
+                    FV, name, kernel, plain, qs.shape, scale, g)
             check(faults and all(x is None or x > FLASH_REL_L2
                                  for x in faults.values()),
                   f"{label}: a planted fault passes the limit "
                   f"{FLASH_REL_L2:g}: {faults}")
             row = dict(max_abs_err=err, max_rel=rel, rel_l2=rel_l2,
-                       faults=faults)
+                       faults=faults, leak_rel_l2=leak_rel_l2)
             if picks is not None:
                 # the full launch agrees with the launch on the picked rows
                 # (the static bodies take another bound from all rows)
@@ -1523,9 +1695,8 @@ def phase_kernels_experiment(int8_parent):
                     plain_ms=cuda_ms(lambda: plain(qs, ks, vs, scale=scale),
                                      2),
                     plain_rows_bound=bound(sub, s, d))
-                if name in INT8_VARIANTS:
-                    row.update(_int8_alone(FV, name, q, k, v, scale,
-                                           int8_parent),
+                if name != "packed_flash":
+                    row.update(_alone(FV, name, q, k, v, scale, parents),
                                exp2_floor_ms=exp2_floor_ms(rows, s, s))
             shape_row[name] = row
             print(f"{label} [{b}, {h}, {s}, {d}]: rel L2 {rel_l2:.3e} max_abs "
@@ -1541,7 +1712,7 @@ def phase_kernels_experiment(int8_parent):
                      f"{row['exp2_floor_ms']:.3f}; the parent's mma.sync "
                      + ("not measured" if row["parent_ms"] is None
                         else f"{row['parent_ms']:.3f} ms") + ")"
-                     if timed and name in INT8_VARIANTS else ""))
+                     if timed and name != "packed_flash" else ""))
             del got, want
         if timed:
             print(f"experiment shape {tag} [{b}, {h}, {s}, {d}]: K3 (v0) "
@@ -1573,7 +1744,7 @@ def phase_kernels_experiment(int8_parent):
                 wan_ms=w["ms"], wan_plain_ms=w["plain_ms"],
                 wan_bound_ms=w["bound_ms"], wan_v0_ms=wan["v0_ms"],
                 wan_library_ms=wan["sdpa_ms"])
-        if name in INT8_VARIANTS:
+        if name != "packed_flash":
             results[name].update(
                 kernel_alone_ms_96_rows=r["kernel_alone_ms"],
                 parent_ms_96_rows=r["parent_ms"],
@@ -2733,7 +2904,7 @@ def main():
 
     t_start = time.time()
     name, smi = phase_device()
-    int8_parent = phase_build()
+    parents = phase_build()
     parent = _parent_triton()
     kernel_results, flash_checks = phase_kernels(parent)
     kernel_results.update(phase_kernels_k5(parent))
@@ -2754,7 +2925,7 @@ def main():
     entry = phase_train_entry(data)
     train = phase_train(data, profile)
     train_ref = phase_train_reference()
-    exp_results, exp_shapes = phase_kernels_experiment(int8_parent)
+    exp_results, exp_shapes = phase_kernels_experiment(parents)
     kernel_results.update(exp_results)
     exp_scripts, exp_launches = phase_experiment_scripts()
 

@@ -36,7 +36,8 @@ _CUDA_SOURCES = {
         "attn_train_smem_bytes": [_INT] * 2},
     "dyn_quant": {"dyn_quant_rows_bf16": [_VP] * 3 + [_INT] * 2 + [_VP]},
     "flash_variants": {
-        "flash_variant_bf16": [_VP] * 5 + [_INT] * 5 + [_F32, _VP]},
+        "flash_variant_bf16": [_VP] * 5 + [_INT] * 5 + [_F32, _VP],
+        "flash_variants_config": [_INT] * 2},
     "flash_int8": {"flash_variant_int8": [_VP] * 7 + [_INT] * 5 + [_VP],
                    "flash_int8_config": [_INT] * 2},
     "flash_packed": {"flash_packed_bf16": [_VP] * 4 + [_INT] * 3

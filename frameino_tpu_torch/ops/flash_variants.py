@@ -21,10 +21,12 @@ variant ``v0``) they switch three things, and pack two heads a row:
 - ``packed_flash`` (K8): head_dim 64, two heads side by side in 128-wide
   rows ``[B*H/2, S, 128]``, two independent online softmaxes a row.
 
-K9-K10 are one CUDA C++ template (``csrc/flash_variants.cu``, ``mma.sync``),
-K11-K12 a persistent TMA + ``wgmma`` kernel on int8 codes
-(``csrc/flash_int8.cu``; ``int8_flash`` launches it on given codes), K8 a
-third source (``csrc/flash_packed.cu``). Each wrapper takes the JAX
+K9-K10 and K11-K12 are two persistent TMA + ``wgmma`` kernels of one
+design (K1/K3's): ``csrc/flash_variants.cu`` with a bf16 S product and q
+pre-scaled in the kernel (``bf16_flash`` launches it on a bound made
+beforehand) and ``csrc/flash_int8.cu`` on int8 codes (``int8_flash``
+launches it on given codes); K8 is an ``mma.sync`` kernel
+(``csrc/flash_packed.cu``). Each wrapper takes the JAX
 function's arguments ([B, H, S, D] tensors), launches its kernel for CUDA
 tensors (bf16, contiguous, head_dim 64 or 128) and raises on anything else;
 for CPU tensors it runs the plain version beside it (``*_ref``). Each counts its
@@ -203,19 +205,67 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch_bf16(name, body: int, q, k, v, scale: float, bound=None):
-    """The bf16-logit bodies (1: v1, 2: v2, 12: v12) on [B, H, S, D]."""
-    _check_qkv(name, q, k, v)
+# the C entry's body of each bf16 wrapper (csrc/flash_variants.cu)
+BF16_BODIES = {"flash_v1": 1, "flash_v2": 2, "flash_v12": 12}
+
+
+def variants_smem_layout(head_dim: int) -> dict:
+    """The shared memory of a block of ``csrc/flash_variants.cu`` at a
+    head_dim (64 or 128), as its ``Layout`` lays it out; the library's
+    ``flash_variants_config`` reports the same numbers on a card. Byte
+    offsets from the block's 1024-aligned base: two bf16 Q buffers of
+    ``q_rows`` rows, then ``stages`` bf16 K tiles and V tiles of 128 keys,
+    512 bytes of bf16 ones (the B operand of the ones column) and the
+    mbarriers. A tile of D columns is D / 64 column blocks (``q_block`` /
+    ``kv_block`` bytes each) of 128-byte rows, 128-byte swizzled."""
+    if head_dim not in (64, 128):
+        raise ValueError(f"head_dim {head_dim} not in (64, 128)")
+    cwg, stages, keys = (3, 4, 128) if head_dim == 64 else (2, 2, 128)
+    out = dict(consumer_wgs=cwg, q_rows=64 * cwg, stages=stages, keys=keys,
+               swizzle=128, column_blocks=head_dim // 64, q=0,
+               q_block=64 * cwg * 128, q_tile=64 * cwg * 2 * head_dim,
+               kv_block=keys * 128, kv_tile=keys * 2 * head_dim)
+    out["k"] = 2 * out["q_tile"]
+    out["v"] = out["k"] + stages * out["kv_tile"]
+    out["ones"] = out["v"] + stages * out["kv_tile"]
+    out["bars"] = out["ones"] + 512
+    out["smem_bytes"] = out["bars"] + (6 + 4 * stages) * 8 + 1024
+    return out
+
+
+def bf16_flash(q, k, v, bound, body: int, *, scale: float, library=None):
+    """K9 (``body`` 1: online softmax, l by the ones column; ``bound``
+    None) or K10 (2: ``p = exp2(s - bound)``, l by a lane sum; 12: the same
+    with the ones column) on q, k, v [B, H, S, D] bf16 and, for K10, a
+    bound made beforehand (one fp32, ``_bound``'s); q is pre-scaled by
+    bf16(scale * log2e) in the kernel. CUDA: the kernel of
+    ``csrc/flash_variants.cu`` (or of ``library``, another build of its C
+    interface); CPU: the plain version on the same bound. Counts no
+    launch: the wrappers ``flash_v1`` / ``flash_v2`` / ``flash_v12`` do."""
+    if body not in BF16_BODIES.values():
+        raise ValueError(f"bf16_flash: body {body} not in "
+                         f"{sorted(BF16_BODIES.values())}")
+    static = body != 1
+    if static != (bound is not None):
+        raise ValueError("bf16_flash: bodies 2 and 12 take a bound, body 1 "
+                         "none")
+    if not q.is_cuda:
+        return _softmax_pv(_bf16_logits(q, k, scale), v, bound, body != 2,
+                           q.dtype)
+    _check_qkv("bf16_flash", q, k, v)
+    if static and (not bound.is_cuda or bound.dtype != torch.float32
+                   or bound.numel() != 1):
+        raise ValueError("bf16_flash: bound must be one fp32 on the card")
     B, H, S, D = q.shape
     o = torch.empty_like(q)
     q_scale = float(torch.tensor(scale * LOG2E, dtype=torch.bfloat16))
-    err = lib("flash_variants").flash_variant_bf16(
+    err = (library or lib("flash_variants")).flash_variant_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        0 if bound is None else bound.data_ptr(), B * H, S, S, D, body,
-        q_scale, _stream(q))
+        bound.data_ptr() if static else 0, B * H, S, S, D, body, q_scale,
+        _stream(q))
     if err != 0:
-        raise RuntimeError(f"{name}: flash_variant_bf16 launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"bf16_flash: flash_variant_bf16 launch failed: "
+                           f"CUDA error {err}")
     return o
 
 
@@ -308,7 +358,7 @@ def flash_v1(q, k, v, *, scale: float, block_q: Optional[int] = None,
     kernel; CPU: ``flash_v1_ref``."""
     if not q.is_cuda:
         return flash_v1_ref(q, k, v, scale=scale)
-    out = _launch_bf16("flash_v1", 1, q, k, v, scale)
+    out = bf16_flash(q, k, v, None, 1, scale=scale)
     flash_v1.launches += 1
     return out
 
@@ -322,8 +372,8 @@ def flash_v12(q, k, v, *, scale: float, block_q: Optional[int] = None,
     ``_kernel_v12``). CUDA: kernel; CPU: ``flash_v12_ref``."""
     if not q.is_cuda:
         return flash_v12_ref(q, k, v, scale=scale)
-    out = _launch_bf16("flash_v12", 12, q, k, v, scale,
-                       _bound(q, k, scale).reshape(1))
+    out = bf16_flash(q, k, v, _bound(q, k, scale).reshape(1), 12,
+                     scale=scale)
     flash_v12.launches += 1
     return out
 
@@ -341,8 +391,8 @@ def flash_v2(q, k, v, *, scale: float, block_q: Optional[int] = None,
         return flash_v12(q, k, v, scale=scale)
     if not q.is_cuda:
         return flash_v2_ref(q, k, v, scale=scale)
-    out = _launch_bf16("flash_v2", 2, q, k, v, scale,
-                       _bound(q, k, scale).reshape(1))
+    out = bf16_flash(q, k, v, _bound(q, k, scale).reshape(1), 2,
+                     scale=scale)
     flash_v2.launches += 1
     return out
 

@@ -43,13 +43,14 @@ SHAPES = {"wan": (2, 24, 5590, 128), "cog": (2, 48, 15906, 64)}
 REL_L2 = 5e-3
 
 
-def build(alts):
-    """{version: CDLL}: the port's source and each alternative, with
-    ptxas's report of each kernel (registers, spills, serialised wgmma)."""
+def build(alts, source="flash_int8"):
+    """{version: CDLL}: the port's ``csrc/<source>.cu`` and each
+    alternative, with ptxas's report of each kernel (registers, spills,
+    serialised wgmma)."""
     built = cuda_build.build_cuda_libs(
-        ["flash_int8"], {n: ("flash_int8", p) for n, p in alts.items()})
-    libs = {PORT: built["flash_int8"], **{n: built[n] for n in alts}}
-    for name, key in ((PORT, "flash_int8"), *((n, n) for n in alts)):
+        [source], {n: (source, p) for n, p in alts.items()})
+    libs = {PORT: built[source], **{n: built[n] for n in alts}}
+    for name, key in ((PORT, source), *((n, n) for n in alts)):
         print(f"# {name}:")
         for line in cuda_build.BUILD_LOG.get(key, "").splitlines():
             if "Compiling entry" in line:
@@ -61,7 +62,21 @@ def build(alts):
     return libs
 
 
-def main(argv=None):
+def int8_bodies(q, k, v, scale):
+    """{body: launch(library)}: K12 and K11 on the codes of q and k."""
+    codes = FV.quantize_qk(q, k, scale)
+    bound = FV.int8_bound(*codes).reshape(1)
+    return {body: (lambda lib, bnd=bnd: FV.int8_flash(*codes, v, bnd,
+                                                     library=lib))
+            for body, bnd in (("k12", None), ("k11", bound))}
+
+
+def run_versions(argv, source, bodies):
+    """The command line of the tuning scripts: every version of
+    ``csrc/<source>.cu`` built, and each of ``bodies(q, k, v, scale)``
+    ({body: launch(library)}) run on each version at the experiment
+    shapes, held to the port's output and timed in turns beside K3, K1
+    and SDPA."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--alt", action="append", default=[],
                     metavar="NAME=PATH")
@@ -81,7 +96,7 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"# {smi}")
-    libs = build(alts)
+    libs = build(alts, source)
     names = list(libs)
     g = torch.Generator("cuda").manual_seed(0)
     rows = []
@@ -91,8 +106,6 @@ def main(argv=None):
                                dtype=torch.bfloat16, generator=g)
                    for _ in range(3))
         scale = d ** -0.5
-        codes = FV.quantize_qk(q, k, scale)
-        bound = FV.int8_bound(*codes).reshape(1)
         flat = [t.reshape(-1, s, d) for t in (q, k, v)]
         v0 = event_ms(lambda: A.flash_attention_inference(q, k, v, scale),
                       args.iters)
@@ -104,9 +117,8 @@ def main(argv=None):
             *(t[None] for t in flat), scale=scale), args.iters)
         print(f"{shape} [{b * h}, {s}, {d}]: K3 (v0) {v0:.3f} ms, K1 "
               f"{k1:.3f} ms, SDPA {sdpa:.3f} ms")
-        for body, bnd in (("k12", None), ("k11", bound)):
-            runs = {n: (lambda lib=libs[n]: FV.int8_flash(
-                *codes, v, bnd, library=lib)) for n in names}
+        for body, launch in bodies(q, k, v, scale).items():
+            runs = {n: (lambda lib=libs[n]: launch(lib)) for n in names}
             want = runs[PORT]().clone()
             rel = {}
             for n in names:
@@ -131,10 +143,14 @@ def main(argv=None):
                                  sdpa_ms=sdpa,
                                  rel_l2_from_port=rel[n]))
             del want
-        del q, k, v, codes, flat, qp
+        del q, k, v, flat, qp
         torch.cuda.empty_cache()
     print(json.dumps({"device": smi, "rows": rows}))
     return rows
+
+
+def main(argv=None):
+    return run_versions(argv, "flash_int8", int8_bodies)
 
 
 if __name__ == "__main__":

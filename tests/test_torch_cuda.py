@@ -672,6 +672,77 @@ def test_flash_variants_match_plain(dev, name, d, s):
     assert _rel_l2(got, ref) <= 5e-3
 
 
+# K9/K10 (csrc/flash_variants.cu) through their C entry on a bound made
+# beforehand: one row of one head with one key, ragged sequences (129: a
+# one-key tail; 300: off the q tile of 128 rows at head_dim 128, 192 at 64;
+# 777), batch one with 48 heads, and 96 rows, so that each persistent
+# block walks several q tiles on one ring
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,h,s", [(1, 1, 1), (1, 1, 129), (1, 1, 300),
+                                   (1, 1, 777), (1, 48, 777), (2, 48, 300)])
+@pytest.mark.parametrize("body", [1, 2, 12], ids=["k9_v1", "k10_v2",
+                                                  "k10_v12"])
+def test_bf16_flash_kernel_bodies(dev, body, d, b, h, s):
+    """Each body against its plain version on the same inputs and bound,
+    and two launches bit-identical."""
+    g = torch.Generator(dev).manual_seed(6)
+    q, k, v = (torch.randn(b, h, s, d, device=dev, dtype=torch.bfloat16,
+                           generator=g) for _ in range(3))
+    scale = d ** -0.5
+    bound = None if body == 1 else FV._bound(q, k, scale).reshape(1)
+    got = FV.bf16_flash(q, k, v, bound, body, scale=scale)
+    again = FV.bf16_flash(q, k, v, bound, body, scale=scale)
+    ref = FV.bf16_flash(q.cpu(), k.cpu(), v.cpu(),
+                        None if bound is None else bound.cpu(), body,
+                        scale=scale)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    _assert_flash_close(got.cpu(), ref)
+
+
+def test_flash_variants_config_matches_the_layout(dev):
+    """The library's launch shape and shared memory are the layout that
+    ``tests/test_torch_flash_variants_sm90.py`` replays on the CPU."""
+    lib = FV.lib("flash_variants")
+    for d in (64, 128):
+        lay = FV.variants_smem_layout(d)
+        assert [lib.flash_variants_config(d, w) for w in range(4)] == [
+            lay["smem_bytes"], lay["consumer_wgs"], lay["q_rows"],
+            lay["stages"]]
+    assert lib.flash_variants_config(96, 0) == -1
+    assert lib.flash_variants_config(64, 4) == -1
+
+
+def test_bf16_flash_refuses_what_the_kernel_does_not_take(dev):
+    """A view one element off a 16-byte line (TMA needs aligned rows), a
+    bound that is not one fp32 on the card, a static body without a bound
+    and an unknown body are refused, through the C-entry launcher and the
+    wrappers."""
+    q = torch.randn(1, 2, 64, 64, device=dev, dtype=torch.bfloat16)
+    bound = FV._bound(q, q, 0.125).reshape(1)
+    buf = torch.empty(q.numel() + 1, device=dev, dtype=torch.bfloat16)
+    off = buf[1:].view(q.shape)
+    off.copy_(q)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    for body, bnd in ((1, None), (2, bound), (12, bound)):
+        with pytest.raises(ValueError, match="aligned"):
+            FV.bf16_flash(off, q, q, bnd, body, scale=0.125)
+        with pytest.raises(ValueError, match="aligned"):
+            FV.bf16_flash(q, q, off, bnd, body, scale=0.125)
+    for fn in (FV.flash_v1, FV.flash_v2, FV.flash_v12):
+        with pytest.raises(ValueError, match="aligned"):
+            fn(q, off, q, scale=0.125)
+    with pytest.raises(ValueError):
+        FV.bf16_flash(q, q, q, bound.double(), 2, scale=0.125)
+    with pytest.raises(ValueError):
+        FV.bf16_flash(q, q, q, torch.ones(2, device=dev), 12, scale=0.125)
+    with pytest.raises(ValueError):
+        FV.bf16_flash(q, q, q, None, 2, scale=0.125)
+    with pytest.raises(ValueError):
+        FV.bf16_flash(q, q, q, None, 3, scale=0.125)
+
+
 # K11/K12 (csrc/flash_int8.cu) on given codes: one row of one head, a
 # sequence of 1 and one under a key tile (100), one off the q tile (300:
 # q tiles of 128 rows at head_dim 128, 192 at 64), the ragged 777; and 96

@@ -293,10 +293,13 @@ def test_library_digest_covers_included_headers(tmp_path, monkeypatch):
     (tmp_path / "g.cuh").write_text("constexpr int kTile = 128;\n")
     assert cuda_build._so_path("a") != before[0]
     assert cuda_build._so_path("b") == before[1]
-    # the sources of the experiment kernels do share a header
+    # the sources of the experiment kernels do share headers: K8's
+    # mma.sync helpers, and the Hopper helpers of K9-K12
     monkeypatch.undo()
-    shared = (cuda_build._CSRC / "flash_common.cuh").read_bytes()
-    for name in ("flash_variants", "flash_packed"):
+    for name, header in (("flash_packed", "flash_common.cuh"),
+                         ("flash_variants", "sm90_common.cuh"),
+                         ("flash_int8", "sm90_common.cuh")):
+        shared = (cuda_build._CSRC / header).read_bytes()
         assert shared in cuda_build._source_bytes(
             cuda_build._CSRC / f"{name}.cu", set())
 
