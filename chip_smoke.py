@@ -16,6 +16,10 @@
         # also time the mma.sync bf16 kernels that K9/K10 replaced: FILE is
         # a copy of csrc/flash_variants.cu from before its Hopper redesign
         # (with its flash_common.cuh beside it), built beside the sources
+    python3 chip_smoke.py --packed-parent FILE
+        # also time the mma.sync K8 that the Hopper K8 replaced: FILE is a
+        # copy of csrc/flash_packed.cu from before its redesign (with its
+        # flash_common.cuh beside it), built beside the sources
 
 Phases (any failure exits non-zero; there is no CPU path):
  1. device: the card's name and `nvidia-smi` name, power limit;
@@ -114,11 +118,15 @@ Phases (any failure exits non-zero; there is no CPU path):
     Skv; for K11/K12, key scales of one, q scales without the softmax
     scale, the key scales of the previous 128-key tile, K codes with each
     row's 16-byte chunks swapped pairwise and the neighbour row's q scale;
-    times beside K3 (v0), SDPA, the bound and (K9-K12) the exp2 floor;
-    K9-K12 also timed alone (the kernel on a bound or codes made
-    beforehand) beside the parents' mma.sync kernels (--variants-parent,
-    --int8-parent), with their registers, spills (none allowed), serialised
-    wgmmas (K9/K10: none allowed) and shared memory;
+    for K8, the two heads' K (or V) halves swapped, head B normalised by
+    head A's l, K rows with their 16-byte chunks swapped pairwise, q
+    without its pre-scale and (on LEAK_ALONG inputs) p not zeroed past
+    Skv; times beside K3 (v0), SDPA, the bound and the exp2 floor;
+    each also timed alone (the kernel on a bound, codes or packed rows
+    made beforehand) beside the parents' mma.sync kernels
+    (--variants-parent, --int8-parent, --packed-parent), with their
+    registers, spills (none allowed), serialised wgmmas (K8-K10: none
+    allowed) and shared memory;
 15. experiment scripts: ``scripts.bench_flash_variants.main`` and
     ``scripts.bench_attn_d64.main`` in this process with their default
     arguments (both shapes, all variants, all three experiments): every
@@ -331,16 +339,19 @@ def phase_device():
 
 
 def phase_build():
-    """nvcc of the seven CUDA sources (and of --int8-parent's and
-    --variants-parent's files), one process each, all at once; returns the
-    parents' libraries {INT8_PARENT: ..., VARIANTS_PARENT: ...}, None for
-    a flag not given."""
+    """nvcc of the seven CUDA sources (and of --int8-parent's,
+    --variants-parent's and --packed-parent's files), one process each,
+    all at once; returns the parents' libraries {INT8_PARENT: ...,
+    VARIANTS_PARENT: ..., PACKED_PARENT: ...}, None for a flag not
+    given."""
     from frameino_tpu_torch.ops import attention as A
     t0 = time.time()
     parents = {}
     for flag, key, source in (("--int8-parent", INT8_PARENT, "flash_int8"),
                               ("--variants-parent", VARIANTS_PARENT,
-                               "flash_variants")):
+                               "flash_variants"),
+                              ("--packed-parent", PACKED_PARENT,
+                               "flash_packed")):
         if flag in sys.argv:
             parents[key] = (source, sys.argv[sys.argv.index(flag) + 1])
     try:
@@ -355,7 +366,8 @@ def phase_build():
             for line in log.splitlines()
             if "registers" in line or "spill" in line
             or "Compiling entry" in line))
-    return {key: built.get(key) for key in (INT8_PARENT, VARIANTS_PARENT)}
+    return {key: built.get(key)
+            for key in (INT8_PARENT, VARIANTS_PARENT, PACKED_PARENT)}
 
 
 def _parent_triton():
@@ -437,6 +449,26 @@ def _variants_build_report():
         "K9/K10", "flash_variants", ("flash_variant_kernel",),
         lambda tag: lib.flash_variants_config(
             int(tag.split("<")[1].split(",")[0]), 0))
+
+
+def _packed_build_report():
+    """K8's kernel (flash_packed_kernel): registers, spills and shared
+    memory, the library's launch shape held to ``packed_smem_layout``;
+    fails on a serialised wgmma."""
+    from frameino_tpu_torch.ops import attention as A
+    from frameino_tpu_torch.ops import flash_variants as FV
+    lib = A._lib("flash_packed")
+    lay = FV.packed_smem_layout()
+    got = [lib.flash_packed_config(w) for w in range(4)]
+    want = [lay["smem_bytes"], lay["consumer_wgs"], lay["q_rows"],
+            lay["stages"]]
+    check(got == want, f"K8: flash_packed_config gives {got}, the layout "
+                       f"{want}")
+    serial = [line for line in A.BUILD_LOG.get("flash_packed", "")
+              .splitlines() if "serialized" in line]
+    check(not serial, "K8: ptxas serialises wgmma: " + "; ".join(serial))
+    return _build_report("K8", "flash_packed", ("flash_packed_kernel",),
+                         lambda tag: lib.flash_packed_config(0))
 
 
 def _kernel_tag(line):
@@ -1447,6 +1479,7 @@ INT8_VARIANTS = ("flash_v3", "flash_v123")
 # the libraries
 INT8_PARENT = "int8_parent"
 VARIANTS_PARENT = "variants_parent"
+PACKED_PARENT = "packed_parent"
 # max abs of a variant from K3 on the scripts' check slice: a little above
 # what the JAX scripts read on the CPU (2-4e-3; int8 8e-3-1.2e-2; the
 # packed script's own assertion)
@@ -1485,13 +1518,45 @@ def _online_l_unrescaled(FV, q, k, v, scale, tile=128):
     return (acc / l).to(q.dtype)
 
 
+def _packed_plain(FV, q, k, v, q_scale=None, l_of=(0, 1)):
+    """K8's plain version on [B, H, S, 64] heads (``packed_flash_ref``),
+    with a planted fault where asked: q scaled by ``q_scale`` in place of
+    bf16(64^-0.5 * log2 e), or head h of each pair normalised by the l of
+    head ``l_of[h]``."""
+    import torch
+    d = 64
+    c = d ** -0.5 * FV.LOG2E if q_scale is None else q_scale
+    qp, kp, vp = (FV.pack(t) for t in (q, k, v))
+    outs, ls = [], []
+    for h in (0, d):
+        qs = qp[..., h:h + d] * torch.tensor(c, dtype=q.dtype)
+        s = torch.matmul(qs.float(), kp[..., h:h + d].float().transpose(-1,
+                                                                         -2))
+        p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+        del s
+        outs.append(torch.matmul(p.to(v.dtype).float(),
+                                 vp[..., h:h + d].float()))
+        ls.append(p.sum(dim=-1, keepdim=True))
+        del p
+    o = torch.cat([outs[h] / ls[l_of[h]] for h in (0, 1)], dim=-1)
+    return FV.unpack(o.to(q.dtype), q.shape[0])
+
+
+def _swap_heads(x):
+    """[B, H, S, D] with the two heads of each packed pair swapped."""
+    b, h, s, d = x.shape
+    return x.reshape(b, h // 2, 2, s, d).flip(2).reshape(x.shape)
+
+
 def _variant_faults(FV, name, plain, q, k, v, scale, want):
     """Relative L2, from the plain version's output, of planted faults
     computed with the plain versions on the same inputs: the ragged key
-    tail of the kernel's tile dropped (128 keys, K8's 64); for the bf16
-    variants K rows with their 16-byte chunks swapped pairwise (a wrong
-    swizzle phase), q without its pre-scale (the bound as the wrapper
-    computes it) and, for K9, the ones column's l not rescaled by alpha;
+    tail of the kernel's 128-key tile dropped; for the bf16 variants and
+    K8 K rows with their 16-byte chunks swapped pairwise (a wrong swizzle
+    phase) and q without its pre-scale (the bound as the wrapper computes
+    it); for K9, the ones column's l not rescaled by alpha; for K8, the
+    two heads' K halves of a packed row swapped (head A against head B's
+    keys), their V halves swapped and head B normalised by head A's l;
     for the int8 variants key scales of one, q scales without softmax
     scale * log2(e), the key scales of the previous 128-key tile (a ring
     slot off by one; the first tile takes the last one's), K codes with
@@ -1501,7 +1566,7 @@ def _variant_faults(FV, name, plain, q, k, v, scale, want):
     every p underflows): the finiteness check rejects it."""
     import torch
     S = k.shape[2]
-    tile = 64 if name == "packed_flash" else 128
+    tile = 128
     keep = S // tile * tile
     out = {}
 
@@ -1527,6 +1592,13 @@ def _variant_faults(FV, name, plain, q, k, v, scale, want):
             name != "flash_v2", q.dtype))
         if name == "flash_v1":
             fault("l_not_rescaled", _online_l_unrescaled(FV, q, k, v, scale))
+    if name == "packed_flash":
+        fault("k_halves_swapped", plain(q, _swap_heads(k), v, scale=scale))
+        fault("v_halves_swapped", plain(q, k, _swap_heads(v), scale=scale))
+        fault("b_over_l_of_a", _packed_plain(FV, q, k, v, l_of=(0, 0)))
+        fault("k_chunks_swapped", plain(q, chunks_swapped(k), v,
+                                        scale=scale))
+        fault("q_unprescaled", _packed_plain(FV, q, k, v, q_scale=1.0))
     if name in INT8_VARIANTS:
         qi, qs, ki, ks = FV.quantize_qk(q, k, scale)
         for tag, qs2, ki2, ks2 in (
@@ -1542,11 +1614,11 @@ def _variant_faults(FV, name, plain, q, k, v, scale, want):
 
 
 def _static_leak(FV, name, kernel, plain, shape, scale, g):
-    """A K10 body (``flash_v2`` / ``flash_v12``) on ``_leak_inputs`` of
-    ``shape``: the kernel within FLASH_REL_L2 and the elementwise limit of
-    its plain version, and the relative L2 of the p_not_zeroed fault (the
-    keys of the last tile past Skv at logit 0, counted; the bound is
-    unchanged by zero rows)."""
+    """A K10 body (``flash_v2`` / ``flash_v12``) or K8 on ``_leak_inputs``
+    of ``shape``: the kernel within FLASH_REL_L2 and the elementwise limit
+    of its plain version, and the relative L2 of the p_not_zeroed fault
+    (the keys of the last 128-key tile past Skv at logit 0, counted; K10's
+    bound is unchanged by zero rows, and K8's running max becomes 0)."""
     import torch
     q, k, v = _leak_inputs(shape, scale * FV.LOG2E, g)
     want = plain(q, k, v, scale=scale)
@@ -1561,12 +1633,18 @@ def _static_leak(FV, name, kernel, plain, shape, scale, g):
 
 
 def _alone(FV, name, q, k, v, scale, parents):
-    """K9-K12 timed alone: the C entry on a bound (K10) or codes and a
-    bound (K11/K12) made beforehand, and the parent's mma.sync kernel on
-    the same inputs (``parents``: the libraries of --variants-parent and
-    --int8-parent, None where not given), held to the port's output
-    within FLASH_REL_L2."""
-    if name in FV.BF16_BODIES:
+    """K8-K12 timed alone: the C entry on a bound (K10), codes and a bound
+    (K11/K12) or packed rows (K8) made beforehand, and the parent's
+    mma.sync kernel on the same inputs (``parents``: the libraries of
+    --variants-parent, --int8-parent and --packed-parent, None where not
+    given), held to the port's output within FLASH_REL_L2."""
+    if name == "packed_flash":
+        rows = [FV.pack(t).contiguous() for t in (q, k, v)]
+        parent = parents.get(PACKED_PARENT)
+
+        def run(library=None):
+            return FV.packed_rows(*rows, library=library)
+    elif name in FV.BF16_BODIES:
         body = FV.BF16_BODIES[name]
         bound = None if body == 1 else FV._bound(q, k, scale).reshape(1)
         parent = parents.get(VARIANTS_PARENT)
@@ -1595,8 +1673,8 @@ def _alone(FV, name, q, k, v, scale, parents):
 def phase_kernels_experiment(parents):
     """K8-K12 against their plain versions at the experiment shapes, the
     planted faults, and times beside K3 (v0), SDPA and the bound;
-    ``parents``: the libraries of --int8-parent and --variants-parent (None
-    where not given)."""
+    ``parents``: the libraries of --int8-parent, --variants-parent and
+    --packed-parent (None where not given)."""
     import torch
     from frameino_tpu_torch.ops import attention as A
     from frameino_tpu_torch.ops import flash_variants as FV
@@ -1615,7 +1693,8 @@ def phase_kernels_experiment(parents):
     exp_shapes.update(RAGGED_SHAPES)
     g = torch.Generator("cuda").manual_seed(2468)
     shapes = {"build_int8": _int8_build_report(),
-              "build_variants": _variants_build_report()}
+              "build_variants": _variants_build_report(),
+              "build_packed": _packed_build_report()}
     for tag, (b, h, s, d) in exp_shapes.items():
         picks = COG_PLAIN_ROWS if tag == "cog" else None
         scale = d ** -0.5
@@ -1663,7 +1742,7 @@ def phase_kernels_experiment(parents):
             err, rel, rel_l2 = _check_close(label, got, want)
             faults = _variant_faults(FV, name, plain, qs, ks, vs, scale, want)
             leak_rel_l2 = None
-            if name in ("flash_v2", "flash_v12"):
+            if name in ("flash_v2", "flash_v12", "packed_flash"):
                 leak_rel_l2, faults["p_not_zeroed"] = _static_leak(
                     FV, name, kernel, plain, qs.shape, scale, g)
             check(faults and all(x is None or x > FLASH_REL_L2
@@ -1695,9 +1774,8 @@ def phase_kernels_experiment(parents):
                     plain_ms=cuda_ms(lambda: plain(qs, ks, vs, scale=scale),
                                      2),
                     plain_rows_bound=bound(sub, s, d))
-                if name != "packed_flash":
-                    row.update(_alone(FV, name, q, k, v, scale, parents),
-                               exp2_floor_ms=exp2_floor_ms(rows, s, s))
+                row.update(_alone(FV, name, q, k, v, scale, parents),
+                           exp2_floor_ms=exp2_floor_ms(rows, s, s))
             shape_row[name] = row
             print(f"{label} [{b}, {h}, {s}, {d}]: rel L2 {rel_l2:.3e} max_abs "
                   f"{err:.3e} on {sub} rows | planted faults "
@@ -1712,7 +1790,7 @@ def phase_kernels_experiment(parents):
                      f"{row['exp2_floor_ms']:.3f}; the parent's mma.sync "
                      + ("not measured" if row["parent_ms"] is None
                         else f"{row['parent_ms']:.3f} ms") + ")"
-                     if timed and name != "packed_flash" else ""))
+                     if timed else ""))
             del got, want
         if timed:
             print(f"experiment shape {tag} [{b}, {h}, {s}, {d}]: K3 (v0) "
@@ -1744,11 +1822,12 @@ def phase_kernels_experiment(parents):
                 wan_ms=w["ms"], wan_plain_ms=w["plain_ms"],
                 wan_bound_ms=w["bound_ms"], wan_v0_ms=wan["v0_ms"],
                 wan_library_ms=wan["sdpa_ms"])
-        if name != "packed_flash":
+        results[name].update(
+            kernel_alone_ms_96_rows=r["kernel_alone_ms"],
+            parent_ms_96_rows=r["parent_ms"],
+            exp2_floor_ms_96_rows=r["exp2_floor_ms"])
+        if w is not None:
             results[name].update(
-                kernel_alone_ms_96_rows=r["kernel_alone_ms"],
-                parent_ms_96_rows=r["parent_ms"],
-                exp2_floor_ms_96_rows=r["exp2_floor_ms"],
                 wan_kernel_alone_ms=w["kernel_alone_ms"],
                 wan_parent_ms=w["parent_ms"],
                 wan_exp2_floor_ms=w["exp2_floor_ms"])

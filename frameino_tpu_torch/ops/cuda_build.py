@@ -41,7 +41,8 @@ _CUDA_SOURCES = {
     "flash_int8": {"flash_variant_int8": [_VP] * 7 + [_INT] * 5 + [_VP],
                    "flash_int8_config": [_INT] * 2},
     "flash_packed": {"flash_packed_bf16": [_VP] * 4 + [_INT] * 3
-                     + [_F32, _VP]},
+                     + [_F32, _VP],
+                     "flash_packed_config": [_INT]},
     "qk_producers": {
         "qk_norm_rope_bf16": [_VP] * 6 + [_INT] * 4 + [_F32] + [_INT] * 4
         + [_VP],
@@ -67,12 +68,15 @@ _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 
 def _source_bytes(path: Path, seen: set) -> bytes:
-    """A source and, after it, every header of ``csrc/`` that it includes
-    with quotes (transitively, each once)."""
+    """A source and, after it, every header that it includes with quotes
+    (transitively, each once), found as nvcc finds it: beside the file
+    that includes it, else in ``csrc/``."""
     seen.add(path)
     data = path.read_bytes()
     for inc in _LOCAL_INCLUDE.findall(data):
-        header = _CSRC / inc.decode()
+        header = path.parent / inc.decode()
+        if not header.exists():
+            header = _CSRC / inc.decode()
         if header not in seen:
             data += _source_bytes(header, seen)
     return data

@@ -21,12 +21,13 @@ variant ``v0``) they switch three things, and pack two heads a row:
 - ``packed_flash`` (K8): head_dim 64, two heads side by side in 128-wide
   rows ``[B*H/2, S, 128]``, two independent online softmaxes a row.
 
-K9-K10 and K11-K12 are two persistent TMA + ``wgmma`` kernels of one
+K8, K9-K10 and K11-K12 are persistent TMA + ``wgmma`` kernels of one
 design (K1/K3's): ``csrc/flash_variants.cu`` with a bf16 S product and q
 pre-scaled in the kernel (``bf16_flash`` launches it on a bound made
-beforehand) and ``csrc/flash_int8.cu`` on int8 codes (``int8_flash``
-launches it on given codes); K8 is an ``mma.sync`` kernel
-(``csrc/flash_packed.cu``). Each wrapper takes the JAX
+beforehand), ``csrc/flash_int8.cu`` on int8 codes (``int8_flash``
+launches it on given codes) and ``csrc/flash_packed.cu`` on packed rows
+(``packed_rows`` launches it on rows packed beforehand). Each wrapper
+takes the JAX
 function's arguments ([B, H, S, D] tensors), launches its kernel for CUDA
 tensors (bf16, contiguous, head_dim 64 or 128) and raises on anything else;
 for CPU tensors it runs the plain version beside it (``*_ref``). Each counts its
@@ -172,16 +173,21 @@ def flash_v123_ref(q, k, v, *, scale: float):
     return int8_flash_ref(*codes, v, int8_bound(*codes))
 
 
-def packed_flash_ref(q, k, v):
-    """Plain version of K8, on the packed layout: each 64-lane half of the
-    128-wide rows is one head's online-softmax attention (K3's plain
+def packed_rows_ref(qp, kp, vp):
+    """Plain version of K8's kernel on packed rows [pairs, S, 128]: each
+    64-lane half is one head's online-softmax attention (K3's plain
     version at softmax scale 64 ** -0.5)."""
     D = _PACKED_HEAD_DIM
-    qp, kp, vp = pack(q), pack(k), pack(v)
     c = D ** -0.5 * LOG2E
-    halves = [flash_fwd_ref(qp[..., h:h + D], kp[..., h:h + D],
-                            vp[..., h:h + D], c) for h in (0, D)]
-    return unpack(torch.cat(halves, dim=-1), q.shape[0])
+    return torch.cat([flash_fwd_ref(qp[..., h:h + D], kp[..., h:h + D],
+                                    vp[..., h:h + D], c) for h in (0, D)],
+                     dim=-1)
+
+
+def packed_flash_ref(q, k, v):
+    """Plain version of K8 on [B, H, S, 64] heads: ``pack``, the plain
+    version on the packed rows, ``unpack``."""
+    return unpack(packed_rows_ref(pack(q), pack(k), pack(v)), q.shape[0])
 
 
 # ---------------------------------------------------------------------------
@@ -436,6 +442,54 @@ flash_v3.launches = 0
 # K8: csrc/flash_packed.cu
 # ---------------------------------------------------------------------------
 
+def packed_smem_layout() -> dict:
+    """The shared memory of a block of ``csrc/flash_packed.cu``, as its
+    ``Layout`` lays it out; the library's ``flash_packed_config`` reports
+    the same numbers on a card. Byte offsets from the block's 1024-aligned
+    base: two bf16 Q buffers of ``q_rows`` packed rows, then ``stages`` K
+    tiles and V tiles of 128 keys, and the mbarriers. A packed tile is two
+    column blocks of 128-byte rows, 128-byte swizzled: head A's 64 lanes
+    (``q_block`` / ``kv_block`` bytes), then head B's."""
+    cwg, stages, keys = 2, 2, 128
+    out = dict(consumer_wgs=cwg, q_rows=64 * cwg, stages=stages, keys=keys,
+               swizzle=128, column_blocks=2, q=0, q_block=64 * cwg * 128,
+               q_tile=64 * cwg * 2 * 128, kv_block=keys * 128,
+               kv_tile=keys * 2 * 128)
+    out["k"] = 2 * out["q_tile"]
+    out["v"] = out["k"] + stages * out["kv_tile"]
+    out["bars"] = out["v"] + stages * out["kv_tile"]
+    out["smem_bytes"] = out["bars"] + (6 + 4 * stages) * 8 + 1024
+    return out
+
+
+def packed_rows(qp, kp, vp, *, library=None):
+    """K8's kernel on packed rows made beforehand: qp/kp/vp [pairs, S, 128]
+    bf16, each row [head A | head B]; q is pre-scaled by bf16(64 ** -0.5 *
+    log2e) in the kernel. CUDA: the kernel of ``csrc/flash_packed.cu`` (or
+    of ``library``, another build of its C interface); CPU:
+    ``packed_rows_ref``. Counts no launch: ``packed_flash`` does."""
+    if not qp.is_cuda:
+        return packed_rows_ref(qp, kp, vp)
+    if (qp.ndim != 3 or qp.shape[-1] != 2 * _PACKED_HEAD_DIM
+            or kp.shape != qp.shape or vp.shape != qp.shape
+            or qp.shape[1] == 0):
+        raise ValueError(f"packed_rows: q, k, v must share one non-empty "
+                         f"[pairs, S, {2 * _PACKED_HEAD_DIM}] shape, got "
+                         f"{tuple(qp.shape)} {tuple(kp.shape)} "
+                         f"{tuple(vp.shape)}")
+    check_cuda_bf16("packed_rows", qp, kp, vp)
+    o = torch.empty_like(qp)
+    q_scale = float(torch.tensor(_PACKED_HEAD_DIM ** -0.5 * LOG2E,
+                                 dtype=torch.bfloat16))
+    err = (library or lib("flash_packed")).flash_packed_bf16(
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(),
+        qp.shape[0], qp.shape[1], kp.shape[1], q_scale, _stream(qp))
+    if err != 0:
+        raise RuntimeError(f"packed_rows: flash_packed_bf16 launch failed: "
+                           f"CUDA error {err}")
+    return o
+
+
 def packed_flash(q, k, v, *, block_q: Optional[int] = None,
                  block_k: Optional[int] = None):
     """K8 (replaces ``packed_flash`` / ``_packed_kernel``): attention of
@@ -447,16 +501,7 @@ def packed_flash(q, k, v, *, block_q: Optional[int] = None,
     _check_qkv("packed_flash", q, k, v, head_dims=(_PACKED_HEAD_DIM,))
     if q.shape[1] % 2:
         raise ValueError(f"packed_flash: {q.shape[1]} heads do not pair")
-    qp, kp, vp = (pack(t).contiguous() for t in (q, k, v))
-    o = torch.empty_like(qp)
-    q_scale = float(torch.tensor(_PACKED_HEAD_DIM ** -0.5 * LOG2E,
-                                 dtype=torch.bfloat16))
-    err = lib("flash_packed").flash_packed_bf16(
-        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(),
-        qp.shape[0], qp.shape[1], kp.shape[1], q_scale, _stream(q))
-    if err != 0:
-        raise RuntimeError(f"packed_flash: flash_packed_bf16 launch failed: "
-                           f"CUDA error {err}")
+    o = packed_rows(*(pack(t).contiguous() for t in (q, k, v)))
     packed_flash.launches += 1
     return unpack(o, q.shape[0]).contiguous()
 

@@ -10,9 +10,10 @@ tokens):
    for. The CUDA source has one at head_dim 64 (192 q rows, three
    consumer warpgroups of 64, x 128 keys, ``csrc/flash_fwd.cu``), so
    today this is one line: the baseline the other two are read against.
-2. ``packed``   head-pair packing (K8, ``ops/flash_variants.packed_flash``):
-   two heads a block from 128-wide packed rows, checked against K3 on a
-   slice and timed against it.
+2. ``packed``   head-pair packing (K8, ``ops/flash_variants.packed_flash``,
+   ``csrc/flash_packed.cu``: 128 packed rows, two consumer warpgroups of
+   64, x 128 keys): two heads a row, checked against K3 on a slice and
+   timed against it.
 3. ``int8rate`` raw matrix-product rate outside any kernel of the port:
    ``torch.matmul`` in bf16 against ``torch._int_mm`` in int8 at M=2048,
    N=4096 and the depths K=64 and K=128 that the flash kernel runs per
@@ -43,6 +44,9 @@ ITERS = 8                       # timed launches of an attention
 # the (q rows, keys) tiles csrc/flash_fwd.cu is compiled for at head_dim 64
 # (its flash_fwd_config(64, 2) q rows)
 K3_TILES = [(192, 128)]
+# the (packed q rows, keys) tile of csrc/flash_packed.cu (its
+# flash_packed_config(2) q rows)
+PACKED_TILE = (128, 128)
 PACKED_CHECK = (4, 1024)        # heads and tokens of the numerics slice
 INT8RATE = dict(M=2048, N=4096, iters=50)
 
@@ -89,10 +93,11 @@ def exp_packed(device, shape):
     rows = [dict(exp="packed", check_max_abs=err)]
 
     t, rate = _time_attention(lambda: packed_flash(q, k, v), shape, device)
-    bq, bk = K3_TILES[0]
+    bq, bk = PACKED_TILE
     print(f"packed bq={bq:4d} bk={bk:5d} {t * 1e3:7.2f} ms {rate:6.1f} "
           f"useful-TFLOP/s{clock_tag(device)}")
     rows.append(dict(exp="packed", ms=t * 1e3, tflops=rate))
+    bq, bk = K3_TILES[0]
     t_ref, rate_ref = _time_attention(
         lambda: flash_attention_inference(q, k, v, D ** -0.5), shape, device)
     print(f"direct D=64 ({bq},{bk}): {t_ref * 1e3:7.2f} ms {rate_ref:6.1f} "

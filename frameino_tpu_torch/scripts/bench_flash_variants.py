@@ -41,8 +41,10 @@ from frameino_tpu_torch.ops import flash_variants as FV
 from frameino_tpu_torch.ops.attention import flash_attention_inference
 from frameino_tpu_torch.scripts import clock_tag, pick_device, timed
 
-TILE = (64, 64)   # q rows x keys of every kernel here (csrc/flash_common.cuh)
 ITERS = 8         # the default of --iters
+# q rows a tile of K3 (csrc/flash_fwd.cu: 64 a consumer warpgroup, three
+# at head_dim 64 and two at 128; its flash_fwd_config(D, 2)) x 128 keys
+K3_Q_ROWS = {64: 192, 128: 128}
 
 SHAPES = {
     # CogVideoX-5B FrameIn published protocol: 226 text + 14x28x40
@@ -61,6 +63,17 @@ VARIANTS = {
     "v123": lambda q, k, v, scale: FV.flash_v3(q, k, v, scale=scale,
                                                static_ones=True),
 }
+
+
+def tile(name: str, head_dim: int):
+    """(q rows, keys) of a tile of the kernel behind variant ``name`` at
+    ``head_dim``: K3 (``v0``), K9/K10 (``csrc/flash_variants.cu``) or
+    K11/K12 (``csrc/flash_int8.cu``), as their layouts give them."""
+    if name == "v0":
+        return K3_Q_ROWS[head_dim], 128
+    lay = (FV.int8_smem_layout if name in ("v3", "v123")
+           else FV.variants_smem_layout)(head_dim)
+    return lay["q_rows"], lay["keys"]
 
 
 def main(argv=None, shapes=None):
@@ -94,8 +107,7 @@ def main(argv=None, shapes=None):
                                dtype=torch.bfloat16, generator=gen)
                    for _ in range(3))
         fl = 4 * B * H * S * S * D
-        print(f"=== {shape_name}: B={B} H={H} D={D} S={S} "
-              f"blocks=({TILE[0]},{TILE[1]})", flush=True)
+        print(f"=== {shape_name}: B={B} H={H} D={D} S={S}", flush=True)
 
         # numerics check on a slice vs the reference kernel
         Sc = args.check_s
@@ -117,9 +129,10 @@ def main(argv=None, shapes=None):
         for name in names:
             t, first = timed(lambda: VARIANTS[name](q, k, v, scale),
                              args.iters, device)
-            print(f"  {name}: {t * 1e3:8.2f} ms  {fl / t / 1e12:6.1f} "
-                  f"TFLOP/s  (first call {first:.1f}s){clock_tag(device)}",
-                  flush=True)
+            bq, bk = tile(name, D)
+            print(f"  {name} (tile {bq}x{bk}): {t * 1e3:8.2f} ms  "
+                  f"{fl / t / 1e12:6.1f} TFLOP/s  (first call {first:.1f}s)"
+                  f"{clock_tag(device)}", flush=True)
             rows.append(dict(shape=shape_name, variant=name, ms=t * 1e3,
                              tflops=fl / t / 1e12))
     return rows

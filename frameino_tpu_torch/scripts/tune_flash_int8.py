@@ -71,18 +71,18 @@ def int8_bodies(q, k, v, scale):
             for body, bnd in (("k12", None), ("k11", bound))}
 
 
-def run_versions(argv, source, bodies):
+def run_versions(argv, source, bodies, shapes=",".join(SHAPES)):
     """The command line of the tuning scripts: every version of
     ``csrc/<source>.cu`` built, and each of ``bodies(q, k, v, scale)``
     ({body: launch(library)}) run on each version at the experiment
-    shapes, held to the port's output and timed in turns beside K3, K1
-    and SDPA."""
+    shapes (``shapes``: the default of ``--shapes``), held to the port's
+    output and timed in turns beside K3, K1 and SDPA."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--alt", action="append", default=[],
                     metavar="NAME=PATH")
     ap.add_argument("--probe", action="append", default=[],
                     metavar="NAME=PATH")
-    ap.add_argument("--shapes", default=",".join(SHAPES))
+    ap.add_argument("--shapes", default=shapes)
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args(argv)
     alts = dict(a.split("=", 1) for a in args.alt)

@@ -120,11 +120,18 @@ def test_flash_kernels_repeat_and_slice_bit_equal(dev, d):
 
 
 def test_attn_d64_script_names_the_compiled_tile(dev):
-    """The head_dim-64 experiment script labels K3's row with the tile the
-    source is built for: q rows (64 a consumer warpgroup) x 128 keys."""
+    """The experiment scripts label each kernel's row with the tile its
+    source is built for: K3's q rows (64 a consumer warpgroup) x 128 keys,
+    K8's packed rows x 128 keys."""
     from frameino_tpu_torch.scripts import bench_attn_d64
+    from frameino_tpu_torch.scripts import bench_flash_variants
     lib = A._lib("flash_fwd")
     assert bench_attn_d64.K3_TILES == [(lib.flash_fwd_config(64, 2), 128)]
+    assert bench_attn_d64.PACKED_TILE == (
+        FV.lib("flash_packed").flash_packed_config(2), 128)
+    for d in (64, 128):
+        assert bench_flash_variants.tile("v0", d) == (
+            lib.flash_fwd_config(d, 2), 128)
     assert lib.flash_fwd_config(64, 2) == 64 * lib.flash_fwd_config(64, 1)
     assert lib.flash_fwd_config(128, 1) == 2
     assert lib.flash_fwd_config(96, 0) == -1
@@ -827,6 +834,75 @@ def test_packed_flash_matches_plain(dev, heads, s):
                                rtol=2e-2)
     assert _rel_l2(got, ref) <= 5e-3
     assert _rel_l2(got, k3) <= 5e-3
+
+
+def test_flash_packed_config_matches_the_layout(dev):
+    """The library's launch shape and shared memory are the layout that
+    ``tests/test_torch_flash_packed.py`` replays on the CPU."""
+    lib = FV.lib("flash_packed")
+    lay = FV.packed_smem_layout()
+    assert [lib.flash_packed_config(w) for w in range(4)] == [
+        lay["smem_bytes"], lay["consumer_wgs"], lay["q_rows"], lay["stages"]]
+    assert lib.flash_packed_config(4) == -1
+
+
+# K8 (csrc/flash_packed.cu) through its C entry on rows packed
+# beforehand: one row with one key, ragged sequences (129: a one-key tail;
+# 300: off the q tile of 128 rows; 777), 2 and 4 heads a batch entry, and
+# 48 pairs, so that each persistent block walks several q tiles on one ring
+@pytest.mark.parametrize("b,h,s", [(1, 2, 1), (1, 2, 129), (1, 4, 300),
+                                   (1, 2, 777), (2, 4, 777), (1, 96, 300)])
+def test_packed_rows_kernel(dev, b, h, s):
+    """The kernel against ``packed_rows_ref`` on the same packed rows, and
+    two launches bit-identical."""
+    g = torch.Generator(dev).manual_seed(8)
+    rows = [FV.pack(torch.randn(b, h, s, 64, device=dev,
+                                dtype=torch.bfloat16, generator=g))
+            .contiguous() for _ in range(3)]
+    got = FV.packed_rows(*rows)
+    again = FV.packed_rows(*rows)
+    ref = FV.packed_rows_ref(*(t.cpu() for t in rows))
+    torch.cuda.synchronize()
+    assert got.shape == rows[0].shape and torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    _assert_flash_close(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("head", [0, 1], ids=["head_a", "head_b"])
+def test_packed_rows_keep_the_heads_apart(dev, head):
+    """A head's output lanes depend on its own lanes of q, k and v only:
+    the other head's k and v replaced, they are bit-identical."""
+    g = torch.Generator(dev).manual_seed(9)
+    q, k, v = (torch.randn(3, 300, 128, device=dev, dtype=torch.bfloat16,
+                           generator=g) for _ in range(3))
+    other = slice(64 * (1 - head), 64 * (2 - head))
+    mine = slice(64 * head, 64 * (head + 1))
+    k2, v2 = k.clone(), v.clone()
+    k2[..., other] = torch.randn_like(k2[..., other]) * 4
+    v2[..., other] = torch.randn_like(v2[..., other]) * 4
+    a = FV.packed_rows(q, k, v)
+    b = FV.packed_rows(q, k2, v2)
+    torch.cuda.synchronize()
+    assert torch.equal(a[..., mine], b[..., mine])
+    assert not torch.equal(a[..., other], b[..., other])
+
+
+def test_packed_rows_refuse_what_the_kernel_does_not_take(dev):
+    """Rows that are not [pairs, S, 128], differ in shape, are not bf16 or
+    lie one element off a 16-byte line are refused."""
+    q = torch.randn(2, 64, 128, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        FV.packed_rows(q[..., :64].contiguous(), q[..., :64].contiguous(),
+                       q[..., :64].contiguous())
+    with pytest.raises(ValueError):
+        FV.packed_rows(q, q[:, :32].contiguous(), q)
+    with pytest.raises(TypeError):
+        FV.packed_rows(q.float(), q.float(), q.float())
+    buf = torch.empty(q.numel() + 1, device=dev, dtype=torch.bfloat16)
+    off = buf[1:].view(q.shape)
+    off.copy_(q)
+    with pytest.raises(ValueError, match="aligned"):
+        FV.packed_rows(off, q, q)
 
 
 def test_flash_variants_reject_what_the_kernels_do_not_take(dev):

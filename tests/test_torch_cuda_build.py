@@ -104,6 +104,26 @@ def test_alternative_source_builds_beside_under_its_key(fake, tmp_path):
         cuda_build.build_cuda_libs(["k"], {"k": ("k", old)})
 
 
+def test_alternative_source_takes_the_header_beside_it(fake, tmp_path):
+    """An older version of a source that brings its own copy of a header
+    (a header the checkout no longer has, or an older one) is named by
+    that copy, as nvcc's quoted include finds it; without one, by the
+    header of csrc/."""
+    tmp_path, calls = fake
+    old = tmp_path / "old" / "k.cu"
+    old.parent.mkdir()
+    old.write_text('#include "h.cuh"\n#include "gone.cuh"\n')
+    (old.parent / "gone.cuh").write_text("// only beside the old source\n")
+    first = cuda_build._so_path("old", old)
+    (old.parent / "h.cuh").write_text("// the old h\n")
+    assert cuda_build._so_path("old", old) != first
+    data = cuda_build._source_bytes(old, set())
+    assert b"// the old h" in data and b"// shared" not in data
+    assert b"// only beside the old source" in data
+    got = cuda_build.build_cuda_libs(["k"], {"old": ("k", old)})
+    assert got["old"][0] == cuda_build._so_path("old", old).name
+
+
 def test_failed_build_raises_and_leaves_no_library(fake, monkeypatch):
     """A failed nvcc raises with its output and leaves neither a library
     nor a log, so the next call compiles again."""

@@ -245,6 +245,9 @@ def test_ported_flash_variants_script_on_cpu(capsys, check_only):
         assert r["max_abs"] <= (5e-2 if "3" in r["variant"] else 2e-2)
     if not check_only:
         assert "[cpu, host clock]" in out
+        # each kernel's own tile: 192 q rows at head_dim 64, 128 at 128
+        assert out.count(" (tile 192x128): ") == 6
+        assert out.count(" (tile 128x128): ") == 6
         assert [r["variant"] for r in times[:6]] == ["v0", "v1", "v2", "v12",
                                                     "v3", "v123"]
 
@@ -258,6 +261,7 @@ def test_ported_attn_d64_script_on_cpu(capsys, monkeypatch):
     assert [line for line in out.splitlines() if line.startswith("===")] \
         == ["=== sweep ===", "=== packed ===", "=== int8rate ==="]
     assert out.count("bq=") == 2 and "direct D=64 (192,128):" in out
+    assert "packed bq= 128 bk=  128" in out
     assert out.count("dot bf16 K=") == 2 and out.count("dot int8 K=") == 2
     assert [r["exp"] for r in rows] == ["sweep"] + ["packed"] * 3 \
         + ["int8rate"] * 4
@@ -293,15 +297,17 @@ def test_library_digest_covers_included_headers(tmp_path, monkeypatch):
     (tmp_path / "g.cuh").write_text("constexpr int kTile = 128;\n")
     assert cuda_build._so_path("a") != before[0]
     assert cuda_build._so_path("b") == before[1]
-    # the sources of the experiment kernels do share headers: K8's
-    # mma.sync helpers, and the Hopper helpers of K9-K12
+    # the sources of the experiment kernels K8-K12 do share a header, the
+    # Hopper helpers; none includes the mma.sync helpers of
+    # flash_common.cuh any more, which are gone
     monkeypatch.undo()
-    for name, header in (("flash_packed", "flash_common.cuh"),
-                         ("flash_variants", "sm90_common.cuh"),
-                         ("flash_int8", "sm90_common.cuh")):
-        shared = (cuda_build._CSRC / header).read_bytes()
+    shared = (cuda_build._CSRC / "sm90_common.cuh").read_bytes()
+    for name in ("flash_packed", "flash_variants", "flash_int8"):
         assert shared in cuda_build._source_bytes(
             cuda_build._CSRC / f"{name}.cu", set())
+    assert not (cuda_build._CSRC / "flash_common.cuh").exists()
+    for src in cuda_build._CSRC.glob("*.cu*"):
+        assert b'"flash_common.cuh"' not in src.read_bytes(), src.name
 
 
 def test_experiment_modules_never_import_jax():

@@ -239,9 +239,9 @@ open(sys.argv[sys.argv.index("-o") + 1], "wb").write(b"")
 def test_variants_source_builds_for_sm90a_on_the_hopper_helpers(
         tmp_path, monkeypatch):
     """csrc/flash_variants.cu is one nvcc of its own for sm_90a with
-    ptxas's report, its library's name covers csrc/sm90_common.cuh (and no
-    longer the mma.sync helpers of csrc/flash_common.cuh), and it is typed
-    with both C functions."""
+    ptxas's report, its library's name covers csrc/sm90_common.cuh, no
+    source includes the mma.sync helpers of csrc/flash_common.cuh (which
+    are gone), and it is typed with both C functions."""
     tools = tmp_path / "tools"
     tools.mkdir()
     nvcc = tools / "nvcc"
@@ -263,7 +263,11 @@ def test_variants_source_builds_for_sm90a_on_the_hopper_helpers(
     src = cuda_build._source_bytes(cuda_build._CSRC / "flash_variants.cu",
                                    set())
     assert (cuda_build._CSRC / "sm90_common.cuh").read_bytes() in src
-    assert (cuda_build._CSRC / "flash_common.cuh").read_bytes() not in src
+    assert b'"flash_common.cuh"' not in src
+    assert not (cuda_build._CSRC / "flash_common.cuh").exists()
+    for name in cuda_build._CUDA_SOURCES:
+        assert b'"flash_common.cuh"' not in cuda_build._source_bytes(
+            cuda_build._CSRC / f"{name}.cu", set()), name
 
 
 @pytest.mark.cuda
