@@ -63,6 +63,24 @@ Phases (any failure exits non-zero; there is no CPU path):
     DiT quantized to int8 in place, the same forward timed in int8 and
     held to INT8_REL_L2 of the bf16 output, and requests (a) and
     (b) served again with 240 K7 launches per step and 60 per request;
+    request (a) is also served with decode_mode "full" (the others take
+    the server's default, hybrid): both decodes' seconds and peaks and the
+    relative L2 between the two videos (reported, not held);
+ 5a. the pipeline's default shape: K2, K1 (plain on 4 of the 48 rows) and
+    K3 at 19,360 tokens ([2, 19360, 3072], [48, 19360, 128], kv 512) against
+    their plain versions with their bounds and SDPA; the full-width fp32
+    Wan2.2 VAE at request (a)'s latents [1, 48, 13, 30, 52] and its
+    49x480x832 clip: streaming decode and encode against the full forms
+    (STREAM_TOL), hybrid against tiled (HYBRID_TOL), a planted fault (the
+    upsample3d cache seeded from frames) rejected, seconds and peaks; a
+    checkpoint directory written by the port (DiT cut to 2 blocks, the
+    VAE, a 2-layer UMT5-XXL) and loaded by serve.build_pipeline bit-equal,
+    a VAE config without statistics refused; the full-width UMT5-XXL
+    seeded on the card (two 512-token prompts timed; a small one held
+    against fp32 on the CPU); and a 704x1280x81 request with a prompt,
+    trajectory and ID image, 2 steps, no decode_mode, through that UMT5
+    and the full-depth DiT: 200, exact K1 30, K2 60, K3 30 a step, under
+    80 GB, with its stage seconds;
  6. reference: a small Wan pipeline (2 blocks at head_dim 128) in bf16 on
     the card against the same weights in fp32 on the CPU's plain path, and
     the same pipeline with quantize="int8" against its int8 weights;
@@ -178,6 +196,18 @@ KERNELS = {
         label="K5", route="cuda",
         source="frameino_tpu_torch/csrc/qk_producers.cu",
         replaces="frameino_tpu/ops/attention.py:378"),
+    # K1, K2 and K3 again at the pipeline's default 704x1280x81 (19,360
+    # tokens), launched by its prompt request
+    "flash_fwd_static_704": dict(
+        label="K1", route="cuda", source="frameino_tpu_torch/csrc/flash_fwd.cu",
+        replaces="frameino_tpu/ops/attention.py:120"),
+    "qk_norm_rope_704": dict(
+        label="K2", route="cuda",
+        source="frameino_tpu_torch/csrc/qk_producers.cu",
+        replaces="frameino_tpu/ops/attention.py:420"),
+    "flash_fwd_704": dict(
+        label="K3", route="cuda", source="frameino_tpu_torch/csrc/flash_fwd.cu",
+        replaces="frameino_tpu/ops/attention.py:70"),
     # K1 again, at head_dim 64 on the CogVideoX path
     "flash_fwd_static_d64": dict(
         label="K1", route="cuda", source="frameino_tpu_torch/csrc/flash_fwd.cu",
@@ -1966,10 +1996,12 @@ def read_mp4(path):
     return np.stack(frames) if frames else np.zeros((0, 0, 0, 3), np.uint8)
 
 
-def serve_requests(port, requests, per_step=None, per_request=None):
+def serve_requests(port, requests, per_step=None, per_request=None,
+                   pipe=None):
     """POST each (tag, request); check status, frames, size, the decoded
     mp4 and, with ``per_step`` (and ``per_request``, launches made once a
-    request), the kernel launches of each request."""
+    request), the kernel launches of each request; with ``pipe``, each
+    request's stage seconds (``timings`` of the Wan pipeline)."""
     import numpy as np
     import torch
     from frameino_tpu_torch.ops import attention as A
@@ -2011,10 +2043,13 @@ def serve_requests(port, requests, per_step=None, per_request=None):
                    steps=req["num_inference_steps"],
                    id_image="id_image_b64" in req, seconds=seconds,
                    peak_gib=peak, bucket=out["bucket"], launches=launches,
-                   frames_mean=float(np.mean(frames)))
+                   frames_mean=float(np.mean(frames)),
+                   decode_mode=req.get("decode_mode", "default"),
+                   stages_s=dict(getattr(pipe, "timings", None) or {}))
         print(f"request {tag}: {row['shape']} steps={row['steps']} "
-              f"id={row['id_image']} {seconds:.2f} s, peak "
-              f"{peak:.2f} GiB, launches {launches}")
+              f"id={row['id_image']} decode {row['decode_mode']} "
+              f"{seconds:.2f} s, peak {peak:.2f} GiB, launches {launches}, "
+              f"stages {row['stages_s']}")
         rows.append(row)
     return rows
 
@@ -2224,9 +2259,18 @@ def phase_serve(family):
         requests = [(tag, make_request(rng, h, w, f, steps, text_dim, idi,
                                        text_len))
                     for tag, h, w, f, steps, idi in specs]
+        twins = []
+        if family == "wan":
+            # request (a) again with decode_mode "full": the same latents,
+            # decoded whole instead of by the default hybrid walk
+            twins = [("a_full", dict(requests[0][1], decode_mode="full"))]
+        server.pipeline = keep = _KeepVideos(pipe)
         A.reset_launch_counts()
-        rows = serve_requests(port, requests, per_step)
+        rows = serve_requests(port, requests + twins, per_step, pipe=pipe)
         totals = A.launch_counts()
+        server.pipeline = pipe
+        decode_modes = _decode_modes(rows, keep.videos) if twins else None
+        del keep
         int8 = serve_int8(family, pipe, port, requests)
     finally:
         httpd.shutdown()
@@ -2242,7 +2286,534 @@ def phase_serve(family):
     del pipe, server, httpd
     gc.collect()
     torch.cuda.empty_cache()
+    if decode_modes is not None:
+        int8["decode_modes"] = decode_modes
     return rows, totals, int8
+
+
+class _KeepVideos:
+    """Stands in for a pipeline behind the server and keeps each video it
+    returns, in call order."""
+
+    def __init__(self, pipe):
+        self.pipe, self.videos = pipe, []
+
+    def __getattr__(self, name):
+        return getattr(self.pipe, name)
+
+    def __call__(self, *a, **kw):
+        out = self.pipe(*a, **kw)
+        self.videos.append(out)
+        return out
+
+
+def _decode_modes(rows, videos):
+    """Request (a) decoded by the default (hybrid) and by "full": the decode
+    seconds and request peaks of both, and the relative L2 between the two
+    videos (reported, not held: the tile seams differ by design)."""
+    import numpy as np
+    by_tag = {r["request"]: (r, v) for r, v in zip(rows, videos)}
+    (ra, va), (rf, vf) = by_tag["a"], by_tag["a_full"]
+    rel = float(np.linalg.norm(va - vf) / np.linalg.norm(vf))
+    out = {"hybrid": dict(decode_s=ra["stages_s"]["decode_s"],
+                          request_peak_gib=ra["peak_gib"]),
+           "full": dict(decode_s=rf["stages_s"]["decode_s"],
+                        request_peak_gib=rf["peak_gib"]),
+           "rel_l2_hybrid_vs_full": rel,
+           "max_abs_hybrid_vs_full": float(np.abs(va - vf).max())}
+    print(f"request (a) decodes: hybrid {out['hybrid']}, full "
+          f"{out['full']}, relative L2 between the videos {rel:.4e} "
+          f"(reported, not held)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the pipeline's default shape, 704x1280x81, from checkpoint directories
+# ---------------------------------------------------------------------------
+
+# 81 frames at 704x1280 -> latents 21x44x80, plus one ID frame, patch 2x2:
+# (21 + 1) * 22 * 40 = 19,360 tokens
+S704, GRID704 = 19360, (22, 22, 40)
+REQUEST704 = dict(height=704, width=1280, num_frames=81,
+                  num_inference_steps=2)
+# request (a)'s latents [1, 48, 13, 30, 52] for the VAE paths
+VAE_LATENTS = (1, 48, 13, 30, 52)
+# the limits of tests/test_torch_vae_tiling.py (JAX's own): streaming
+# against the full forms, hybrid against tiled (allclose, atol = rtol)
+STREAM_TOL, HYBRID_TOL = 1e-4, 1e-5
+CKPT_DIR = os.path.join(REPO, "build", "chip_smoke_ckpt")
+
+
+class StubTokenizer:
+    """Stands in for transformers' AutoTokenizer (this script needs no
+    transformers and no tokenizer files): one id a character, 1 + its code
+    mod (vocab - 1), then the end id 1, padded with 0."""
+
+    def __init__(self, vocab):
+        self.vocab = vocab
+
+    def __call__(self, prompts, padding, max_length, truncation,
+                 return_tensors):
+        import numpy as np
+        ids = np.zeros((len(prompts), max_length), np.int64)
+        for i, p in enumerate(prompts):
+            toks = [1 + ord(c) % (self.vocab - 1) for c in p]
+            toks = toks[:max_length - 1] + [1]
+            ids[i, :len(toks)] = toks
+        return {"input_ids": ids, "attention_mask": (ids > 0).astype(
+            np.int64)}
+
+
+def phase_kernels_704():
+    """K2, K1 and K3 against their plain versions at the 704x1280x81 shapes
+    (CFG batch 2, 24 heads of 128, 19,360 tokens, 512 text tokens); K1's
+    plain version on 4 of the 48 rows (its fp32 logits of all 48 are
+    72 GB), the 4-row launch bit-equal to the same rows of the 48-row
+    one."""
+    import torch
+    from frameino_tpu_torch.ops import attention as A
+    from frameino_tpu_torch.ops.rope import wan_rope_table
+    g = torch.Generator("cuda").manual_seed(704)
+    dev, S_ = "cuda", S704
+    results, checks = {}, {}
+    q_raw, k_raw = (torch.randn(B, S_, H * D, device=dev,
+                                dtype=torch.bfloat16, generator=g)
+                    for _ in range(2))
+    w_q, w_k = (1 + 0.1 * torch.randn(H * D, device=dev, generator=g)
+                for _ in range(2))
+    cos_np, sin_np = wan_rope_table(D, *GRID704)
+    cos = torch.from_numpy(cos_np).to(dev)
+    sin = torch.from_numpy(sin_np).to(dev)
+    gain = D ** -0.5 * A.LOG2E
+    cq, sq = (cos * gain).contiguous(), (sin * gain).contiguous()
+    out = A.qk_norm_rope(q_raw, w_q, cq, sq, H, 1e-6)
+    err, rel = _check_ulp("K2 (704)", out,
+                          A.qk_norm_rope_ref(q_raw, w_q, cq, sq, H, 1e-6))
+    ms = cuda_ms(lambda: A.qk_norm_rope(q_raw, w_q, cq, sq, H, 1e-6), 20)
+    _report(results, "qk_norm_rope_704", err, rel, ms,
+            cuda_ms(lambda: A.qk_norm_rope_ref(q_raw, w_q, cq, sq, H, 1e-6),
+                    3),
+            bound_ms(12 * out.numel(), _nbytes(q_raw, w_q, cq, sq, out),
+                     PEAK_FP32_FLOPS), None,
+            copy_ms=cuda_ms(lambda: q_raw.clone(), 20))
+    del out
+
+    qh = A.qk_norm_rope_ref(q_raw, w_q, cq, sq, H, 1e-6)
+    kh = A.qk_norm_rope_ref(k_raw, w_k, cos, sin, H, 1e-6)
+    del q_raw, k_raw
+    vh = torch.randn(B * H, S_, D, device=dev, dtype=torch.bfloat16,
+                     generator=g)
+    bound = A._rowmax_norm(qh) * A._rowmax_norm(kh)
+    rows = torch.tensor([0, 15, 30, 47], device=dev)
+    qs, ks, vs = (t[rows].contiguous() for t in (qh, kh, vh))
+
+    def kernel():
+        return A.flash_fwd_static(qs, ks, vs, bound)
+
+    def plain():
+        return A.flash_fwd_static_ref(qs, ks, vs, bound)
+
+    want = plain()
+    err, rel, rel_l2 = _check_close("K1 (704)", kernel(), want)
+    checks["flash_fwd_static_704"] = _flash_faults(
+        "K1 flash_fwd_static_704 (4 of the 48 rows)", qs, ks, vs, want,
+        bound=bound)
+    del want
+    all_out = A.flash_fwd_static(qh, kh, vh, bound)
+    check(bool(torch.isfinite(all_out).all()),
+          "K1 (704): non-finite output on the 48 rows")
+    check(bool(torch.equal(all_out[rows], kernel())),
+          "K1 (704): the 4-row launch differs from the same rows of the "
+          "48-row launch")
+    del all_out
+    _report(results, "flash_fwd_static_704", err, rel,
+            cuda_ms(lambda: A.flash_fwd_static(qh, kh, vh, bound), 10),
+            cuda_ms(plain, 2), attn_bound(B * H, S_, S_, D),
+            cuda_ms(lambda: _sdpa(math.log(2))(qh, kh, vh), 5),
+            rel_l2=rel_l2, exp2_floor_ms=exp2_floor_ms(B * H, S_, S_),
+            note="ms, bound and library on the 48 rows; plain_ms and the "
+                 "errors on 4", ms_4_rows=cuda_ms(kernel, 10))
+    del qh, kh, vh, qs, ks, vs
+    torch.cuda.empty_cache()
+
+    def normed(n):
+        x = torch.randn(B * H, n, D, device=dev, dtype=torch.float32,
+                        generator=g)
+        return (x * torch.rsqrt(x.square().mean(-1, keepdim=True))
+                ).to(torch.bfloat16)
+
+    q, k = normed(S_), normed(L_TEXT)
+    v = torch.randn(B * H, L_TEXT, D, device=dev, dtype=torch.bfloat16,
+                    generator=g)
+    c = D ** -0.5 * A.LOG2E
+    want = A.flash_fwd_ref(q, k, v, c)
+    err, rel, rel_l2 = _check_close("K3 (704)", A.flash_fwd(q, k, v, c), want)
+    checks["flash_fwd_704"] = _flash_faults("K3 flash_fwd_704", q, k, v,
+                                            want, q_scale=c)
+    del want
+    _report(results, "flash_fwd_704", err, rel,
+            cuda_ms(lambda: A.flash_fwd(q, k, v, c), 10),
+            cuda_ms(lambda: A.flash_fwd_ref(q, k, v, c), 3),
+            attn_bound(B * H, S_, L_TEXT, D),
+            cuda_ms(lambda: _sdpa(D ** -0.5)(q, k, v), 10), rel_l2=rel_l2,
+            exp2_floor_ms=exp2_floor_ms(B * H, S_, L_TEXT))
+    del q, k, v
+    torch.cuda.empty_cache()
+    return results, checks
+
+
+def _timed(fn):
+    """(result, seconds, peak GiB) of one call on the card."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _allclose_report(got, want, tol):
+    """max abs, and the largest |got - want| / (tol + tol |want|): <= 1
+    is within torch.allclose(atol=tol, rtol=tol)."""
+    d = (got - want).abs()
+    return d.max().item(), (d / (tol + tol * want.abs())).max().item()
+
+
+def _up3d_seeded_from_frames(orig):
+    """upsample3d's first chunk with its cache seeded from the chunk's own
+    last frames instead of two zero frames (the planted fault)."""
+    import torch
+    from frameino_tpu_torch.models import wan_vae_streaming as VS
+
+    def chunk(rs, x, caches):
+        if caches.get() is None:
+            caches.put(torch.cat([x[:, :, -1:]] * VS.CACHE_T, dim=2))
+            return rs._spatial(x)
+        return orig(rs, x, caches)
+    return chunk
+
+
+def phase_vae_paths(vae):
+    """The full-width fp32 Wan2.2 VAE's paths at request (a)'s latents
+    [1, 48, 13, 30, 52] and its 49x480x832 clip, TF32 off (the chunk
+    protocol is exact, so the limits are the CPU tests'): streaming decode
+    and encode against the full forms within STREAM_TOL, hybrid against
+    tiled within HYBRID_TOL, and a planted fault (upsample3d's cache seeded
+    from the first chunk's frames) beyond STREAM_TOL; seconds and peak of
+    each."""
+    import torch
+    from frameino_tpu_torch.models import wan_vae_streaming as VS
+    from frameino_tpu_torch.models import wan_vae_tiling as VT
+    g = torch.Generator("cuda").manual_seed(48)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    rows = {}
+    try:
+        z = torch.randn(VAE_LATENTS, device="cuda", generator=g)
+
+        def run(name, fn):
+            out, sec, peak = _timed(fn)
+            rows[name] = dict(seconds=sec, peak_gib=peak)
+            print(f"vae {name}: {sec:.2f} s, peak {peak:.2f} GiB")
+            return out
+
+        full = run("decode_full", lambda: vae.decode(z))
+        got = run("decode_streaming", lambda: VS.streaming_decode(vae, z))
+        rows["decode_streaming"].update(zip(
+            ("max_abs", "over_limit"),
+            _allclose_report(got, full, STREAM_TOL)))
+        del got
+        orig = VS._up3d_chunk
+        VS._up3d_chunk = _up3d_seeded_from_frames(orig)
+        try:
+            bad = VS.streaming_decode(vae, z)
+        finally:
+            VS._up3d_chunk = orig
+        fault = _allclose_report(bad, full, STREAM_TOL)
+        rows["fault_up3d_cache_from_frames"] = dict(max_abs=fault[0],
+                                                    over_limit=fault[1])
+        del bad, full
+        tiled = run("decode_tiled", lambda: VT.tiled_decode(vae, z))
+        got = run("decode_hybrid", lambda: VT.hybrid_decode(vae, z))
+        rows["decode_hybrid"].update(zip(
+            ("max_abs", "over_limit"),
+            _allclose_report(got, tiled, HYBRID_TOL)))
+        del got, tiled, z
+        torch.cuda.empty_cache()
+        video = torch.tanh(torch.randn(1, 3, 49, 480, 832, device="cuda",
+                                       generator=g))
+        full = run("encode_full", lambda: vae.encode_moments(video))
+        got = run("encode_streaming",
+                  lambda: VS.streaming_encode_moments(vae, video))
+        rows["encode_streaming"].update(zip(
+            ("max_abs", "over_limit"),
+            _allclose_report(got, full, STREAM_TOL)))
+        got = run("encode_hybrid", lambda: VT.hybrid_encode(vae, video))
+        rows["encode_hybrid"]["rel_l2_vs_full"] = _rel_l2(got, full)
+        del got, full, video
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.cuda.empty_cache()
+    print("vae paths: " + json.dumps(rows))
+    for name in ("decode_streaming", "decode_hybrid", "encode_streaming"):
+        check(rows[name]["over_limit"] <= 1.0,
+              f"vae {name}: {rows[name]['over_limit']:.3g}x its limit "
+              f"(max abs {rows[name]['max_abs']:.3e})")
+    check(rows["fault_up3d_cache_from_frames"]["over_limit"] > 1.0,
+          "vae: the planted fault (upsample3d's cache seeded from frames) "
+          "passes the streaming limit")
+    return rows
+
+
+def _same_state(label, a, b):
+    import torch
+    sa, sb = a.state_dict(), b.state_dict()
+    check(set(sa) == set(sb), f"{label}: the loaded module's names differ")
+    for k, v in sa.items():
+        check(sb[k].dtype == v.dtype and bool(torch.equal(sb[k], v)),
+              f"{label}: {k} differs after the round trip")
+
+
+def phase_checkpoint(vae):
+    """The port's writer puts a diffusers-layout directory into
+    build/chip_smoke_ckpt/: the full-width Wan2.2 motion DiT cut to 2
+    blocks (bf16), the full Wan2.2 VAE with non-unit statistics (fp32) and
+    a UMT5 of XXL widths cut to 2 layers (bf16). serve.build_pipeline loads
+    it, with a stub tokenizer; its modules and their outputs must be
+    bit-equal to the ones written. A VAE config.json without statistics
+    must be refused. The directory is deleted after."""
+    import dataclasses
+    import torch
+    from frameino_tpu_torch import serve
+    from frameino_tpu_torch.models import pretrained, t5_encoder, wan_dit
+    g = torch.Generator("cuda").manual_seed(13)
+    dit_cfg = dataclasses.replace(wan_dit.WAN22_TI2V_5B_MOTION, num_layers=2)
+    dit = wan_dit.init_wan_dit(dit_cfg, g, dtype=torch.bfloat16)
+    vae_cfg = vae.cfg
+    t5_cfg = dataclasses.replace(t5_encoder.UMT5_XXL, num_layers=2)
+    t5 = t5_encoder.init_t5_encoder(t5_cfg, g, dtype=torch.bfloat16)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    t0 = time.time()
+    for sub, cfg, m in (("transformer", dit_cfg, dit), ("vae", vae_cfg, vae),
+                        ("text_encoder", t5_cfg, t5)):
+        pretrained.save_pretrained(os.path.join(CKPT_DIR, sub), cfg, m)
+    write_s = time.time() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, fs in os.walk(CKPT_DIR) for f in fs)
+    tok = StubTokenizer(t5_cfg.vocab_size)
+    try:
+        t0 = time.time()
+        pipe = serve.build_pipeline(
+            transformer=os.path.join(CKPT_DIR, "transformer"),
+            vae=os.path.join(CKPT_DIR, "vae"),
+            text_encoder=os.path.join(CKPT_DIR, "text_encoder"),
+            tokenizer=tok)
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
+        check(pipe.vae_cfg == vae_cfg, "checkpoint: the VAE config (with "
+                                       "its statistics) did not round-trip")
+        check(pipe.dit_cfg == dit_cfg, "checkpoint: the DiT config did not "
+                                       "round-trip")
+        _same_state("checkpoint DiT", dit, pipe.dit)
+        _same_state("checkpoint VAE", vae, pipe.vae)
+        _same_state("checkpoint UMT5", t5, pipe.text_encoder_fn.model)
+        # the outputs, with deterministic cuDNN algorithms on both sides
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            x = torch.randn(1, dit_cfg.in_channels, 3, 16, 16, device="cuda",
+                            generator=g)
+            t = torch.full((1,), 500.0, device="cuda")
+            ctx = torch.randn(1, L_TEXT, dit_cfg.text_dim, device="cuda",
+                              generator=g)
+            check(bool(torch.equal(dit(x, t, ctx), pipe.dit(x, t, ctx))),
+                  "checkpoint: the loaded DiT's output differs")
+            clip = torch.tanh(torch.randn(1, 3, 5, 64, 64, device="cuda",
+                                          generator=g))
+            check(bool(torch.equal(vae.encode_moments(clip),
+                                   pipe.vae.encode_moments(clip))),
+                  "checkpoint: the loaded VAE's output differs")
+            prompts = ["a red ball rolls to the left", ""]
+            t_ids = tok(prompts, padding="max_length", max_length=L_TEXT,
+                        truncation=True, return_tensors="np")
+            want = t5_encoder.encode_and_mask(
+                t5, torch.from_numpy(t_ids["input_ids"]).cuda(),
+                torch.from_numpy(t_ids["attention_mask"]).cuda()).float()
+            check(bool(torch.equal(want, pipe.text_encoder_fn(prompts))),
+                  "checkpoint: the loaded UMT5's output differs")
+        finally:
+            torch.backends.cudnn.deterministic = det
+        del pipe
+        bad = os.path.join(CKPT_DIR, "vae")
+        cj = pretrained.read_config_json(bad)
+        del cj["latents_mean"], cj["latents_std"]
+        with open(os.path.join(bad, "config.json"), "w") as f:
+            json.dump(cj, f)
+        try:
+            pretrained.from_pretrained(bad)
+            fail("checkpoint: a VAE config.json without latents_mean/std "
+                 "was not refused")
+        except ValueError as e:
+            check("latents_mean" in str(e), f"checkpoint: refused for "
+                                            f"another reason: {e}")
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    del dit, t5
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = dict(bytes=nbytes, write_s=write_s, load_s=load_s)
+    print(f"checkpoint round trip: {nbytes / 2 ** 30:.2f} GiB written in "
+          f"{write_s:.1f} s, build_pipeline loaded it in {load_s:.1f} s; "
+          f"modules and outputs bit-equal; a VAE without statistics refused")
+    return row
+
+
+def phase_umt5():
+    """The full-width UMT5-XXL (24 layers, d_model 4096, 64 heads of 64,
+    d_ff 10240, vocab 256,384), seeded, in bf16 on the card: two prompts
+    of 512 tokens encoded and timed. A small UMT5 in bf16 on the card is
+    held against fp32 on the CPU (at most twice the CPU's own bf16
+    error). Returns (the model, its row)."""
+    import numpy as np
+    import torch
+    from frameino_tpu_torch.models import t5_encoder as T5
+    small = T5.tiny_config(d_model=256, d_kv=64, num_heads=4, d_ff=640,
+                           num_layers=4, vocab_size=512)
+    cpu = T5.init_t5_encoder(small, torch.Generator().manual_seed(14))
+    rs = np.random.RandomState(15)
+    ids = torch.from_numpy(rs.randint(2, 512, (2, 96)))
+    mask = torch.ones_like(ids)
+    mask[1, 60:] = 0
+    want = T5.encode_and_mask(cpu, ids, mask, 128)
+
+    def as_dtype(device, dtype):
+        m = T5.T5Encoder(small, device="meta", dtype=dtype)
+        m.load_state_dict({k: v.to(device, dtype)
+                           for k, v in cpu.state_dict().items()},
+                          assign=True)
+        return T5.encode_and_mask(m, ids.to(device), mask.to(device),
+                                  128).float().cpu()
+    err_card = _rel_l2(as_dtype("cuda", torch.bfloat16), want)
+    err_cpu16 = _rel_l2(as_dtype("cpu", torch.bfloat16), want)
+    print(f"UMT5 small: card bf16 {err_card:.3e}, CPU bf16 {err_cpu16:.3e} "
+          f"relative L2 from fp32 on the CPU (limit 2x the CPU's)")
+    check(err_card <= 2 * err_cpu16,
+          f"UMT5 small: card error {err_card:.3e} exceeds twice the CPU "
+          f"bf16 error {err_cpu16:.3e}")
+
+    t0 = time.time()
+    model = T5.init_t5_encoder(T5.UMT5_XXL,
+                               torch.Generator("cuda").manual_seed(16),
+                               dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    params = sum(p.numel() for p in model.parameters())
+    g = torch.Generator("cuda").manual_seed(17)
+    ids = torch.randint(2, T5.UMT5_XXL.vocab_size, (2, L_TEXT), device="cuda",
+                        generator=g)
+    full = torch.ones_like(ids)
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: T5.encode_and_mask(model, ids, full, L_TEXT), 3)
+    out = T5.encode_and_mask(model, ids, full, L_TEXT)
+    check(bool(torch.isfinite(out).all()) and out.shape == (2, L_TEXT, 4096),
+          f"UMT5-XXL: output {tuple(out.shape)} not finite or not "
+          f"[2, {L_TEXT}, 4096]")
+    row = dict(params=params, init_s=init_s, encode_2x512_ms=ms,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               small_rel_l2_card=err_card, small_rel_l2_cpu_bf16=err_cpu16)
+    print(f"UMT5-XXL: {params / 1e9:.3f} B parameters, seeded in "
+          f"{init_s:.1f} s; two 512-token prompts in {ms:.2f} ms, peak "
+          f"{row['peak_gib']:.2f} GiB")
+    return model, row
+
+
+def phase_serve_704(umt5):
+    """A server with the full-depth seeded Wan2.2-TI2V-5B-motion and the
+    full-width UMT5 as its text encoder (stub tokenizer) answers
+    704x1280x81 with a trajectory and an ID image, 2 steps, a prompt and
+    no decode_mode (so the hybrid decode): 200, 81x704x1280 frames,
+    exactly 30 K1, 60 K2 and 30 K3 launches a step."""
+    import numpy as np
+    import torch
+    from frameino_tpu_torch import serve
+    from frameino_tpu_torch.app.server import PipelineServer
+    from frameino_tpu_torch.ops import attention as A
+    pipe = serve.build_pipeline(random_init=True)
+    text_fn = serve.make_text_encoder_fn(
+        umt5, StubTokenizer(umt5.cfg.vocab_size))
+    text_s = []
+
+    def timed_text_fn(prompts):
+        t0 = time.time()
+        out = text_fn(prompts)
+        torch.cuda.synchronize()
+        text_s.append(time.time() - t0)
+        return out
+    server = PipelineServer(pipe, text_encoder_fn=timed_text_fn)
+    httpd, port = server.start_background()
+    try:
+        req = make_request(np.random.default_rng(704), text_dim=4096,
+                           steps=REQUEST704["num_inference_steps"],
+                           with_id=True, height=REQUEST704["height"],
+                           width=REQUEST704["width"],
+                           frames=REQUEST704["num_frames"])
+        del req["prompt_embeds_b64"]
+        req["prompt"] = ("a red ball rolls in from the left edge and a dog "
+                         "chases it across the lawn")
+        A.reset_launch_counts()
+        rows = serve_requests(port, [("704", req)], PER_STEP, pipe=pipe)
+        totals = A.launch_counts()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    row = dict(rows[0], text_encode_s=text_s, tokens=S704)
+    check(row["bucket"] == [81, 704, 1280], f"request 704: bucket "
+                                            f"{row['bucket']}")
+    check(row["peak_gib"] * 2 ** 30 < 80e9,
+          f"request 704: peak {row['peak_gib']:.2f} GiB, over 80 GB")
+    for kname, n in PER_STEP.items():
+        if n:
+            check(totals[kname] > 0, f"kernel {kname} was not launched on "
+                                     f"the 704x1280x81 request")
+    print(f"request 704: text encode {text_s} s, stages {row['stages_s']}, "
+          f"peak {row['peak_gib']:.2f} GiB")
+    del pipe, server, httpd
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, totals
+
+
+def phase_wan_default():
+    """The slice of the pipeline's default shape: K1-K3 at 19,360 tokens,
+    the VAE's streaming / tiled / hybrid paths, the checkpoint round trip,
+    the full-width UMT5-XXL and the 704x1280x81 prompt request."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from frameino_tpu_torch.models import wan_vae
+    t0 = time.time()
+    results, checks = phase_kernels_704()
+    # one seeded full-width Wan2.2 VAE with non-unit statistics (a
+    # checkpoint's), for the VAE paths and the round trip
+    rs = np.random.RandomState(48)
+    cfg = dataclasses.replace(
+        wan_vae.WAN22_VAE_CONFIG,
+        latents_mean=tuple(float(x) for x in rs.uniform(-1, 1, 48)),
+        latents_std=tuple(float(x) for x in rs.uniform(0.5, 3, 48)))
+    vae = wan_vae.init_wan_vae(cfg, torch.Generator("cuda").manual_seed(48))
+    vae_rows = phase_vae_paths(vae)
+    ckpt = phase_checkpoint(vae)
+    del vae
+    torch.cuda.empty_cache()
+    umt5, umt5_row = phase_umt5()
+    request, totals = phase_serve_704(umt5)
+    del umt5
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results, dict(kernel_checks=checks, vae_paths=vae_rows,
+                         checkpoint=ckpt, umt5=umt5_row, request=request,
+                         launches=totals, seconds=time.time() - t0)
 
 
 def _load(cls, cfg, sd, device, dtype=None, int8=False):
@@ -2990,6 +3561,8 @@ def main():
     kernel_results.update(phase_kernels_k7())
     dense_int8 = phase_dense_int8()
     rows, totals, int8_wan = phase_serve("wan")
+    res704, wan_default = phase_wan_default()
+    kernel_results.update(res704)
     ref_err = phase_reference()
     ref_err_int8 = phase_reference("int8")
     tp = phase_tp()
@@ -3013,7 +3586,11 @@ def main():
     # full-depth train steps; K7 over the int8 requests of both families;
     # K8-K12 over the two experiment scripts' runs)
     steps = train["steps"]
+    t704 = wan_default["launches"]
     launches = dict(totals, qk_ln_rope=totals_cog["qk_ln_rope"],
+                    flash_fwd_static_704=t704["flash_fwd_static"],
+                    qk_norm_rope_704=t704["qk_norm_rope"],
+                    flash_fwd_704=t704["flash_fwd"],
                     **{K5: tp["tp2"]["ranks"][0]["request_launches"][K5]},
                     flash_fwd_static_d64=totals_cog["flash_fwd_static"],
                     dyn_quant=int8_wan["launches"][K7]
@@ -3027,7 +3604,8 @@ def main():
              replaces=KERNELS[k]["replaces"], launches=launches[k],
              **kernel_results[k])
         for k in KERNELS],
-        "requests": rows + rows_cog, "reference_rel_l2": ref_err,
+        "requests": rows + rows_cog, "wan_default": wan_default,
+        "reference_rel_l2": ref_err,
         "reference_int8_rel_l2": ref_err_int8, "tp": tp,
         "flash_checks": flash_checks,
         "reference_cog_rel_l2": ref_err_cog, "dense_int8": dense_int8,

@@ -18,10 +18,10 @@ Request schema (all condition fields optional except the image):
     }
 
 Generation is serialized with a lock (one card); concurrent requests
-queue. Without ``decode_mode`` in the request each pipeline keeps its own
-default: "full" for Wan (the full-sequence decode fits on an 80 GB card;
-its other modes are not ported and answer 400), "streaming" for CogVideoX
-(the tiled chunk walk of the JAX pipeline).
+queue. A Wan request without ``decode_mode`` decodes "hybrid", the JAX
+server's default (``frameino_tpu/app/server.py:161``); a CogVideoX request
+without one keeps its pipeline's default, the tiled streaming walk, which
+the JAX CogVideoX pipeline takes for every mode but "full".
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from frameino_tpu_torch.core import shape_buckets as SB
+from frameino_tpu_torch.models.wan_vae import WanVAEConfig
 
 # the largest legitimate request is a base64 first frame + trajectory json
 # (~10 MB); 256 MB rejects pathological bodies without reading them
@@ -147,9 +148,11 @@ class PipelineServer:
 
         gen = torch.Generator(self.pipeline.device).manual_seed(
             int(req.get("seed", 0)))
-        # no decode_mode in the request: the pipeline's own default
-        extra = ({"decode_mode": req["decode_mode"]}
-                 if "decode_mode" in req else {})
+        extra = {}
+        if "decode_mode" in req:
+            extra["decode_mode"] = req["decode_mode"]
+        elif isinstance(vae_cfg, WanVAEConfig):
+            extra["decode_mode"] = "hybrid"
         with self.lock:
             video = self.pipeline(
                 image_t, prompt_embeds=prompt_embeds,

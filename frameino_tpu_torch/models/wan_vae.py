@@ -12,8 +12,8 @@ Layout is torch's channels-first: video [B, C, T, H, W]. The VAE runs in
 fp32. The mid-block attention is the plain ``attention_ref``, as the JAX
 package uses ``attention_xla`` there.
 
-Not ported: the tiled, hybrid and streaming encode/decode paths
-(``wan_vae_tiling.py``, ``wan_vae_streaming.py``).
+The streaming, tiled and hybrid forms walk these modules in
+``wan_vae_streaming.py`` and ``wan_vae_tiling.py``.
 """
 
 from __future__ import annotations

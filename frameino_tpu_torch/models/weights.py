@@ -1,7 +1,8 @@
 """Weight bridge: JAX parameter trees (as numpy arrays) -> the port's
 state dicts, under diffusers names (counterpart of
 ``frameino_tpu/models/weights.py``, which maps diffusers checkpoints into
-the JAX trees).
+the JAX trees), and ``load_safetensors_dir``, the checkpoint reader: the
+port's modules take the released files' names as they are.
 
 - JAX dense kernels [in, out] -> torch Linear weights [out, in]; the int8
   ``{kernel_q, scale}`` of ``frameino_tpu.models.quant.quantize_dit_int8``
@@ -20,6 +21,7 @@ static ``Meta`` tags.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -28,11 +30,29 @@ import torch
 from frameino_tpu_torch.core.meshes import Mesh
 from frameino_tpu_torch.models.cogvideox_dit import CogVideoXConfig
 from frameino_tpu_torch.models.cogvideox_vae import CogVideoXVAEConfig
+from frameino_tpu_torch.models.safetensors_io import load_file
 from frameino_tpu_torch.models.wan_dit import WanDiTConfig
 from frameino_tpu_torch.models.wan_vae import WanVAEConfig
 from frameino_tpu_torch.parallel.sharding import shard_state_dict
 
 StateDict = Dict[str, torch.Tensor]
+
+
+def load_safetensors_dir(path: str) -> StateDict:
+    """Every tensor of one safetensors file, or of every ``*.safetensors``
+    in a directory in sorted order (``frameino_tpu/models/weights.py:32``),
+    as CPU views of the memory-mapped files."""
+    if os.path.isfile(path):
+        files = [path]
+    else:
+        files = [os.path.join(path, n) for n in sorted(os.listdir(path))
+                 if n.endswith(".safetensors")]
+    if not files:
+        raise FileNotFoundError(f"no safetensors under {path}")
+    out: StateDict = {}
+    for f in files:
+        out.update(load_file(f))
+    return out
 
 
 def _t(a) -> torch.Tensor:

@@ -19,14 +19,18 @@ rank, and a checksum of the final latents must agree on every process.
 Rank 0 returns the video and the other ranks return None
 (``output_type="latent"``: every rank returns the latents).
 
+The decode modes are the JAX pipeline's: "full" (``WanVAE.decode``),
+"streaming", "tiled" and "hybrid" (``models/wan_vae_streaming.py``,
+``models/wan_vae_tiling.py``); the server asks for "hybrid" as JAX's does.
+
 Not ported: the Wan2.1 branch (``prepare_conditions_wan21``,
-``denoise_segment_wan21``), the tiled, hybrid and streaming decodes, and
-the int8 DiT under tp > 1.
+``denoise_segment_wan21``) and the int8 DiT under tp > 1.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -35,14 +39,16 @@ import torch
 from frameino_tpu_torch.core.meshes import Mesh
 from frameino_tpu_torch.models import quant, wan_vae
 from frameino_tpu_torch.models.wan_dit import WanDiT
+from frameino_tpu_torch.models.wan_vae_streaming import streaming_decode
+from frameino_tpu_torch.models.wan_vae_tiling import (hybrid_decode,
+                                                      hybrid_encode,
+                                                      tiled_decode)
 from frameino_tpu_torch.parallel.multihost import (
     assert_same_across_processes, broadcast_from_rank0)
 from frameino_tpu_torch.schedulers.flow_match_euler import (
     FlowMatchEulerConfig, euler_step, inference_sigmas)
 
-DECODE_NOT_PORTED = (
-    "decode_mode={!r} is not ported yet: the tiled, hybrid and streaming "
-    "VAE paths are ROADMAP.md queue 1, item 2; use decode_mode='full'")
+DECODE_MODES = ("full", "streaming", "tiled", "hybrid")
 INT8_TP_NOT_PORTED = (
     "quantize='int8' under tp > 1 is not ported: the row-parallel layers' "
     "activation quantizer needs the row amax all-reduced over tp before "
@@ -76,16 +82,26 @@ def prepare_conditions(vae: wan_vae.WanVAE, image, traj_video, id_frames):
     image [B, 3, H, W] in [-1, 1]; traj_video [B, 3, T, H, W] or None;
     id_frames [B, 3, N, H, W] or None. Returns (condition [B, z, 1, h, w],
     traj_latents [B, z, f(+N), h, w] or None, id_latents [B, z, N, h, w]
-    or None). The trajectory clip takes the full-sequence encode, which
-    equals the JAX package's hybrid encode.
+    or None). A trajectory clip of more than 9 frames at 256 x 256 or
+    more takes the hybrid encode (tiles of 256 px at a stride of 192, each
+    streamed 16 frames at a time), as the JAX package's does: its blended
+    seams differ from the full-sequence encode.
     """
     cfg = vae.cfg
 
     def enc(v):
         return wan_vae.normalize_latents(cfg, vae.encode(v))
 
+    def enc_clip(v):
+        T, Hp, Wp = v.shape[2:]
+        if T <= 9 or Hp < 256 or Wp < 256:
+            return enc(v)
+        moments = hybrid_encode(vae, v, tile_min=256, tile_stride=192,
+                                chunk_pixel_frames=16)
+        return wan_vae.normalize_latents(cfg, moments[:, :cfg.z_dim])
+
     condition = enc(image[:, :, None])
-    traj_latents = enc(traj_video) if traj_video is not None else None
+    traj_latents = enc_clip(traj_video) if traj_video is not None else None
     id_latents = None
     if id_frames is not None and id_frames.shape[2] > 0:
         # each ID frame is encoded as its own single-frame clip
@@ -212,6 +228,26 @@ def denoise(dit: WanDiT, latents, condition, traj_latents, id_latents,
     return (1.0 - first_frame_mask) * condition + first_frame_mask * latents
 
 
+class _StageClock:
+    """Seconds of each stage of one pipeline call, read on the host after
+    the device has finished the stage's work (``laps`` by stage name)."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.laps = {}
+        self.t = self._now()
+
+    def _now(self) -> float:
+        if self.cuda:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def lap(self, name: str):
+        now = self._now()
+        self.laps[name] = now - self.t
+        self.t = now
+
+
 class WanImageToVideoPipeline:
     """Masked-canvas image, trajectory video, optional ID frames and prompt
     embeddings -> video (reference ``__call__`` contract,
@@ -256,6 +292,9 @@ class WanImageToVideoPipeline:
         self.pipe_cfg = pipe_cfg
         self.text_encoder_fn = text_encoder_fn
         self.mesh = mesh
+        # seconds of each stage of the last call (text encode, VAE
+        # encodes, denoise, decode), the device synchronized at each end
+        self.timings = {}
 
     @property
     def dit_cfg(self):
@@ -280,11 +319,13 @@ class WanImageToVideoPipeline:
                  generator: Optional[torch.Generator] = None, latents=None,
                  output_type: str = "np", decode_mode: str = "full",
                  cfg_mode: str = "batch"):
-        if decode_mode != "full":
-            raise NotImplementedError(DECODE_NOT_PORTED.format(decode_mode))
+        if decode_mode not in DECODE_MODES:
+            raise ValueError(f"decode_mode must be one of {DECODE_MODES}, "
+                             f"got {decode_mode!r}")
         dev = self.device
         # the VAE runs here: without a mesh, or on the mesh's rank 0
         encoder = self.mesh is None or self.mesh.rank == 0
+        clock = _StageClock(dev)
 
         if prompt_embeds is None:
             if self.text_encoder_fn is None:
@@ -296,6 +337,7 @@ class WanImageToVideoPipeline:
         if negative_prompt_embeds is None:
             negative_prompt_embeds = torch.zeros_like(prompt_embeds)
         negative_prompt_embeds = negative_prompt_embeds.to(dev)
+        clock.lap("text_encode_s")
 
         sched = self.pipe_cfg.scheduler
         sigmas, timesteps = inference_sigmas(sched, num_inference_steps)
@@ -304,6 +346,7 @@ class WanImageToVideoPipeline:
             conds = self._noise_and_conditions(
                 image, traj_tensor, id_tensor, prompt_embeds.shape[0],
                 num_frames, height, width, generator, latents)
+        clock.lap("vae_encode_s")
         if self.mesh is not None:
             conds = broadcast_from_rank0(conds, dev)
         latents, condition, traj_latents, id_latents = conds
@@ -322,6 +365,8 @@ class WanImageToVideoPipeline:
             guidance_scale_2=(None if guidance_scale_2 is None
                               else float(guidance_scale_2)),
             split_idx=split_idx, cfg_mode=cfg_mode)
+        clock.lap("denoise_s")
+        self.timings = clock.laps
         if self.mesh is not None:
             assert_same_across_processes(float(latents.double().sum()))
 
@@ -330,10 +375,23 @@ class WanImageToVideoPipeline:
         if not encoder:
             return None
         z = wan_vae.denormalize_latents(self.vae_cfg, latents)
-        video = self.vae.decode(z)
+        video = self._decode(z, decode_mode)
+        del z
+        clock.lap("decode_s")
         if output_type == "np":
             return video.cpu().numpy()
         return video
+
+    def _decode(self, z, decode_mode: str):
+        """The JAX pipeline's decode modes (``frameino_tpu/pipelines/
+        wan_i2v.py:586-598``), each with its module's defaults."""
+        if decode_mode == "streaming":
+            return streaming_decode(self.vae, z)
+        if decode_mode == "tiled":
+            return tiled_decode(self.vae, z)
+        if decode_mode == "hybrid":
+            return hybrid_decode(self.vae, z)
+        return self.vae.decode(z)
 
     def _noise_and_conditions(self, image, traj_tensor, id_tensor, batch,
                               num_frames, height, width, generator, latents):

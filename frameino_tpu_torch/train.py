@@ -9,10 +9,11 @@ prompt embeddings from a precomputed cache (zeros without one), the train
 step, periodic validation through the full pipeline, checkpoints with
 resume from the latest. ``--smoke`` trains the tiny models on the CPU in
 fp32. Without it the full-width Wan2.2-TI2V-5B-motion DiT trains on one
-CUDA card from seeded random weights, with bf16 parameters, gradients and
-Adam moments (fp32 master weights, the reference's recipe, need ~80 GB for
-a 5B model and do not fit one card beside the activations) and the fp32
-VAE. ``--stage1`` is the motion-only recipe (no ID branch).
+CUDA card from seeded random weights (or from the DiT safetensors that
+``pretrained_transformer_path`` names, loaded into the YAML's config),
+with bf16 parameters, gradients and Adam moments (fp32 master weights, the
+reference's recipe, need ~80 GB for a 5B model and do not fit one card
+beside the activations) and the fp32 VAE. ``--stage1`` is the motion-only recipe (no ID branch).
 """
 
 from __future__ import annotations
@@ -22,12 +23,6 @@ import os
 import time
 
 import torch
-
-NOT_PORTED_PRETRAINED = (
-    "pretrained_transformer_path: loading released checkpoints is "
-    "ROADMAP.md queue 1, item 7; remove it to train from seeded random "
-    "weights")
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -79,8 +74,11 @@ def main(argv=None, dit_cfg=None) -> dict:
                                                      train_step)
 
     config = load_config(args.config_path)
-    if config.get("pretrained_transformer_path"):
-        raise NotImplementedError(NOT_PORTED_PRETRAINED)
+    pretrained = config.get("pretrained_transformer_path")
+    if pretrained and not os.path.exists(str(pretrained)):
+        # JAX trains from random weights without a word here
+        raise FileNotFoundError(f"pretrained_transformer_path {pretrained!r} "
+                                f"does not exist")
 
     # --- models ----------------------------------------------------------
     if args.smoke:
@@ -120,8 +118,17 @@ def main(argv=None, dit_cfg=None) -> dict:
                                                True)))
 
     seed = int(config.get("seed") or 0)
-    model = wan_dit.init_wan_dit(
-        dit_cfg, torch.Generator(device).manual_seed(seed), dtype=dtype)
+    if pretrained:
+        # the DiT's safetensors into the model of the YAML's config, as
+        # the JAX CLI loads them (no surgery)
+        from frameino_tpu_torch.models.weights import load_safetensors_dir
+        model = wan_dit.WanDiT(dit_cfg, device="meta", dtype=dtype)
+        model.load_state_dict(
+            {k: v.to(device, dtype) for k, v in
+             load_safetensors_dir(str(pretrained)).items()}, assign=True)
+    else:
+        model = wan_dit.init_wan_dit(
+            dit_cfg, torch.Generator(device).manual_seed(seed), dtype=dtype)
     vae = wan_vae.init_wan_vae(
         vae_cfg, torch.Generator(device).manual_seed(seed + 1))
     vae.requires_grad_(False)

@@ -575,8 +575,9 @@ class _Recorder:
 @pytest.mark.parametrize("extra,want", [({}, None),
                                         ({"decode_mode": "full"}, "full")])
 def test_server_passes_decode_mode_only_when_asked(cog_server, extra, want):
-    """Without decode_mode in the request the pipeline keeps its own
-    default (CogVideoX "streaming", Wan "full")."""
+    """Without decode_mode in the request the CogVideoX pipeline keeps its
+    own default, the tiled streaming walk (a Wan request takes "hybrid",
+    JAX's server default)."""
     srv, _ = cog_server
     rec = _Recorder(srv.pipeline)
     srv.pipeline = rec

@@ -923,3 +923,92 @@ def test_flash_variants_reject_what_the_kernels_do_not_take(dev):
         FV.packed_flash(q128, q128, q128)                 # head_dim 128
     with pytest.raises(ValueError):
         FV.packed_flash(qb[:, :1], qb[:, :1], qb[:, :1])  # one head
+
+
+# ---------------------------------------------------------------------------
+# the Wan VAE's chunked and tiled paths, checkpoints and the text encoder
+# ---------------------------------------------------------------------------
+
+def _small_wan22_vae(dev):
+    from frameino_tpu_torch.models import wan_vae
+    cfg = wan_vae.WanVAEConfig(
+        base_dim=16, decoder_base_dim=24, z_dim=8, dim_mult=(1, 2, 2),
+        num_res_blocks=1, temperal_downsample=(True, True), is_residual=True,
+        in_channels=12, out_channels=12, patch_size=2,
+        latents_mean=(0.0,) * 8, latents_std=(1.0,) * 8)
+    return wan_vae.init_wan_vae(cfg, torch.Generator(dev).manual_seed(0))
+
+
+@pytest.fixture
+def no_tf32():
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32 = before
+
+
+def test_streaming_and_hybrid_vae_on_cuda(dev, no_tf32):
+    """fp32 on the card (cuDNN, TF32 off): streaming equals the full forms,
+    hybrid equals tiled (the CPU tests' limits, 1e-4 and 1e-5)."""
+    from frameino_tpu_torch.models import wan_vae_streaming as S
+    from frameino_tpu_torch.models import wan_vae_tiling as T
+    vae = _small_wan22_vae(dev)
+    g = torch.Generator(dev).manual_seed(1)
+    z = torch.randn(1, 8, 5, 12, 20, generator=g, device=dev)
+    full = vae.decode(z)
+    torch.testing.assert_close(S.streaming_decode(vae, z), full, atol=1e-4,
+                               rtol=1e-4)
+    kw = dict(tile_min=128, tile_stride=96)
+    tiled = T.tiled_decode(vae, z, **kw)
+    torch.testing.assert_close(T.hybrid_decode(vae, z, **kw), tiled,
+                               atol=1e-5, rtol=1e-5)
+    video = torch.tanh(torch.randn(1, 3, 9, 96, 160, generator=g,
+                                   device=dev))
+    torch.testing.assert_close(
+        S.streaming_encode_moments(vae, video, chunk_pixel_frames=4),
+        vae.encode_moments(video), atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(
+        T.hybrid_encode(vae, video, chunk_pixel_frames=4, **kw),
+        T.tiled_encode(vae, video, **kw), atol=1e-5, rtol=1e-5)
+
+
+def test_safetensors_bf16_round_trip_onto_cuda(dev, tmp_path):
+    """bf16 tensors written from the card, read back and moved onto it:
+    bit-equal; a whole DiT through from_pretrained likewise."""
+    from frameino_tpu_torch.models import pretrained
+    from frameino_tpu_torch.models.safetensors_io import load_file, save_file
+    g = torch.Generator(dev).manual_seed(2)
+    want = {"a": torch.randn(33, 7, generator=g, device=dev
+                             ).to(torch.bfloat16),
+            "b": torch.randn(5, generator=g, device=dev).to(torch.bfloat16)}
+    save_file(want, str(tmp_path / "x.safetensors"))
+    got = load_file(str(tmp_path / "x.safetensors"))
+    for k, v in want.items():
+        assert got[k].dtype == torch.bfloat16
+        assert torch.equal(got[k].to(dev), v), k
+    cfg = tdit.tiny_config(num_attention_heads=2, attention_head_dim=128)
+    dit = tdit.init_wan_dit(cfg, torch.Generator(dev).manual_seed(3),
+                            dtype=torch.bfloat16)
+    pretrained.save_pretrained(str(tmp_path / "t"), cfg, dit)
+    _, back = pretrained.from_pretrained(str(tmp_path / "t"), device=dev,
+                                         dtype=torch.bfloat16)
+    for k, v in dit.state_dict().items():
+        assert torch.equal(back.state_dict()[k], v), k
+
+
+def test_umt5_bf16_on_cuda_follows_fp32_on_the_cpu(dev):
+    from frameino_tpu_torch.models import t5_encoder as T5
+    cfg = T5.tiny_config(d_model=64, d_kv=16, num_heads=4, d_ff=128,
+                         num_layers=3)
+    cpu = T5.init_t5_encoder(cfg, torch.Generator().manual_seed(4))
+    card = T5.T5Encoder(cfg, device="meta", dtype=torch.bfloat16)
+    card.load_state_dict({k: v.to(dev, torch.bfloat16)
+                          for k, v in cpu.state_dict().items()}, assign=True)
+    ids = torch.randint(0, 64, (2, 40), generator=torch.Generator()
+                        .manual_seed(5))
+    mask = torch.ones_like(ids)
+    mask[1, 25:] = 0
+    want = T5.encode_and_mask(cpu, ids, mask, 48)
+    got = T5.encode_and_mask(card, ids.to(dev), mask.to(dev), 48).float()
+    assert torch.all(got[1, 25:] == 0)
+    assert _rel_l2(got.cpu(), want) < 3e-2

@@ -215,10 +215,13 @@ def test_int8_cogvideox_pipeline_matches_jax():
 
 
 def test_unported_decode_modes_raise(pipes):
+    """Every decode mode of the JAX pipeline is ported ("full",
+    "streaming", "tiled", "hybrid"); a mode it does not have raises,
+    where JAX would decode "full" without a word."""
     _, tp = pipes
     image, _, _, text, _ = _conditions()
-    for mode in ("hybrid", "tiled", "streaming"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 2"):
+    for mode in ("sliced", "Hybrid"):
+        with pytest.raises(ValueError, match="decode_mode must be one of"):
             tp(torch.from_numpy(image), prompt_embeds=torch.from_numpy(text),
                height=H, width=W, num_frames=F, decode_mode=mode)
 
@@ -295,23 +298,30 @@ def test_bad_request_is_400(server, body):
 
 
 def test_unported_decode_mode_is_400(server):
+    """A decode mode the pipeline does not have answers 400."""
     img = np.zeros((32, 32, 3), np.uint8)
     with pytest.raises(urllib.error.HTTPError) as e:
         _post(server, {"image_b64": _b64_png(img),
                        "prompt_embeds_b64": _b64_npy(
                            np.zeros((8, 16), np.float32)),
                        "num_frames": 5, "num_inference_steps": 1,
-                       "decode_mode": "hybrid"})
+                       "decode_mode": "sliced"})
     assert e.value.code == 400
-    assert "NotImplementedError" in json.load(e.value)["error"]
+    assert "ValueError: decode_mode" in json.load(e.value)["error"]
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(smoke=True, random_init=False, text_encoder="umt5"), "item 1"),
-    (dict(smoke=False, random_init=False), "item 7"),
+@pytest.mark.parametrize("kw,err,match", [
+    (dict(smoke=True, text_encoder="/no/such/umt5"), FileNotFoundError,
+     "umt5"),
+    (dict(), ValueError, "exactly one"),
+    (dict(smoke=True, transformer="/x"), ValueError, "exactly one"),
+    (dict(transformer="/x", device="cpu"), ValueError, "both"),
 ])
-def test_serve_unported_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_serve_unported_options_raise(kw, err, match):
+    """build_pipeline needs exactly one source of weights (checkpoint
+    directories, --smoke or --random_init), both checkpoint directories,
+    and a text encoder directory that exists."""
+    with pytest.raises(err, match=match):
         serve.build_pipeline(**kw)
 
 
@@ -353,8 +363,10 @@ def test_serve_args():
 def test_port_never_imports_jax(tmp_path):
     """Importing the package, its server and entry points, its mesh and
     parallel modules, serving one smoke request of each family and one of
-    the int8 Wan pipeline, and taking one smoke train step leaves jax and
-    every module of the JAX package (frameino_tpu) unimported."""
+    the int8 Wan pipeline, serving a prompt request from checkpoint
+    directories (the safetensors writer and reader, UMT5) and taking one
+    smoke train step leaves jax and every module of the JAX package
+    (frameino_tpu) unimported."""
     code = textwrap.dedent("""
         import base64, io, json, os, sys
         import numpy as np
@@ -390,6 +402,33 @@ def test_port_never_imports_jax(tmp_path):
                 "trajectories": [[[2, 2], [10, 12]]]})
             assert out["num_frames"] == 5, out
         root = sys.argv[1]
+        # serving from checkpoint directories, a prompt through UMT5
+        import torch
+        from frameino_tpu_torch.models import (pretrained, t5_encoder,
+                                               wan_dit, wan_vae)
+        dcfg, vcfg = serve.smoke_configs()
+        tcfg = t5_encoder.tiny_config(d_model=dcfg.text_dim)
+        g = torch.Generator().manual_seed(0)
+        for sub, cfg, m in (
+                ("transformer", dcfg, wan_dit.init_wan_dit(dcfg, g)),
+                ("vae", vcfg, wan_vae.init_wan_vae(vcfg, g)),
+                ("text_encoder", tcfg, t5_encoder.init_t5_encoder(tcfg, g))):
+            pretrained.save_pretrained(os.path.join(root, sub), cfg, m)
+
+        def tokenizer(prompts, max_length, **kw):
+            ids = np.zeros((len(prompts), max_length), np.int64)
+            ids[:, :3] = [5, 6, 1]
+            return {"input_ids": ids, "attention_mask": (ids > 0) * 1}
+        pipe = serve.build_pipeline(
+            transformer=os.path.join(root, "transformer"),
+            vae=os.path.join(root, "vae"),
+            text_encoder=os.path.join(root, "text_encoder"),
+            tokenizer=tokenizer, device="cpu")
+        out = PipelineServer(pipe).handle_generate({
+            "image_b64": base64.b64encode(b.getvalue()).decode(),
+            "prompt": "a cat", "num_frames": 5, "num_inference_steps": 1,
+            "trajectories": [[[2, 2], [10, 12]]]})
+        assert out["num_frames"] == 5, out
         data = write_fixture_dataset(root, 32, 32, 12)
         cfg = {"download_folder_path": data,
                "train_csv_relative_path": "csvs",

@@ -83,8 +83,10 @@ def test_stage1_trains_without_the_id_branch(smoke_env):
 
 def test_unported_and_unavailable_paths_raise(smoke_env, monkeypatch):
     root, data = smoke_env
+    # a pretrained path that does not exist raises (JAX trains from random
+    # weights without a word)
     path = _config(root, data, pretrained_transformer_path="/x/y")
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+    with pytest.raises(FileNotFoundError, match="/x/y"):
         train.main(["--config_path", path, "--smoke"])
     path = _config(root, data)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
