@@ -26,7 +26,8 @@ Phases (any failure exits non-zero; there is no CPU path):
  2. build: compile the seven CUDA sources (nvcc, sm_90a, all at once: the
     serving flash kernels, the qk-norm/RoPE producers K2, K5 and
     qk-LayerNorm/RoPE K4, K6, K7, the experiment variants K9-K10, the
-    int8-QK^T K11-K12 and the packed K8) from the sources in the checkout;
+    int8-QK^T K11-K12 and the packed K8) from the sources in the checkout,
+    and a probe copy of K6 whose backward leaves out its dQ adds;
  3. kernels: each kernel against its plain PyTorch version at the shapes
     the Wan serving path gives it (Wan2.2-TI2V-5B, 49 frames at 480x832:
     CFG batch 2, 24 heads of 128, 5,460 tokens, 512 text tokens), with
@@ -123,6 +124,28 @@ Phases (any failure exits non-zero; there is no CPU path):
     functions, exactly 120 forward and 60 backward K6 launches per step;
 13. train reference: a small bf16 train step on the card against fp32 on
     the CPU (loss and every gradient);
+13a. train rules: one Wan step at full width and 2 blocks with each of
+    adafactor and prodigy (finite loss, the weight moved, 8/4 K6
+    launches, the peak);
+13b. CogVideoX train kernel: K6 at [48, 19126, 64] on one block's real
+    producer output (the per-head LayerNorm and RoPE of random to_q /
+    to_k, identity over the 226 text rows), forward and backward against
+    the plain version on 4 of the 48 heads within FLASH_REL_L2 and
+    GRAD_REL_L2, the last partial 64-row tile on its own, the planted
+    faults rejected there, a second backward repeating dK and dV bit for
+    bit; times beside SDPA, the bound and the exp2 floor, and the backward
+    without its dQ adds (the probe, its dK and dV unchanged);
+13c. CogVideoX train entry: ``frameino_tpu_torch.train_cogvideox.main`` at
+    full width, 2 blocks, 49 frames at 480x720 from a synthetic dataset in
+    build/: 3 steps and a checkpoint, then a rerun that resumes (the
+    restored state equal to the saved one) and takes one more step, then
+    one --stage1 step (17,776 tokens); exactly 4 K6 forward and 2
+    backward launches per step;
+13d. CogVideoX train: the full-width, full-depth CogVideoX-5B-I2V-FrameINO
+    trainer (bf16 parameters and Adam moments, the bf16 VAE, remat), 3
+    steps with exactly 84 forward and 42 backward K6 launches each, then
+    a 4th under the --profile_dir helper, its trace split into the VAE
+    encodes, forward, backward and optimizer, with the idle share;
 14. experiment kernels: K9 (v1), K10 (v2, v12), K12 (v3), K11 (v123) and
     K8 (packed) against their plain versions at the two experiment shapes
     (CogVideoX protocol [2, 48, 15906, 64], the plain version on 4 of the
@@ -219,6 +242,16 @@ KERNELS = {
         source="frameino_tpu_torch/csrc/flash_attn_train.cu",
         replaces="frameino_tpu/ops/attention.py:893"),
     "flash_attn_train_bwd": dict(
+        label="K6", route="cuda",
+        source="frameino_tpu_torch/csrc/flash_attn_train.cu",
+        replaces="frameino_tpu/ops/attention.py:893"),
+    # K6 again, at head_dim 64 on the CogVideoX training path (the joint
+    # attention of 19,126 tokens)
+    "flash_attn_train_fwd_d64": dict(
+        label="K6", route="cuda",
+        source="frameino_tpu_torch/csrc/flash_attn_train.cu",
+        replaces="frameino_tpu/ops/attention.py:893"),
+    "flash_attn_train_bwd_d64": dict(
         label="K6", route="cuda",
         source="frameino_tpu_torch/csrc/flash_attn_train.cu",
         replaces="frameino_tpu/ops/attention.py:893"),
@@ -369,11 +402,11 @@ def phase_device():
 
 
 def phase_build():
-    """nvcc of the seven CUDA sources (and of --int8-parent's,
-    --variants-parent's and --packed-parent's files), one process each,
-    all at once; returns the parents' libraries {INT8_PARENT: ...,
-    VARIANTS_PARENT: ..., PACKED_PARENT: ...}, None for a flag not
-    given."""
+    """nvcc of the seven CUDA sources, of K6's probe copy without its dQ
+    adds (and of --int8-parent's, --variants-parent's and
+    --packed-parent's files), one process each, all at once; returns the
+    extra libraries {INT8_PARENT: ..., VARIANTS_PARENT: ...,
+    PACKED_PARENT: ..., K6_NO_DQ_ADDS: ...}, None for a flag not given."""
     from frameino_tpu_torch.ops import attention as A
     t0 = time.time()
     parents = {}
@@ -384,6 +417,7 @@ def phase_build():
                                "flash_packed")):
         if flag in sys.argv:
             parents[key] = (source, sys.argv[sys.argv.index(flag) + 1])
+    parents[K6_NO_DQ_ADDS] = ("flash_attn_train", _k6_probe_source())
     try:
         built = A.build_cuda_libs(alts=parents or None)
     except RuntimeError as e:
@@ -397,7 +431,8 @@ def phase_build():
             if "registers" in line or "spill" in line
             or "Compiling entry" in line))
     return {key: built.get(key)
-            for key in (INT8_PARENT, VARIANTS_PARENT, PACKED_PARENT)}
+            for key in (INT8_PARENT, VARIANTS_PARENT, PACKED_PARENT,
+                        K6_NO_DQ_ADDS)}
 
 
 def _parent_triton():
@@ -2997,18 +3032,25 @@ def _train_config(data, out, steps):
             "validation_step": 0, "seed": 0}
 
 
-def _timed_steps(rows, per_step):
-    """Wrap trainer.train_step (as the entry point imports it) so that each
-    step is timed, its launches counted from 0 and checked, and one weight
-    of block 0 watched."""
+def _wan_watched(state):
+    return state.model.blocks[0].attn1.to_q.weight
+
+
+def _timed_steps(rows, per_step, module=None, attr="train_step",
+                 watched=_wan_watched):
+    """Wrap ``module.<attr>`` (a train step as the entry point looks it up;
+    by default the Wan trainer's ``train_step``) so that each step is
+    timed, its launches counted from 0 and checked, and the weight
+    ``watched(state)`` watched; returns (the original, the wrapper)."""
     import torch
     from frameino_tpu_torch.ops import attention as A
-    from frameino_tpu_torch.training import trainer
-    orig = trainer.train_step
+    if module is None:
+        from frameino_tpu_torch.training import trainer as module
+    orig = getattr(module, attr)
 
     def step(state, *args, **kw):
-        watched = state.model.blocks[0].attn1.to_q.weight
-        before = watched.detach().clone()
+        w = watched(state)
+        before = w.detach().clone()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         A.reset_launch_counts()
@@ -3021,18 +3063,18 @@ def _timed_steps(rows, per_step):
                    peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                    loss=float(metrics["loss"]),
                    grad_norm=float(metrics["grad_norm"]), launches=counts,
-                   weight_changed=not torch.equal(before, watched))
+                   weight_changed=not torch.equal(before, w))
         rows.append(row)
-        print(f"train step {row['step']}: {seconds:.3f} s, peak "
+        print(f"{attr} {row['step']}: {seconds:.3f} s, peak "
               f"{row['peak_gib']:.2f} GiB, loss {row['loss']:.5f}, "
               f"grad_norm {row['grad_norm']:.4f}, K6 "
               f"{counts['flash_attn_train_fwd']}/"
               f"{counts['flash_attn_train_bwd']}")
-        check(counts == per_step, f"train step {row['step']}: launches "
+        check(counts == per_step, f"{attr} {row['step']}: launches "
                                   f"{counts}, expected {per_step}")
         check(math.isfinite(row["loss"]) and math.isfinite(row["grad_norm"])
               and row["grad_norm"] > 0,
-              f"train step {row['step']}: loss {row['loss']} grad_norm "
+              f"{attr} {row['step']}: loss {row['loss']} grad_norm "
               f"{row['grad_norm']}")
         return metrics
 
@@ -3117,7 +3159,7 @@ def _profile_step(state, vae, tcfg, batch):
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t_all = t0 = time.time()
-        enc = trainer.encode_training_batch(vae, batch)
+        enc = trainer.encode_training_batch(vae, batch, tcfg)
         torch.cuda.synchronize()
         phases["vae_encode"] = time.time() - t0
         t0 = time.time()
@@ -3163,7 +3205,7 @@ def phase_train(data, profile):
         FrameINODataset, FrameINODatasetConfig)
     from frameino_tpu_torch.models import wan_dit, wan_vae
     from frameino_tpu_torch.serve import configure_cuda_numerics
-    from frameino_tpu_torch.train import collate
+    from frameino_tpu_torch.training.cli import collate
     from frameino_tpu_torch.training import trainer
     from frameino_tpu_torch.training.optim import OptimizerConfig
     configure_cuda_numerics()
@@ -3287,6 +3329,512 @@ def phase_train_reference():
     check(all(math.isfinite(g.sum()) for g in got["card"][1].values()),
           "train reference: non-finite gradient on the card")
     return err
+
+
+# ---------------------------------------------------------------------------
+# CogVideoX training: K6 at head_dim 64, the CogVideoX train entry and
+# steps, and the Wan trainer's adafactor and prodigy
+# ---------------------------------------------------------------------------
+
+# the heads of the [48, 19126, 64] K6 inputs whose plain fp32 forward and
+# backward run (the scores of all 48 would take ~70 GB)
+COG_TRAIN_ROWS = (0, 16, 31, 47)
+# the CogVideoX training clip: 49 frames at 480x720 (latents 13 x 60 x 90)
+COG_TRAIN_H, COG_TRAIN_W = 480, 720
+# the probe copy of K6's source whose backward leaves out its dQ adds
+K6_NO_DQ_ADDS = "k6_no_dq_adds"
+K6_DQ_ADD = "if (row < sq) atomicAdd("
+TRAIN_PHASES = ("vae_encode", "forward", "backward", "optimizer")
+
+
+def per_cog_train_step(blocks):
+    """K6 launches per train step of an n-block CogVideoX DiT with remat:
+    each block's joint attention forward, again when it is recomputed, and
+    backward once."""
+    return {**NO_SERVE, "flash_attn_train_fwd": 2 * blocks,
+            "flash_attn_train_bwd": blocks}
+
+
+def _k6_probe_source():
+    """build/k6_no_dq_adds.cu: csrc/flash_attn_train.cu with the float4
+    atomics of the 64-key backward blocks (every head_dim-64 launch)
+    guarded by a value the sums never take, so the dQ product still runs
+    and stays live but nothing is added: the main kernel's time without
+    its dQ adds."""
+    with open(os.path.join(REPO, "frameino_tpu_torch", "csrc",
+                           "flash_attn_train.cu")) as f:
+        src = f.read()
+    check(src.count(K6_DQ_ADD) == 1, "the K6 probe: the dQ atomic add of "
+                                     "csrc/flash_attn_train.cu not found")
+    path = os.path.join(REPO, "build", f"{K6_NO_DQ_ADDS}.cu")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(src.replace(K6_DQ_ADD, "if (row < sq && add.x == "
+                                       "1.2345e-38f) atomicAdd("))
+    return path
+
+
+def _k6_bwd_on(lib, q, k, v, o, lse, do, scale):
+    """K6's backward as ``ops/attention.flash_attn_train_bwd`` launches it,
+    on ``lib`` (a build of csrc/flash_attn_train.cu or the probe copy)."""
+    import torch
+    from frameino_tpu_torch.ops import attention as A
+    bh, sq, d = q.shape
+    skv = k.shape[1]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dq_acc = torch.empty((bh, sq, d), dtype=torch.float32, device=q.device)
+    stats = torch.empty((2, bh, -(-sq // 64) * 64), dtype=torch.float32,
+                        device=q.device)
+    keys = A._k6_bwd_keys_per_block(
+        bh, skv, torch.cuda.get_device_properties(
+            q.device).multi_processor_count, d)
+    err = lib.attn_train_bwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dq_acc.data_ptr(), stats.data_ptr(), bh, sq, skv, d,
+        keys, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    check(err == 0, f"K6 probe backward: CUDA error {err}")
+    return dq, dk, dv
+
+
+def _cog_attention_inputs(g):
+    """q, k, v [48, 19126, 64] bf16 as one CogVideoX-5B block's training
+    attention makes them at 49 frames of 480x720: to_q / to_k / to_v of random tokens (uniform +-1/sqrt(3072)
+    weights), the per-head LayerNorm (gains near 1, biases near 0) and the
+    interleaved RoPE, identity over the 226 text rows."""
+    import torch
+    from frameino_tpu_torch.models import cogvideox_dit as cdit
+    from frameino_tpu_torch.ops.linear import dense
+    from frameino_tpu_torch.ops.norms import layer_norm
+    from frameino_tpu_torch.ops.rope import apply_rope_interleaved
+    cfg = cdit.COGVIDEOX_5B_I2V_FRAMEINO
+    dm, dev, bf = cfg.inner_dim, "cuda", torch.bfloat16
+    cos, sin = cdit.cogvideox_rope(cfg, COG_GRID[0], 2 * COG_GRID[1],
+                                   2 * COG_GRID[2],
+                                   duplicate_first_frame_for_id=True,
+                                   device=dev)
+    s = COG_L_TEXT + cos.shape[0]
+    half = cos.shape[1]
+    cos_j = torch.cat([torch.ones(COG_L_TEXT, half, device=dev), cos])
+    sin_j = torch.cat([torch.zeros(COG_L_TEXT, half, device=dev), sin])
+    x = torch.randn(1, s, dm, device=dev, generator=g).to(bf)
+
+    def proj():
+        w, b = ((torch.rand(*shape, device=dev, generator=g) * 2 - 1)
+                * dm ** -0.5 for shape in ((dm, dm), (dm,)))
+        return dense(x, w.to(bf), b.to(bf)).reshape(
+            1, s, COG_H, COG_D).permute(0, 2, 1, 3)
+
+    def normed(t):
+        gain = 1 + 0.1 * torch.randn(COG_D, device=dev, generator=g)
+        bias = 0.1 * torch.randn(COG_D, device=dev, generator=g)
+        return apply_rope_interleaved(
+            layer_norm(t, gain, bias, eps=cfg.qk_norm_eps).to(bf), cos_j,
+            sin_j)
+    q, k, v = normed(proj()), normed(proj()), proj()
+    return tuple(t[0].contiguous() for t in (q, k, v))
+
+
+def phase_kernels_train_cog(probe):
+    """K6 at the CogVideoX training shape [48, 19126, 64], on one block's
+    real producer output: forward and backward against the plain
+    version's fp32 autograd on 4 of the 48 heads (FLASH_REL_L2, GRAD_REL_L2,
+    the last partial 64-row tile's dQ, dK and dV on their own), the
+    planted faults rejected there, a second backward repeating dK and dV
+    bit for bit; times beside SDPA, the bound and the exp2 floor; and the
+    backward without its dQ adds (``probe``, which must leave dK and dV
+    as they are)."""
+    import torch
+    from frameino_tpu_torch.ops import attention as A
+    g = torch.Generator("cuda").manual_seed(778)
+    q, k, v = _cog_attention_inputs(g)
+    bh, s, d = q.shape
+    check((bh, s, d) == (COG_H, COG_S, COG_D), f"K6 (cog): shape {q.shape}")
+    do = torch.randn(bh, s, d, device="cuda", dtype=torch.bfloat16,
+                     generator=g)
+    scale = d ** -0.5
+    o, lse = A.flash_attn_train_fwd(q, k, v, scale)
+    grads = A.flash_attn_train_bwd(q, k, v, o, lse, do, scale)
+    again = A.flash_attn_train_bwd(q, k, v, o, lse, do, scale)
+    rerun_equal = bool(torch.equal(grads[1], again[1])
+                       and torch.equal(grads[2], again[2]))
+    rerun_dq = _rel_l2(again[0], grads[0])
+    del again
+    check(rerun_equal, "K6 backward (cog): dK or dV differ between two "
+                       "launches")
+    check(rerun_dq <= DQ_RERUN_REL_L2, f"K6 backward (cog): dQ of two "
+                                       f"launches differ by {rerun_dq:.3e}")
+    check(all(bool(torch.isfinite(t).all()) for t in (o, *grads)),
+          "K6 (cog): non-finite output or gradient")
+    rows = list(COG_TRAIN_ROWS)
+    leaves = [t[rows].float().requires_grad_() for t in (q, k, v)]
+    do_r = do[rows].float()
+    o_ref = A.flash_attention_train_ref(*(t[None] for t in leaves), scale)[0]
+    ref = torch.autograd.grad(o_ref, leaves, do_r, retain_graph=True)
+    err, rel, rel_o = _check_close("K6 forward (cog, 4 of 48 heads)",
+                                   o[rows], o_ref.detach())
+    lse_err = (lse[rows] - torch.logsumexp(
+        leaves[0].detach() @ leaves[1].detach().transpose(1, 2) * scale,
+        -1)).abs().max().item()
+    check(lse_err <= 1e-3, f"K6 forward (cog): lse off by {lse_err}")
+    names = ("dq", "dk", "dv")
+    got = [t[rows] for t in grads]
+    tail = s // 64 * 64
+    rel_g = {n: _rel_l2(a, b) for n, a, b in zip(names, got, ref)}
+    rel_tail = {n: _rel_l2(a[:, tail:], b[:, tail:])
+                for n, a, b in zip(names, got, ref)}
+    check(max(rel_g.values()) <= GRAD_REL_L2
+          and max(rel_tail.values()) <= GRAD_REL_L2,
+          f"K6 backward (cog): relative L2 {rel_g}, last partial tile "
+          f"(rows {tail}-{s - 1}) {rel_tail}, limit {GRAD_REL_L2:g}")
+    grad_err = max((a.float() - b).abs().max().item()
+                   for a, b in zip(got, ref))
+    fwd_plain = cuda_ms(lambda: A.flash_attention_train_ref(
+        *(t[None] for t in leaves), scale), 2)
+    bwd_plain = cuda_ms(lambda: torch.autograd.grad(
+        o_ref, leaves, do_r, retain_graph=True), 2)
+    del o_ref, leaves
+    torch.cuda.empty_cache()
+    faults = _planted_faults(q[rows], k[rows], v[rows], do[rows], ref, scale)
+    check(min(faults.values()) > GRAD_REL_L2,
+          f"K6 (cog): a planted fault passes the gradient limit: {faults}")
+    del ref
+    torch.cuda.empty_cache()
+
+    no_dq = _k6_bwd_on(probe, q, k, v, o, lse, do, scale)
+    check(torch.equal(no_dq[1], grads[1]) and torch.equal(no_dq[2], grads[2]),
+          "K6 probe without dQ adds: dK or dV changed")
+    del no_dq
+    fwd_ms = cuda_ms(lambda: A.flash_attn_train_fwd(q, k, v, scale), 10)
+    bwd_ms = cuda_ms(lambda: A.flash_attn_train_bwd(q, k, v, o, lse, do,
+                                                    scale), 10)
+    bwd_no_dq_adds_ms = cuda_ms(lambda: _k6_bwd_on(probe, q, k, v, o, lse,
+                                                   do, scale), 10)
+    lq, lk, lv = (t[None].detach().requires_grad_() for t in (q, k, v))
+    lo = torch.nn.functional.scaled_dot_product_attention(lq, lk, lv)
+    fwd_lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        lq, lk, lv), 10)
+    bwd_lib = cuda_ms(lambda: torch.autograd.grad(
+        lo, (lq, lk, lv), do[None], retain_graph=True), 10)
+    del lo, lq, lk, lv
+    fwd_bound = attn_bound(bh, s, s, d, 4, 4 * bh * s)
+    bwd_bound = attn_bound(bh, s, s, d, 10, 2 * 2 * bh * d * 2 * s
+                           + 4 * bh * s)
+    keys = A._k6_bwd_keys_per_block(
+        bh, s, torch.cuda.get_device_properties(0).multi_processor_count, d)
+    # dQ's fp32 adds: every key block adds its [S, D] share of each head
+    dq_add_bytes = 4 * bh * -(-s // keys) * s * d
+    row = dict(fwd_err=err, fwd_rel=rel, fwd_rel_l2=rel_o, bwd_err=grad_err,
+               bwd_rel_l2=rel_g, bwd_tail_rel_l2=rel_tail, faults=faults,
+               lse_max_abs=lse_err, rerun_dkdv_equal=rerun_equal,
+               rerun_dq_rel_l2=rerun_dq, bwd_keys_per_block=keys,
+               fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+               bwd_no_dq_adds_ms=bwd_no_dq_adds_ms,
+               dq_add_gb=dq_add_bytes / 1e9,
+               dq_add_bytes_ms=1e3 * dq_add_bytes / PEAK_BYTES,
+               fwd_plain_ms_4_heads=fwd_plain, bwd_plain_ms_4_heads=bwd_plain,
+               fwd_bound=fwd_bound, bwd_bound=bwd_bound,
+               exp2_floor_ms=exp2_floor_ms(bh, s, s),
+               fwd_library_ms=fwd_lib, bwd_library_ms=bwd_lib)
+    print(f"K6 cog [{bh}, {s}, {d}]: forward {fwd_ms:.3f} ms (plain "
+          f"{fwd_plain:.3f} on 4 heads, SDPA {fwd_lib:.3f}, bound "
+          f"{fwd_bound[0]:.3f}, exp2 floor {row['exp2_floor_ms']:.3f}) rel L2 "
+          f"{rel_o:.3e}; backward {bwd_ms:.3f} ms, {bwd_no_dq_adds_ms:.3f} "
+          f"without its dQ adds ({row['dq_add_gb']:.1f} GB of fp32 adds, "
+          f"{row['dq_add_bytes_ms']:.2f} ms at the byte rate; plain "
+          f"{bwd_plain:.3f} on 4 heads, SDPA {bwd_lib:.3f}, bound "
+          f"{bwd_bound[0]:.3f}) rel L2 " + ", ".join(
+              f"{n} {x:.3e}" for n, x in rel_g.items())
+          + " | last tile " + ", ".join(f"{n} {x:.3e}"
+                                        for n, x in rel_tail.items())
+          + " | planted faults " + ", ".join(f"{n} {x:.3e}"
+                                             for n, x in faults.items())
+          + f" | {keys} keys a backward block")
+    del q, k, v, do, o, lse, grads
+    torch.cuda.empty_cache()
+    results = {}
+    for name, dirn in (("flash_attn_train_fwd_d64", "fwd"),
+                       ("flash_attn_train_bwd_d64", "bwd")):
+        results[name] = dict(
+            max_abs_err=row[f"{dirn}_err"], ms=row[f"{dirn}_ms"],
+            plain_ms=row[f"{dirn}_plain_ms_4_heads"], plain_heads=4,
+            bound_ms=row[f"{dirn}_bound"][0],
+            bound_by=row[f"{dirn}_bound"][1],
+            library_ms=row[f"{dirn}_library_ms"])
+    results["flash_attn_train_bwd_d64"]["no_dq_adds_ms"] = bwd_no_dq_adds_ms
+    return results, row
+
+
+def _cog_watched(state):
+    return state.model.transformer_blocks[0].attn1.to_q.weight
+
+
+def _cog_dataset():
+    """A synthetic dataset in build/: a 49-frame 480x720 mp4, an ID crop
+    and two CSV rows."""
+    from frameino_tpu_torch.data.fixture import write_fixture_dataset
+    root = os.path.join(REPO, "build", "chip_smoke_cog_train")
+    shutil.rmtree(root, ignore_errors=True)
+    return root, write_fixture_dataset(root, COG_TRAIN_H, COG_TRAIN_W,
+                                       TRAIN_F)
+
+
+def _cog_train_config(data, out, steps):
+    return dict(_train_config(data, out, steps),
+                experiment_name="chip_smoke_cog", target_height=COG_TRAIN_H,
+                target_width=COG_TRAIN_W, max_text_seq_length=COG_L_TEXT)
+
+
+def _restores_as_saved(record):
+    """Wrap core/checkpoint.restore_checkpoint so that each restore is held
+    against the file it read: every model and optimizer tensor equal, the
+    step and the counters too; the verdicts go to ``record``."""
+    import torch
+    from frameino_tpu_torch.core import checkpoint
+    orig = checkpoint.restore_checkpoint
+
+    def restore(path, state):
+        out = orig(path, state)
+        blob = torch.load(os.path.join(path, "state.pt"), map_location="cpu",
+                          mmap=True, weights_only=True)
+        model_sd = state.model.state_dict()
+        same = all(torch.equal(model_sd[n].cpu(), t)
+                   for n, t in blob["model"].items())
+        opt_sd = state.optimizer.state_dict()
+        for key, saved in blob["optimizer"].items():
+            mine = opt_sd[key]
+            if isinstance(saved, dict):
+                same = same and all(torch.equal(mine[n].cpu(), t)
+                                    for n, t in saved.items())
+            else:
+                same = same and mine == saved
+        record.append(dict(path=path, equal=same and
+                           state.step == blob["step"]))
+        return out
+
+    return orig, restore
+
+
+def phase_cog_train_entry(data):
+    """``frameino_tpu_torch.train_cogvideox.main`` in this process at full
+    width and 2 blocks, 49 frames at 480x720: 3 steps and a checkpoint, a
+    rerun that resumes (its restored state equal to the saved one) and
+    takes one more step, exactly 4 forward and 2 backward K6 launches a
+    step; then one --stage1 step (17,776 tokens, no ID frame), the same
+    launches."""
+    import dataclasses
+    import torch
+    from frameino_tpu_torch import train_cogvideox
+    from frameino_tpu_torch.core import checkpoint
+    from frameino_tpu_torch.models import cogvideox_dit as cdit
+    from frameino_tpu_torch.training import cog_trainer
+    out = os.path.join(REPO, "build", "chip_smoke_cog_train", "ckpts")
+    cfg_path = os.path.join(REPO, "build", "chip_smoke_cog_train",
+                            "train.yaml")
+    rows, restores, runs = [], [], []
+    orig, step = _timed_steps(rows, per_cog_train_step(2), cog_trainer,
+                                 "cog_train_step", _cog_watched)
+    orig_restore, restore = _restores_as_saved(restores)
+    cog_trainer.cog_train_step = step
+    checkpoint.restore_checkpoint = restore
+    try:
+        for steps, stage1 in ((3, False), (4, False), (1, True)):
+            cfg = dataclasses.replace(
+                cdit.COGVIDEOX_5B_I2V_MOTION if stage1
+                else cdit.COGVIDEOX_5B_I2V_FRAMEINO, num_layers=2)
+            conf = _cog_train_config(data, out, steps)
+            if stage1:
+                conf.update(experiment_name="chip_smoke_cog_stage1",
+                            resume_from_checkpoint=None)
+            with open(cfg_path, "w") as f:
+                json.dump(conf, f)
+            buf = io.StringIO()
+            t0 = time.time()
+            with contextlib.redirect_stdout(buf):
+                summary = train_cogvideox.main(
+                    ["--config_path", cfg_path]
+                    + (["--stage1"] if stage1 else []), dit_cfg=cfg)
+            print(buf.getvalue(), end="")
+            runs.append(dict(step=summary["step"],
+                             resumed_from=summary["resumed_from"],
+                             seconds=time.time() - t0))
+    finally:
+        cog_trainer.cog_train_step = orig
+        checkpoint.restore_checkpoint = orig_restore
+    first, rerun, stage1 = runs
+    check(first["step"] == 3 and first["resumed_from"] is None
+          and len(rows) == 5 and stage1["step"] == 1,
+          f"cog train entry: runs {runs}, {len(rows)} steps timed")
+    check(rerun["step"] == 4 and str(rerun["resumed_from"]).endswith(
+        "checkpoint-3") and len(restores) == 1 and restores[0]["equal"],
+          f"cog train entry: the rerun did not resume checkpoint-3 as saved "
+          f"({rerun}, {restores})")
+    check(not rows[0]["weight_changed"] and rows[1]["weight_changed"],
+          "cog train entry: the weight moved at the warmup's lr 0, or not "
+          "after it")
+    shutil.rmtree(out, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"steps": rows, "runs": runs, "restores": restores}
+
+
+def _trace_split(path):
+    """From a --profile_dir trace (Chrome JSON of torch.profiler): each
+    trainer range's host milliseconds and the device milliseconds of the
+    kernels launched inside it (a kernel joins its launch by correlation
+    id), the device's busy time over the step and its idle share."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") == "user_annotation"
+              and e.get("name") in TRAIN_PHASES}
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") == "cuda_runtime"
+                 and "correlation" in e.get("args", {})}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    device_ms = {n: 0.0 for n in ranges}
+    for e in kernels:
+        ts = launch_ts.get(e.get("args", {}).get("correlation"))
+        for n, (a, b) in ranges.items():
+            if ts is not None and a <= ts <= b:
+                device_ms[n] += e["dur"] / 1e3
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    start = min([a for a, _ in ranges.values()] + [a for a, _ in spans[:1]])
+    stop = max([b for _, b in ranges.values()] + [end or 0])
+    wall = stop - start
+    return {"host_ms": {n: (b - a) / 1e3 for n, (a, b) in ranges.items()},
+            "device_ms": device_ms, "kernels": len(kernels),
+            "device_busy_ms": busy / 1e3, "wall_ms": wall / 1e3,
+            "idle_share": 1 - busy / wall if wall else None}
+
+
+def phase_cog_train(data):
+    """The full-width, full-depth CogVideoX-5B-I2V-FrameINO trainer (bf16
+    parameters, gradients and Adam moments, the bf16 VAE, remat), Stage 2
+    at 49 frames of 480x720 and B = 1: 3 steps through the functions the
+    entry point calls, exactly 84 forward and 42 backward K6 launches a
+    step; then a 4th under core/metrics_logger.maybe_profile (what
+    --profile_dir runs), whose trace splits the step."""
+    import numpy as np
+    import torch
+    from frameino_tpu_torch.core.metrics_logger import (TRACE_FILE,
+                                                        maybe_profile)
+    from frameino_tpu_torch.data.frameino_dataset import (
+        FrameINODataset, FrameINODatasetConfig)
+    from frameino_tpu_torch.models import cogvideox_dit as cdit
+    from frameino_tpu_torch.models import cogvideox_vae as cvae
+    from frameino_tpu_torch.serve import configure_cuda_numerics
+    from frameino_tpu_torch.training import cog_trainer
+    from frameino_tpu_torch.training.cli import collate
+    from frameino_tpu_torch.training.optim import OptimizerConfig
+    from frameino_tpu_torch.training.trainer import init_train_state
+    configure_cuda_numerics()
+    ds = FrameINODataset(
+        FrameINODatasetConfig(target_height=COG_TRAIN_H,
+                              target_width=COG_TRAIN_W,
+                              sample_accelerate_factor=1,
+                              train_frame_num_range=(TRAIN_F, TRAIN_F),
+                              min_train_frame_num=TRAIN_F,
+                              drop_FrameIn_prob=0.0),
+        data, "csvs", "videos", "ids", seed=0)
+    rs = np.random.RandomState(0)
+    text = rs.standard_normal((1, COG_L_TEXT, 4096)).astype(np.float32)
+    batch = collate([ds[0]], lambda prompts: torch.from_numpy(text))
+    t0 = time.time()
+    gen = torch.Generator("cuda").manual_seed(0)
+    cfg = cdit.COGVIDEOX_5B_I2V_FRAMEINO
+    model = cdit.init_cogvideox_dit(cfg, gen, dtype=torch.bfloat16)
+    vae = cvae.init_cogvideox_vae(cvae.COGVIDEOX_VAE_CONFIG, gen,
+                                  dtype=torch.bfloat16)
+    vae.requires_grad_(False)
+    state = init_train_state(model, OptimizerConfig())
+    tcfg = cog_trainer.CogTrainerConfig(compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state.params().values())
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    print(f"cog train: CogVideoX-5B-I2V-FrameINO, {n_params / 1e9:.3f} B "
+          f"bf16 trained tensors and Adam moments, {resident:.2f} GiB "
+          f"resident, built in {time.time() - t0:.1f} s")
+    rows = []
+    _, step = _timed_steps(rows, per_cog_train_step(cfg.num_layers),
+                              cog_trainer, "cog_train_step", _cog_watched)
+    for _ in range(3):
+        step(state, vae, tcfg, batch, 0)
+    trace_dir = os.path.join(REPO, "build", "cog_train_profile")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with maybe_profile(trace_dir):
+        cog_trainer.cog_train_step(state, vae, tcfg, batch, 0)
+    profiled_s = time.time() - t0
+    split = _trace_split(os.path.join(trace_dir, TRACE_FILE))
+    split["profiled_step_s"] = profiled_s
+    print("cog train profile: " + json.dumps(split))
+    check(split["kernels"] > 0 and set(split["host_ms"]) == set(TRAIN_PHASES),
+          f"cog train profile: the trace lacks the step's ranges or kernels "
+          f"({split})")
+    del state, model, vae, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"steps": rows, "resident_gib": resident, "params": n_params,
+            "profile": split}
+
+
+def phase_train_rules(data):
+    """One Wan train step of each of adafactor and prodigy at full width
+    and 2 blocks (bf16 state), on the Wan training dataset: a finite loss,
+    the moved weight, exact K6 launches and the peak."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from frameino_tpu_torch.data.frameino_dataset import (
+        FrameINODataset, FrameINODatasetConfig)
+    from frameino_tpu_torch.models import wan_dit, wan_vae
+    from frameino_tpu_torch.training import trainer
+    from frameino_tpu_torch.training.cli import collate
+    from frameino_tpu_torch.training.optim import OptimizerConfig
+    ds = FrameINODataset(
+        FrameINODatasetConfig(target_height=TRAIN_H, target_width=TRAIN_W,
+                              sample_accelerate_factor=1,
+                              train_frame_num_range=(TRAIN_F, TRAIN_F),
+                              min_train_frame_num=TRAIN_F,
+                              drop_FrameIn_prob=0.0),
+        data, "csvs", "videos", "ids", seed=0)
+    rs = np.random.RandomState(0)
+    text = rs.standard_normal((1, L_TEXT, 4096)).astype(np.float32)
+    batch = collate([ds[0]], lambda prompts: torch.from_numpy(text))
+    cfg = dataclasses.replace(wan_dit.WAN22_TI2V_5B_MOTION, num_layers=2)
+    vae = wan_vae.init_wan_vae(wan_vae.WAN22_VAE_CONFIG,
+                               torch.Generator("cuda").manual_seed(1))
+    vae.requires_grad_(False)
+    tcfg = trainer.TrainerConfig(compute_dtype=torch.bfloat16, remat=True)
+    out = {}
+    for rule, lr in (("adafactor", 1e-4), ("prodigy", 1.0)):
+        model = wan_dit.init_wan_dit(cfg, torch.Generator("cuda").manual_seed(0),
+                                     dtype=torch.bfloat16)
+        state = trainer.init_train_state(model, OptimizerConfig(
+            optimizer=rule, learning_rate=lr, lr_scheduler="constant"))
+        rows = []
+        _, step = _timed_steps(
+            rows, per_train_step(2), trainer, "train_step",
+            lambda s: s.model.blocks[0].attn1.to_q.weight)
+        step(state, vae, tcfg, batch, 0)
+        check(rows[0]["weight_changed"], f"{rule}: the weight did not move")
+        out[rule] = rows[0]
+        del state, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    del vae
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3577,6 +4125,13 @@ def main():
     entry = phase_train_entry(data)
     train = phase_train(data, profile)
     train_ref = phase_train_reference()
+    rules = phase_train_rules(data)
+    k6_cog, k6_cog_row = phase_kernels_train_cog(parents[K6_NO_DQ_ADDS])
+    kernel_results.update(k6_cog)
+    k6_shapes["cog"] = k6_cog_row
+    _, cog_data = _cog_dataset()
+    cog_entry = phase_cog_train_entry(cog_data)
+    cog_train = phase_cog_train(cog_data)
     exp_results, exp_shapes = phase_kernels_experiment(parents)
     kernel_results.update(exp_results)
     exp_scripts, exp_launches = phase_experiment_scripts()
@@ -3596,6 +4151,9 @@ def main():
                     dyn_quant=int8_wan["launches"][K7]
                     + int8_cog["launches"][K7],
                     **{k: sum(r["launches"][k] for r in steps)
+                       for k in NO_TRAIN},
+                    **{f"{k}_d64": sum(r["launches"][k]
+                                       for r in cog_train["steps"])
                        for k in NO_TRAIN}, **exp_launches)
     for k, n in exp_launches.items():
         check(n > 0, f"kernel {k} was not launched by the experiment scripts")
@@ -3611,6 +4169,8 @@ def main():
         "reference_cog_rel_l2": ref_err_cog, "dense_int8": dense_int8,
         "int8_wan": int8_wan, "int8_cog": int8_cog, "k6_shapes": k6_shapes,
         "train_entry": entry, "train": train, "train_reference": train_ref,
+        "train_rules": rules, "cog_train_entry": cog_entry,
+        "cog_train": cog_train,
         "experiment_kernels": exp_shapes, "experiment_scripts": exp_scripts,
         "seconds": time.time() - t_start}
     out_dir = os.path.join(REPO, "build")

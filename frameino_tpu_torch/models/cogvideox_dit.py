@@ -1,5 +1,5 @@
-"""CogVideoX video DiT over the joint [text; video] sequence, forward only
-(counterpart of ``frameino_tpu/models/cogvideox_dit.py``).
+"""CogVideoX video DiT over the joint [text; video] sequence (counterpart of
+``frameino_tpu/models/cogvideox_dit.py``).
 
 ``CogVideoXDiT`` is an ``nn.Module`` with diffusers
 ``CogVideoXTransformer3DModel`` parameter names, so a diffusers state dict
@@ -18,13 +18,19 @@ and the weight bridge (``models/weights.py``) both load through
   (LayerNorm + RoPE producer) -> bound -> K1 at head_dim 64
   (``ops/attention.fused_ln_qk_flash_attention``); on the CPU the plain
   path, or the same fused function's plain versions with
-  ``attn_impl="fused"``;
+  ``attn_impl="fused"``. The training forward (``differentiable=True``)
+  takes JAX's route instead, which refuses the fused producer under
+  autograd: the plain per-head LayerNorm and RoPE, then K6
+  (``ops/attention.flash_attention_train``; its plain version on the CPU);
 - gelu_tanh FFN, ``norm_final`` over the joint sequence, ``norm_out``,
   ``proj_out`` and the 2D unpatchify.
 
 The forward runs in the weights' dtype (bf16 at full width): it casts its
-inputs to that dtype and returns fp32. Layout is the JAX package's,
-frame-first: hidden_states [B, F, C, H, W].
+inputs to that dtype and returns fp32. It runs under ``torch.no_grad``
+unless ``differentiable``; ``remat`` then recomputes each block in the
+backward (``torch.utils.checkpoint``, the counterpart of
+``jax.checkpoint``). Layout is the JAX package's, frame-first:
+hidden_states [B, F, C, H, W].
 
 Where the JAX forward raises, the port takes the intended value: JAX
 sizes the appended ``use_frame_in`` slice as (table tokens) // (F - 1),
@@ -45,6 +51,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from frameino_tpu_torch.models.quant import linear as _lin
 from frameino_tpu_torch.ops import attention as attn_ops
@@ -58,7 +65,7 @@ from frameino_tpu_torch.ops.rope import (apply_rope_interleaved,
 
 NOT_PORTED = ("{} is not ported: CogVideoX 1.5 (patch_size_t), ofs "
               "embeddings and the 2B path without RoPE are ROADMAP.md "
-              "queue 1, item 5")
+              "queue 1, item 14")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,9 +100,12 @@ class CogVideoXConfig:
         return self.num_attention_heads * self.attention_head_dim
 
 
-# CogVideoX-5B-I2V; FrameINO: in_channels 48 = 16 noisy + 16 image + 16
-# trajectory latent channels, one extra ID frame of positions
+# CogVideoX-5B-I2V; motion (Stage 1): in_channels 48 = 16 noisy + 16 image
+# + 16 trajectory latent channels; FrameINO (Stage 2): also one extra ID
+# frame of positions
 COGVIDEOX_5B_I2V = CogVideoXConfig()
+COGVIDEOX_5B_I2V_MOTION = dataclasses.replace(COGVIDEOX_5B_I2V,
+                                              in_channels=48)
 COGVIDEOX_5B_I2V_FRAMEINO = dataclasses.replace(COGVIDEOX_5B_I2V,
                                                 in_channels=48,
                                                 use_frame_in=True)
@@ -263,7 +273,7 @@ class CogVideoXBlock(nn.Module):
                                     **kw)
         self.ff = _FeedForward(d, **kw)
 
-    def _attention(self, x, cos_j, sin_j, fused: bool):
+    def _attention(self, x, cos_j, sin_j, fused: bool, differentiable: bool):
         cfg, a = self.cfg, self.attn1
         H = cfg.num_attention_heads
         q, k = _lin(x, a.to_q), _lin(x, a.to_k)
@@ -281,13 +291,18 @@ class CogVideoXBlock(nn.Module):
 
             q = apply_rope_interleaved(head_norm(q, a.norm_q), cos_j, sin_j)
             k = apply_rope_interleaved(head_norm(k, a.norm_k), cos_j, sin_j)
-            o = attn_ops.attention_ref(q, k, v)
+            if differentiable:
+                o = attn_ops.flash_attention_train(             # K6
+                    q.contiguous(), k.contiguous(), v.contiguous())
+            else:
+                o = attn_ops.attention_ref(q, k, v)
         return _lin(_merge_heads(o), a.to_out[0])
 
-    def forward(self, x, temb, cos_j, sin_j, video_mask, fused: bool):
+    def forward(self, x, temb, cos_j, sin_j, video_mask, fused: bool,
+                differentiable: bool = False):
         eps = self.cfg.norm_eps
         nx, gate = _adaln_zero(self.norm1, x, temb, eps, video_mask)
-        a = self._attention(nx, cos_j, sin_j, fused)
+        a = self._attention(nx, cos_j, sin_j, fused, differentiable)
         x = x + (gate * a.float()).to(x.dtype)
         nx, gate_ff = _adaln_zero(self.norm2, x, temb, eps, video_mask)
         f = _lin(gelu_tanh(_lin(nx, self.ff.net[0].proj)), self.ff.net[2])
@@ -295,8 +310,7 @@ class CogVideoXBlock(nn.Module):
 
 
 class CogVideoXDiT(nn.Module):
-    """CogVideoXTransformer3DModel (5B layout, RoPE + learned positions),
-    forward only.
+    """CogVideoXTransformer3DModel (5B layout, RoPE + learned positions).
 
     Build with ``device="meta"`` and then ``to_empty`` + ``init_random_``
     or ``load_state_dict(..., assign=True)`` to skip torch's default init.
@@ -328,6 +342,13 @@ class CogVideoXDiT(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return self.proj_out.weight.dtype
+
+    def trained_buffers(self):
+        """{name: buffer} of the buffers that training updates: the joint
+        position table. diffusers keeps it a buffer that no optimizer sees;
+        the JAX package holds it in the parameter tree, so its train step
+        differentiates and updates it, and so does the port's."""
+        return {"patch_embed.pos_embedding": self.patch_embed.pos_embedding}
 
     @torch.no_grad()
     def init_random_(self, generator: torch.Generator):
@@ -392,27 +413,43 @@ class CogVideoXDiT(nn.Module):
                             dim=1)
         return embeds + pos[:, :L + seq_length].to(embeds.dtype)
 
-    @torch.no_grad()
     def forward(self, hidden_states, encoder_hidden_states, timestep,
                 image_rotary_emb: Tuple[torch.Tensor, torch.Tensor], *,
-                attn_impl: Optional[str] = None):
+                attn_impl: Optional[str] = None, differentiable: bool = False,
+                remat: bool = False):
         """hidden_states [B, F, C, H, W]; encoder_hidden_states
         [B, L, text_dim]; timestep [B]; image_rotary_emb: the (cos, sin)
         [F*h*w, head_dim/2] tables of the video tokens. ``attn_impl``:
         None takes the kernels on CUDA and the plain path on the CPU;
         "fused" takes ``fused_ln_qk_flash_attention`` (on the CPU its
         plain versions); "xla" the plain path, CPU only. Returns fp32
-        [B, F, out_channels, H, W]."""
-        cfg = self.cfg
-        x = hidden_states.to(self.dtype)
-        B, F, C, H, W = x.shape
+        [B, F, out_channels, H, W].
+
+        ``differentiable``: the training forward under autograd, through
+        K6 (no fused producer, whatever ``attn_impl``). ``remat``: with
+        ``differentiable``, recompute each block in the backward instead
+        of keeping its activations."""
         if attn_impl not in (None, "fused", "xla"):
             raise ValueError(f"attn_impl must be None, 'fused' or 'xla', got "
                              f"{attn_impl!r}")
-        if attn_impl == "xla" and x.is_cuda:
+        if attn_impl == "xla" and hidden_states.is_cuda:
             raise ValueError("attn_impl='xla' is the CPU plain path; CUDA "
                              "tensors run the kernels")
-        fused = attn_impl == "fused" or (attn_impl is None and x.is_cuda)
+        if not differentiable:
+            with torch.no_grad():
+                return self._forward(hidden_states, encoder_hidden_states,
+                                     timestep, image_rotary_emb, attn_impl,
+                                     False, False)
+        return self._forward(hidden_states, encoder_hidden_states, timestep,
+                             image_rotary_emb, attn_impl, True, remat)
+
+    def _forward(self, hidden_states, encoder_hidden_states, timestep,
+                 image_rotary_emb, attn_impl, differentiable, remat):
+        cfg = self.cfg
+        x = hidden_states.to(self.dtype)
+        B, F, C, H, W = x.shape
+        fused = not differentiable and (
+            attn_impl == "fused" or (attn_impl is None and x.is_cuda))
 
         te = self.time_embedding
         t_freq = sinusoidal_timestep_embedding(
@@ -432,7 +469,12 @@ class CogVideoXDiT(nn.Module):
         cos_j = torch.cat([torch.ones(L, half, device=x.device), cos])
         sin_j = torch.cat([torch.zeros(L, half, device=x.device), sin])
         for blk in self.transformer_blocks:
-            x = blk(x, emb, cos_j, sin_j, video_mask, fused)
+            if remat:
+                x = checkpoint(blk, x, emb, cos_j, sin_j, video_mask, fused,
+                               differentiable, use_reentrant=False)
+            else:
+                x = blk(x, emb, cos_j, sin_j, video_mask, fused,
+                        differentiable)
 
         # 5B: norm over the joint sequence, then the video span
         h = layer_norm(x, self.norm_final.weight, self.norm_final.bias,

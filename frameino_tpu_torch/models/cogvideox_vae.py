@@ -391,11 +391,27 @@ class CogVideoXVAE(nn.Module):
         return self
 
     @torch.no_grad()
-    def encode_moments(self, video):
-        """video [B, 3, T, H, W] -> moments [B, 2z, T', H', W']."""
+    def encode_moments(self, video, dtype: Optional[torch.dtype] = None):
+        """video [B, 3, T, H, W] -> moments [B, 2z, T', H', W'], computed
+        in ``dtype`` (default the weights'; the convs and norms cast their
+        weights to it)."""
         seg = _segments(video.shape[2], self.cfg.frame_batch_size_encode)
-        return encoder_walk(self.cfg, self.encoder, video.to(self.dtype),
-                            FullSequence(seg))
+        return encoder_walk(self.cfg, self.encoder,
+                            video.to(dtype or self.dtype), FullSequence(seg))
+
+    def encode(self, video, sample_mode: str = "sample",
+               generator: Optional[torch.Generator] = None, noise=None):
+        """The posterior of ``encode_moments``: its mean ("argmax"), or a
+        sample (``sample_posterior``: logvar clipped to [-30, 20], mean +
+        std * noise) with ``noise`` given or drawn from ``generator``; the
+        sample is fp32."""
+        moments = self.encode_moments(video)
+        if sample_mode == "argmax":
+            return moments[:, :self.cfg.latent_channels]
+        if sample_mode != "sample":
+            raise ValueError(f"sample_mode must be 'sample' or 'argmax', "
+                             f"got {sample_mode!r}")
+        return sample_posterior(moments, generator, noise)
 
     @torch.no_grad()
     def decode(self, z):
@@ -405,14 +421,18 @@ class CogVideoXVAE(nn.Module):
                             FullSequence(seg))
 
 
-def sample_posterior(moments, generator: Optional[torch.Generator] = None):
-    """mean + exp(logvar / 2) * noise, logvar clipped to [-30, 20]."""
+def sample_posterior(moments, generator: Optional[torch.Generator] = None,
+                     noise=None):
+    """mean + exp(logvar / 2) * noise in fp32, logvar clipped to [-30, 20];
+    ``noise`` (shaped like the mean) is drawn from ``generator`` unless
+    given."""
     mean, logvar = moments.chunk(2, dim=1)
     std = torch.exp(0.5 * logvar.float().clamp(-30.0, 20.0))
-    noise = torch.randn(mean.shape, generator=generator,
-                        device=generator.device if generator is not None
-                        else mean.device, dtype=torch.float32)
-    return mean.float() + std * noise.to(mean.device)
+    if noise is None:
+        noise = torch.randn(mean.shape, generator=generator,
+                            device=generator.device if generator is not None
+                            else mean.device, dtype=torch.float32)
+    return mean.float() + std * noise.to(mean.device, torch.float32)
 
 
 def init_cogvideox_vae(cfg: CogVideoXVAEConfig, generator: torch.Generator,

@@ -117,8 +117,8 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x):
         h = self.conv_shortcut(x) if self.conv_shortcut is not None else x
-        x = self.conv1(F.silu(self.norm1(x), inplace=True))
-        x = self.conv2(F.silu(self.norm2(x), inplace=True))
+        x = self.conv1(cops.silu_(self.norm1(x)))
+        x = self.conv2(cops.silu_(self.norm2(x)))
         return x.add_(h)
 
 
@@ -357,7 +357,7 @@ class Encoder(nn.Module):
         for blk in self.down_blocks:
             x = blk(x)
         x = self.mid_block(x)
-        return self.conv_out(F.silu(self.norm_out(x), inplace=True))
+        return self.conv_out(cops.silu_(self.norm_out(x)))
 
 
 class Decoder(nn.Module):
@@ -385,7 +385,7 @@ class Decoder(nn.Module):
         x = self.mid_block(self.conv_in(z))
         for blk in self.up_blocks:
             x = blk(x)
-        return self.conv_out(F.silu(self.norm_out(x), inplace=True))
+        return self.conv_out(cops.silu_(self.norm_out(x)))
 
 
 class WanVAE(nn.Module):

@@ -65,8 +65,8 @@ def _cconv_fwd(x, conv, cache, padding, stride=1):
         front -= cache.shape[2]
     if front:
         x = F.pad(x, (0, 0, 0, 0, front, 0))
-    return F.conv3d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
-                    stride=cops._triple(stride), padding=(0, ph, pw))
+    return cops.scoped_conv(F.conv3d, x, conv.weight, conv.bias,
+                            stride=cops._triple(stride), padding=(0, ph, pw))
 
 
 def _tail(x, cache):
@@ -88,8 +88,8 @@ def _cconv_call(x, conv, caches: _Caches):
 
 def _res_chunk(blk: M.ResidualBlock, x, caches: _Caches):
     h = blk.conv_shortcut(x) if blk.conv_shortcut is not None else x
-    x = _cconv_call(F.silu(blk.norm1(x), inplace=True), blk.conv1, caches)
-    x = _cconv_call(F.silu(blk.norm2(x), inplace=True), blk.conv2, caches)
+    x = _cconv_call(cops.silu_(blk.norm1(x)), blk.conv1, caches)
+    x = _cconv_call(cops.silu_(blk.norm2(x)), blk.conv2, caches)
     return x.add_(h)
 
 
@@ -155,7 +155,7 @@ def _decoder_chunk(dec: M.Decoder, x, caches: _Caches, first_chunk: bool):
         if blk.dup_shortcut:
             x = x.add_(M.dup_up3d(x_copy, blk.out_dim, blk.factor_t, 2,
                                   first_chunk=first_chunk))
-    x = F.silu(dec.norm_out(x), inplace=True)
+    x = cops.silu_(dec.norm_out(x))
     return _cconv_call(x, dec.conv_out, caches)
 
 
@@ -178,7 +178,7 @@ def _encoder_chunk(enc: M.Encoder, x, caches: _Caches):
         else:                            # AttentionBlock: per frame
             x = blk(x)
     x = _mid_chunk(enc.mid_block, x, caches)
-    x = F.silu(enc.norm_out(x), inplace=True)
+    x = cops.silu_(enc.norm_out(x))
     return _cconv_call(x, enc.conv_out, caches)
 
 

@@ -9,6 +9,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from frameino_tpu_torch.ops.conv import low_precision_dtype
+
 
 def layer_norm(x, weight=None, bias=None, eps: float = 1e-6):
     """LayerNorm over the last dim, fp32 statistics, fp32 result.
@@ -52,10 +54,19 @@ def l2_normalize_channel(x, scale: float, gamma, bias=0.0, dim: int = 1):
     """``WanRMS_norm``: F.normalize along ``dim`` * sqrt(C) * gamma + bias.
 
     torch's F.normalize clamps the L2 *norm* at 1e-12. ``gamma`` (and a
-    tensor ``bias``) broadcast against x.
+    tensor ``bias``) broadcast against x. Under a low-precision
+    ``ops/conv.conv_dtype`` scope (the trainer's VAE encodes) the statistic
+    stays fp32 and the apply runs in x's narrower dtype, as JAX's does
+    under its scope.
     """
     xf = x.float()
     n = torch.linalg.vector_norm(xf, dim=dim, keepdim=True)
+    if low_precision_dtype() is not None and x.dtype != torch.float32:
+        r = (torch.reciprocal(torch.clamp(n, min=1e-12)) * scale).to(x.dtype)
+        y = x * r * gamma.to(x.dtype)
+        if not (isinstance(bias, float) and bias == 0.0):
+            y = y + torch.as_tensor(bias, dtype=x.dtype, device=x.device)
+        return y
     y = xf / torch.clamp(n, min=1e-12)
     y.mul_(scale).mul_(gamma.float())
     if not (isinstance(bias, float) and bias == 0.0):

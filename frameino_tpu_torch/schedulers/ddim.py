@@ -7,7 +7,8 @@ configure it: scaled-linear betas 0.00085 -> 0.012, SNR shift,
 zero-terminal-SNR rescale, "trailing" timesteps, v-prediction, eta 0.
 alphas_cumprod is built in float64 and used in fp32, as the JAX loop bakes
 it in; the per-step scalars are fp32 on the host, the update is an fp32
-tensor expression.
+tensor expression. ``ddim_add_noise`` and ``get_velocity`` are the
+trainer's, on a table of fp32 tensors.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,3 +99,23 @@ def ddim_step(cfg: DDIMConfig, ac: np.ndarray, sample, model_output, t: int,
     a_t = np.sqrt((one - alpha_prev) / (one - alpha_t))
     b_t = np.sqrt(alpha_prev) - np.sqrt(alpha_t) * a_t
     return (float(a_t) * x + float(b_t) * x0).to(sample.dtype)
+
+
+def _coefs(ac, x0, t):
+    """(sqrt(ac[t]), sqrt(1 - ac[t])) for ``ac`` an fp32 tensor table and t
+    [B] int, shaped to broadcast over x0's trailing dims."""
+    shape = (-1,) + (1,) * (x0.ndim - 1)
+    a_t = ac[t.to(ac.device)]
+    return torch.sqrt(a_t).reshape(shape), torch.sqrt(1.0 - a_t).reshape(shape)
+
+
+def ddim_add_noise(ac, x0, noise, t):
+    """sqrt(ac_t) x0 + sqrt(1 - ac_t) noise (the training noising)."""
+    a, b = _coefs(ac, x0, t)
+    return a * x0 + b * noise
+
+
+def get_velocity(ac, x0, noise, t):
+    """v = sqrt(ac_t) noise - sqrt(1 - ac_t) x0 (diffusers get_velocity)."""
+    a, b = _coefs(ac, x0, t)
+    return a * noise - b * x0

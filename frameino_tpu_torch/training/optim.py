@@ -8,7 +8,10 @@ in the parameters' dtype:
     MultiSteps(every k)                  # gradient_accumulation_steps > 1
       apply_if_finite(max_consecutive)   # skip_nonfinite_updates
         clip_by_global_norm(max_norm)
-        adamw(schedule, b1, b2, eps, weight_decay)   # adam: wd 0
+        the rule:
+          adamw(schedule, b1, b2, eps, weight_decay)   # adam: wd 0
+          adafactor(schedule)                          # optax's defaults
+          contrib.prodigy(lr, (b1, b2), eps, weight_decay)
 
 - the schedules are optax's: ``constant_with_warmup`` is
   ``linear_schedule(0, lr, warmup)``, so the first update has lr 0 (and a
@@ -17,7 +20,16 @@ in the parameters' dtype:
   computed as optax does, ``(g / norm) * max_norm`` in g's dtype;
 - weight decay applies to every parameter (``optax.adamw`` with no mask);
 - the learning rate is rounded to the parameter dtype before it scales
-  the update, as ``scale_by_schedule`` does.
+  the update, as ``scale_by_schedule`` does;
+- adafactor is optax's chain: ``scale_by_factored_rms`` (decay 0.8, eps
+  1e-30; a tensor with two dims of at least 128 keeps row and column
+  statistics over its two largest dims, any other tensor a full one),
+  ``clip_by_block_rms(1)``, the schedule, ``scale_by_param_block_rms``
+  (1e-3), a sign flip;
+- prodigy takes the configured learning rate as its multiplier (no
+  schedule, as the JAX package passes it), ``estim_lr0`` 1e-6, and keeps
+  four states the size of the parameters (two moments, the gradient sum
+  and the initial parameters).
 
 Reference recipe: ``train_code/train_wan_motion_FrameINO.py:401-487`` and
 ``config/train_wan_motion_FrameINO.yaml`` (lr 3e-5, betas (0.9, 0.999),
@@ -33,8 +45,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-NOT_PORTED = ("optimizer {!r} is not ported yet: adafactor and prodigy are "
-              "ROADMAP.md queue 1, item 6")
+RULES = {"adamw": ("mu", "nu"), "adam": ("mu", "nu"),
+         "adafactor": ("v_row", "v_col", "v"),
+         "prodigy": ("exp_avg", "exp_avg_sq", "grad_sum", "params0")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,20 +112,31 @@ def global_norm(tensors) -> torch.Tensor:
 class Optimizer:
     """The optax chain above over ``{name: tensor}``; ``step`` updates the
     parameters in place. ``state_dict`` / ``load_state_dict`` carry every
-    counter and moment (for ``core/checkpoint.py``)."""
+    counter and state tensor (for ``core/checkpoint.py``)."""
 
     def __init__(self, cfg: OptimizerConfig, params: Dict[str, torch.Tensor]):
-        if cfg.optimizer not in ("adamw", "adam"):
-            if cfg.optimizer in ("adafactor", "prodigy"):
-                raise NotImplementedError(NOT_PORTED.format(cfg.optimizer))
+        if cfg.optimizer not in RULES:
             raise ValueError(f"unsupported optimizer {cfg.optimizer}")
         self.cfg = cfg
         self.schedule = make_schedule(cfg)
         self.weight_decay = cfg.weight_decay if cfg.optimizer == "adamw" \
             else 0.0
-        self.mu = {n: torch.zeros_like(p) for n, p in params.items()}
-        self.nu = {n: torch.zeros_like(p) for n, p in params.items()}
-        self.count = 0               # adam and schedule count
+        self.slots = RULES[cfg.optimizer]
+        for slot in self.slots:
+            setattr(self, slot, {n: self._init_slot(slot, p)
+                                 for n, p in params.items()})
+        self.estim_lr = self.numerator_weighted = None
+        if cfg.optimizer == "prodigy":
+            # scalars in the lowest parameter dtype, on the parameters'
+            # device
+            dtype = min((p.dtype for p in params.values()),
+                        key=lambda d: torch.finfo(d).bits)
+            dev = next(iter(params.values())).device
+            self.estim_lr = torch.tensor(PRODIGY_ESTIM_LR0, dtype=dtype,
+                                         device=dev)
+            self.numerator_weighted = torch.zeros((), dtype=dtype,
+                                                  device=dev)
+        self.count = 0               # the rule's and the schedule's count
         self.notfinite_count = 0     # apply_if_finite
         self.total_notfinite = 0
         self.mini_step = 0           # MultiSteps
@@ -120,8 +144,26 @@ class Optimizer:
         self.acc = ({n: torch.zeros_like(p) for n, p in params.items()}
                     if cfg.gradient_accumulation_steps > 1 else None)
 
+    def _init_slot(self, slot: str, p: torch.Tensor) -> torch.Tensor:
+        if slot == "params0":
+            return p.detach().clone()
+        if slot in ("v_row", "v_col", "v"):
+            dims = factored_dims(p.shape)
+            if slot == "v":
+                return torch.zeros_like(p) if dims is None else \
+                    p.new_zeros(0)
+            if dims is None:
+                return p.new_zeros(0)
+            d1, d0 = dims
+            drop = d0 if slot == "v_row" else d1
+            return p.new_zeros([n for i, n in enumerate(p.shape)
+                                if i != drop])
+        return torch.zeros_like(p)
+
     def lr(self) -> float:
-        """The learning rate of the next update."""
+        """The learning rate of the next update (prodigy: its multiplier)."""
+        if self.cfg.optimizer == "prodigy":
+            return self.cfg.learning_rate
         return self.schedule(self.count)
 
     @torch.no_grad()
@@ -147,23 +189,37 @@ class Optimizer:
         return applied
 
     def _guarded_update(self, params, grads) -> bool:
-        if not self.cfg.skip_nonfinite_updates:
-            self._clipped_adamw(params, grads)
-            return True
-        finite = bool(torch.stack([torch.isfinite(g).all()
-                                   for g in grads.values()]).all())
-        self.notfinite_count = 0 if finite else self.notfinite_count + 1
-        self.total_notfinite += 0 if finite else 1
-        if finite or self.notfinite_count > self.cfg.max_consecutive_nonfinite:
-            self._clipped_adamw(params, grads)
-            return True
-        return False
+        if self.cfg.skip_nonfinite_updates:
+            finite = bool(torch.stack([torch.isfinite(g).all()
+                                       for g in grads.values()]).all())
+            self.notfinite_count = 0 if finite else self.notfinite_count + 1
+            self.total_notfinite += 0 if finite else 1
+            if not finite and (self.notfinite_count
+                               <= self.cfg.max_consecutive_nonfinite):
+                return False
+        clip = self._clip(grads)
+        if self.cfg.optimizer == "adafactor":
+            self._adafactor(params, grads, clip)
+        elif self.cfg.optimizer == "prodigy":
+            self._prodigy(params, grads, clip)
+        else:
+            self._adamw(params, grads, clip)
+        self.count += 1
+        return True
 
-    def _clipped_adamw(self, params, grads):
+    def _clip(self, grads):
+        """clip_by_global_norm, applied to one gradient at a time."""
+        max_norm = self.cfg.max_grad_norm
+        g_norm = global_norm(grads.values())
+        keep = g_norm < max_norm
+
+        def clip(g):
+            return torch.where(keep, g, (g / g_norm.to(g.dtype)) * max_norm)
+        return clip
+
+    def _adamw(self, params, grads, clip):
         cfg = self.cfg
         b1, b2 = cfg.beta1, cfg.beta2
-        g_norm = global_norm(grads.values())
-        keep = g_norm < cfg.max_grad_norm
         count_inc = self.count + 1
         # 1 - decay**count in fp32, then in each moment's dtype
         bc1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(count_inc))
@@ -171,9 +227,7 @@ class Optimizer:
         lr = -self.schedule(self.count)
         wd = self.weight_decay
         for name, p in params.items():
-            g = grads[name]
-            g = torch.where(keep, g,
-                            (g / g_norm.to(g.dtype)) * cfg.max_grad_norm)
+            g = clip(grads[name])
             mu = (1 - b1) * g + b1 * self.mu[name]
             nu = (1 - b2) * g ** 2 + b2 * self.nu[name]
             self.mu[name].copy_(mu)
@@ -185,29 +239,130 @@ class Optimizer:
                 u = u + wd * p
             u = torch.tensor(lr, dtype=u.dtype) * u
             p.copy_(p + u)
-        self.count = count_inc
+
+    def _adafactor(self, params, grads, clip):
+        t = np.float32(self.count + 1)
+        decay = float(np.float32(1.0) - t ** np.float32(-ADAFACTOR_DECAY))
+        keep = float(np.float32(1.0) - np.float32(decay))
+        lr = self.schedule(self.count)
+        for name, p in params.items():
+            g = clip(grads[name])
+            g2 = g * g + ADAFACTOR_EPS
+            dims = factored_dims(p.shape)
+            if dims is not None:
+                d1, d0 = dims
+                v_row = decay * self.v_row[name] + keep * g2.mean(d0)
+                v_col = decay * self.v_col[name] + keep * g2.mean(d1)
+                self.v_row[name].copy_(v_row)
+                self.v_col[name].copy_(v_col)
+                reduced = d1 - 1 if d1 > d0 else d1
+                row = (v_row / v_row.mean(reduced, keepdim=True)) ** -0.5
+                u = g * row.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
+            else:
+                v = decay * self.v[name] + keep * g2
+                self.v[name].copy_(v)
+                u = g * v ** -0.5
+            u = u / torch.clamp(_rms(u) / ADAFACTOR_CLIP, min=1.0)
+            u = torch.tensor(lr, dtype=u.dtype) * u
+            u = u * _safe_rms(p, ADAFACTOR_MIN_SCALE)
+            p.copy_(p + -u)
+
+    def _prodigy(self, params, grads, clip):
+        cfg = self.cfg
+        b1, b2 = cfg.beta1, cfg.beta2
+        b3 = b2 ** 0.5
+        count_inc = np.float32(self.count + 1)
+        bc = float(np.sqrt(np.float32(1) - np.float32(b2) ** count_inc)
+                   / (np.float32(1) - np.float32(b1) ** count_inc))
+        estim_lr = self.estim_lr
+        dlr = (estim_lr * cfg.learning_rate * bc).to(estim_lr.dtype)
+        numerator = torch.zeros((), dtype=torch.float32,
+                                device=estim_lr.device)
+        denominator = torch.zeros_like(numerator)
+        for name, p in params.items():
+            g = clip(grads[name])
+            numerator += torch.sum((g * (self.params0[name] - p)).float())
+            dg = estim_lr * g
+            self.exp_avg[name].mul_(b1).add_((1 - b1) * dg)
+            self.exp_avg_sq[name].mul_(b2).add_((1 - b2) * dg * dg)
+            s = self.grad_sum[name]
+            s.copy_(b3 * s + dlr * dg / PRODIGY_ESTIM_LR0)
+            denominator += s.abs().float().sum()
+        self.numerator_weighted = (
+            b3 * self.numerator_weighted
+            + (estim_lr / PRODIGY_ESTIM_LR0) * dlr * numerator
+        ).to(estim_lr.dtype)
+        estimate = self.numerator_weighted / denominator
+        self.estim_lr = torch.maximum(estim_lr, estimate.to(estim_lr.dtype))
+        wd = cfg.weight_decay
+        for name, p in params.items():
+            u = -wd * dlr * p - dlr * self.exp_avg[name] / (
+                torch.sqrt(self.exp_avg_sq[name]) + self.estim_lr * cfg.epsilon)
+            p.copy_(p + u)
 
     def state_dict(self) -> dict:
-        sd = {"count": self.count, "notfinite_count": self.notfinite_count,
+        sd = {"rule": self.cfg.optimizer, "count": self.count,
+              "notfinite_count": self.notfinite_count,
               "total_notfinite": self.total_notfinite,
               "mini_step": self.mini_step,
-              "gradient_step": self.gradient_step,
-              "mu": self.mu, "nu": self.nu}
+              "gradient_step": self.gradient_step}
+        for slot in self.slots:
+            sd[slot] = getattr(self, slot)
+        if self.estim_lr is not None:
+            sd["estim_lr"] = self.estim_lr
+            sd["numerator_weighted"] = self.numerator_weighted
         if self.acc is not None:
             sd["acc"] = self.acc
         return sd
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict):
+        rule = sd.get("rule", "adamw")        # states saved before rules
+        if RULES[rule] != self.slots:
+            raise ValueError(f"the optimizer state is {rule!r}'s, not "
+                             f"{self.cfg.optimizer!r}'s")
         for key in ("count", "notfinite_count", "total_notfinite",
                     "mini_step", "gradient_step"):
             setattr(self, key, int(sd[key]))
-        for key in ("mu", "nu", "acc"):
+        for key in (*self.slots, "acc"):
             mine = getattr(self, key)
             if mine is None:
                 continue
             for name, t in mine.items():
                 t.copy_(sd[key][name])
+        if self.estim_lr is not None:
+            self.estim_lr = sd["estim_lr"].to(self.estim_lr.dtype).clone()
+            self.numerator_weighted = sd["numerator_weighted"].to(
+                self.numerator_weighted.dtype).clone()
+
+
+# optax.adafactor's defaults, as the JAX package calls it
+ADAFACTOR_DECAY, ADAFACTOR_EPS, ADAFACTOR_CLIP = 0.8, 1e-30, 1.0
+ADAFACTOR_MIN_DIM, ADAFACTOR_MIN_SCALE = 128, 1e-3
+# optax.contrib.prodigy's
+PRODIGY_ESTIM_LR0 = 1e-6
+
+
+def factored_dims(shape):
+    """(second largest dim, largest dim) when both are at least
+    ADAFACTOR_MIN_DIM, else None (optax's ``_factored_dims``)."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < ADAFACTOR_MIN_DIM:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _rms(x):
+    return torch.sqrt(torch.mean(x * x))
+
+
+def _safe_rms(x, min_rms: float):
+    """max(rms(x), min_rms), optax's ``safe_root_mean_squares``."""
+    rms = _rms(x)
+    return torch.where(rms <= min_rms, torch.tensor(min_rms, dtype=rms.dtype,
+                                                    device=rms.device), rms)
 
 
 def make_optimizer(cfg: OptimizerConfig,

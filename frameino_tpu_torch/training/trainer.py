@@ -18,9 +18,12 @@ One card, so no mesh and dp = 1. The JAX step is one jit program with the
 step folded into its key (``fold_in(key, step)``); here each step draws
 its timestep indices and then its noise from a ``torch.Generator`` seeded
 from (seed, step), or takes them as arguments (the parity tests feed in
-JAX's draws). The VAE encodes run on the full sequence (the JAX default,
-a chunked in-graph encode, equals it numerically and exists to fit a
-16 GB chip) in the VAE's own dtype.
+JAX's draws). The VAE encodes follow JAX's rule: a clip of more than one
+frame is encoded in chunks of 1 + ``vae_encode_chunk_frames`` pixel frames
+(``models/wan_vae_streaming.encode_moments_inline``), and every encode runs
+under ``ops/conv.conv_dtype`` of the encode dtype (``vae_encode_accum_dtype``,
+or the compute dtype when it is None): bf16 convolutions at full width, as
+the reference encodes inside its bf16 autocast.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from frameino_tpu_torch.models import wan_vae
 from frameino_tpu_torch.models.wan_dit import WanDiT
@@ -49,30 +53,55 @@ class TrainerConfig:
     use_frame_in: bool = True
     compute_dtype: torch.dtype = torch.bfloat16
     remat: bool = True
+    # the frozen-VAE encode's conv dtype; None follows compute_dtype
+    vae_encode_accum_dtype: Optional[torch.dtype] = None
+    # pixel frames a chunk of the encode after the first frame; None or 0
+    # encodes the full sequence at once
+    vae_encode_chunk_frames: Optional[int] = 8
+
+    @property
+    def encode_dtype(self) -> torch.dtype:
+        return self.vae_encode_accum_dtype or self.compute_dtype
 
 
 @dataclasses.dataclass
 class TrainState:
-    model: WanDiT
+    """A DiT (``WanDiT`` or ``CogVideoXDiT``), its optimizer and the count
+    of steps taken."""
+    model: torch.nn.Module
     optimizer: Optimizer
     step: int = 0
 
     def params(self) -> Dict[str, torch.Tensor]:
-        return dict(self.model.named_parameters())
+        """The tensors the optimizer updates: every parameter, and the
+        buffers the model's ``trained_buffers`` names."""
+        return trained_tensors(self.model)
 
 
-def init_train_state(model: WanDiT, opt_cfg: OptimizerConfig) -> TrainState:
+def trained_tensors(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    out = dict(model.named_parameters())
+    if hasattr(model, "trained_buffers"):
+        out.update(model.trained_buffers())
+    return out
+
+
+def init_train_state(model: torch.nn.Module, opt_cfg: OptimizerConfig
+                     ) -> TrainState:
     model.train()
+    tensors = trained_tensors(model)
+    for t in tensors.values():
+        t.requires_grad_(True)
     return TrainState(model=model,
-                      optimizer=make_optimizer(opt_cfg,
-                                               dict(model.named_parameters())))
+                      optimizer=make_optimizer(opt_cfg, tensors))
 
 
 @torch.no_grad()
-def encode_training_batch(vae: wan_vae.WanVAE, batch: Dict[str, torch.Tensor]
+def encode_training_batch(vae: wan_vae.WanVAE, batch: Dict[str, torch.Tensor],
+                          cfg: TrainerConfig = TrainerConfig()
                           ) -> Tuple[torch.Tensor, ...]:
     """Frozen-VAE encodes (reference :507-657, posterior mode and
-    normalization), in the VAE's dtype on its device, one at a time.
+    normalization) on the VAE's device, one at a time, by JAX's rule (the
+    module docstring).
 
     batch tensors, reference dataset layout:
       video_tensor       [B, F, C, H, W] in [-1, 1]
@@ -81,10 +110,20 @@ def encode_training_batch(vae: wan_vae.WanVAE, batch: Dict[str, torch.Tensor]
       ID_tensor          [B, N_id, C, H, W] (optional)
     Returns (video, first frame, trajectory, ID or None) latents, fp32.
     """
+    from frameino_tpu_torch.models import wan_vae_streaming
+    from frameino_tpu_torch.ops.conv import conv_dtype
     p = next(vae.parameters())
+    chunk = cfg.vae_encode_chunk_frames
 
     def enc(x):
-        z = vae.encode(x.to(p.device, p.dtype))
+        x = x.to(p.device, p.dtype)
+        with conv_dtype(cfg.encode_dtype):
+            if x.shape[2] > 1 and chunk:
+                z = wan_vae_streaming.encode_moments_inline(
+                    vae, x, chunk_pixel_frames=chunk)[:, :vae.cfg.z_dim]
+            else:
+                z = vae.encode(x)
+        # the latents' dtype, as JAX normalizes them, then fp32
         return wan_vae.normalize_latents(vae.cfg, z).float()
 
     video_latents = enc(batch["video_tensor"].permute(0, 2, 1, 3, 4))
@@ -151,6 +190,31 @@ def wan_fm_loss(model: WanDiT, cfg: TrainerConfig, video_latents,
     return torch.mean(torch.square(pred.float() - target))
 
 
+def optimizer_step(state: TrainState, loss_fn) -> Dict[str, torch.Tensor]:
+    """The step both trainers share: ``loss_fn()`` (a scalar under
+    autograd), its gradients, then the optimizer (clip + the update rule)
+    on every parameter, each under a ``torch.profiler`` range ("forward",
+    "backward", "optimizer"; the encodes run under "vae_encode"). Returns
+    {"loss", "grad_norm"} as device scalars (grad_norm before clipping)."""
+    params = state.params()
+    for p in params.values():
+        p.grad = None
+    with record_function("forward"):
+        loss = loss_fn()
+    with record_function("backward"):
+        loss.backward()
+    with record_function("optimizer"):
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in params.items()}
+        grad_norm = global_norm(grads.values())
+        state.optimizer.step(params, grads)
+    for p in params.values():
+        p.grad = None
+    del grads
+    state.step += 1
+    return {"loss": loss.detach(), "grad_norm": grad_norm}
+
+
 def train_step(state: TrainState, vae: Optional[wan_vae.WanVAE],
                cfg: TrainerConfig, batch: Dict[str, torch.Tensor], seed: int,
                draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
@@ -166,22 +230,9 @@ def train_step(state: TrainState, vae: Optional[wan_vae.WanVAE],
                     for k in ("video_latents", "first_frame_latent",
                               "traj_latents", "id_latents"))
     else:
-        enc = encode_training_batch(vae, batch)
+        with record_function("vae_encode"):
+            enc = encode_training_batch(vae, batch, cfg)
     gen = None if draws is not None else step_generator(seed, state.step, dev)
     idx, noise = draws if draws is not None else (None, None)
-
-    params = state.params()
-    for p in params.values():
-        p.grad = None
-    loss = wan_fm_loss(model, cfg, *enc, batch["prompt_embeds"], gen,
-                       idx=idx, noise=noise)
-    loss.backward()
-    grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-             for n, p in params.items()}
-    grad_norm = global_norm(grads.values())
-    state.optimizer.step(params, grads)
-    for p in params.values():
-        p.grad = None
-    del grads
-    state.step += 1
-    return {"loss": loss.detach(), "grad_norm": grad_norm}
+    return optimizer_step(state, lambda: wan_fm_loss(
+        model, cfg, *enc, batch["prompt_embeds"], gen, idx=idx, noise=noise))

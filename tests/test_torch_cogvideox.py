@@ -242,7 +242,7 @@ def test_dit_matches_jax(dit_pair, impl, grid):
 def test_dit_unported_branches_raise():
     for kw in (dict(patch_size_t=2), dict(ofs_embed_dim=512),
                dict(use_rotary_positional_embeddings=False)):
-        with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+        with pytest.raises(NotImplementedError, match="queue 1, item 14"):
             tdit.CogVideoXDiT(tdit.tiny_config(**kw), device="meta")
 
 

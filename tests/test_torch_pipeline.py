@@ -365,8 +365,8 @@ def test_port_never_imports_jax(tmp_path):
     parallel modules, serving one smoke request of each family and one of
     the int8 Wan pipeline, serving a prompt request from checkpoint
     directories (the safetensors writer and reader, UMT5) and taking one
-    smoke train step leaves jax and every module of the JAX package
-    (frameino_tpu) unimported."""
+    smoke train step of each family leaves jax and every module of the JAX
+    package (frameino_tpu) unimported."""
     code = textwrap.dedent("""
         import base64, io, json, os, sys
         import numpy as np
@@ -443,6 +443,17 @@ def test_port_never_imports_jax(tmp_path):
             json.dump(cfg, f)
         assert train.main(["--config_path", os.path.join(root, "t.yaml"),
                            "--smoke"])["step"] == 1
+        # one CogVideoX smoke train step (32x32: the tiny DiT's grid)
+        from frameino_tpu_torch import train_cogvideox
+        from frameino_tpu_torch.scripts import \
+            precompute_prompt_embeddings  # noqa: F401
+        cfg.update(target_height=32, target_width=32,
+                   output_folder=os.path.join(root, "cog_ckpts"))
+        with open(os.path.join(root, "c.yaml"), "w") as f:
+            json.dump(cfg, f)
+        assert train_cogvideox.main(["--config_path",
+                                     os.path.join(root, "c.yaml"),
+                                     "--smoke"])["step"] == 1
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "frameino_tpu"

@@ -98,7 +98,7 @@ def test_optimizer_keys_of_the_config_reach_the_optimizer(smoke_env,
                                                           monkeypatch):
     """gradient_accumulation_steps, max_grad_norm and optimizer are read
     from the YAML: with 2 micro-batches an update a watched weight moves
-    on every second step only; adafactor raises as not ported."""
+    on every second step only; optimizer: adafactor trains with it."""
     from frameino_tpu_torch.training import trainer
     root, data = smoke_env
     orig, seen = trainer.train_step, []
@@ -121,6 +121,10 @@ def test_optimizer_keys_of_the_config_reach_the_optimizer(smoke_env,
     assert cfg.gradient_accumulation_steps == 2
     assert cfg.max_grad_norm == 0.5 and cfg.optimizer == "adamw"
 
-    path = _config(root, data, optimizer="adafactor")
-    with pytest.raises(NotImplementedError, match="adafactor"):
-        train.main(["--config_path", path, "--smoke"])
+    seen.clear()
+    path = _config(root, data, max_train_steps=5, optimizer="adafactor",
+                   lr_scheduler="constant", first_iter_validation=False,
+                   experiment_name="smoke_adafactor")
+    out = train.main(["--config_path", path, "--smoke"])
+    assert out["step"] == 5 and seen[-1][0].optimizer == "adafactor"
+    assert seen[-1][1]
