@@ -172,7 +172,25 @@ Phases (any failure exits non-zero; there is no CPU path):
     ``scripts.bench_attn_d64.main`` in this process with their default
     arguments (both shapes, all variants, all three experiments): every
     check against K3 finite and under its limit, and exactly warm-up +
-    iters + 1 launches of every variant a shape.
+    iters + 1 launches of every variant a shape;
+16. mass evaluation: K2, K1 and K3 at the Wan eval shape ([2, 3920, 3072],
+    [48, 3920, 128], kv 512) and K4 and K1 at the CogVideoX one ([2,
+    15906, 3072], [96, 15906, 64]) against their plain versions, beside
+    their bounds and SDPA; then ``frameino_tpu_torch.evaluate.main`` at
+    the reference's eval shape (49 frames at 448x640, 2 steps, a
+    synthetic validation set in build/): one frame-in and one frame-out
+    instance of each family through one full-width pipeline, each run with
+    exactly 30 K1, 60 K2 and 30 K3 (Wan) or 42 K1 and 84 K4 (CogVideoX)
+    launches a CFG step at those shapes (the kernels' input shapes logged),
+    finite frames, its seconds and peak; the Wan frame-in and CogVideoX
+    frame-out artifacts scored with ``--backends random`` (CoTracker3 at
+    384x512, SAM2.1-hiera-large at 1024, DINOv2-B/14 at 224): every metric
+    finite, its seconds and each backend's peak; each perception model,
+    seeded on the CPU and copied to the card, held to PERCEPTION_REL_L2 of
+    its CPU output with TF32 off (DINOv2 on 4 images, CoTracker3 on 8
+    frames, SAM2.1's image encoder and video logits on 2 frames); the
+    full-width CogVideoX VAE in bf16 under ``conv_dtype`` against fp32
+    (encode and decode at 448x640, relative L2 printed).
 
 Each serving or training phase sets the launch counts to 0 just before
 its requests or steps and reads them just after. The line before the
@@ -286,6 +304,13 @@ KERNELS = {
         source="frameino_tpu_torch/csrc/flash_packed.cu",
         replaces="scripts/bench_attn_d64.py:96"),
 }
+# K1-K4 again at the reference's eval shape, 448x640x49 (3,920 Wan tokens,
+# 15,906 CogVideoX ones), launched by the mass-evaluation phase's runs
+KERNELS.update({f"{k}_eval": dict(KERNELS[base]) for k, base in (
+    ("flash_fwd_static", "flash_fwd_static"),
+    ("qk_norm_rope", "qk_norm_rope"), ("flash_fwd", "flash_fwd"),
+    ("qk_ln_rope", "qk_ln_rope"),
+    ("flash_fwd_static_d64", "flash_fwd_static"))})
 K5 = "qk_norm_rope_rstd"
 K7 = "dynamic_quantize_rows"
 NO_TRAIN = {"flash_attn_train_fwd": 0, "flash_attn_train_bwd": 0}
@@ -4088,6 +4113,437 @@ def phase_tp():
     return out
 
 
+# ---------------------------------------------------------------------------
+# mass evaluation: generation at the reference's eval shape, then scoring
+# with the perception models at released scale
+# ---------------------------------------------------------------------------
+
+# the reference's evaluation protocol, 49 frames at 448x640
+# (configs/eval_frameino.yaml): Wan latents 13x28x40 plus the ID frame,
+# patch 2x2: (13 + 1) * 14 * 20 = 3,920 tokens; CogVideoX latents 13x56x80
+# plus the ID frame, patch 2x2, after 226 text tokens: 226 + 14 * 28 * 40
+# = 15,906 tokens
+EVAL_H, EVAL_W, EVAL_F, EVAL_STEPS = 448, 640, 49, 2
+S_EVAL, GRID_EVAL = 3920, (14, 14, 20)
+COG_S_EVAL, COG_GRID_EVAL = 15906, (13, 28, 40)
+# the shape of each kernel's first argument on the eval path
+EVAL_SHAPES = {
+    "wan": {"qk_norm_rope": (B, S_EVAL, H * D),
+            "flash_fwd_static": (B * H, S_EVAL, D),
+            "flash_fwd": (B * H, S_EVAL, D)},
+    "cogvideox": {"qk_ln_rope": (B, COG_S_EVAL, COG_H * COG_D),
+                  "flash_fwd_static": (B * COG_H, COG_S_EVAL, COG_D)}}
+# the perception models on the card against the same weights and inputs
+# on the CPU, fp32 with TF32 off (relative L2)
+PERCEPTION_REL_L2 = 1e-3
+EVAL_ROOT = os.path.join(REPO, "build", "chip_smoke_eval")
+
+
+def phase_kernels_eval():
+    """K2, K1 and K3 at the Wan eval shape ([2, 3920, 3072], [48, 3920,
+    128], kv 512) and K4 and K1 at the CogVideoX one ([2, 15906, 3072],
+    [96, 15906, 64]; K1's plain version on 4 of the 96 rows) against their
+    plain versions, with their bounds and SDPA."""
+    import torch
+    from frameino_tpu_torch.ops import attention as A
+    from frameino_tpu_torch.ops.rope import (cogvideox_rope_table,
+                                             wan_rope_table)
+    g = torch.Generator("cuda").manual_seed(448)
+    dev = "cuda"
+    results = {}
+
+    def producer(name, fn, ref, raw, params, cos, sin, heads, ops):
+        out = fn(raw, *params, cos, sin, heads, 1e-6)
+        err, rel = _check_ulp(f"{KERNELS[name]['label']} (eval)", out,
+                              ref(raw, *params, cos, sin, heads, 1e-6))
+        _report(results, name, err, rel,
+                cuda_ms(lambda: fn(raw, *params, cos, sin, heads, 1e-6), 20),
+                cuda_ms(lambda: ref(raw, *params, cos, sin, heads, 1e-6), 3),
+                bound_ms(ops * out.numel(),
+                         _nbytes(raw, *params, cos, sin, out),
+                         PEAK_FP32_FLOPS), None)
+        return ref(raw, *params, cos, sin, heads, 1e-6)
+
+    def k1(name, qh, kh, vh, rows):
+        bound = A._rowmax_norm(qh) * A._rowmax_norm(kh)
+        qs, ks, vs = (t[rows].contiguous() for t in (qh, kh, vh))
+        want = A.flash_fwd_static_ref(qs, ks, vs, bound)
+        all_out = A.flash_fwd_static(qh, kh, vh, bound)
+        check(bool(torch.isfinite(all_out).all()),
+              f"K1 {name}: non-finite output")
+        err, rel, rel_l2 = _check_close(f"K1 {name}", all_out[rows], want)
+        bh, s, d = qh.shape
+        _report(results, name, err, rel,
+                cuda_ms(lambda: A.flash_fwd_static(qh, kh, vh, bound), 10),
+                cuda_ms(lambda: A.flash_fwd_static_ref(qs, ks, vs, bound), 2),
+                attn_bound(bh, s, s, d),
+                cuda_ms(lambda: _sdpa(math.log(2))(qh, kh, vh), 5),
+                rel_l2=rel_l2, rows_compared=len(rows),
+                note=f"ms, bound and library on the {bh} rows; plain_ms "
+                     f"and the errors on {len(rows)}")
+
+    # Wan: K2 on q and k, K1 on all 48 rows, K3 against the text
+    q_raw, k_raw = (torch.randn(B, S_EVAL, H * D, device=dev,
+                                dtype=torch.bfloat16, generator=g)
+                    for _ in range(2))
+    w_q, w_k = (1 + 0.1 * torch.randn(H * D, device=dev, generator=g)
+                for _ in range(2))
+    cos_np, sin_np = wan_rope_table(D, *GRID_EVAL)
+    cos = torch.from_numpy(cos_np).to(dev)
+    sin = torch.from_numpy(sin_np).to(dev)
+    gain = D ** -0.5 * A.LOG2E
+    qh = producer("qk_norm_rope_eval", A.qk_norm_rope, A.qk_norm_rope_ref,
+                  q_raw, (w_q,), (cos * gain).contiguous(),
+                  (sin * gain).contiguous(), H, 12)
+    kh = A.qk_norm_rope_ref(k_raw, w_k, cos, sin, H, 1e-6)
+    vh = torch.randn(B * H, S_EVAL, D, device=dev, dtype=torch.bfloat16,
+                     generator=g)
+    k1("flash_fwd_static_eval", qh, kh, vh,
+       torch.arange(B * H, device=dev))
+    tk = torch.randn(B * H, L_TEXT, D, device=dev, generator=g)
+    tk = (tk * torch.rsqrt(tk.square().mean(-1, keepdim=True))
+          ).to(torch.bfloat16)
+    tv = torch.randn(B * H, L_TEXT, D, device=dev, dtype=torch.bfloat16,
+                     generator=g)
+    qn = (qh.float() * torch.rsqrt(qh.float().square().mean(-1, keepdim=True))
+          ).to(torch.bfloat16)
+    c = D ** -0.5 * A.LOG2E
+    want = A.flash_fwd_ref(qn, tk, tv, c)
+    err, rel, rel_l2 = _check_close("K3 (eval)", A.flash_fwd(qn, tk, tv, c),
+                                    want)
+    _report(results, "flash_fwd_eval", err, rel,
+            cuda_ms(lambda: A.flash_fwd(qn, tk, tv, c), 10),
+            cuda_ms(lambda: A.flash_fwd_ref(qn, tk, tv, c), 3),
+            attn_bound(B * H, S_EVAL, L_TEXT, D),
+            cuda_ms(lambda: _sdpa(D ** -0.5)(qn, tk, tv), 10), rel_l2=rel_l2)
+    del q_raw, k_raw, qh, kh, vh, qn, tk, tv, want
+    torch.cuda.empty_cache()
+
+    # CogVideoX: K4 on q and k (identity RoPE over the 226 text rows), K1 at
+    # head_dim 64, its plain version on 4 of the 96 rows
+    Hc, Dc, Sc = COG_H, COG_D, COG_S_EVAL
+    raw_q, raw_k = (torch.randn(B, Sc, Hc * Dc, device=dev,
+                                dtype=torch.bfloat16, generator=g)
+                    for _ in range(2))
+    w_q, b_q, w_k, b_k = (s + 0.1 * torch.randn(Dc, device=dev, generator=g)
+                          for s in (1.0, 0.0, 1.0, 0.0))
+    cos_np, sin_np = cogvideox_rope_table(Dc, *COG_GRID_EVAL,
+                                          duplicate_first_frame_for_id=True)
+    half = Dc // 2
+    cos = torch.cat([torch.ones(COG_L_TEXT, half),
+                     torch.from_numpy(cos_np)]).to(dev)
+    sin = torch.cat([torch.zeros(COG_L_TEXT, half),
+                     torch.from_numpy(sin_np)]).to(dev)
+    check(cos.shape[0] == Sc, f"CogVideoX eval RoPE rows {cos.shape[0]}")
+    gain = Dc ** -0.5 * A.LOG2E
+    qh = producer("qk_ln_rope_eval", A.qk_ln_rope, A.qk_ln_rope_ref, raw_q,
+                  (w_q, b_q), (cos * gain).contiguous(),
+                  (sin * gain).contiguous(), Hc, 14)
+    kh = A.qk_ln_rope_ref(raw_k, w_k, b_k, cos, sin, Hc, 1e-6)
+    del raw_q, raw_k
+    vh = torch.randn(B * Hc, Sc, Dc, device=dev, dtype=torch.bfloat16,
+                     generator=g)
+    k1("flash_fwd_static_d64_eval", qh, kh, vh,
+       torch.tensor([0, 31, 64, 95], device=dev))
+    del qh, kh, vh
+    torch.cuda.empty_cache()
+    return results
+
+
+class _Logged:
+    """A kernel wrapper that records the shape of its first argument; its
+    ``launches`` is the wrapper's own counter (the wrapper counts itself
+    through its module's name, which this object takes over)."""
+
+    def __init__(self, fn, shapes):
+        self.fn, self.shapes = fn, shapes
+
+    def __call__(self, x, *a, **kw):
+        self.shapes.add(tuple(x.shape))
+        return self.fn(x, *a, **kw)
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+
+class _ShapeLog:
+    """Records the shape of the first argument of attention.py's kernel
+    wrappers while it is open (the wrappers and their counts untouched)."""
+
+    NAMES = ("qk_norm_rope", "qk_ln_rope", "flash_fwd_static", "flash_fwd",
+             "qk_norm_rope_rstd")
+
+    def __enter__(self):
+        from frameino_tpu_torch.ops import attention as A
+        self.A, self.saved = A, {n: getattr(A, n) for n in self.NAMES}
+        self.shapes = {n: set() for n in self.NAMES}
+        for n, fn in self.saved.items():
+            setattr(A, n, _Logged(fn, self.shapes[n]))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.A, n, fn)
+        return False
+
+
+def _eval_dataset():
+    """A synthetic validation set in build/: a 60-frame 448x640 mp4 whose
+    tracked point starts inside the region box (frame-out keeps it) and
+    leaves the frame, an ID crop, two CSV rows; one eval config a family."""
+    from frameino_tpu_torch.data.fixture import (write_eval_config,
+                                                 write_fixture_dataset)
+    shutil.rmtree(EVAL_ROOT, ignore_errors=True)
+    data = write_fixture_dataset(EVAL_ROOT, EVAL_H, EVAL_W, 60,
+                                 start=(160.0, 120.0))
+    return {fam: write_eval_config(
+        os.path.join(EVAL_ROOT, f"{fam}.yaml"), data, EVAL_H, EVAL_W,
+        EVAL_F, steps=EVAL_STEPS,
+        max_text_seq_length=COG_L_TEXT if fam == "cogvideox" else L_TEXT)
+        for fam in ("wan", "cogvideox")}
+
+
+def _generate_family(family, config):
+    """One frame-in and one frame-out instance through
+    ``evaluate.main`` (naive scoring) with one full-width pipeline; the
+    kernel launches of each run exact per CFG step, at the eval shapes."""
+    import torch
+    from frameino_tpu_torch import evaluate
+    from frameino_tpu_torch.ops import attention as A
+    per_step = PER_STEP if family == "wan" else PER_STEP_COG
+    t0 = time.time()
+    pipe = evaluate.build_pipeline(
+        evaluate.parse_args(["--config_path", config, "--output_dir", "-",
+                             "--family", family]), {},
+        torch.device("cuda"))
+    build_s = time.time() - t0
+    rows, totals = {}, {k: 0 for k in A.launch_counts()}
+    for mode in ("frame_in", "frame_out"):
+        out = os.path.join(EVAL_ROOT, f"{family}_{mode}")
+        with _ShapeLog() as log:
+            A.reset_launch_counts()
+            run = evaluate.main(["--config_path", config, "--output_dir", out,
+                                 "--mode", mode, "--family", family,
+                                 "--num_instances", "1"], pipeline=pipe)
+            counts = A.launch_counts()
+        want = {k: n * EVAL_STEPS for k, n in per_step.items()}
+        check(counts == want, f"mass eval {family} {mode}: launches {counts}"
+                              f", expected {want}")
+        for name, shape in EVAL_SHAPES[family].items():
+            check(log.shapes[name] == {shape},
+                  f"mass eval {family} {mode}: {name} ran at "
+                  f"{sorted(log.shapes[name])}, expected {shape}")
+        for k, n in counts.items():
+            totals[k] += n
+        rows[mode] = dict(seconds=run["generation_s"],
+                          peak_gib=run["generation_peak_gib"],
+                          naive_results=run["results"], launches=counts)
+        print(f"mass eval {family} {mode}: instance seconds "
+              f"{run['generation_s']}, peak {run['generation_peak_gib']} "
+              f"GiB, launches {counts}")
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rows, pipeline_build_s=build_s), totals
+
+
+def _held(label, card, cpu):
+    import numpy as np
+    card, cpu = np.asarray(card, np.float64), np.asarray(cpu, np.float64)
+    check(bool(np.isfinite(card).all()), f"{label}: non-finite on the card")
+    rel = float(np.linalg.norm(card - cpu) / np.linalg.norm(cpu))
+    check(rel <= PERCEPTION_REL_L2, f"{label}: the card's output is "
+                                    f"{rel:.3e} relative L2 from the CPU's "
+                                    f"(limit {PERCEPTION_REL_L2:g})")
+    print(f"{label}: card vs CPU relative L2 {rel:.3e}")
+    return rel
+
+
+def phase_perception_vs_cpu():
+    """Each perception model at its released width, seeded on the CPU and
+    copied to the card, against itself on the CPU (fp32, TF32 off) on a cut
+    of the inputs: DINOv2-B/14 on 4 images at 224; CoTracker3 (6
+    iterations) on 8 frames at 384x512 with 4 queries; SAM2.1-hiera-large's
+    image encoder on one 1024 frame and the video predictor's logits over
+    2 frames (points on frame 0, one propagation)."""
+    import copy
+    import numpy as np
+    import torch
+    from frameino_tpu_torch.models import cotracker, dinov2, sam2, sam2_video
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.\
+        allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    rs = np.random.RandomState(5)
+    try:
+        g = torch.Generator().manual_seed(7)
+        m = dinov2.init_dinov2(dinov2.DINOV2_VITB14, g)
+        imgs = rs.randint(0, 255, (4, 300, 200, 3)).astype(np.uint8)
+        e_cpu = dinov2.make_embedder_adapter(m)
+        e_card = dinov2.make_embedder_adapter(copy.deepcopy(m).cuda())
+        out["dinov2"] = _held("DINOv2-B/14", [e_card(i) for i in imgs],
+                              [e_cpu(i) for i in imgs])
+        del m, e_cpu, e_card
+
+        m = cotracker.init_cotracker(cotracker.COTRACKER3_OFFLINE, g)
+        clip = rs.randint(0, 255, (8, 384, 512, 3)).astype(np.uint8)
+        q = torch.tensor([[0.0, 100.5, 80.25], [0.0, 300.0, 200.0],
+                          [3.0, 50.0, 350.0], [0.0, 480.0, 20.0]])[None]
+        video = torch.from_numpy(clip).float().permute(0, 3, 1, 2)[None]
+        c_cpu = m(video, q)
+        mc = copy.deepcopy(m).cuda()
+        c_card = mc(video.cuda(), q.cuda())
+        out["cotracker"] = {
+            k: _held(f"CoTracker3 {k}", b.cpu(), a)
+            for k, a, b in zip(("tracks", "visibility", "confidence"), c_cpu,
+                               c_card)}
+        del m, mc
+
+        m = sam2.init_sam2(sam2.SAM21_HIERA_LARGE, g)
+        # an object present (a positive object score), so that the logits
+        # are the decoder's and not the constant of an absent object
+        with torch.no_grad():
+            m.sam_mask_decoder.pred_obj_score_head.layers[2].bias.fill_(4.0)
+        mc = copy.deepcopy(m).cuda()
+        frames = rs.randint(0, 255, (2, 448, 640, 3)).astype(np.uint8)
+        logits = {}
+        for tag, model in (("cpu", m), ("card", mc)):
+            # the image encoder's features of frame 0, as the predictor
+            # computes them
+            feats, encode = [], model.encode_image
+
+            def logged(x, pos_embed=None, encode=encode, feats=feats):
+                out = encode(x, pos_embed)
+                feats.append(out[0])
+                return out
+            model.encode_image = logged
+            pred = sam2_video.Sam2VideoPredictor(model)
+            state = pred.init_state(frames)
+            pred.add_new_points(state, 0, np.array([[320.0, 224.0]]),
+                                np.array([1]))
+            logits[tag] = ([f.cpu() for f in feats[0]],
+                           [v.cpu() for _, v in
+                            pred.propagate_in_video(state)])
+            del model.encode_image
+        out["sam2_image_encoder"] = [
+            _held(f"SAM2.1-L image encoder level {i}", b, a)
+            for i, (a, b) in enumerate(zip(logits["cpu"][0],
+                                           logits["card"][0]))]
+        out["sam2_video_logits"] = [
+            _held(f"SAM2.1-L video logits frame {t}", b, a)
+            for t, (a, b) in enumerate(zip(logits["cpu"][1],
+                                           logits["card"][1]))]
+        del m, mc
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = prev
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_cog_vae_rounding():
+    """The full-width CogVideoX VAE in bf16 under ``conv_dtype`` (JAX's
+    conv_accum_dtype rule) against the same weights in fp32: the tiled
+    streaming encode of a 9-frame 448x640 clip and the pipeline's decode
+    of its latents (relative L2 printed, both finite)."""
+    import copy
+    import torch
+    from frameino_tpu_torch.models import cogvideox_vae
+    from frameino_tpu_torch.models import cogvideox_vae_streaming as VS
+    from frameino_tpu_torch.ops.conv import conv_dtype
+    from frameino_tpu_torch.pipelines.cogvideox_i2v import decode_latents
+    g = torch.Generator("cuda").manual_seed(15)
+    vae32 = cogvideox_vae.init_cogvideox_vae(
+        cogvideox_vae.COGVIDEOX_VAE_CONFIG, g)
+    vae16 = copy.deepcopy(vae32).to(torch.bfloat16)
+    clip = torch.tanh(torch.randn(1, 3, 9, EVAL_H, EVAL_W, device="cuda",
+                                  generator=g))
+    t0 = time.time()
+    m32 = VS.tiled_streaming_encode_moments(vae32, clip)
+    with conv_dtype(torch.bfloat16):
+        m16 = VS.tiled_streaming_encode_moments(vae16, clip)
+    z = m32[:, :vae32.cfg.latent_channels].permute(0, 2, 1, 3, 4) \
+        * vae32.cfg.scaling_factor
+    d32 = decode_latents(vae32, z)
+    d16 = decode_latents(vae16, z)
+    torch.cuda.synchronize()
+    row = {"seconds": time.time() - t0}
+    for name, a, b in (("encode_moments", m16, m32), ("decode", d16, d32)):
+        check(bool(torch.isfinite(a).all()), f"bf16 CogVideoX VAE {name}: "
+                                             f"non-finite")
+        row[name + "_rel_l2"] = ((a.float() - b.float()).norm()
+                                 / b.float().norm()).item()
+    print(f"CogVideoX VAE bf16 under conv_dtype vs fp32 (448x640, 9 frames):"
+          f" encode {row['encode_moments_rel_l2']:.3e}, decode "
+          f"{row['decode_rel_l2']:.3e} relative L2")
+    del vae32, vae16, clip, m32, m16, z, d32, d16
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_mass_eval():
+    """Generation at the reference's eval shape (49 frames at 448x640, 2
+    steps) through ``evaluate.main``, one frame-in and one frame-out
+    instance a family, then scoring those artifacts with
+    ``--backends random`` (CoTracker3 at 384x512, SAM2.1-hiera-large at
+    1024, DINOv2-B/14 at 224), each perception model also held against
+    its CPU output, and the repaired CogVideoX VAE."""
+    import torch
+    from frameino_tpu_torch import evaluate
+    t0 = time.time()
+    results = phase_kernels_eval()
+    configs = _eval_dataset()
+    generation, launches = {}, {}
+    for family in ("wan", "cogvideox"):
+        generation[family], launches[family] = _generate_family(
+            family, configs[family])
+    scoring = {}
+    # Wan's frame-in instance (four metrics, 49 frames) and CogVideoX's
+    # frame-out one (three, 14 frames): the scoring cost does not depend on
+    # the family that made the frames
+    for family, mode in (("wan", "frame_in"), ("cogvideox", "frame_out")):
+        t1 = time.time()
+        run = evaluate.main(["--config_path", configs[family],
+                             "--output_dir",
+                             os.path.join(EVAL_ROOT, f"{family}_{mode}"),
+                             "--mode", mode, "--family", family,
+                             "--evaluate-only", "--backends", "random"])
+        res = run["results"]
+        check(res["_num_instances"] == 1, f"scoring {family} {mode}: "
+                                          f"{res['_num_instances']} "
+                                          f"instances")
+        for k, v in res.items():
+            if not k.startswith("_"):
+                check(math.isfinite(v), f"scoring {family} {mode}: {k} "
+                                        f"= {v}")
+        scoring[f"{family}_{mode}"] = dict(
+            timings_s=res["_timings_s"],
+            peak_gib=run["scoring_peak_gib"],
+            seconds=time.time() - t1)
+        print(f"scoring {family} {mode} (random weights): seconds "
+              f"{res['_timings_s']}, peaks {run['scoring_peak_gib']} GiB")
+        torch.cuda.empty_cache()
+    vs_cpu = phase_perception_vs_cpu()
+    vae = phase_cog_vae_rounding()
+    totals = launches["wan"]
+    return results, {
+        "flash_fwd_static_eval": totals["flash_fwd_static"],
+        "qk_norm_rope_eval": totals["qk_norm_rope"],
+        "flash_fwd_eval": totals["flash_fwd"],
+        "qk_ln_rope_eval": launches["cogvideox"]["qk_ln_rope"],
+        "flash_fwd_static_d64_eval":
+            launches["cogvideox"]["flash_fwd_static"]}, dict(
+        generation=generation, scoring=scoring, perception_vs_cpu=vs_cpu,
+        cog_vae_rounding=vae, seconds=time.time() - t0)
+
+
 def main():
     import torch
     profile = "--profile" in sys.argv[1:]
@@ -4135,6 +4591,8 @@ def main():
     exp_results, exp_shapes = phase_kernels_experiment(parents)
     kernel_results.update(exp_results)
     exp_scripts, exp_launches = phase_experiment_scripts()
+    eval_results, eval_launches, mass_eval = phase_mass_eval()
+    kernel_results.update(eval_results)
 
     # each kernel's launches on its path (K1 twice: Wan at head_dim 128,
     # CogVideoX at 64; K5 on rank 0 over the tp = 2 request; K6 over the 3
@@ -4154,7 +4612,8 @@ def main():
                        for k in NO_TRAIN},
                     **{f"{k}_d64": sum(r["launches"][k]
                                        for r in cog_train["steps"])
-                       for k in NO_TRAIN}, **exp_launches)
+                       for k in NO_TRAIN}, **exp_launches,
+                    **eval_launches)
     for k, n in exp_launches.items():
         check(n > 0, f"kernel {k} was not launched by the experiment scripts")
     summary = {"device": {"name": name, "nvidia_smi": smi}, "kernels": [
@@ -4172,7 +4631,7 @@ def main():
         "train_rules": rules, "cog_train_entry": cog_entry,
         "cog_train": cog_train,
         "experiment_kernels": exp_shapes, "experiment_scripts": exp_scripts,
-        "seconds": time.time() - t_start}
+        "mass_eval": mass_eval, "seconds": time.time() - t_start}
     out_dir = os.path.join(REPO, "build")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

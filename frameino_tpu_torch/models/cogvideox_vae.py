@@ -32,6 +32,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from frameino_tpu_torch.ops.conv import (low_precision_dtype, scoped_conv,
+                                        silu_)
+
 
 @dataclasses.dataclass(frozen=True)
 class CogVideoXVAEConfig:
@@ -194,17 +197,26 @@ def conv3d(x, conv: nn.Conv3d, front=None):
     if front is not None:
         x = torch.cat([front.to(x.dtype), x], dim=2)
     ph = conv.weight.shape[-1] // 2
-    return F.conv3d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
-                    padding=(0, ph, ph))
+    return scoped_conv(F.conv3d, x, conv.weight, conv.bias,
+                       padding=(0, ph, ph))
 
 
 def group_norm(x, norm: nn.GroupNorm, seg: Optional[Seg] = None):
     """GroupNorm with statistics over (C/G, T_segment, H, W) per segment of
-    ``seg`` (one segment when None)."""
-    w, b = norm.weight.to(x.dtype), norm.bias.to(x.dtype)
+    ``seg`` (one segment when None). Under a low-precision ``conv_dtype``
+    scope it normalizes and scales in fp32 and rounds once, as
+    ``group_norm_seg`` in JAX."""
+    if low_precision_dtype() is not None and x.dtype != torch.float32:
+        w, b = norm.weight.float(), norm.bias.float()
 
-    def gn(y):
-        return F.group_norm(y, norm.num_groups, w, b, norm.eps)
+        def gn(y):
+            return F.group_norm(y.float(), norm.num_groups, w, b,
+                                norm.eps).to(y.dtype)
+    else:
+        w, b = norm.weight.to(x.dtype), norm.bias.to(x.dtype)
+
+        def gn(y):
+            return F.group_norm(y, norm.num_groups, w, b, norm.eps)
 
     if seg is None or seg.count == 0:
         return gn(x)
@@ -235,8 +247,8 @@ def pool_time(x, bypass_first: bool):
 def spatial_downsample(rs: _Resample, x):
     """ZeroPad (0, 1, 0, 1) + per-frame Conv2d stride 2."""
     x = F.pad(x, (0, 1, 0, 1))
-    w = rs.conv.weight.to(x.dtype)[:, :, None]
-    return F.conv3d(x, w, rs.conv.bias.to(x.dtype), stride=(1, 2, 2))
+    return scoped_conv(F.conv3d, x, rs.conv.weight[:, :, None], rs.conv.bias,
+                       stride=(1, 2, 2))
 
 
 def upsample(rs: _Resample, x, time: bool, bypass_first: bool):
@@ -249,8 +261,8 @@ def upsample(rs: _Resample, x, time: bool, bypass_first: bool):
         else:
             x = x.repeat_interleave(2, dim=2)
     x = x.repeat_interleave(2, dim=3).repeat_interleave(2, dim=4)
-    w = rs.conv.weight.to(x.dtype)[:, :, None]
-    return F.conv3d(x, w, rs.conv.bias.to(x.dtype), padding=(0, 1, 1))
+    return scoped_conv(F.conv3d, x, rs.conv.weight[:, :, None], rs.conv.bias,
+                       padding=(0, 1, 1))
 
 
 def repeat_zq(zq, f_shape, bypass_first: bool):
@@ -319,9 +331,9 @@ def _norm(ctx, norm, x, zq):
 
 
 def resnet_forward(ctx, res: ResnetBlock3D, x, zq=None):
-    h = F.silu(_norm(ctx, res.norm1, x, zq))
+    h = silu_(_norm(ctx, res.norm1, x, zq))
     h = ctx.cconv(res.conv1, h)
-    h = F.silu(_norm(ctx, res.norm2, h, zq))
+    h = silu_(_norm(ctx, res.norm2, h, zq))
     h = ctx.cconv(res.conv2, h)
     if res.conv_shortcut is not None:
         x = conv3d(x, res.conv_shortcut)
@@ -339,7 +351,7 @@ def encoder_walk(cfg: CogVideoXVAEConfig, enc: Encoder, x, ctx):
             x = spatial_downsample(blk.downsamplers[0], x)
     for r in enc.mid_block.resnets:
         x = resnet_forward(ctx, r, x)
-    x = F.silu(ctx.norm(enc.norm_out, x))
+    x = silu_(ctx.norm(enc.norm_out, x))
     return ctx.cconv(enc.conv_out, x)
 
 
@@ -354,7 +366,7 @@ def decoder_walk(cfg: CogVideoXVAEConfig, dec: Decoder, z, ctx):
         if hasattr(blk, "upsamplers"):
             x = ctx.upsample(blk.upsamplers[0], x,
                              i < cfg.temporal_compress_level)
-    x = F.silu(ctx.spatial_norm(dec.norm_out, x, zq))
+    x = silu_(ctx.spatial_norm(dec.norm_out, x, zq))
     return ctx.cconv(dec.conv_out, x)
 
 
@@ -422,17 +434,26 @@ class CogVideoXVAE(nn.Module):
 
 
 def sample_posterior(moments, generator: Optional[torch.Generator] = None,
-                     noise=None):
-    """mean + exp(logvar / 2) * noise in fp32, logvar clipped to [-30, 20];
-    ``noise`` (shaped like the mean) is drawn from ``generator`` unless
-    given."""
+                     noise=None, scale: float = 1.0):
+    """(mean + exp(logvar / 2) * noise) * scale as fp32, logvar clipped to
+    [-30, 20]; ``noise`` (shaped like the mean) is drawn from ``generator``
+    unless given. Under a low-precision ``conv_dtype`` scope, low-precision
+    moments take each step in their own dtype, as JAX's ``encode`` and the
+    ``* scaling_factor`` after it (the scale rounded to that dtype too);
+    otherwise the math is fp32."""
     mean, logvar = moments.chunk(2, dim=1)
-    std = torch.exp(0.5 * logvar.float().clamp(-30.0, 20.0))
     if noise is None:
         noise = torch.randn(mean.shape, generator=generator,
                             device=generator.device if generator is not None
                             else mean.device, dtype=torch.float32)
-    return mean.float() + std * noise.to(mean.device, torch.float32)
+    noise = noise.to(mean.device)
+    if low_precision_dtype() is not None and mean.dtype != torch.float32:
+        # a Python scale is weakly typed in JAX: it rounds to mean's dtype
+        std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
+        z = mean + std * noise.to(mean.dtype)
+        return (z * torch.tensor(scale, dtype=mean.dtype)).float()
+    std = torch.exp(0.5 * logvar.float().clamp(-30.0, 20.0))
+    return (mean.float() + std * noise.float()) * scale
 
 
 def init_cogvideox_vae(cfg: CogVideoXVAEConfig, generator: torch.Generator,

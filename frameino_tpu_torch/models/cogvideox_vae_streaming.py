@@ -116,11 +116,12 @@ def streaming_decode(vae: M.CogVideoXVAE, z):
 
 
 def streaming_encode(vae: M.CogVideoXVAE, video,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None,
+                     scale: float = 1.0):
     """The condition encode: tiled streaming moments, then a posterior
-    sample (fp32)."""
+    sample times ``scale`` (fp32; ``M.sample_posterior``)."""
     return M.sample_posterior(tiled_streaming_encode_moments(vae, video),
-                              generator)
+                              generator, scale=scale)
 
 
 # ---------------------------------------------------------------------------

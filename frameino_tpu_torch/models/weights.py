@@ -334,3 +334,202 @@ def cogvideox_vae_from_jax(params_np: Dict[str, Any],
     _put_cog_spatial_norm(sd, "decoder.norm_out", dec["norm_out"])
     _put_cog_cconv(sd, "decoder.conv_out", dec["conv_out"])
     return sd
+
+
+# ---------------------------------------------------------------------------
+# Perception models (evaluation): released-checkpoint readers, and the JAX
+# trees of frameino_tpu/models/{dinov2,cotracker,sam2}.py -> the port's
+# state dicts (the inverses of the JAX packages' *_from_state_dict)
+# ---------------------------------------------------------------------------
+
+def read_checkpoint(path: str) -> StateDict:
+    """A released perception checkpoint: ``.safetensors`` through the
+    port's reader, else ``torch.load(weights_only=True)`` and its
+    ``"model"`` dict where it has one."""
+    if path.endswith(".safetensors") or os.path.isdir(path):
+        return dict(load_safetensors_dir(path))
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if "model" in sd and isinstance(sd["model"], dict):
+        sd = sd["model"]
+    return dict(sd)
+
+
+def dinov2_to_state_dict(params_np: Dict[str, Any], cfg) -> StateDict:
+    """``frameino_tpu.models.dinov2`` tree -> upstream ``dinov2_vitb14``
+    names (the patch rows back to the conv [D, 3, p, p], the stacked
+    blocks unstacked, dense kernels transposed; a zero ``mask_token``)."""
+    p = cfg.patch_size
+    sd: StateDict = {
+        "patch_embed.proj.weight": _t(np.asarray(params_np["patch_w"]).T
+                                      .reshape(cfg.dim, 3, p, p)),
+        "patch_embed.proj.bias": _t(params_np["patch_b"]),
+        "cls_token": _t(params_np["cls_token"]),
+        "pos_embed": _t(params_np["pos_embed"]),
+        "mask_token": torch.zeros(1, cfg.dim),
+        "norm.weight": _t(params_np["norm_w"]),
+        "norm.bias": _t(params_np["norm_b"]),
+    }
+    names = {"n1w": "norm1.weight", "n1b": "norm1.bias",
+             "qkv_w": "attn.qkv.weight", "qkv_b": "attn.qkv.bias",
+             "proj_w": "attn.proj.weight", "proj_b": "attn.proj.bias",
+             "ls1": "ls1.gamma", "n2w": "norm2.weight", "n2b": "norm2.bias",
+             "fc1_w": "mlp.fc1.weight", "fc1_b": "mlp.fc1.bias",
+             "fc2_w": "mlp.fc2.weight", "fc2_b": "mlp.fc2.bias",
+             "ls2": "ls2.gamma"}
+    for key, name in names.items():
+        stacked = np.asarray(params_np["blocks"][key])
+        for i in range(cfg.depth):
+            a = stacked[i]
+            sd[f"blocks.{i}.{name}"] = _t(a.T if key.endswith("_w") else a)
+    return sd
+
+
+def cotracker_to_state_dict(params_np: Dict[str, Any]) -> StateDict:
+    """``frameino_tpu.models.cotracker`` tree (torch layouts already) ->
+    the released checkpoint's names (a residual block's 1x1 shortcut is
+    ``downsample.0``)."""
+    sd: StateDict = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            name = "downsample.0" if k == "downsample" else k
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{name}.")
+            else:
+                sd[prefix + name] = _t(v)
+    walk(params_np, "")
+    return sd
+
+
+def _put_sam_lin(sd: StateDict, name: str, p):
+    sd[name + ".weight"] = _t(np.asarray(p["w"]).T)
+    sd[name + ".bias"] = _t(p["b"])
+
+
+def _put_sam_conv(sd: StateDict, name: str, p):
+    sd[name + ".weight"] = _t(np.transpose(np.asarray(p["w"]), (3, 2, 0, 1)))
+    sd[name + ".bias"] = _t(p["b"])
+
+
+def _put_sam_convT(sd: StateDict, name: str, p):
+    # JAX keeps torch's [Cin, Cout, kh, kw] flipped and transposed to HWIO
+    w = np.transpose(np.asarray(p["w"]), (2, 3, 0, 1))[:, :, ::-1, ::-1]
+    sd[name + ".weight"] = _t(w)
+    sd[name + ".bias"] = _t(p["b"])
+
+
+def _put_sam_ln(sd: StateDict, name: str, w, b):
+    sd[name + ".weight"] = _t(w)
+    sd[name + ".bias"] = _t(b)
+
+
+def _put_sam_mlp(sd: StateDict, name: str, p):
+    for i, lp in enumerate(p["layers"]):
+        _put_sam_lin(sd, f"{name}.layers.{i}", lp)
+
+
+def _put_sam_attn(sd: StateDict, name: str, p):
+    for k in ("q", "k", "v", "out"):
+        _put_sam_lin(sd, f"{name}.{k}_proj", p[k])
+
+
+def sam2_to_state_dict(params_np: Dict[str, Any], cfg) -> StateDict:
+    """``frameino_tpu.models.sam2`` tree -> the released SAM2.1 checkpoint's
+    names (without the video API's unused ``mask_downsample``)."""
+    sd: StateDict = {}
+    t = "image_encoder.trunk."
+    tr = params_np["trunk"]
+    _put_sam_conv(sd, t + "patch_embed.proj", tr["patch_embed"])
+    sd[t + "pos_embed"] = _t(tr["pos_embed"])
+    sd[t + "pos_embed_window"] = _t(tr["pos_embed_window"])
+    for i, blk in enumerate(tr["blocks"]):
+        b = f"{t}blocks.{i}."
+        _put_sam_ln(sd, b + "norm1", blk["n1w"], blk["n1b"])
+        _put_sam_ln(sd, b + "norm2", blk["n2w"], blk["n2b"])
+        _put_sam_lin(sd, b + "attn.qkv", blk["qkv"])
+        _put_sam_lin(sd, b + "attn.proj", blk["attn_proj"])
+        _put_sam_lin(sd, b + "mlp.layers.0", blk["mlp1"])
+        _put_sam_lin(sd, b + "mlp.layers.1", blk["mlp2"])
+        if "proj" in blk:
+            _put_sam_lin(sd, b + "proj", blk["proj"])
+    for i, c in enumerate(params_np["neck"]["convs"]):
+        _put_sam_conv(sd, f"image_encoder.neck.convs.{i}.conv", c)
+
+    pp = "sam_prompt_encoder."
+    pr = params_np["prompt"]
+    sd[pp + "pe_layer.positional_encoding_gaussian_matrix"] = _t(pr["gauss"])
+    for i in range(4):
+        sd[f"{pp}point_embeddings.{i}.weight"] = _t(
+            np.asarray(pr["point_embed"])[i:i + 1])
+    sd[pp + "not_a_point_embed.weight"] = _t(np.asarray(pr["not_a_point"])
+                                             [None])
+    sd[pp + "no_mask_embed.weight"] = _t(np.asarray(pr["no_mask"])[None])
+    for i, c in zip((0, 3, 6), pr["mask_down"]):
+        _put_sam_conv(sd, f"{pp}mask_downscaling.{i}", c)
+    for i, (w, b) in zip((1, 4), pr["mask_down_ln"]):
+        _put_sam_ln(sd, f"{pp}mask_downscaling.{i}", w, b)
+
+    dp = "sam_mask_decoder."
+    dec = params_np["decoder"]
+    tf = dec["transformer"]
+    for i, lp in enumerate(tf["layers"]):
+        lpfx = f"{dp}transformer.layers.{i}."
+        _put_sam_attn(sd, lpfx + "self_attn", lp["self_attn"])
+        _put_sam_attn(sd, lpfx + "cross_attn_token_to_image", lp["t2i"])
+        _put_sam_attn(sd, lpfx + "cross_attn_image_to_token", lp["i2t"])
+        _put_sam_lin(sd, lpfx + "mlp.layers.0", lp["mlp1"])
+        _put_sam_lin(sd, lpfx + "mlp.layers.1", lp["mlp2"])
+        for n in range(1, 5):
+            _put_sam_ln(sd, f"{lpfx}norm{n}", lp[f"n{n}w"], lp[f"n{n}b"])
+    _put_sam_attn(sd, dp + "transformer.final_attn_token_to_image",
+                  tf["final_t2i"])
+    _put_sam_ln(sd, dp + "transformer.norm_final_attn", tf["nfw"], tf["nfb"])
+    sd[dp + "iou_token.weight"] = _t(dec["iou_token"])
+    sd[dp + "mask_tokens.weight"] = _t(dec["mask_tokens"])
+    sd[dp + "obj_score_token.weight"] = _t(dec["obj_score_token"])
+    _put_sam_convT(sd, dp + "output_upscaling.0", dec["up1"])
+    _put_sam_ln(sd, dp + "output_upscaling.1", dec["up_ln_w"],
+                dec["up_ln_b"])
+    _put_sam_convT(sd, dp + "output_upscaling.3", dec["up2"])
+    _put_sam_conv(sd, dp + "conv_s0", dec["conv_s0"])
+    _put_sam_conv(sd, dp + "conv_s1", dec["conv_s1"])
+    for i, m in enumerate(dec["hyper"]):
+        _put_sam_mlp(sd, f"{dp}output_hypernetworks_mlps.{i}", m)
+    _put_sam_mlp(sd, dp + "iou_prediction_head", dec["iou_head"])
+    _put_sam_mlp(sd, dp + "pred_obj_score_head", dec["obj_score_head"])
+
+    ma = "memory_attention."
+    mat = params_np["memory_attention"]
+    for i, lp in enumerate(mat["layers"]):
+        lpfx = f"{ma}layers.{i}."
+        _put_sam_attn(sd, lpfx + "self_attn", lp["self_attn"])
+        _put_sam_attn(sd, lpfx + "cross_attn_image", lp["cross_attn"])
+        _put_sam_lin(sd, lpfx + "linear1", lp["lin1"])
+        _put_sam_lin(sd, lpfx + "linear2", lp["lin2"])
+        for n in range(1, 4):
+            _put_sam_ln(sd, f"{lpfx}norm{n}", lp[f"n{n}w"], lp[f"n{n}b"])
+    _put_sam_ln(sd, ma + "norm", mat["nw"], mat["nb"])
+
+    me = "memory_encoder."
+    men = params_np["memory_encoder"]
+    md = me + "mask_downsampler.encoder."
+    for i, c in zip((0, 3, 6, 9, 12), men["mask_down"]):
+        _put_sam_conv(sd, md + str(i), c)
+    for i, (w, b) in zip((1, 4, 7, 10), men["mask_down_ln"]):
+        _put_sam_ln(sd, md + str(i), w, b)
+    _put_sam_conv(sd, me + "pix_feat_proj", men["pix_proj"])
+    for i, f in enumerate(men["fuser"]):
+        fp = f"{me}fuser.layers.{i}."
+        _put_sam_conv(sd, fp + "dwconv", f["dwconv"])
+        _put_sam_ln(sd, fp + "norm", f["nw"], f["nb"])
+        _put_sam_lin(sd, fp + "pwconv1", f["pw1"])
+        _put_sam_lin(sd, fp + "pwconv2", f["pw2"])
+        sd[fp + "gamma"] = _t(f["gamma"])
+    _put_sam_conv(sd, me + "out_proj", men["out_proj"])
+
+    for k in ("maskmem_tpos_enc", "no_mem_embed", "no_mem_pos_enc",
+              "no_obj_ptr", "no_obj_embed_spatial"):
+        sd[k] = _t(params_np[k])
+    _put_sam_mlp(sd, "obj_ptr_proj", params_np["obj_ptr_proj"])
+    _put_sam_lin(sd, "obj_ptr_tpos_proj", params_np["obj_ptr_tpos_proj"])
+    return sd

@@ -46,6 +46,12 @@ class conv_dtype:
         return False
 
 
+def narrow_conv_dtype(dtype: torch.dtype) -> conv_dtype:
+    """``conv_dtype(dtype)`` when ``dtype`` is narrower than fp32, else the
+    unscoped rule (an fp32 conv keeps its bias fused, as before)."""
+    return conv_dtype(dtype if dtype.itemsize < 4 else None)
+
+
 def low_precision_dtype() -> Optional[torch.dtype]:
     """The scope's dtype when it is narrower than fp32, else None."""
     dt = _CONV_DTYPE.get()

@@ -40,6 +40,7 @@ from frameino_tpu_torch.models import quant
 from frameino_tpu_torch.models.cogvideox_dit import (CogVideoXDiT,
                                                      cogvideox_rope)
 from frameino_tpu_torch.models.cogvideox_vae import CogVideoXVAE
+from frameino_tpu_torch.ops.conv import narrow_conv_dtype
 from frameino_tpu_torch.schedulers.cogvideox_dpm import dpm_step_pair
 from frameino_tpu_torch.schedulers.ddim import (DDIMConfig,
                                                 ddim_alphas_cumprod,
@@ -71,12 +72,15 @@ def prepare_conditions(vae: CogVideoXVAE, image, traj_video, id_frame,
     """image [B, 3, H, W], traj_video [B, 3, T, H, W] or None, id_frame
     [B, 3, H, W] or None, in [-1, 1] -> (image_latents [B, F, z, h, w]
     zero-padded after frame 0, traj_latents or None, id_latent
-    [B, 1, z, h, w] or None), fp32, scaled by ``scaling_factor``."""
+    [B, 1, z, h, w] or None), fp32, scaled by ``scaling_factor``. A bf16
+    VAE encodes under ``conv_dtype(bf16)``, as JAX's under
+    ``conv_accum_dtype``."""
     sf = vae.cfg.scaling_factor
 
     def enc(v):
-        z = VS.streaming_encode(vae, v, generator)
-        return (z * sf).permute(0, 2, 1, 3, 4)
+        with narrow_conv_dtype(vae.dtype):
+            z = VS.streaming_encode(vae, v, generator, scale=sf)
+        return z.permute(0, 2, 1, 3, 4)
 
     img = enc(image[:, :, None])
     pad = torch.zeros((img.shape[0], num_latent_frames - 1, *img.shape[2:]),
@@ -85,6 +89,16 @@ def prepare_conditions(vae: CogVideoXVAE, image, traj_video, id_frame,
     traj_latents = enc(traj_video) if traj_video is not None else None
     id_latent = enc(id_frame[:, :, None]) if id_frame is not None else None
     return image_latents, traj_latents, id_latent
+
+
+def decode_latents(vae: CogVideoXVAE, latents):
+    """Frame-first latents [B, F, z, h, w] -> video [B, 3, T, H, W] in
+    [-1, 1], fp32: the tiled streaming decode, under ``conv_dtype(bf16)``
+    for a bf16 VAE, as JAX's ``__call__``."""
+    z = latents.permute(0, 2, 1, 3, 4) / vae.cfg.scaling_factor
+    with narrow_conv_dtype(vae.dtype):
+        video = VS.tiled_streaming_decode(vae, z)
+    return video.float().clamp_(-1.0, 1.0)
 
 
 def denoise(dit: CogVideoXDiT, sched_cfg: DDIMConfig, latents,
@@ -182,8 +196,9 @@ class CogVideoXImageToVideoPipeline:
         if generator is None:
             generator = torch.Generator(dev).manual_seed(0)
         if prompt_embeds is None:
-            raise ValueError("need prompt_embeds (the T5 encoder is not "
-                             "ported)")
+            raise ValueError("need prompt_embeds: the pipeline takes the "
+                             "T5 encoder's output, as JAX's does (encode "
+                             "the prompt with models/t5_encoder.py)")
         prompt_embeds = prompt_embeds.to(dev, torch.float32)
         if negative_prompt_embeds is None:
             negative_prompt_embeds = torch.zeros_like(prompt_embeds)
@@ -233,7 +248,5 @@ class CogVideoXImageToVideoPipeline:
         if output_type == "latent":
             return latents
 
-        z = latents.permute(0, 2, 1, 3, 4) / vae_cfg.scaling_factor
-        video = VS.tiled_streaming_decode(self.vae, z).float().clamp_(-1.0,
-                                                                      1.0)
+        video = decode_latents(self.vae, latents)
         return video.cpu().numpy() if output_type == "np" else video

@@ -37,6 +37,7 @@ from torch.profiler import record_function
 from frameino_tpu_torch.models import cogvideox_dit
 from frameino_tpu_torch.models.cogvideox_vae import (CogVideoXVAE,
                                                      sample_posterior)
+from frameino_tpu_torch.ops.conv import narrow_conv_dtype
 from frameino_tpu_torch.schedulers.ddim import (DDIMConfig, ddim_add_noise,
                                                 ddim_alphas_cumprod)
 from frameino_tpu_torch.training.optim import OptimizerConfig
@@ -118,12 +119,15 @@ def encode_training_batch(cfg: CogTrainerConfig, vae: CogVideoXVAE,
     sf = vae.cfg.scaling_factor
 
     def enc(v_cf, name):
-        moments = vae.encode_moments(v_cf.to(p.device), cfg.encode_dtype)
-        mean_shape = (moments.shape[0], moments.shape[1] // 2,
-                      *moments.shape[2:])
-        z = sample_posterior(moments,
-                             noise=draws.normal(name, mean_shape, p.device))
-        return (z * sf).permute(0, 2, 1, 3, 4)
+        # JAX's conv_accum_dtype(encode dtype) rule (ops/conv.conv_dtype)
+        with narrow_conv_dtype(cfg.encode_dtype):
+            moments = vae.encode_moments(v_cf.to(p.device), cfg.encode_dtype)
+            mean_shape = (moments.shape[0], moments.shape[1] // 2,
+                          *moments.shape[2:])
+            z = sample_posterior(
+                moments, noise=draws.normal(name, mean_shape, p.device),
+                scale=sf)
+        return z.permute(0, 2, 1, 3, 4)
 
     video_latents = enc(batch["video_tensor"].permute(0, 2, 1, 3, 4),
                         "post_video")

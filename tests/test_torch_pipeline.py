@@ -364,9 +364,11 @@ def test_port_never_imports_jax(tmp_path):
     """Importing the package, its server and entry points, its mesh and
     parallel modules, serving one smoke request of each family and one of
     the int8 Wan pipeline, serving a prompt request from checkpoint
-    directories (the safetensors writer and reader, UMT5) and taking one
-    smoke train step of each family leaves jax and every module of the JAX
-    package (frameino_tpu) unimported."""
+    directories (the safetensors writer and reader, UMT5), taking one
+    smoke train step of each family, one smoke mass-evaluation round and
+    one call of each perception model (DINOv2, CoTracker, SAM2) at its tiny
+    config leaves jax and every module of the JAX package (frameino_tpu)
+    unimported."""
     code = textwrap.dedent("""
         import base64, io, json, os, sys
         import numpy as np
@@ -454,6 +456,32 @@ def test_port_never_imports_jax(tmp_path):
         assert train_cogvideox.main(["--config_path",
                                      os.path.join(root, "c.yaml"),
                                      "--smoke"])["step"] == 1
+        # one mass-evaluation round (naive backends) on a fixture, and the
+        # perception models at their tiny configs
+        from frameino_tpu_torch import evaluate
+        from frameino_tpu_torch.data.fixture import write_eval_config
+        from frameino_tpu_torch.models import cotracker, dinov2, sam2
+        from frameino_tpu_torch.models.sam2_video import \
+            make_segmenter_adapter
+        data = write_fixture_dataset(os.path.join(root, "eval"), 48, 64, 30,
+                                     start=(16.0, 12.0))
+        ecfg = write_eval_config(os.path.join(root, "e.yaml"), data, 32, 64,
+                                 13, max_text_seq_length=8)
+        res = evaluate.main(["--config_path", ecfg, "--output_dir",
+                             os.path.join(root, "eval_out"), "--smoke",
+                             "--device", "cpu", "--num_instances", "1"])
+        assert res["results"]["_num_instances"] == 1, res
+        g = torch.Generator().manual_seed(0)
+        clip = np.random.RandomState(0).randint(0, 255, (3, 24, 32, 3)
+                                                ).astype(np.uint8)
+        q = np.array([[10.0, 12.0]], np.float32)
+        assert cotracker.make_tracker_adapter(cotracker.init_cotracker(
+            cotracker.tiny_cotracker_config(), g))(clip, q).shape == (3, 1, 2)
+        assert make_segmenter_adapter(sam2.init_sam2(
+            sam2.tiny_sam2_config(), g))(clip, q).shape == (3, 24, 32)
+        assert dinov2.make_embedder_adapter(dinov2.init_dinov2(
+            dinov2.tiny_dinov2_config(), g), input_size=28)(clip[0]).shape \
+            == (32,)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "frameino_tpu"
@@ -464,6 +492,6 @@ def test_port_never_imports_jax(tmp_path):
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
                          cwd=REPO, env=env, capture_output=True, text=True,
-                         timeout=120)
+                         timeout=240)
     assert res.returncode == 0, res.stderr[-2000:]
     assert res.stdout.strip().endswith("OK")
