@@ -191,6 +191,29 @@ Phases (any failure exits non-zero; there is no CPU path):
     frames, SAM2.1's image encoder and video logits on 2 frames); the
     full-width CogVideoX VAE in bf16 under ``conv_dtype`` against fp32
     (encode and decode at 448x640, relative L2 printed).
+17. the Qwen2.5-VL judge: K7 bit-equal to its plain version at the judge's
+    rows ([364, 5120 | 27648], [1, 5120 | 27648]; two planted faults must
+    differ); Qwen2.5-VL-32B at full width and depth on seeded random
+    weights drawn on the card in bf16, a synthetic video grid (2, 20, 30)
+    inside 64 text tokens: the vision tower, a prefill and 8 greedy tokens
+    in bf16, then quantized to int8 in place and again, with exactly 448
+    K7 launches a forward (none in bf16), finite logits, prefill and
+    decode milliseconds and peak memory; the same model at 2 text layers
+    and 2 vision blocks on the card held against the CPU
+    (QWEN_CPU_REL_L2: bf16 against fp32, int8 against the same int8
+    model in bf16, over which reversed weight scales planted in the
+    card's model must read), and its int8 products at the judge's rows
+    within one bf16 ulp of the CPU's, with two planted scale faults
+    rejected;
+18. the convergence run's kernels: K6 at the tiny DiT's [3, 2560, 128]
+    self-attention and its 16 text keys, K2, K1 and K3 (against the 16
+    keys, with planted faults for fewer keys than a tile) against their
+    plain versions;
+19. the convergence run (``scripts/train_overfit.py``, 1,200 steps,
+    cosine), twice at once (bf16 state in a second process): fp32 state
+    must pass JAX's three gates, bf16 state must finish finite; exact K6,
+    K1, K2 and K3 launches in each; reports in
+    build/train_convergence_<state>.json.
 
 Each serving or training phase sets the launch counts to 0 just before
 its requests or steps and reads them just after. The line before the
@@ -311,6 +334,16 @@ KERNELS.update({f"{k}_eval": dict(KERNELS[base]) for k, base in (
     ("qk_norm_rope", "qk_norm_rope"), ("flash_fwd", "flash_fwd"),
     ("qk_ln_rope", "qk_ln_rope"),
     ("flash_fwd_static_d64", "flash_fwd_static"))})
+# K7 at the Qwen2.5-VL-32B judge's rows (int8 text layers); K6, K1, K2 and
+# K3 at the convergence run's tiny DiT (3 heads of 128, 2,560 tokens, 16
+# text keys)
+KERNELS.update({k: dict(KERNELS[base]) for k, base in (
+    ("dyn_quant_qwen", "dyn_quant"),
+    ("flash_attn_train_fwd_overfit", "flash_attn_train_fwd"),
+    ("flash_attn_train_bwd_overfit", "flash_attn_train_bwd"),
+    ("flash_fwd_static_overfit", "flash_fwd_static"),
+    ("qk_norm_rope_overfit", "qk_norm_rope"),
+    ("flash_fwd_overfit", "flash_fwd"))})
 K5 = "qk_norm_rope_rstd"
 K7 = "dynamic_quantize_rows"
 NO_TRAIN = {"flash_attn_train_fwd": 0, "flash_attn_train_bwd": 0}
@@ -1442,6 +1475,98 @@ def _flash_build_report():
                                          0))
 
 
+def _k6_row(tag, bh, sq, skv, d, g, num_sms):
+    """K6 forward and backward at [bh, sq|skv, d] against the plain
+    version's fp32 autograd (the limits, planted faults and rerun checks of
+    ``phase_kernels_train``), timed beside the plain version, SDPA and the
+    bound; returns the shape's row."""
+    import torch
+    from frameino_tpu_torch.ops import attention as A
+    q, do = (torch.randn(bh, sq, d, device="cuda", dtype=torch.bfloat16,
+                         generator=g) for _ in range(2))
+    k, v = (torch.randn(bh, skv, d, device="cuda", dtype=torch.bfloat16,
+                        generator=g) for _ in range(2))
+    scale = d ** -0.5
+    o, lse = A.flash_attn_train_fwd(q, k, v, scale)
+    grads = A.flash_attn_train_bwd(q, k, v, o, lse, do, scale)
+    again = A.flash_attn_train_bwd(q, k, v, o, lse, do, scale)
+    rerun_dkdv_equal = bool(torch.equal(grads[1], again[1])
+                            and torch.equal(grads[2], again[2]))
+    rerun_dq = _rel_l2(again[0], grads[0])
+    del again
+    check(rerun_dkdv_equal, f"K6 backward ({tag}): dK or dV differ "
+                            f"between two launches")
+    check(rerun_dq <= DQ_RERUN_REL_L2,
+          f"K6 backward ({tag}): dQ of two launches differ by "
+          f"{rerun_dq:.3e} relative L2 (limit {DQ_RERUN_REL_L2:g})")
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    o_ref = A.flash_attention_train_ref(*(t[None] for t in leaves),
+                                        scale)[0]
+    ref = torch.autograd.grad(o_ref, leaves, do.float(),
+                              retain_graph=True)
+    err, rel, rel_o = _check_close(f"K6 forward ({tag})", o,
+                                   o_ref.detach())
+    lse_err = (lse - torch.logsumexp(
+        leaves[0].detach() @ leaves[1].detach().transpose(1, 2) * scale,
+        -1)).abs().max().item()
+    check(lse_err <= 1e-3, f"K6 forward ({tag}): lse off by {lse_err}")
+    rel_g = {n: _rel_l2(a, b) for n, a, b in zip(("dq", "dk", "dv"),
+                                                 grads, ref)}
+    check(all(torch.isfinite(t).all() for t in grads),
+          f"K6 backward ({tag}): non-finite gradient")
+    check(max(rel_g.values()) <= GRAD_REL_L2,
+          f"K6 backward ({tag}): relative L2 {rel_g} over the limit "
+          f"{GRAD_REL_L2:g}")
+    faults = _planted_faults(q, k, v, do, ref, scale)
+    check(min(faults.values()) > GRAD_REL_L2,
+          f"K6 ({tag}): a planted fault passes the gradient limit "
+          f"{GRAD_REL_L2:g}: {faults}")
+    grad_err = max((a.float() - b).abs().max().item()
+                   for a, b in zip(grads, ref))
+    row = dict(fwd_err=err, fwd_rel=rel, fwd_rel_l2=rel_o,
+               bwd_err=grad_err, bwd_rel_l2=rel_g, faults=faults,
+               lse_max_abs=lse_err, rerun_dkdv_equal=rerun_dkdv_equal,
+               rerun_dq_rel_l2=rerun_dq,
+               bwd_keys_per_block=A._k6_bwd_keys_per_block(
+                   bh, skv, num_sms, d),
+               fwd_ms=cuda_ms(lambda: A.flash_attn_train_fwd(
+                   q, k, v, scale), 10),
+               bwd_ms=cuda_ms(lambda: A.flash_attn_train_bwd(
+                   q, k, v, o, lse, do, scale), 10),
+               fwd_plain_ms=cuda_ms(lambda: A.flash_attention_train_ref(
+                   *(t[None] for t in leaves), scale), 3),
+               bwd_plain_ms=cuda_ms(lambda: torch.autograd.grad(
+                   o_ref, leaves, do.float(), retain_graph=True), 3),
+               fwd_bound=attn_bound(bh, sq, skv, d, 4, 4 * bh * sq),
+               bwd_bound=attn_bound(bh, sq, skv, d, 10,
+                                    2 * 2 * bh * d * (sq + skv)
+                                    + 4 * bh * sq))
+    del o_ref, ref, leaves
+    # the library yardstick: SDPA's forward, and its backward alone
+    lq, lk, lv = (t[None].detach().requires_grad_() for t in (q, k, v))
+    lo = torch.nn.functional.scaled_dot_product_attention(lq, lk, lv)
+    row["fwd_library_ms"] = cuda_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            lq, lk, lv), 10)
+    row["bwd_library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        lo, (lq, lk, lv), do[None], retain_graph=True), 10)
+    del lo, lq, lk, lv
+    print(f"K6 {tag} [{bh}, {sq}|{skv}, {d}]: forward {row['fwd_ms']:.3f}"
+          f" ms (plain {row['fwd_plain_ms']:.3f}, SDPA "
+          f"{row['fwd_library_ms']:.3f}, bound {row['fwd_bound'][0]:.3f})"
+          f" rel L2 {rel_o:.3e}; backward {row['bwd_ms']:.3f} ms (plain "
+          f"{row['bwd_plain_ms']:.3f}, SDPA {row['bwd_library_ms']:.3f}, "
+          f"bound {row['bwd_bound'][0]:.3f}) rel L2 "
+          + ", ".join(f"{n} {x:.3e}" for n, x in rel_g.items())
+          + " | planted faults " + ", ".join(
+              f"{n} {x:.3e}" for n, x in faults.items())
+          + f" | {row['bwd_keys_per_block']} keys a backward block; "
+          f"rerun dK/dV bit-equal, dQ {rerun_dq:.3e}")
+    del q, k, v, do, o, lse, grads
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_kernels_train():
     """K6 forward and backward against the plain version's fp32 autograd
     at the Wan training shapes (B = 1, 24 heads of 128: self-attention
@@ -1449,7 +1574,6 @@ def phase_kernels_train():
     shapes of both head dims; the planted faults must fail the limit, and
     a second backward must repeat dK and dV bit for bit."""
     import torch
-    from frameino_tpu_torch.ops import attention as A
     g = torch.Generator("cuda").manual_seed(777)
     results, shapes = {}, {"build": _k6_build_report()}
     num_sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1457,89 +1581,7 @@ def phase_kernels_train():
                                   ("cross", (H, S, L_TEXT, D)),
                                   ("ragged_d64", (6, 1111, 1111, 64)),
                                   ("ragged_d128", (3, 777, 777, 128))):
-        q, do = (torch.randn(bh, sq, d, device="cuda", dtype=torch.bfloat16,
-                             generator=g) for _ in range(2))
-        k, v = (torch.randn(bh, skv, d, device="cuda", dtype=torch.bfloat16,
-                            generator=g) for _ in range(2))
-        scale = d ** -0.5
-        o, lse = A.flash_attn_train_fwd(q, k, v, scale)
-        grads = A.flash_attn_train_bwd(q, k, v, o, lse, do, scale)
-        again = A.flash_attn_train_bwd(q, k, v, o, lse, do, scale)
-        rerun_dkdv_equal = bool(torch.equal(grads[1], again[1])
-                                and torch.equal(grads[2], again[2]))
-        rerun_dq = _rel_l2(again[0], grads[0])
-        del again
-        check(rerun_dkdv_equal, f"K6 backward ({tag}): dK or dV differ "
-                                f"between two launches")
-        check(rerun_dq <= DQ_RERUN_REL_L2,
-              f"K6 backward ({tag}): dQ of two launches differ by "
-              f"{rerun_dq:.3e} relative L2 (limit {DQ_RERUN_REL_L2:g})")
-        leaves = [t.float().requires_grad_() for t in (q, k, v)]
-        o_ref = A.flash_attention_train_ref(*(t[None] for t in leaves),
-                                            scale)[0]
-        ref = torch.autograd.grad(o_ref, leaves, do.float(),
-                                  retain_graph=True)
-        err, rel, rel_o = _check_close(f"K6 forward ({tag})", o,
-                                       o_ref.detach())
-        lse_err = (lse - torch.logsumexp(
-            leaves[0].detach() @ leaves[1].detach().transpose(1, 2) * scale,
-            -1)).abs().max().item()
-        check(lse_err <= 1e-3, f"K6 forward ({tag}): lse off by {lse_err}")
-        rel_g = {n: _rel_l2(a, b) for n, a, b in zip(("dq", "dk", "dv"),
-                                                     grads, ref)}
-        check(all(torch.isfinite(t).all() for t in grads),
-              f"K6 backward ({tag}): non-finite gradient")
-        check(max(rel_g.values()) <= GRAD_REL_L2,
-              f"K6 backward ({tag}): relative L2 {rel_g} over the limit "
-              f"{GRAD_REL_L2:g}")
-        faults = _planted_faults(q, k, v, do, ref, scale)
-        check(min(faults.values()) > GRAD_REL_L2,
-              f"K6 ({tag}): a planted fault passes the gradient limit "
-              f"{GRAD_REL_L2:g}: {faults}")
-        grad_err = max((a.float() - b).abs().max().item()
-                       for a, b in zip(grads, ref))
-        row = dict(fwd_err=err, fwd_rel=rel, fwd_rel_l2=rel_o,
-                   bwd_err=grad_err, bwd_rel_l2=rel_g, faults=faults,
-                   lse_max_abs=lse_err, rerun_dkdv_equal=rerun_dkdv_equal,
-                   rerun_dq_rel_l2=rerun_dq,
-                   bwd_keys_per_block=A._k6_bwd_keys_per_block(
-                       bh, skv, num_sms, d),
-                   fwd_ms=cuda_ms(lambda: A.flash_attn_train_fwd(
-                       q, k, v, scale), 10),
-                   bwd_ms=cuda_ms(lambda: A.flash_attn_train_bwd(
-                       q, k, v, o, lse, do, scale), 10),
-                   fwd_plain_ms=cuda_ms(lambda: A.flash_attention_train_ref(
-                       *(t[None] for t in leaves), scale), 3),
-                   bwd_plain_ms=cuda_ms(lambda: torch.autograd.grad(
-                       o_ref, leaves, do.float(), retain_graph=True), 3),
-                   fwd_bound=attn_bound(bh, sq, skv, d, 4, 4 * bh * sq),
-                   bwd_bound=attn_bound(bh, sq, skv, d, 10,
-                                        2 * 2 * bh * d * (sq + skv)
-                                        + 4 * bh * sq))
-        del o_ref, ref, leaves
-        # the library yardstick: SDPA's forward, and its backward alone
-        lq, lk, lv = (t[None].detach().requires_grad_() for t in (q, k, v))
-        lo = torch.nn.functional.scaled_dot_product_attention(lq, lk, lv)
-        row["fwd_library_ms"] = cuda_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                lq, lk, lv), 10)
-        row["bwd_library_ms"] = cuda_ms(lambda: torch.autograd.grad(
-            lo, (lq, lk, lv), do[None], retain_graph=True), 10)
-        del lo, lq, lk, lv
-        shapes[tag] = row
-        print(f"K6 {tag} [{bh}, {sq}|{skv}, {d}]: forward {row['fwd_ms']:.3f}"
-              f" ms (plain {row['fwd_plain_ms']:.3f}, SDPA "
-              f"{row['fwd_library_ms']:.3f}, bound {row['fwd_bound'][0]:.3f})"
-              f" rel L2 {rel_o:.3e}; backward {row['bwd_ms']:.3f} ms (plain "
-              f"{row['bwd_plain_ms']:.3f}, SDPA {row['bwd_library_ms']:.3f}, "
-              f"bound {row['bwd_bound'][0]:.3f}) rel L2 "
-              + ", ".join(f"{n} {x:.3e}" for n, x in rel_g.items())
-              + " | planted faults " + ", ".join(
-                  f"{n} {x:.3e}" for n, x in faults.items())
-              + f" | {row['bwd_keys_per_block']} keys a backward block; "
-              f"rerun dK/dV bit-equal, dQ {rerun_dq:.3e}")
-        del q, k, v, do, o, lse, grads
-        torch.cuda.empty_cache()
+        shapes[tag] = _k6_row(tag, bh, sq, skv, d, g, num_sms)
     me, cr = shapes["self"], shapes["cross"]
     for name, dirn in (("flash_attn_train_fwd", "fwd"),
                        ("flash_attn_train_bwd", "bwd")):
@@ -4544,6 +4586,584 @@ def phase_mass_eval():
         cog_vae_rounding=vae, seconds=time.time() - t0)
 
 
+# ---------------------------------------------------------------------------
+# the Qwen2.5-VL judge (K7 at its rows) and the convergence run (K6 and
+# K1-K3 at the tiny DiT's shapes)
+# ---------------------------------------------------------------------------
+
+# the judge's synthetic input: a video grid of 2 x 20 x 30 patches (1,200
+# patches, 300 merged tokens) inside 64 text tokens (15 before the video's
+# start token, 47 after its end token)
+QWEN_GRID = (2, 20, 30)
+QWEN_TEXT = (15, 47)
+QWEN_NEW_TOKENS = 8
+# seconds of video a temporal patch at the judge's 1 fps (2 frames a patch)
+QWEN_SECONDS_PER_GRID = 2.0
+# K7 launches of a text layer's forward: q, k and v quantized apart, o,
+# gate, up, down (JAX's _mm calls): 448 a forward at 64 layers
+K7_PER_LAYER = 7
+# Relative L2 of the reduced-depth Qwen2.5-VL-32B (2 text layers, 2 vision
+# blocks, full width) on the card against the same weights on the CPU,
+# over the merged vision embeddings and the prefill's last logits. bf16:
+# against fp32 on the CPU; bf16 rounds each product and norm to 8 mantissa
+# bits (2^-9 relative), a few dozen roundings compound over the 2 vision
+# blocks, the merger, 2 text layers and lm_head (read 1.72e-2). int8:
+# against the same int8 model on the CPU in bf16, whose products are the
+# card's to one bf16 ulp on equal inputs (the product check below); the
+# two still read 6.52e-2 apart, as far as the CPU's bf16 int8 model reads
+# from its fp32 one (6.92e-2): a bf16 ulp of difference in a product's
+# input flips some of its codes by one step, whatever made the ulp. The
+# limit is 1.5x that first reading; the reversed weight scales read 0.42
+# over it, but every scale one code step off reads 7.16e-2, under it, so
+# the product check is the one that rejects that fault.
+QWEN_CPU_REL_L2 = {"bf16": 3e-2, "int8": 9.8e-2}
+# faults planted in the card's int8 model, each a map of every QuantLinear's
+# fp32 weight scale [out]: the scales reversed along the output axis (a
+# transposed or misindexed scale), and every product dequantized one
+# activation code step off (x 127 / 126). The product check must reject
+# both; the model-level limit only the first (QWEN_MODEL_FAULTS)
+QWEN_INT8_FAULTS = {"weight_scales_reversed": lambda s: s.flip(0),
+                    "scale_one_code_step_off": lambda s: s * (127 / 126)}
+QWEN_MODEL_FAULTS = ("weight_scales_reversed",)
+
+
+def _qwen_inputs(cfg, seed=16):
+    """ids [364] (64 random text tokens around the video's 300
+    placeholders), the 1,200 patch rows fp32 and the M-RoPE position ids,
+    through the port's own ``get_rope_index`` (no processor on the card's
+    host)."""
+    import numpy as np
+    import torch
+    from frameino_tpu_torch.models import qwen_vl as Q
+    rs = np.random.RandomState(seed)
+    t, h, w = QWEN_GRID
+    n_vis = t * h * w // cfg.vision.merge_unit
+    before, after = (rs.randint(0, cfg.vision_start_token_id, n)
+                     for n in QWEN_TEXT)
+    ids = np.concatenate([before, [cfg.vision_start_token_id],
+                          [cfg.video_token_id] * n_vis,
+                          [cfg.vision_start_token_id + 1], after]
+                         ).astype(np.int64)
+    pixels = torch.from_numpy(rs.randn(t * h * w, cfg.vision.patch_dim)
+                              .astype(np.float32))
+    pos = Q.get_rope_index(ids, QWEN_GRID, cfg, is_video=True,
+                           second_per_grid_t=QWEN_SECONDS_PER_GRID)
+    return ids, pixels, pos
+
+
+def _qwen_shapes(prefill_rows):
+    """K7's rows on the judge's path: (rows, width) of a prefill and of a
+    decode step, at the inputs of q/k/v/o/gate/up (5,120) and of down
+    (27,648)."""
+    return {"prefill": (prefill_rows, 5120), "prefill_down": (prefill_rows,
+                                                             27648),
+            "decode": (1, 5120), "decode_down": (1, 27648)}
+
+
+def _k7_faults(x, q, s):
+    """Each planted fault of K7 recomputed from x, as (codes, scales): the
+    half-way values rounded away from zero, and the row's last 8 columns
+    left out of its absmax; each must differ from the kernel's output."""
+    import torch
+    from frameino_tpu_torch.ops import dyn_quant as DQ
+    xf = x.float()
+    inv = DQ.INV_127.to(x.device)
+    faults = {}
+    s_cut = torch.clamp_min(xf[:, :-8].abs().amax(-1, keepdim=True) * inv,
+                            DQ.SCALE_FLOOR)
+    faults["tail_out_of_amax"] = (torch.round(xf / s_cut).clamp(-128, 127)
+                                  .to(torch.int8), s_cut)
+    r = xf / s
+    faults["half_away_from_zero"] = (
+        (torch.sign(r) * torch.floor(r.abs() + 0.5)).to(torch.int8), s)
+    return {n: not (torch.equal(fq, q) and torch.equal(fs, s))
+            for n, (fq, fs) in faults.items()}
+
+
+def phase_kernels_k7_qwen(prefill_rows):
+    """K7 against its plain version at the judge's rows, [prefill_rows,
+    5120 | 27648] and [1, 5120 | 27648]: codes and scales bit-equal, the
+    half-way and zero rows as they must be; two planted faults must
+    differ from the kernel's output."""
+    import numpy as np
+    import torch
+    from frameino_tpu_torch.ops import dyn_quant as DQ
+    g = torch.Generator("cuda").manual_seed(5120)
+    shapes = {}
+    for tag, (n, d) in _qwen_shapes(prefill_rows).items():
+        x = (torch.randn(n, d, device="cuda", generator=g)
+             * torch.randn(n, 1, device="cuda", generator=g).exp()
+             ).to(torch.bfloat16)
+        if n > 2:
+            x[0] = torch.tensor(K7_HALFWAY * (d // 12 + 1))[:d]
+            x[1] = 0
+            x[2, -1] = 4 * x[2].abs().max()      # the row's amax at its end
+        q, sc = DQ.dynamic_quantize_rows(x)
+        q_ref, s_ref = DQ.dynamic_quantize_rows_ref(x)
+        torch.cuda.synchronize()
+        bad = int((q != q_ref).sum()) + int((sc != s_ref).sum())
+        check(bad == 0, f"K7 qwen {tag} [{n}, {d}]: {bad} codes or scales "
+                        f"differ from its plain version")
+        if n > 2:
+            check(q[0, :12].tolist() == K7_HALFWAY_CODES
+                  and sc[0].item() == 1.0,
+                  f"K7 qwen {tag}: the half-way row gave {q[0, :12].tolist()}")
+            check(not q[1].any() and sc[1].item()
+                  == float(np.float32(1e-12)),
+                  f"K7 qwen {tag}: the zero row gave scale {sc[1].item()!r}")
+            faults = _k7_faults(x, q, sc)
+            check(all(faults.values()), f"K7 qwen {tag}: a planted fault "
+                                        f"gives the kernel's output: "
+                                        f"{faults}")
+        else:
+            faults = {}
+        bound = bound_ms(4 * n * d, 3 * n * d + 4 * n, PEAK_FP32_FLOPS)
+        shapes[tag] = dict(
+            shape=[n, d], max_abs_err=0.0, faults_rejected=faults,
+            ms=cuda_ms(lambda: DQ.dynamic_quantize_rows(x), 50),
+            plain_ms=cuda_ms(lambda: DQ.dynamic_quantize_rows_ref(x), 10),
+            bound_ms=bound[0], bound_by=bound[1])
+        r = shapes[tag]
+        print(f"K7 qwen {tag} [{n}, {d}]: bit-equal; kernel {r['ms']:.4f} ms "
+              f"plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})" + (f"; planted faults rejected {faults}"
+                                       if faults else ""))
+        del x, q, sc, q_ref, s_ref
+    main = shapes["prefill_down"]
+    return {"dyn_quant_qwen": dict(
+        max_abs_err=0.0, ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=None, shapes=shapes)}
+
+
+def _qwen_generate(model, ids, pixels, layout, pos, new_tokens):
+    """The vision tower, then a greedy generation; returns (tokens, the
+    generator, vision seconds), each stage ending in a device sync."""
+    import torch
+    from frameino_tpu_torch.models import qwen_vl as Q
+    t0 = time.time()
+    with torch.no_grad():
+        vis = model.vision(pixels, layout)
+    torch.cuda.synchronize()
+    vision_s = time.time() - t0
+    check(bool(torch.isfinite(vis).all()), "Qwen: non-finite vision output")
+    gen = Q.QwenVLGenerator(model, new_tokens)
+    toks = gen.generate(ids, vis, pos)
+    return toks, gen, vision_s
+
+
+def phase_qwen():
+    """Qwen2.5-VL-32B at full width and depth on seeded random weights
+    (drawn on the card in bf16, one tensor at a time): the vision tower, a
+    prefill and 8 greedy tokens in bf16, then the model quantized to int8
+    in place (each bf16 product freed as its int8 copy exists) and the same
+    again. Each mode runs once to warm up and once counted and timed: K7
+    launches exactly 448 a forward in int8 and never in bf16, no other
+    kernel launches, the logits are finite."""
+    import numpy as np
+    import torch
+    from frameino_tpu_torch.models import qwen_vl as Q
+    from frameino_tpu_torch.ops import attention as A
+    cfg = Q.QWEN25_VL_32B
+    ids, pixels, pos = _qwen_inputs(cfg)
+    layout = Q.vision_layout(QWEN_GRID, cfg.vision)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    model = Q.init_qwen_vl(cfg, torch.Generator("cuda").manual_seed(32),
+                           dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    out = {"prompt_tokens": len(ids), "build_s": time.time() - t0,
+           "bf16_weights_gib": _module_bytes(model) / 2 ** 30}
+    print(f"Qwen2.5-VL-32B: {out['bf16_weights_gib']:.2f} GiB of bf16 "
+          f"weights drawn on the card in {out['build_s']:.1f} s; prompt "
+          f"{len(ids)} tokens, video grid {QWEN_GRID}")
+    first_logits = {}
+    for mode in ("bf16", "int8"):
+        if mode == "int8":
+            t0 = time.time()
+            Q.quantize_qwen_int8(model)
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["quantize_s"] = time.time() - t0
+            out["int8_weights_gib"] = _module_bytes(model) / 2 ** 30
+        _qwen_generate(model, ids, pixels, layout, pos, QWEN_NEW_TOKENS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        A.reset_launch_counts()
+        toks, gen, vision_s = _qwen_generate(model, ids, pixels, layout, pos,
+                                             QWEN_NEW_TOKENS)
+        counts = A.launch_counts()
+        want = dict.fromkeys(counts, 0)
+        if mode == "int8":
+            want[K7] = K7_PER_LAYER * cfg.text.num_layers * len(toks)
+        check(counts == want, f"Qwen {mode}: launches {counts}, expected "
+                              f"{want}")
+        check(all(bool(torch.isfinite(x).all()) for x in gen.logits),
+              f"Qwen {mode}: non-finite logits")
+        first_logits[mode] = gen.logits[0].float()
+        decode = gen.timings["decode_s"]
+        row = dict(tokens=toks, k7_launches=counts[K7],
+                   vision_ms=1e3 * vision_s,
+                   prefill_ms=1e3 * gen.timings["prefill_s"],
+                   decode_ms_per_token=(1e3 * float(np.mean(decode))
+                                        if decode else None),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        out[mode] = row
+        print(f"Qwen {mode}: vision {row['vision_ms']:.1f} ms, prefill "
+              f"({len(ids)} tokens) {row['prefill_ms']:.1f} ms, "
+              f"{row['decode_ms_per_token']} ms a decode token, peak "
+              f"{row['peak_gib']:.2f} GiB; tokens {toks}; K7 "
+              f"{counts[K7]} launches (expected {want[K7]}: "
+              f"{K7_PER_LAYER} x {cfg.text.num_layers} layers x "
+              f"{len(toks)} forwards in int8, none in bf16)")
+    out["k7_launches"] = out["int8"]["k7_launches"]
+    out["int8_vs_bf16_logits_rel_l2"] = _rel_l2(first_logits["int8"],
+                                                first_logits["bf16"])
+    print(f"Qwen int8 against bf16, prefill logits: relative L2 "
+          f"{out['int8_vs_bf16_logits_rel_l2']:.3e}")
+    del model, gen, first_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _qwen_rows(model, ids, pixels, layout, pos):
+    """(merged vision embeddings, the prefill's last logits), fp32 on the
+    CPU."""
+    import torch
+    from frameino_tpu_torch.models import qwen_vl as Q
+    with torch.no_grad():
+        vis = model.vision(pixels, layout)
+    gen = Q.QwenVLGenerator(model, 1)
+    gen.generate(ids, vis, pos)
+    return vis.float().cpu(), gen.logits[0].float().cpu()
+
+
+def _qwen_rel(a, b):
+    return dict(vision=_rel_l2(a[0], b[0]), logits=_rel_l2(a[1], b[1]))
+
+
+def _qwen_products(card_layer, cpu_layer, prefill_rows):
+    """The judge's int8 products alone at its rows (q_proj for the inputs
+    of 5,120, down_proj for 27,648; prefill and one decode row, which the
+    card pads to 17): the same bf16 rows through the card's ``dense_int8``
+    (K7, ``torch._int_mm``, the epilogue) and the CPU's, with bit-equal
+    weights, within one bf16 ulp; each planted scale fault of
+    QWEN_INT8_FAULTS must exceed one ulp somewhere."""
+    import torch
+    from frameino_tpu_torch.ops import linear as L
+    g = torch.Generator().manual_seed(27648)
+    out = {}
+    for tag, (n, width) in _qwen_shapes(prefill_rows).items():
+        name = "q_proj" if width == 5120 else "down_proj"
+        parent = "self_attn" if name == "q_proj" else "mlp"
+        lc = getattr(getattr(card_layer, parent), name)
+        lh = getattr(getattr(cpu_layer, parent), name)
+        check(torch.equal(lc.weight_q.cpu(), lh.weight_q)
+              and torch.equal(lc.scale.cpu(), lh.scale),
+              f"Qwen int8 {name}: the card's and the CPU's weights differ")
+        x = (torch.randn(n, width, generator=g)
+             * torch.randn(n, 1, generator=g).exp()).to(torch.bfloat16)
+        xd = x.cuda()
+        want = L.dense_int8(x, lh.weight_q, lh.scale)
+        got = L.dense_int8(xd, lc.weight_q, lc.scale).cpu()
+        err, _ = _check_ulp(f"Qwen int8 {tag} {name}", got, want)
+        faults = {f: _ulp_over(L.dense_int8(xd, lc.weight_q,
+                                            fault(lc.scale)).cpu(), want)
+                  for f, fault in QWEN_INT8_FAULTS.items()}
+        check(all(faults.values()), f"Qwen int8 {tag} {name}: a planted "
+                                    f"fault stays within one ulp: {faults}")
+        out[tag] = dict(shape=[n, width], max_abs_err=err,
+                        equal_share=float((got == want).float().mean()),
+                        faults_elements_over_one_ulp=faults)
+        print(f"Qwen int8 product {tag} {name} [{n}, {width}]: card vs CPU "
+              f"max abs {err:.3e}, {out[tag]['equal_share']:.6f} equal; "
+              f"planted faults over one ulp at {faults} elements")
+    return out
+
+
+def phase_qwen_vs_cpu():
+    """Qwen2.5-VL-32B cut to 2 text layers and 2 vision blocks (the second
+    a full-attention block) at full width, seeded on the card in bf16,
+    against the same weights on the CPU: the merged vision embeddings and
+    the prefill's last logits within QWEN_CPU_REL_L2, bf16 against fp32,
+    then int8 against the CPU's int8 model in bf16; the planted faults of
+    QWEN_MODEL_FAULTS must read over the int8 limit (all of
+    QWEN_INT8_FAULTS are read), and the first layer's int8 products must
+    pass ``_qwen_products``. Also read: the card's int8 against the CPU's
+    int8 in fp32, and the CPU's bf16 int8 against its fp32 int8."""
+    import dataclasses
+    import torch
+    from frameino_tpu_torch.models import qwen_vl as Q
+    from frameino_tpu_torch.models.quant import QuantLinear
+    base = Q.QWEN25_VL_32B
+    cfg = dataclasses.replace(
+        base, vision=dataclasses.replace(base.vision, depth=2,
+                                         fullatt_block_indexes=(1,)),
+        text=dataclasses.replace(base.text, num_layers=2))
+    ids, pixels, pos = _qwen_inputs(cfg)
+    layout = Q.vision_layout(QWEN_GRID, cfg.vision)
+    args = (ids, pixels, layout, pos)
+    card = Q.init_qwen_vl(cfg, torch.Generator("cuda").manual_seed(2),
+                          dtype=torch.bfloat16)
+    cpu = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        cpu[dtype] = Q.QwenVL(cfg, device="meta", dtype=dtype)
+        cpu[dtype].load_state_dict({k: v.to(dtype).cpu() for k, v in
+                                    card.state_dict().items()}, assign=True)
+    t0 = time.time()
+    rel = _qwen_rel(_qwen_rows(card, *args),
+                    _qwen_rows(cpu[torch.float32], *args))
+    out = {"bf16": dict(rel, limit=QWEN_CPU_REL_L2["bf16"])}
+    print(f"Qwen reduced depth, bf16 on the card against fp32 on the CPU: "
+          f"relative L2 vision {rel['vision']:.3e}, logits "
+          f"{rel['logits']:.3e} (limit {QWEN_CPU_REL_L2['bf16']:g})")
+    check(max(rel.values()) <= QWEN_CPU_REL_L2["bf16"],
+          f"Qwen reduced depth bf16: {rel} over "
+          f"{QWEN_CPU_REL_L2['bf16']:g}")
+    for m in (card, *cpu.values()):
+        Q.quantize_qwen_int8(m)
+    rows = {"card": _qwen_rows(card, *args),
+            "cpu_bf16": _qwen_rows(cpu[torch.bfloat16], *args),
+            "cpu_fp32": _qwen_rows(cpu[torch.float32], *args)}
+    limit = QWEN_CPU_REL_L2["int8"]
+    rel = _qwen_rel(rows["card"], rows["cpu_bf16"])
+    faults = {}
+    layers = [m for m in card.modules() if isinstance(m, QuantLinear)]
+    for name, fault in QWEN_INT8_FAULTS.items():
+        scales = [m.scale for m in layers]
+        for m in layers:
+            m.scale = fault(m.scale)
+        faults[name] = _qwen_rel(_qwen_rows(card, *args), rows["cpu_bf16"])
+        for m, sc in zip(layers, scales):
+            m.scale = sc
+    out["int8"] = dict(
+        rel, limit=limit, faults=faults,
+        card_vs_cpu_fp32=_qwen_rel(rows["card"], rows["cpu_fp32"]),
+        cpu_bf16_vs_cpu_fp32=_qwen_rel(rows["cpu_bf16"], rows["cpu_fp32"]),
+        seconds=time.time() - t0)
+    r = out["int8"]
+    print(f"Qwen reduced depth, int8 on the card against int8 in bf16 on "
+          f"the CPU: relative L2 vision {rel['vision']:.3e}, logits "
+          f"{rel['logits']:.3e} (limit {limit}); planted faults "
+          f"{faults}; the card against int8 in fp32 on the CPU "
+          f"{r['card_vs_cpu_fp32']}, the CPU's bf16 int8 against its fp32 "
+          f"int8 {r['cpu_bf16_vs_cpu_fp32']}")
+    check(limit is not None and max(rel.values()) <= limit,
+          f"Qwen reduced depth int8: {rel} over {limit}")
+    for name in QWEN_MODEL_FAULTS:
+        check(faults[name]["logits"] > limit,
+              f"Qwen reduced depth int8: the planted fault {name} reads "
+              f"{faults[name]} within {limit}")
+    out["int8"]["products"] = _qwen_products(
+        card.model.language_model.layers[0],
+        cpu[torch.bfloat16].model.language_model.layers[0], len(ids))
+    del card, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# the convergence run (JAX's r05 recipe): 1,200 steps, cosine decay
+OVERFIT_ARGS = ["--steps", "1200", "--lr_scheduler", "cosine"]
+# the tiny DiT's attention on that path: 3 heads of 128 over (9 latent
+# frames + the ID frame) x 16 x 16 = 2,560 tokens, 16 text keys
+OVERFIT_BH, OVERFIT_S, OVERFIT_TEXT, OVERFIT_GRID = 3, 2560, 16, (10, 16, 16)
+
+
+def per_overfit_run(report, blocks=4):
+    """The launches of one convergence run: K6 forward and backward for
+    each block's self- and cross-attention a train step (no remat); K2 on
+    q and k, K1 and K3 for each block a serving forward (the probes, then
+    the sampling steps at guidance 1)."""
+    forwards = len(report["probe_curve"]) + report["sample_steps"]
+    return {**NO_SERVE, "flash_attn_train_fwd": 2 * blocks * report["steps"],
+            "flash_attn_train_bwd": 2 * blocks * report["steps"],
+            "flash_fwd_static": blocks * forwards,
+            "qk_norm_rope": 2 * blocks * forwards,
+            "flash_fwd": blocks * forwards}
+
+
+def _k3_faults_few_keys(label, q, k, v, c, want):
+    """K3's planted faults where the keys are fewer than a tile: half the
+    keys dropped, the tile's masked keys left at logit 0 (the rest of the
+    128-key tile zero-filled), no q pre-scale; each must exceed
+    FLASH_REL_L2."""
+    skv = k.shape[1]
+    faults = {
+        "half_keys": _rel_l2(_flash_plain(q, k, v, q_scale=c,
+                                          keep=skv // 2), want),
+        "masked_keys_at_0": _rel_l2(_flash_plain(
+            q, k, v, q_scale=c, pad=FLASH_TILE - skv), want),
+        "no_prescale": _rel_l2(_flash_plain(q, k, v, q_scale=1.0), want)}
+    print(f"{label}: planted faults " + ", ".join(
+        f"{n} {x:.3e}" for n, x in faults.items()))
+    check(all(x > FLASH_REL_L2 for x in faults.values()),
+          f"{label}: a planted fault passes the limit {FLASH_REL_L2:g}: "
+          f"{faults}")
+    return faults
+
+
+def phase_kernels_overfit():
+    """The kernels at the convergence run's shapes against their plain
+    versions: K6 forward and backward over the tiny DiT's self-attention
+    ([3, 2560, 128]) and its 16 text keys; K2 on [1, 2560, 384] (one bf16
+    ulp), K1 on [3, 2560, 128], K3 against the 16 keys (with the few-keys
+    planted faults)."""
+    import torch
+    from frameino_tpu_torch.ops import attention as A
+    from frameino_tpu_torch.ops.rope import wan_rope_table
+    g = torch.Generator("cuda").manual_seed(2560)
+    num_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bh, s, lt = OVERFIT_BH, OVERFIT_S, OVERFIT_TEXT
+    rows = {tag: _k6_row(f"overfit {tag}", bh, s, skv, D, g, num_sms)
+            for tag, skv in (("self", s), ("cross", lt))}
+    results = {}
+    me, cr = rows["self"], rows["cross"]
+    for name, dirn in (("flash_attn_train_fwd_overfit", "fwd"),
+                       ("flash_attn_train_bwd_overfit", "bwd")):
+        results[name] = dict(
+            max_abs_err=me[f"{dirn}_err"], ms=me[f"{dirn}_ms"],
+            plain_ms=me[f"{dirn}_plain_ms"],
+            bound_ms=me[f"{dirn}_bound"][0], bound_by=me[f"{dirn}_bound"][1],
+            library_ms=me[f"{dirn}_library_ms"],
+            cross_max_abs_err=cr[f"{dirn}_err"], cross_ms=cr[f"{dirn}_ms"],
+            cross_plain_ms=cr[f"{dirn}_plain_ms"],
+            cross_bound_ms=cr[f"{dirn}_bound"][0],
+            cross_library_ms=cr[f"{dirn}_library_ms"])
+    # K2 -> K1 over the self-attention, K3 against the text keys
+    raw_q, raw_k = (torch.randn(1, s, bh * D, device="cuda",
+                                dtype=torch.bfloat16, generator=g)
+                    for _ in range(2))
+    w_q, w_k = (1 + 0.1 * torch.randn(bh * D, device="cuda", generator=g)
+                for _ in range(2))
+    cos_np, sin_np = wan_rope_table(D, *OVERFIT_GRID)
+    cos = torch.from_numpy(cos_np).cuda()
+    sin = torch.from_numpy(sin_np).cuda()
+    gain = D ** -0.5 * A.LOG2E
+    cq, sq = (cos * gain).contiguous(), (sin * gain).contiguous()
+    qh = A.qk_norm_rope(raw_q, w_q, cq, sq, bh, 1e-6)
+    ref = A.qk_norm_rope_ref(raw_q, w_q, cq, sq, bh, 1e-6)
+    err, rel = _check_ulp("K2 (overfit)", qh, ref)
+    _report(results, "qk_norm_rope_overfit", err, rel,
+            cuda_ms(lambda: A.qk_norm_rope(raw_q, w_q, cq, sq, bh, 1e-6),
+                    50),
+            cuda_ms(lambda: A.qk_norm_rope_ref(raw_q, w_q, cq, sq, bh,
+                                               1e-6), 5),
+            bound_ms(12 * qh.numel(), _nbytes(raw_q, w_q, cq, sq, qh),
+                     PEAK_FP32_FLOPS), None)
+    kh = A.qk_norm_rope_ref(raw_k, w_k, cos, sin, bh, 1e-6)
+    vh = torch.randn(bh, s, D, device="cuda", dtype=torch.bfloat16,
+                     generator=g)
+    bound = A._rowmax_norm(qh) * A._rowmax_norm(kh)
+    want = A.flash_fwd_static_ref(qh, kh, vh, bound)
+    err, rel, rel_l2 = _check_close("K1 (overfit)",
+                                    A.flash_fwd_static(qh, kh, vh, bound),
+                                    want)
+    _report(results, "flash_fwd_static_overfit", err, rel,
+            cuda_ms(lambda: A.flash_fwd_static(qh, kh, vh, bound), 20),
+            cuda_ms(lambda: A.flash_fwd_static_ref(qh, kh, vh, bound), 5),
+            attn_bound(bh, s, s, D),
+            cuda_ms(lambda: _sdpa(math.log(2))(qh, kh, vh), 20),
+            rel_l2=rel_l2)
+    tk, tv = (torch.randn(bh, lt, D, device="cuda", dtype=torch.bfloat16,
+                          generator=g) for _ in range(2))
+    qn = torch.randn(bh, s, D, device="cuda", dtype=torch.bfloat16,
+                     generator=g)
+    c = D ** -0.5 * A.LOG2E
+    want = A.flash_fwd_ref(qn, tk, tv, c)
+    err, rel, rel_l2 = _check_close("K3 (overfit, 16 keys)",
+                                    A.flash_fwd(qn, tk, tv, c), want)
+    faults = _k3_faults_few_keys("K3 (overfit, 16 keys)", qn, tk, tv, c,
+                                 want)
+    _report(results, "flash_fwd_overfit", err, rel,
+            cuda_ms(lambda: A.flash_fwd(qn, tk, tv, c), 50),
+            cuda_ms(lambda: A.flash_fwd_ref(qn, tk, tv, c), 10),
+            attn_bound(bh, s, lt, D),
+            cuda_ms(lambda: _sdpa(D ** -0.5)(qn, tk, tv), 50),
+            rel_l2=rel_l2, faults=faults)
+    del raw_q, raw_k, qh, kh, vh, qn, tk, tv, want, ref
+    torch.cuda.empty_cache()
+    return results, rows
+
+
+def _overfit_checked(dtype, report):
+    """The checks of one convergence run's report: exact launches, finite
+    numbers, and JAX's gates for fp32 state."""
+    want = per_overfit_run(report)
+    check(report["launches"] == want, f"convergence {dtype}: launches "
+                                      f"{report['launches']}, expected "
+                                      f"{want}")
+    check(report["finite"], f"convergence {dtype}: non-finite numbers")
+    if dtype == "fp32":
+        check(all(report["gates"].values()),
+              f"convergence fp32: JAX's gates failed: {report['gates']}")
+    counts = report["launches"]
+    print(f"convergence {dtype} state: probe {report['probe_curve'][0][1]:.5f}"
+          f" -> {report['final_probe_loss']:.5f} (reduction "
+          f"{report['probe_reduction']:.2f}x), latent PSNR "
+          f"{report['latent_psnr_db']:.2f} dB, pixel PSNR "
+          f"{report['pixel_psnr_db_vs_vae_roundtrip']:.2f} dB, gates "
+          f"{report['gates']}; {report['train_s']:.1f} s of training; K6 "
+          f"{counts['flash_attn_train_fwd']} / "
+          f"{counts['flash_attn_train_bwd']}, K1 "
+          f"{counts['flash_fwd_static']}, K2 {counts['qk_norm_rope']}, K3 "
+          f"{counts['flash_fwd']}")
+    return {k: v for k, v in report.items() if k != "loss_curve_mean50"}
+
+
+def phase_overfit():
+    """The convergence run of ``scripts/train_overfit.py``, 1,200 steps
+    with cosine decay, twice at once: bf16 state (the port's at full
+    width) in a second process through the script's entry, fp32 state
+    (JAX's recipe) in this one. Both are bound by the host's launches and
+    leave the card mostly idle, so they share it. Each run's launches
+    (counted from 0 in its process, read at its end) must be exact; the
+    fp32 run must pass JAX's three gates, the bf16 run must finish finite
+    (its gates are printed beside). Reports in build/."""
+    import torch
+    from frameino_tpu_torch.ops import attention as A
+    from frameino_tpu_torch.scripts import train_overfit as TO
+    paths = {d: os.path.join(REPO, "build", f"train_convergence_{d}.json")
+             for d in ("fp32", "bf16")}
+    os.makedirs(os.path.dirname(paths["fp32"]), exist_ok=True)
+    if os.path.exists(paths["bf16"]):
+        os.remove(paths["bf16"])
+    t0 = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "frameino_tpu_torch.scripts.train_overfit",
+         "--state_dtype", "bf16", *OVERFIT_ARGS, "--out", paths["bf16"]],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        A.reset_launch_counts()
+        report = TO.run(TO.parse_args(["--state_dtype", "fp32"]
+                                      + OVERFIT_ARGS))
+        check(A.launch_counts() == report["launches"],
+              "convergence fp32: the report's launches are not the run's")
+        with open(paths["fp32"], "w") as f:
+            json.dump(report, f, indent=1)
+        log, _ = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode in (0, 1) and os.path.exists(paths["bf16"]),
+          f"convergence bf16: the run failed (exit {proc.returncode}):\n"
+          f"{log[-3000:]}")
+    with open(paths["bf16"]) as f:
+        bf16 = json.load(f)
+    out = {"fp32": _overfit_checked("fp32", report),
+           "bf16": _overfit_checked("bf16", bf16),
+           "seconds_both": time.time() - t0}
+    print(f"convergence: both runs {out['seconds_both']:.1f} s")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
     profile = "--profile" in sys.argv[1:]
@@ -4593,11 +5213,19 @@ def main():
     exp_scripts, exp_launches = phase_experiment_scripts()
     eval_results, eval_launches, mass_eval = phase_mass_eval()
     kernel_results.update(eval_results)
+    qwen = phase_qwen()
+    kernel_results.update(phase_kernels_k7_qwen(qwen["prompt_tokens"]))
+    qwen_cpu = phase_qwen_vs_cpu()
+    overfit_results, overfit_k6 = phase_kernels_overfit()
+    kernel_results.update(overfit_results)
+    overfit = phase_overfit()
 
     # each kernel's launches on its path (K1 twice: Wan at head_dim 128,
     # CogVideoX at 64; K5 on rank 0 over the tp = 2 request; K6 over the 3
     # full-depth train steps; K7 over the int8 requests of both families;
-    # K8-K12 over the two experiment scripts' runs)
+    # K8-K12 over the two experiment scripts' runs; K7 again over the
+    # judge's counted int8 generation; K6 and K1-K3 again over both
+    # convergence runs)
     steps = train["steps"]
     t704 = wan_default["launches"]
     launches = dict(totals, qk_ln_rope=totals_cog["qk_ln_rope"],
@@ -4613,7 +5241,12 @@ def main():
                     **{f"{k}_d64": sum(r["launches"][k]
                                        for r in cog_train["steps"])
                        for k in NO_TRAIN}, **exp_launches,
-                    **eval_launches)
+                    **eval_launches, dyn_quant_qwen=qwen["k7_launches"],
+                    **{f"{k}_overfit": sum(overfit[d]["launches"][k]
+                                           for d in ("fp32", "bf16"))
+                       for k in ("flash_attn_train_fwd",
+                                 "flash_attn_train_bwd", "flash_fwd_static",
+                                 "qk_norm_rope", "flash_fwd")})
     for k, n in exp_launches.items():
         check(n > 0, f"kernel {k} was not launched by the experiment scripts")
     summary = {"device": {"name": name, "nvidia_smi": smi}, "kernels": [
@@ -4631,7 +5264,9 @@ def main():
         "train_rules": rules, "cog_train_entry": cog_entry,
         "cog_train": cog_train,
         "experiment_kernels": exp_shapes, "experiment_scripts": exp_scripts,
-        "mass_eval": mass_eval, "seconds": time.time() - t_start}
+        "mass_eval": mass_eval, "qwen": qwen, "qwen_vs_cpu": qwen_cpu,
+        "overfit_k6": overfit_k6, "overfit": overfit,
+        "seconds": time.time() - t_start}
     out_dir = os.path.join(REPO, "build")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

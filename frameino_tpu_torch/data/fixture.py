@@ -24,12 +24,15 @@ CSV_HEADER = ["video_path", "height", "width", "valid_duration",
 
 def write_fixture_dataset(root: str, height: int, width: int, frames: int,
                           rows: int = 2, seed: int = 0,
-                          start=(2.0, 5.0)) -> str:
+                          start=(2.0, 5.0), track=None, box=None,
+                          id_hw=None) -> str:
     """Write ``csvs/``, ``videos/`` and ``ids/`` under ``root/data``;
     returns that data directory. The tracked point starts at ``start``
-    (x, y); frame-out evaluation keeps only points that start inside the
-    region box (``width // 10`` .. ``width - width // 10``, likewise in
-    height)."""
+    (x, y) and moves right and down, unless ``track`` gives its [[x, y]]
+    for each frame; frame-out evaluation keeps only points that start
+    inside the region box (by default ``width // 10`` .. ``width - width //
+    10``, likewise in height; ``box`` replaces it). The ID crop is
+    ``id_hw`` (default height // 2 x height // 3)."""
     data = os.path.join(root, "data")
     for d in ("csvs", "videos", "ids"):
         os.makedirs(os.path.join(data, d), exist_ok=True)
@@ -37,16 +40,19 @@ def write_fixture_dataset(root: str, height: int, width: int, frames: int,
     write_video(os.path.join(data, "videos", "v0.mp4"),
                 rs.randint(0, 255, (frames, height, width, 3)
                            ).astype(np.uint8), fps=12)
-    Image.fromarray(rs.randint(0, 255, (height // 2, height // 3, 3)
+    id_h, id_w = id_hw or (height // 2, height // 3)
+    Image.fromarray(rs.randint(0, 255, (id_h, id_w, 3)
                                ).astype(np.uint8)).save(
         os.path.join(data, "ids", "obj0.png"))
     # one point moving right and down (inside the frame throughout from
     # the default start)
-    track = [[[start[0] + (width - 4) * t / frames,
-               start[1] + (height - 10) * t / frames]]
-             for t in range(frames)]
-    box = [[500, [width // 10, height // 20],
-            [width - width // 10, height - height // 20]]]
+    if track is None:
+        track = [[[start[0] + (width - 4) * t / frames,
+                   start[1] + (height - 10) * t / frames]]
+                 for t in range(frames)]
+    if box is None:
+        box = [[500, [width // 10, height // 20],
+                [width - width // 10, height - height // 20]]]
     with open(os.path.join(data, "csvs", "d.csv"), "w", newline="") as f:
         w = csv.writer(f)
         w.writerow(CSV_HEADER)

@@ -18,8 +18,9 @@ so ``--evaluate-only`` scores either package's output.
 
 Differences from the JAX script: ``--backends random`` (the perception
 models at released widths on seeded random weights, on ``--device``)
-stands for JAX's ``jax-random``; ``--qwen_checkpoint`` and
-``--quantize_vae`` raise (not ported); the denoise loop is Python, so
+stands for JAX's ``jax-random``; ``--qwen_checkpoint`` judges with the
+port's Qwen2.5-VL (bf16, on ``--device``); ``--quantize_vae`` raises (not
+ported); the denoise loop is Python, so
 JAX's ``steps_per_program`` has no counterpart. On CUDA the script also
 prints ``GENERATION_PEAK_GIB`` per instance and ``SCORING_PEAK_GIB`` per
 perception backend.
@@ -59,7 +60,8 @@ def parse_args(argv=None):
     p.add_argument("--sam2_checkpoint", default=None)
     p.add_argument("--dinov2_checkpoint", default=None)
     p.add_argument("--qwen_checkpoint", default=None,
-                   help="the JAX package's Qwen2.5-VL judge; not ported")
+                   help="a Qwen2.5-VL checkpoint directory: the port's "
+                        "judge (models/qwen_vl.py) with --backends default")
     p.add_argument("--schema", choices=["new", "old"], default="new",
                    help="CSV schema: 'old' = the paper-v1.0 contract")
     p.add_argument("--quantize", choices=["int8"], default=None)

@@ -9,7 +9,8 @@ This module provides, as the JAX one does:
 - ``load_default_backends()``: builds the real adapters from local
   weights, raising a clear error otherwise. The ``--*_checkpoint`` paths
   run the port's own models (``models/cotracker.py``, ``models/sam2*.py``,
-  ``models/dinov2.py``) on the card;
+  ``models/dinov2.py``, and the Qwen2.5-VL judge of ``models/qwen_vl.py``)
+  on the card;
 - deterministic fallbacks (``naive_*``) with the same callable contracts,
   so ``mass_evaluation`` runs offline;
 - ``random_init_backends()``: the three perception models at their
@@ -19,8 +20,9 @@ This module provides, as the JAX one does:
 Differences from the JAX module: the torch.hub, ``sam2``-package and
 transformers loaders read only what is already on disk (the hub cache,
 ``local_files_only``), so a missing model fails at once instead of
-reaching for the network; the Qwen2.5-VL judge of the JAX package
-(``load_qwen_judge_jax``) is not ported (ROADMAP).
+reaching for the network; JAX's ``load_qwen_judge_jax`` is
+``load_qwen_judge_checkpoint`` here, and runs in bf16, which JAX's
+generator cannot (ROADMAP queue 3).
 """
 
 from __future__ import annotations
@@ -312,13 +314,29 @@ def load_qwen_judge(model_path: str = "Qwen/Qwen2.5-VL-32B-Instruct",
     return judge
 
 
-def load_qwen_judge_jax(model_dir: str, llm_fps: int = 1) -> Callable:
-    """The JAX package's own Qwen2.5-VL judge (``models/qwen_vl.py``) is
-    not ported yet."""
-    raise NotImplementedError(
-        "the port's Qwen2.5-VL judge is not written yet (ROADMAP queue 1 "
-        "item 9); use --backends naive or an OpenAI-compatible endpoint "
-        "(load_vlm_judge_http)")
+def load_qwen_judge_checkpoint(model_dir: str, device: str = "cuda",
+                               llm_fps: int = 1, dtype=None,
+                               processor=None) -> Callable:
+    """The port's Qwen2.5-VL judge (``models/qwen_vl.py``) from a local
+    checkpoint directory, on ``device`` in bf16 (or ``dtype``):
+    ``load_qwen_judge``'s yes/no contract (8 new tokens, the video at
+    ``llm_fps``), as JAX's ``load_qwen_judge_jax``. The directory's
+    processor comes through ``transformers`` unless ``processor`` is
+    given."""
+    import torch
+
+    from frameino_tpu_torch.models.qwen_vl import load_qwen_vl_torch
+    run = load_qwen_vl_torch(model_dir, max_new_tokens=8,
+                             dtype=dtype or torch.bfloat16, device=device,
+                             processor=processor)
+
+    def judge(frames: np.ndarray, prompt: str, is_frame_in: bool) -> str:
+        instruction = (QWEN_FRAME_IN_PROMPT if is_frame_in
+                       else QWEN_FRAME_OUT_PROMPT)
+        ans = run(frames, instruction, fps=llm_fps)
+        return "Yes" if "yes" in ans.lower() else "No"
+
+    return judge
 
 
 def load_vlm_judge_http(endpoint: str, model: str = "qwen2.5-vl",
@@ -403,9 +421,8 @@ def load_default_backends(device: str = "cpu",
     Never silently substitutes a naive fallback — use
     ``naive_backends()`` explicitly for offline smoke runs.
     ``vlm_endpoint`` switches the judge to an OpenAI-compatible server;
-    the ``*_checkpoint`` paths switch the tracker, embedder and segmenter
-    to the port's models on ``device``; ``qwen_checkpoint`` asks for the
-    JAX package's judge, which is not ported (NotImplementedError).
+    the ``*_checkpoint`` paths switch the tracker, embedder, segmenter and
+    judge to the port's models on ``device``.
     """
     backends: Dict[str, Callable] = {}
     errors = []
@@ -421,7 +438,8 @@ def load_default_backends(device: str = "cpu",
         if dinov2_checkpoint else (lambda: load_dinov2(device)),
         "judge": (lambda: load_vlm_judge_http(vlm_endpoint))
         if vlm_endpoint
-        else (lambda: load_qwen_judge_jax(qwen_checkpoint))
+        else (lambda: load_qwen_judge_checkpoint(qwen_checkpoint,
+                                                 device=device))
         if qwen_checkpoint else (lambda: load_qwen_judge()),
     }
     for name, loader in loaders.items():

@@ -37,7 +37,7 @@ _QUANT_PATTERN = re.compile(
     r"(attn[12]\.(to_[qkv]|to_out\.0)|ffn?\.net\.(0\.proj|2))")
 
 VAE_NOT_PORTED = ("the int8 Wan VAE (quantize_vae, ops/conv.py::_conv_int8) "
-                  "is not ported: ROADMAP.md queue 1, item 11")
+                  "is not ported: ROADMAP.md queue 1, item 13")
 
 
 def quantize_weight(w):
@@ -80,19 +80,23 @@ def linear(x, layer, out_dtype=None):
     return dense(x, layer.weight, layer.bias, out_dtype=out_dtype)
 
 
-def quantized_layer_names(model: nn.Module):
-    """Names of the layers ``quantize_dit_int8`` swaps, in module order."""
+def quantized_layer_names(model: nn.Module, pattern=_QUANT_PATTERN):
+    """Names of the ``nn.Linear`` layers whose whole name ``pattern``
+    matches (by default those ``quantize_dit_int8`` swaps), in module
+    order."""
     return [n for n, m in model.named_modules()
-            if isinstance(m, nn.Linear) and _QUANT_PATTERN.fullmatch(n)]
+            if isinstance(m, nn.Linear) and pattern.fullmatch(n)]
 
 
 @torch.no_grad()
-def quantize_dit_int8(model: nn.Module) -> nn.Module:
-    """Swap the DiT's block matmuls for ``QuantLinear``, in place and one
-    layer at a time; each float weight is freed as soon as its int8 copy
-    exists (JAX's ``donate=True``), so the peak stays at the float model
-    plus one layer's fp32 temporaries. Returns ``model``."""
-    names = quantized_layer_names(model)
+def quantize_dit_int8(model: nn.Module, pattern=_QUANT_PATTERN
+                      ) -> nn.Module:
+    """Swap the DiT's block matmuls (or the layers another ``pattern``
+    selects) for ``QuantLinear``, in place and one layer at a time; each
+    float weight is freed as soon as its int8 copy exists (JAX's
+    ``donate=True``), so the peak stays at the float model plus one
+    layer's fp32 temporaries. Returns ``model``."""
+    names = quantized_layer_names(model, pattern)
     if not names:
         raise ValueError("no layers matched the int8 quant patterns")
     for name in names:

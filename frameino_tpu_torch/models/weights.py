@@ -533,3 +533,59 @@ def sam2_to_state_dict(params_np: Dict[str, Any], cfg) -> StateDict:
     _put_sam_mlp(sd, "obj_ptr_proj", params_np["obj_ptr_proj"])
     _put_sam_lin(sd, "obj_ptr_tpos_proj", params_np["obj_ptr_tpos_proj"])
     return sd
+
+
+def _put_qwen_lin(sd: StateDict, name: str, p: Dict[str, Any], key: str,
+                  bias: bool = True):
+    """JAX's ``{key}_w`` [in, out] (or the int8 ``{key}_wq`` / ``{key}_ws``
+    of ``quantize_qwen_int8``) and ``{key}_b`` -> ``name``'s Linear (or
+    QuantLinear) tensors."""
+    if key + "_wq" in p:
+        sd[f"{name}.weight_q"] = _t(np.asarray(p[key + "_wq"]).T)
+        sd[f"{name}.scale"] = _t(p[key + "_ws"])
+    else:
+        sd[f"{name}.weight"] = _t(np.asarray(p[key + "_w"]).T)
+    if bias and key + "_b" in p:
+        sd[f"{name}.bias"] = _t(p[key + "_b"])
+
+
+def qwen_vl_from_jax(params_np: Dict[str, Any], cfg) -> StateDict:
+    """``frameino_tpu.models.qwen_vl`` tree -> the port's ``QwenVL`` names
+    (transformers' canonical ones): the patch rows back to the Conv3d
+    [E, 3, tp, p, p], dense kernels transposed; an int8 tree's layers ->
+    ``QuantLinear`` tensors (load those into a model on which
+    ``quantize_qwen_int8`` ran)."""
+    v = cfg.vision
+    vis = params_np["visual"]
+    pw = np.asarray(vis["patch_w"])
+    vp = "model.visual."
+    sd: StateDict = {
+        vp + "patch_embed.proj.weight": _t(pw.T.reshape(
+            pw.shape[1], 3, v.temporal_patch_size, v.patch_size,
+            v.patch_size)),
+        vp + "merger.ln_q.weight": _t(vis["merger_lnq_w"])}
+    for i, n in ((0, "1"), (2, "2")):
+        sd[f"{vp}merger.mlp.{i}.weight"] = _t(np.asarray(
+            vis["merger_w" + n]).T)
+        sd[f"{vp}merger.mlp.{i}.bias"] = _t(vis["merger_b" + n])
+    for i, bp in enumerate(vis["blocks"]):
+        b = f"{vp}blocks.{i}."
+        sd[b + "norm1.weight"] = _t(bp["n1w"])
+        sd[b + "norm2.weight"] = _t(bp["n2w"])
+        _put_qwen_lin(sd, b + "attn.qkv", bp["attn"], "qkv")
+        _put_qwen_lin(sd, b + "attn.proj", bp["attn"], "proj")
+        for n in ("gate", "up", "down"):
+            _put_qwen_lin(sd, f"{b}mlp.{n}_proj", bp["mlp"], n)
+    lm = "model.language_model."
+    for i, lp in enumerate(params_np["layers"]):
+        b = f"{lm}layers.{i}."
+        sd[b + "input_layernorm.weight"] = _t(lp["ln1"])
+        sd[b + "post_attention_layernorm.weight"] = _t(lp["ln2"])
+        for n in ("q", "k", "v", "o"):
+            _put_qwen_lin(sd, f"{b}self_attn.{n}_proj", lp, n)
+        for n in ("gate", "up", "down"):
+            _put_qwen_lin(sd, f"{b}mlp.{n}_proj", lp["mlp"], n)
+    sd[lm + "embed_tokens.weight"] = _t(params_np["embed_tokens"])
+    sd[lm + "norm.weight"] = _t(params_np["norm_w"])
+    sd["lm_head.weight"] = _t(np.asarray(params_np["lm_head"]).T)
+    return sd

@@ -1,6 +1,7 @@
-"""The attention experiment scripts of the port, run as
-``python -m frameino_tpu_torch.scripts.<name>``, and what they share: the
-device switch and the timer."""
+"""The port's scripts, run as ``python -m frameino_tpu_torch.scripts.<name>``
+(the attention experiments and their tuning scripts, the prompt cache, the
+convergence run, the int8 certification), and what they share: the device
+switch and the timer."""
 
 from __future__ import annotations
 

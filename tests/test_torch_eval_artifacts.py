@@ -148,7 +148,7 @@ def test_default_backends_fail_loudly(tmp_path, monkeypatch):
         tperc.load_default_backends()
     for name in ("tracker", "segmenter", "embedder", "judge"):
         assert f"{name}:" in str(e.value)
-    with pytest.raises(RuntimeError, match="NotImplementedError.*ROADMAP"):
+    with pytest.raises(RuntimeError, match="judge: FileNotFoundError"):
         tperc.load_default_backends(qwen_checkpoint=str(tmp_path))
     with pytest.raises(RuntimeError, match="FileNotFoundError"):
         tperc.load_default_backends(

@@ -367,8 +367,9 @@ def test_port_never_imports_jax(tmp_path):
     directories (the safetensors writer and reader, UMT5), taking one
     smoke train step of each family, one smoke mass-evaluation round and
     one call of each perception model (DINOv2, CoTracker, SAM2) at its tiny
-    config leaves jax and every module of the JAX package (frameino_tpu)
-    unimported."""
+    config, a greedy generation of the tiny Qwen2.5-VL in int8, two steps of
+    the convergence run and the int8 certification's import leaves jax and
+    every module of the JAX package (frameino_tpu) unimported."""
     code = textwrap.dedent("""
         import base64, io, json, os, sys
         import numpy as np
@@ -482,6 +483,21 @@ def test_port_never_imports_jax(tmp_path):
         assert dinov2.make_embedder_adapter(dinov2.init_dinov2(
             dinov2.tiny_dinov2_config(), g), input_size=28)(clip[0]).shape \
             == (32,)
+        from frameino_tpu_torch.models import qwen_vl
+        from frameino_tpu_torch.scripts import (certify_int8,  # noqa: F401
+                                                train_overfit)
+        torch.set_num_threads(1)    # tiny ops beside other xdist workers
+        qcfg = qwen_vl.tiny_qwen_vl_config()
+        qm = qwen_vl.quantize_qwen_int8(qwen_vl.init_qwen_vl(qcfg, g))
+        ids = np.asarray([1, 2, 62] + [61] * 4 + [3], np.int64)
+        vis = qm.vision(torch.zeros(16, qcfg.vision.patch_dim),
+                        qwen_vl.vision_layout((1, 4, 4), qcfg.vision))
+        assert len(qwen_vl.QwenVLGenerator(qm, 2).generate(
+            ids, vis, qwen_vl.get_rope_index(ids, (1, 4, 4), qcfg))) >= 1
+        assert train_overfit.main(
+            ["--device", "cpu", "--steps", "2", "--sample_steps", "1",
+             "--out", os.path.join(root, "conv.json")],
+            shape=(5, 16, 16)) == 1
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "frameino_tpu"

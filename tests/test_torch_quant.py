@@ -297,9 +297,9 @@ def test_quantize_options_raise():
         scale_factor_temporal=2, scale_factor_spatial=2,
         latents_mean=(0.0,) * 4, latents_std=(1.0,) * 4),
         torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 13"):
         twpipe.WanImageToVideoPipeline(dit, vae, quantize_vae=True)
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 13"):
         quant.quantize_wan_vae_int8(vae)
     with pytest.raises(ValueError, match="quantize"):
         twpipe.WanImageToVideoPipeline(dit, vae, quantize="int4")
