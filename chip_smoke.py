@@ -213,7 +213,28 @@ Phases (any failure exits non-zero; there is no CPU path):
     cosine), twice at once (bf16 state in a second process): fp32 state
     must pass JAX's three gates, bf16 state must finish finite; exact K6,
     K1, K2 and K3 launches in each; reports in
-    build/train_convergence_<state>.json.
+    build/train_convergence_<state>.json;
+20. Wan2.1 kernels: K2 at [2, 32760, 5120] (40 heads: one team of 160
+    threads, five warps, a block) within one bf16 ulp of its fp64
+    statistics (a warp's partial sum dropped must show), K1 at [80, 32760,
+    128] (plain on 4 rows, both last tiles ragged), K3 against 512 text
+    keys and against 257 image keys (the 257th key dropped, and one joint
+    softmax over the 769 keys in place of two added, must exceed the
+    limit), beside their bounds and SDPA;
+21. Wan2.1-I2V-14B at full width and depth on seeded bf16 weights drawn on
+    the card (30.5 GiB), CLIP ViT-H/14 and the Wan2.1 VAE in fp32, through
+    ``WanImageToVideoPipeline(expand_timesteps=False, image_encoder=)`` at
+    480x832x81 (32,760 tokens), 2 steps, guidance 5, seeded [1, 512, 4096]
+    prompt embeddings, the hybrid decode: finite frames, stage seconds and
+    peaks, each CFG step's seconds and MFU (of w21_step_flops), exactly 40
+    K1, 80 K2 and 80 K3 (40 against each key set) a step at their shapes;
+22. the same widths at 2 blocks, 52 input channels, a trajectory and first
+    + last frame, at 256x448x17;
+23. ``verify_checkpoint compare --device cuda`` on 2-block full-width
+    Wan2.2-TI2V-5B and Wan2.1-I2V-14B checkpoints (bf16 through K1-K4,
+    held to DIT_BF16_REL_L2 of the port's fp32 CPU goldens; the CPU's own
+    bf16 reading printed beside), a tiny Wan VAE and UMT5 (fp32): all pass;
+    block 0's to_q swapped with block 1's must fail (exit code 1).
 
 Each serving or training phase sets the launch counts to 0 just before
 its requests or steps and reads them just after. The line before the
@@ -224,6 +245,7 @@ goes to build/chip_smoke.json.
 """
 
 import base64
+import collections
 import contextlib
 import gc
 import io
@@ -344,6 +366,14 @@ KERNELS.update({k: dict(KERNELS[base]) for k, base in (
     ("flash_fwd_static_overfit", "flash_fwd_static"),
     ("qk_norm_rope_overfit", "qk_norm_rope"),
     ("flash_fwd_overfit", "flash_fwd"))})
+# K1, K2 and K3 at Wan2.1-I2V-14B's 480x832x81 (40 heads of 128, 32,760
+# tokens, CFG batch 2); K3 twice: against the 512 text keys and, as a
+# softmax of its own, the 257 CLIP image keys
+KERNELS.update({k: dict(KERNELS[base]) for k, base in (
+    ("flash_fwd_static_w21", "flash_fwd_static"),
+    ("qk_norm_rope_w21", "qk_norm_rope"),
+    ("flash_fwd_w21", "flash_fwd"),
+    ("flash_fwd_w21_image", "flash_fwd"))})
 K5 = "qk_norm_rope_rstd"
 K7 = "dynamic_quantize_rows"
 NO_TRAIN = {"flash_attn_train_fwd": 0, "flash_attn_train_bwd": 0}
@@ -4293,15 +4323,17 @@ def phase_kernels_eval():
 
 
 class _Logged:
-    """A kernel wrapper that records the shape of its first argument; its
-    ``launches`` is the wrapper's own counter (the wrapper counts itself
-    through its module's name, which this object takes over)."""
+    """A kernel wrapper that records the shape of its first argument, and
+    counts its calls by the shapes of its first two; its ``launches`` is
+    the wrapper's own counter (the wrapper counts itself through its
+    module's name, which this object takes over)."""
 
-    def __init__(self, fn, shapes):
-        self.fn, self.shapes = fn, shapes
+    def __init__(self, fn, shapes, counts):
+        self.fn, self.shapes, self.counts = fn, shapes, counts
 
     def __call__(self, x, *a, **kw):
         self.shapes.add(tuple(x.shape))
+        self.counts[(tuple(x.shape), tuple(a[0].shape))] += 1
         return self.fn(x, *a, **kw)
 
     @property
@@ -4315,7 +4347,8 @@ class _Logged:
 
 class _ShapeLog:
     """Records the shape of the first argument of attention.py's kernel
-    wrappers while it is open (the wrappers and their counts untouched)."""
+    wrappers, and their calls by the shapes of the first two, while it is
+    open (the wrappers and their counts untouched)."""
 
     NAMES = ("qk_norm_rope", "qk_ln_rope", "flash_fwd_static", "flash_fwd",
              "qk_norm_rope_rstd")
@@ -4324,8 +4357,9 @@ class _ShapeLog:
         from frameino_tpu_torch.ops import attention as A
         self.A, self.saved = A, {n: getattr(A, n) for n in self.NAMES}
         self.shapes = {n: set() for n in self.NAMES}
+        self.counts = {n: collections.Counter() for n in self.NAMES}
         for n, fn in self.saved.items():
-            setattr(A, n, _Logged(fn, self.shapes[n]))
+            setattr(A, n, _Logged(fn, self.shapes[n], self.counts[n]))
         return self
 
     def __exit__(self, *exc):
@@ -5164,6 +5198,473 @@ def phase_overfit():
     return out
 
 
+# ---------------------------------------------------------------------------
+# Wan2.1-I2V-14B (phases 20-23)
+# ---------------------------------------------------------------------------
+
+# Wan2.1-I2V-14B at 480x832x81: latents 21 x 60 x 104, patch 2x2 ->
+# 21 * 30 * 52 = 32,760 tokens; CFG batch 2, 40 heads of 128 (80 rows);
+# 512 text keys and 257 CLIP image keys, each its own softmax
+W21_HEADS, W21_S, W21_GRID, W21_TEXT, W21_IMAGE = 40, 32760, (21, 30, 52), \
+    512, 257
+W21_REQUEST = dict(height=480, width=832, num_frames=81,
+                   num_inference_steps=2, guidance_scale=5.0)
+# launches a CFG step of an n-block Wan2.1 I2V DiT: K1 once a block, K2
+# for q and k, K3 against the text keys and against the image keys
+
+
+def per_w21_step(blocks):
+    return {**NO_SERVE, **NO_TRAIN, "flash_fwd_static": blocks,
+            "qk_norm_rope": 2 * blocks, "flash_fwd": 2 * blocks}
+# phase 22: the same widths at 2 blocks, 52 input channels (36 + 16
+# trajectory latents), first + last frame, 256x448x17: 5 x 16 x 28 = 2,240
+# tokens
+W21_SMALL = dict(height=256, width=448, num_frames=17, num_inference_steps=2,
+                 guidance_scale=5.0)
+W21_SMALL_S = 2240
+VERIFY_DIR = os.path.join(REPO, "build", "chip_smoke_verify")
+
+
+def w21_step_flops(S=W21_S, batch=2, text=W21_TEXT, image=W21_IMAGE):
+    """FLOPs of one CFG step of the 40-block DiT (multiply-adds count 2):
+    per block and sample the self-attention's q, k, v, out (8 S d^2) and
+    its S^2 products (4 S^2 d), the cross-attention's q and out (4 S d^2)
+    and its products against the text and image keys (4 S (L + 257) d), the
+    FFN (4 S d ffn); the patch embedding and output projection. The
+    hoisted text and image K/V (once a request) are not counted.
+    Returns (total, self-attention products, denses)."""
+    from frameino_tpu_torch.models import wan_dit
+    cfg = wan_dit.WAN21_I2V_14B
+    d, L = cfg.inner_dim, cfg.num_layers
+    dense = (12 * S * d * d + 4 * S * d * cfg.ffn_dim) * L \
+        + 2 * S * d * (cfg.in_channels + cfg.out_channels) * 4
+    attn = 4 * S * S * d * L
+    cross = 4 * S * (text + image) * d * L
+    return batch * (dense + attn + cross), batch * attn, batch * dense
+
+
+def _k2_missing_warp(raw, weight, cos, sin, num_heads, eps, team, warp):
+    """K2's plain version with the row statistic missing the vectors of
+    one warp of the team (thread t holds vectors j * team + t): a block
+    reduction that drops a warp's partial sum (the planted fault)."""
+    import torch
+    from frameino_tpu_torch.ops import attention as A
+    HD = raw.shape[-1]
+    v = torch.arange(HD, device=raw.device) // 8
+    keep = ((v % team) // 32 != warp).double()
+    ssq = (raw.double().square() * keep).sum(-1)
+    rstd = (1.0 / torch.sqrt(ssq / HD + float(eps))).float()
+    return A.qk_norm_rope_rstd_ref(raw, rstd, weight, cos, sin, num_heads)
+
+
+def phase_kernels_wan21():
+    """K2, K1 and K3 at Wan2.1-I2V-14B's shapes against their plain
+    versions: K2 on [2, 32760, 5120] (40 heads: one team of 160 threads,
+    five warps, a block) within one bf16 ulp of the fp64 statistics, a
+    warp's partial sum dropped rejected; K1 on [80, 32760, 128] (plain on
+    4 rows; both the last q tile and the last key tile ragged: 32,760 =
+    255 * 128 + 120); K3 against 512 text keys, and against 257 image keys
+    (one real key in the last tile) with the 257th key dropped and one
+    joint softmax over the 769 keys (in place of two added) rejected."""
+    import torch
+    from frameino_tpu_torch.ops import attention as A
+    from frameino_tpu_torch.ops.rope import wan_rope_table
+    g = torch.Generator("cuda").manual_seed(21)
+    dev, S_, Hh = "cuda", W21_S, W21_HEADS
+    BH = B * Hh
+    results, checks = {}, {}
+    team, vpt, tpb = A._producer_geometry(Hh, D)
+    check((team, vpt, tpb) == (160, 4, 1),
+          f"K2 (Wan2.1): geometry {(team, vpt, tpb)}, expected (160, 4, 1)")
+    q_raw, k_raw = (torch.randn(B, S_, Hh * D, device=dev,
+                                dtype=torch.bfloat16, generator=g)
+                    for _ in range(2))
+    w_q, w_k = (1 + 0.1 * torch.randn(Hh * D, device=dev, generator=g)
+                for _ in range(2))
+    cos_np, sin_np = wan_rope_table(D, *W21_GRID)
+    cos = torch.from_numpy(cos_np).to(dev)
+    sin = torch.from_numpy(sin_np).to(dev)
+    gain = D ** -0.5 * A.LOG2E
+    cq, sq = (cos * gain).contiguous(), (sin * gain).contiguous()
+    out = A.qk_norm_rope(q_raw, w_q, cq, sq, Hh, 1e-6)
+    ref = A.qk_norm_rope_ref(q_raw, w_q, cq, sq, Hh, 1e-6)
+    err, rel = _check_ulp("K2 (Wan2.1)", out, ref)
+    bit_equal = bool(torch.equal(out, ref))
+    fault = _ulp_over(_k2_missing_warp(q_raw, w_q, cq, sq, Hh, 1e-6, team,
+                                       4), ref)
+    print(f"K2 (Wan2.1): bit-equal {bit_equal}; planted fault (warp 4's "
+          f"partial sum dropped) {fault} elements over one ulp")
+    check(fault > 0, "K2 (Wan2.1): the dropped warp passes the check")
+    ms = cuda_ms(lambda: A.qk_norm_rope(q_raw, w_q, cq, sq, Hh, 1e-6), 20)
+    _report(results, "qk_norm_rope_w21", err, rel, ms,
+            cuda_ms(lambda: A.qk_norm_rope_ref(q_raw, w_q, cq, sq, Hh, 1e-6),
+                    3),
+            bound_ms(12 * out.numel(), _nbytes(q_raw, w_q, cq, sq, out),
+                     PEAK_FP32_FLOPS), None,
+            copy_ms=cuda_ms(lambda: q_raw.clone(), 20), bit_equal=bit_equal,
+            fault_missing_warp=fault)
+    del out, ref
+
+    qh = A.qk_norm_rope_ref(q_raw, w_q, cq, sq, Hh, 1e-6)
+    kh = A.qk_norm_rope_ref(k_raw, w_k, cos, sin, Hh, 1e-6)
+    del q_raw, k_raw
+    vh = torch.randn(BH, S_, D, device=dev, dtype=torch.bfloat16,
+                     generator=g)
+    bound = A._rowmax_norm(qh) * A._rowmax_norm(kh)
+    rows = torch.tensor([0, 27, 52, 79], device=dev)
+    qs, ks, vs = (t[rows].contiguous() for t in (qh, kh, vh))
+
+    def kernel():
+        return A.flash_fwd_static(qs, ks, vs, bound)
+
+    def plain():
+        return A.flash_fwd_static_ref(qs, ks, vs, bound)
+
+    want = plain()
+    err, rel, rel_l2 = _check_close("K1 (Wan2.1)", kernel(), want)
+    checks["flash_fwd_static_w21"] = _flash_faults(
+        "K1 flash_fwd_static_w21 (4 of the 80 rows)", qs, ks, vs, want,
+        bound=bound)
+    del want
+    torch.cuda.empty_cache()
+    all_out = A.flash_fwd_static(qh, kh, vh, bound)
+    check(bool(torch.isfinite(all_out).all()),
+          "K1 (Wan2.1): non-finite output on the 80 rows")
+    check(bool(torch.equal(all_out[rows], kernel())),
+          "K1 (Wan2.1): the 4-row launch differs from the same rows of the "
+          "80-row launch")
+    del all_out
+    _report(results, "flash_fwd_static_w21", err, rel,
+            cuda_ms(lambda: A.flash_fwd_static(qh, kh, vh, bound), 5),
+            cuda_ms(plain, 2), attn_bound(BH, S_, S_, D),
+            cuda_ms(lambda: _sdpa(math.log(2))(qh, kh, vh), 3),
+            rel_l2=rel_l2, exp2_floor_ms=exp2_floor_ms(BH, S_, S_),
+            note="ms, bound and library on the 80 rows; plain_ms and the "
+                 "errors on 4", ms_4_rows=cuda_ms(kernel, 10))
+    del qh, kh, vh, qs, ks, vs
+    torch.cuda.empty_cache()
+
+    def normed(n):
+        x = torch.randn(BH, n, D, device=dev, dtype=torch.float32,
+                        generator=g)
+        return (x * torch.rsqrt(x.square().mean(-1, keepdim=True))
+                ).to(torch.bfloat16)
+
+    q = normed(S_)
+    c = D ** -0.5 * A.LOG2E
+    kv = {}
+    for name, n in (("flash_fwd_w21", W21_TEXT),
+                    ("flash_fwd_w21_image", W21_IMAGE)):
+        k = normed(n)
+        v = torch.randn(BH, n, D, device=dev, dtype=torch.bfloat16,
+                        generator=g)
+        kv[name] = (k, v)
+        want = A.flash_fwd_ref(q, k, v, c)
+        err, rel, rel_l2 = _check_close(f"K3 (Wan2.1, {n} keys)",
+                                        A.flash_fwd(q, k, v, c), want)
+        checks[name] = _flash_faults(f"K3 {name} ({n} keys)", q, k, v, want,
+                                     q_scale=c)
+        del want
+        _report(results, name, err, rel,
+                cuda_ms(lambda: A.flash_fwd(q, k, v, c), 10),
+                cuda_ms(lambda: A.flash_fwd_ref(q, k, v, c), 3),
+                attn_bound(BH, S_, n, D),
+                cuda_ms(lambda: _sdpa(D ** -0.5)(q, k, v), 10),
+                rel_l2=rel_l2, exp2_floor_ms=exp2_floor_ms(BH, S_, n))
+    # the cross-attention: two softmaxes added (text, image); one joint
+    # softmax over the 769 keys is the planted fault
+    (kt, vt), (ki, vi) = kv["flash_fwd_w21"], kv["flash_fwd_w21_image"]
+    want = (A.flash_fwd_ref(q, kt, vt, c).float()
+            + A.flash_fwd_ref(q, ki, vi, c).float())
+    got = A.flash_fwd(q, kt, vt, c).float() + A.flash_fwd(q, ki, vi, c).float()
+    _, _, rel_l2 = _check_close("K3 + K3 (Wan2.1 cross-attention)", got,
+                                want)
+    joint = _rel_l2(A.flash_fwd_ref(q, torch.cat([kt, ki], 1),
+                                    torch.cat([vt, vi], 1), c), want)
+    print(f"K3 + K3 (Wan2.1 cross-attention): rel L2 {rel_l2:.3e}; planted "
+          f"fault (one joint softmax over {W21_TEXT + W21_IMAGE} keys) "
+          f"{joint:.3e}")
+    check(joint > FLASH_REL_L2, f"K3 (Wan2.1): the joint softmax passes the "
+                                f"limit ({joint:.3e})")
+    checks["flash_fwd_w21_image"].update(sum_rel_l2=rel_l2,
+                                         joint_softmax=joint)
+    del q, kv, kt, vt, ki, vi, want, got
+    torch.cuda.empty_cache()
+    return results, checks
+
+
+def _w21_models(num_layers=None, in_channels=None, seed=21):
+    """The seeded bf16 Wan2.1-I2V-14B DiT drawn on the card tensor by
+    tensor (at ``num_layers`` blocks and ``in_channels``, if given)."""
+    import dataclasses
+    import torch
+    from frameino_tpu_torch.models import wan_dit
+    cfg = wan_dit.WAN21_I2V_14B
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers,
+                                  in_channels=in_channels)
+    return wan_dit.init_wan_dit(cfg, torch.Generator("cuda").manual_seed(seed),
+                                dtype=torch.bfloat16)
+
+
+def _w21_call(pipe, req, rs, traj=False, last=False):
+    """One counted call of the Wan2.1 pipeline at ``req``'s shape, seeded
+    prompt embeddings [1, 512, 4096] and image(s), the hybrid decode:
+    (video, seconds, peak GiB, CFG-step seconds, launch counts, launches
+    by shape)."""
+    import numpy as np
+    import torch
+    from frameino_tpu_torch.ops import attention as A
+    Hh, Ww, F = req["height"], req["width"], req["num_frames"]
+
+    def pix(*shape):
+        return torch.from_numpy(np.tanh(rs.randn(*shape)).astype(np.float32))
+    image = pix(1, 3, Hh, Ww)
+    kw = dict(last_image=pix(1, 3, Hh, Ww) if last else None,
+              traj_tensor=pix(1, 3, F, Hh, Ww) if traj else None)
+    text = torch.from_numpy(rs.randn(2, W21_TEXT, 4096).astype(np.float32))
+    steps_s, t = [], []
+
+    def pre(mod, args, kwargs):
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+
+    def post(mod, args, kwargs, out):
+        torch.cuda.synchronize()
+        steps_s.append(time.perf_counter() - t.pop())
+    hooks = [pipe.dit.register_forward_pre_hook(pre, with_kwargs=True),
+             pipe.dit.register_forward_hook(post, with_kwargs=True)]
+    try:
+        with _ShapeLog() as log:
+            A.reset_launch_counts()
+            video, seconds, peak = _timed(lambda: pipe(
+                image, prompt_embeds=text[:1], negative_prompt_embeds=text[1:],
+                generator=torch.Generator("cuda").manual_seed(5),
+                decode_mode="hybrid", **kw, **req))
+            counts = A.launch_counts()
+    finally:
+        for h in hooks:
+            h.remove()
+    return video, seconds, peak, steps_s, counts, log.counts
+
+
+def _w21_launches_checked(label, counts, by_shape, steps, S_, blocks):
+    """Exact launches a CFG step, each kernel at its shapes: K1 on [80, S,
+    128] once a block, K2 on [2, S, 5120] twice, K3 once against the 512
+    text keys and once against the 257 image keys."""
+    want = {k: n * steps for k, n in per_w21_step(blocks).items()}
+    check(counts == want, f"{label}: launches {counts}, expected {want}")
+    BH, n = B * W21_HEADS, steps * blocks
+    expect = {
+        "flash_fwd_static": {((BH, S_, D), (BH, S_, D)): n},
+        "qk_norm_rope": {((B, S_, W21_HEADS * D), (W21_HEADS * D,)): 2 * n},
+        "flash_fwd": {((BH, S_, D), (BH, W21_TEXT, D)): n,
+                      ((BH, S_, D), (BH, W21_IMAGE, D)): n}}
+    for name, want_shapes in expect.items():
+        check(dict(by_shape[name]) == want_shapes,
+              f"{label}: {name} launched at {dict(by_shape[name])}, "
+              f"expected {want_shapes}")
+    return {"flash_fwd_static_w21": n, "qk_norm_rope_w21": 2 * n,
+            "flash_fwd_w21": n, "flash_fwd_w21_image": n}
+
+
+def phase_wan21():
+    """Wan2.1-I2V-14B at full width and depth (40 x 5120, 40 heads, ffn
+    13824, 36 input channels, image_dim 1280; seeded bf16 weights drawn on
+    the card), CLIP ViT-H/14 (32 layers, 31 run) and the Wan2.1 VAE in
+    fp32, through ``WanImageToVideoPipeline(expand_timesteps=False,
+    image_encoder=...)`` at 480x832x81 (32,760 tokens), 2 steps, guidance
+    5: stage seconds, peaks, each CFG step's seconds and MFU, exact
+    launches at their shapes, finite frames. Then phase 22: the same
+    widths at 2 blocks, 52 input channels, a trajectory and first + last
+    frame at 256x448x17."""
+    import numpy as np
+    import torch
+    from frameino_tpu_torch.models import clip_vision, wan_vae
+    from frameino_tpu_torch.pipelines import wan_i2v
+    t0 = time.time()
+    (dit, build_s, _) = _timed(lambda: _w21_models())
+    g = torch.Generator("cuda").manual_seed(1280)
+    clip = clip_vision.init_clip_vision(clip_vision.CLIP_VIT_H_14, g)
+    vae = wan_vae.init_wan_vae(wan_vae.WanVAEConfig(), g)
+    dit_gib = _module_bytes(dit) / 2 ** 30
+    print(f"Wan2.1-I2V-14B: {sum(p.numel() for p in dit.parameters()):,} "
+          f"parameters, {dit_gib:.2f} GiB bf16, drawn in {build_s:.1f} s")
+    encoder = clip_vision.make_image_encoder(clip.cfg, clip)
+    pipe = wan_i2v.WanImageToVideoPipeline(
+        dit, vae, wan_i2v.WanPipelineConfig(expand_timesteps=False),
+        image_encoder=encoder)
+    rs = np.random.RandomState(21)
+    video, seconds, peak, steps_s, counts, by_shape = _w21_call(
+        pipe, W21_REQUEST, rs)
+    F, Hh, Ww = (W21_REQUEST[k] for k in ("num_frames", "height", "width"))
+    check(video.shape == (1, 3, F, Hh, Ww), f"Wan2.1: video {video.shape}")
+    check(bool(np.isfinite(video).all()), "Wan2.1: non-finite frames")
+    launches = _w21_launches_checked("Wan2.1 480x832x81", counts, by_shape,
+                                     W21_REQUEST["num_inference_steps"],
+                                     W21_S, 40)
+    total, attn, dense = w21_step_flops()
+    mfu = [total / (s * PEAK_BF16_FLOPS) for s in steps_s]
+    row = dict(seconds=seconds, peak_gib=peak, stages_s=pipe.timings,
+               stage_peaks_gib=pipe.peaks_gib, cfg_step_s=steps_s,
+               step_pflop=total / 1e15, self_attention_pflop=attn / 1e15,
+               dense_pflop=dense / 1e15, mfu=mfu, dit_gib=dit_gib,
+               dit_draw_s=build_s, launches=counts,
+               frames_mean=float(np.mean(video)))
+    print(f"Wan2.1 480x832x81: {seconds:.2f} s, peak {peak:.2f} GiB, stages "
+          f"{pipe.timings}, stage peaks {pipe.peaks_gib} GiB, CFG steps "
+          f"{[round(s, 3) for s in steps_s]} s of {total / 1e15:.3f} PFLOP "
+          f"(self-attention {attn / 1e15:.3f}, denses {dense / 1e15:.3f}): "
+          f"MFU {[round(m, 3) for m in mfu]}; launches a CFG step K1 "
+          f"{counts['flash_fwd_static'] // 2}, K2 {counts['qk_norm_rope'] // 2}"
+          f", K3 {counts['flash_fwd'] // 2}")
+    del video, pipe, dit
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 22: trajectory + first and last frame, 2 blocks
+    small = _w21_models(num_layers=2, in_channels=52, seed=22)
+    pipe = wan_i2v.WanImageToVideoPipeline(
+        small, vae, wan_i2v.WanPipelineConfig(expand_timesteps=False),
+        image_encoder=encoder)
+    video, s2, p2, _, c2, by2 = _w21_call(pipe, W21_SMALL, rs, traj=True,
+                                          last=True)
+    F, Hh, Ww = (W21_SMALL[k] for k in ("num_frames", "height", "width"))
+    check(video.shape == (1, 3, F, Hh, Ww), f"Wan2.1 2 blocks: video {video.shape}")
+    check(bool(np.isfinite(video).all()), "Wan2.1 2 blocks: non-finite frames")
+    _w21_launches_checked("Wan2.1 2 blocks 256x448x17", c2, by2,
+                          W21_SMALL["num_inference_steps"], W21_SMALL_S, 2)
+    row["small"] = dict(seconds=s2, peak_gib=p2, stages_s=pipe.timings,
+                        launches=c2)
+    print(f"Wan2.1 2 blocks, trajectory + first/last frame, 256x448x17: "
+          f"{s2:.2f} s, peak {p2:.2f} GiB, stages {pipe.timings}")
+    del pipe, small, video, clip, vae, encoder
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["phase_s"] = time.time() - t0
+    return row, launches
+
+
+def _swap_file_tensors(d, a, b):
+    """A planted fault: tensors ``a`` and ``b`` of a checkpoint swapped."""
+    from frameino_tpu_torch.models import safetensors_io as SIO
+    path = os.path.join(d, "model.safetensors")
+    sd = {k: v.clone() for k, v in SIO.load_file(path).items()}
+    sd[a], sd[b] = sd[b], sd[a]
+    SIO.save_file(sd, path)
+
+
+# The std of the AdaLN tables (``scale_shift_table``, of each block and of
+# the output) in the harness's DiT checkpoints. The port's seeded init
+# draws them N(0, 1/d), as diffusers does at initialisation: then every
+# gate is ~0.2 and a 2-block full-width DiT's output is its skip path, a
+# block's attention moving it by ~1%, so a swapped to_q moves the output by
+# 4.7e-3 relative L2 (in quadrature), under the bf16 noise of 5.5e-3
+# (PERF.md). Drawn N(0, 1), the blocks carry the output.
+VERIFY_TABLE_STD = 1.0
+
+
+def _verify_cases():
+    """The harness's checkpoints and goldens, written on the CPU in fp32
+    (the port's forward as the reference): 2-block full-width Wan2.2-
+    TI2V-5B and Wan2.1-I2V-14B DiTs (the latter with CLIP states; their
+    AdaLN tables drawn N(0, VERIFY_TABLE_STD^2)), a tiny Wan VAE and a tiny
+    UMT5; {tag: (model, dir, golden)}."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from frameino_tpu_torch.models import pretrained, t5_encoder, wan_dit
+    from frameino_tpu_torch.models import wan_vae
+    from frameino_tpu_torch.scripts import verify_checkpoint as V
+    shutil.rmtree(VERIFY_DIR, ignore_errors=True)
+    g = torch.Generator().manual_seed(17)
+    cases = {}
+    for tag, cfg, image in (
+            ("wan22_dit", dataclasses.replace(wan_dit.WAN22_TI2V_5B,
+                                              num_layers=2), False),
+            ("wan21_dit", dataclasses.replace(wan_dit.WAN21_I2V_14B,
+                                              num_layers=2), True)):
+        m = wan_dit.init_wan_dit(cfg, g)
+        with torch.no_grad():
+            for name, p in m.named_parameters():
+                if name.endswith("scale_shift_table"):
+                    p.normal_(0.0, VERIFY_TABLE_STD, generator=g)
+        cases[tag] = ("wan_dit", os.path.join(VERIFY_DIR, tag),
+                      V.golden_wan_dit(m, with_image=image))
+        pretrained.save_pretrained(cases[tag][1], cfg, m)
+        del m
+    vcfg = wan_vae.WanVAEConfig(base_dim=16, num_res_blocks=1)
+    vae = wan_vae.init_wan_vae(vcfg, g)
+    cases["wan_vae"] = ("wan_vae", os.path.join(VERIFY_DIR, "wan_vae"),
+                        V.golden_wan_vae(vae))
+    pretrained.save_pretrained(cases["wan_vae"][1], vcfg, vae)
+    tcfg = t5_encoder.tiny_config(per_layer_relative_bias=True)
+    umt5 = t5_encoder.init_t5_encoder(tcfg, g)
+    cases["umt5"] = ("umt5", os.path.join(VERIFY_DIR, "umt5"),
+                     V.golden_umt5(umt5))
+    pretrained.save_pretrained(cases["umt5"][1], tcfg, umt5)
+    out = {}
+    for tag, (model, d, golden) in cases.items():
+        np.savez(d + ".npz", **golden)
+        out[tag] = (model, d, d + ".npz")
+    return out
+
+
+def _readings(lines):
+    """The relative L2 values of a bf16 compare's verdict lines."""
+    return [float(line.split("rel_l2=")[1].split()[0]) for line in lines
+            if "rel_l2=" in line]
+
+
+def phase_verify_checkpoint():
+    """``verify_checkpoint compare --device cuda`` on checkpoints the port
+    writes, against goldens of the port's fp32 CPU forward: the two
+    2-block full-width DiTs in bf16 through K1-K4 (verdict on relative L2,
+    DIT_BF16_REL_L2; the CPU's own bf16 reading beside it), the tiny Wan
+    VAE and UMT5 in fp32 under JAX's tolerances: each passes; the Wan2.2
+    DiT with block 0's to_q swapped with block 1's fails with exit code
+    1."""
+    import torch
+    from frameino_tpu_torch.scripts import verify_checkpoint as V
+    t0 = time.time()
+    cases = _verify_cases()
+    write_s = time.time() - t0
+    rows = {}
+    for tag, (model, d, golden) in cases.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = V.main(["compare", "--model", model, "--checkpoint", d,
+                         "--golden", golden])
+        lines = buf.getvalue().splitlines()
+        print(f"verify_checkpoint {tag} (card): rc {rc}\n  "
+              + "\n  ".join(lines))
+        check(rc == 0, f"verify_checkpoint {tag}: rc {rc} on the card")
+        rows[tag] = dict(rc=rc, lines=lines)
+        if model == "wan_dit":
+            cpu, _ = V.compare(model, d, golden, torch.device("cpu"),
+                               torch.bfloat16)
+            rows[tag].update(card_rel_l2=_readings(lines),
+                             cpu_bf16_rel_l2=_readings(cpu))
+            print(f"verify_checkpoint {tag}: card rel L2 "
+                  f"{rows[tag]['card_rel_l2']}, the CPU's bf16 "
+                  f"{rows[tag]['cpu_bf16_rel_l2']} (limit "
+                  f"{V.DIT_BF16_REL_L2})")
+    _, d, golden = cases["wan22_dit"]
+    _swap_file_tensors(d, "blocks.0.attn1.to_q.weight",
+                       "blocks.1.attn1.to_q.weight")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = V.main(["compare", "--model", "wan_dit", "--checkpoint", d,
+                     "--golden", golden])
+    print(f"verify_checkpoint wan22_dit with to_q of blocks 0 and 1 "
+          f"swapped: rc {rc}, rel L2 {_readings(buf.getvalue().splitlines())}")
+    check(rc == 1, f"verify_checkpoint: the planted fault gave rc {rc}")
+    rows["fault_to_q_swapped"] = dict(rc=rc, lines=buf.getvalue()
+                                      .splitlines())
+    shutil.rmtree(VERIFY_DIR, ignore_errors=True)
+    return dict(rows, write_s=write_s, seconds=time.time() - t0)
+
+
 def main():
     import torch
     profile = "--profile" in sys.argv[1:]
@@ -5219,13 +5720,21 @@ def main():
     overfit_results, overfit_k6 = phase_kernels_overfit()
     kernel_results.update(overfit_results)
     overfit = phase_overfit()
+    t_w21 = time.time()
+    w21_results, w21_checks = phase_kernels_wan21()
+    kernel_results.update(w21_results)
+    flash_checks.update(w21_checks)
+    wan21, w21_launches = phase_wan21()
+    verify = phase_verify_checkpoint()
+    wan21["phases_20_23_s"] = time.time() - t_w21
 
     # each kernel's launches on its path (K1 twice: Wan at head_dim 128,
     # CogVideoX at 64; K5 on rank 0 over the tp = 2 request; K6 over the 3
     # full-depth train steps; K7 over the int8 requests of both families;
     # K8-K12 over the two experiment scripts' runs; K7 again over the
     # judge's counted int8 generation; K6 and K1-K3 again over both
-    # convergence runs)
+    # convergence runs; K1-K3 over Wan2.1's 480x832x81 call, K3 against
+    # the text and the image keys apart)
     steps = train["steps"]
     t704 = wan_default["launches"]
     launches = dict(totals, qk_ln_rope=totals_cog["qk_ln_rope"],
@@ -5246,7 +5755,8 @@ def main():
                                            for d in ("fp32", "bf16"))
                        for k in ("flash_attn_train_fwd",
                                  "flash_attn_train_bwd", "flash_fwd_static",
-                                 "qk_norm_rope", "flash_fwd")})
+                                 "qk_norm_rope", "flash_fwd")},
+                    **w21_launches)
     for k, n in exp_launches.items():
         check(n > 0, f"kernel {k} was not launched by the experiment scripts")
     summary = {"device": {"name": name, "nvidia_smi": smi}, "kernels": [
@@ -5265,12 +5775,14 @@ def main():
         "cog_train": cog_train,
         "experiment_kernels": exp_shapes, "experiment_scripts": exp_scripts,
         "mass_eval": mass_eval, "qwen": qwen, "qwen_vs_cpu": qwen_cpu,
-        "overfit_k6": overfit_k6, "overfit": overfit,
-        "seconds": time.time() - t_start}
+        "overfit_k6": overfit_k6, "overfit": overfit, "wan21": wan21,
+        "verify_checkpoint": verify, "seconds": time.time() - t_start}
     out_dir = os.path.join(REPO, "build")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
+    print(f"chip_smoke: phases 20-23 (Wan2.1) "
+          f"{wan21['phases_20_23_s']:.1f} s")
     print(f"chip_smoke: all phases passed in {summary['seconds']:.1f} s")
     print(json.dumps({"kernels": summary["kernels"]}))
     print(json.dumps({"ok": True, "device": {

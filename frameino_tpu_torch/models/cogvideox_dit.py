@@ -60,6 +60,7 @@ from frameino_tpu_torch.ops.embeddings import (cogvideox_3d_sincos_pos_embed,
                                                timestep_embedding_mlp)
 from frameino_tpu_torch.ops.linear import dense, gelu_tanh, silu
 from frameino_tpu_torch.ops.norms import layer_norm
+from frameino_tpu_torch.ops.resize import resize_antialiased
 from frameino_tpu_torch.ops.rope import (apply_rope_interleaved,
                                          cogvideox_rope_table)
 
@@ -118,42 +119,6 @@ def tiny_config(**kw) -> CogVideoXConfig:
                 sample_frames=9, max_text_seq_length=8)
     base.update(kw)
     return CogVideoXConfig(**base)
-
-
-# ---------------------------------------------------------------------------
-# Antialiased trilinear resize (jax.image.resize "trilinear")
-# ---------------------------------------------------------------------------
-
-def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
-    """[n_in, n_out] fp32 triangle-filter weights of
-    ``jax.image.scale_and_translate`` with antialias: when downsampling
-    the kernel widens by n_in / n_out (a low-pass filter), when
-    upsampling it is plain linear interpolation."""
-    scale = np.float32(n_out) / np.float32(n_in)
-    inv = np.float32(1.0) / scale
-    kscale = max(inv, np.float32(1.0))
-    sample = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv \
-        - np.float32(0.5)
-    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) \
-        / kscale
-    w = np.maximum(np.float32(0.0), np.float32(1.0) - x)
-    total = w.sum(axis=0, keepdims=True)
-    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
-                 w / np.where(total != 0, total, 1), 0)
-    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return np.where(inside[None, :], w, 0).astype(np.float32)
-
-
-def resize_antialiased(x, shape):
-    """Resize every axis of ``x`` whose size differs from ``shape``, one
-    separable pass per axis, in x's dtype."""
-    for d, n in enumerate(shape):
-        if x.shape[d] == n:
-            continue
-        w = torch.from_numpy(_resize_weights(x.shape[d], n)).to(x.device,
-                                                                 x.dtype)
-        x = torch.movedim(torch.movedim(x, d, -1) @ w, -1, d)
-    return x
 
 
 # ---------------------------------------------------------------------------

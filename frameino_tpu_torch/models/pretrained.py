@@ -1,9 +1,9 @@
 """Checkpoint-directory loading: ``config.json`` + safetensors -> (config,
 module) (counterpart of ``frameino_tpu/models/pretrained.py``).
 
-The released checkpoints (Wan2.2-TI2V-5B, CogVideoX-5B and the
-``uva-cv-lab/FrameINO_*`` finetunes, reference ``README.md:130-143``) ship
-in diffusers layout: each submodel directory holds a ``config.json`` with
+The released checkpoints (Wan2.2-TI2V-5B, Wan2.1-I2V-14B with its CLIP
+ViT-H/14 ``image_encoder/``, CogVideoX-5B and the ``uva-cv-lab/FrameINO_*``
+finetunes, reference ``README.md:130-143``) ship in diffusers layout: each submodel directory holds a ``config.json`` with
 every architecture hyperparameter, among them the Wan2.2 VAE's
 per-channel ``latents_mean`` / ``latents_std`` (which appear nowhere in the
 reference source), and ``*.safetensors`` weights.
@@ -12,7 +12,8 @@ reference source), and ``*.safetensors`` weights.
 dataclass from it with no hand-supplied value, builds the module on the
 meta device and fills it with ``load_state_dict(assign=True)`` from the
 files, whose names the port's modules take as they are (diffusers names,
-transformers' for the text encoders). The model class is dispatched on
+transformers' for the text and image encoders; the CLIP tower's without
+their ``vision_model.`` prefix). The model class is dispatched on
 the ``_class_name`` (diffusers) or ``architectures`` (transformers) field.
 ``save_pretrained`` writes a module and its config back in that layout.
 """
@@ -28,11 +29,6 @@ import torch
 
 from frameino_tpu_torch.models.safetensors_io import save_file
 from frameino_tpu_torch.models.weights import load_safetensors_dir
-
-WAN21_NOT_PORTED = (
-    "{}: the Wan2.1 branch (CLIP vision encoder, image cross-attention) is "
-    "not ported (ROADMAP.md queue 1, 'Wan2.1 branch')")
-
 
 class UnsupportedModelClass(ValueError):
     """A config.json names a model class this loader does not handle (the
@@ -88,11 +84,9 @@ def wan_vae_config_from_json(cj: Dict[str, Any]):
 
 
 def wan_dit_config_from_json(cj: Dict[str, Any]):
+    """Wan2.2 or Wan2.1 (``image_dim``, ``added_kv_proj_dim``,
+    ``pos_embed_seq_len``) DiT config."""
     from frameino_tpu_torch.models.wan_dit import WanDiTConfig
-    if cj.get("image_dim") is not None \
-            or cj.get("added_kv_proj_dim") is not None:
-        raise NotImplementedError(WAN21_NOT_PORTED.format(
-            "a Wan DiT with image_dim / added_kv_proj_dim"))
     return _take(cj, WanDiTConfig)
 
 
@@ -116,6 +110,13 @@ def t5_config_from_json(cj: Dict[str, Any]):
     return _take(cj, T5EncoderConfig, per_layer_relative_bias=is_umt5,
                  gated_act="gated" in str(act)
                  or bool(cj.get("is_gated_act", True)))
+
+
+def clip_vision_config_from_json(cj: Dict[str, Any]):
+    """transformers CLIPVisionConfig, or the ``vision_config`` of a full
+    CLIPConfig."""
+    from frameino_tpu_torch.models.clip_vision import CLIPVisionConfig
+    return _take(cj.get("vision_config") or cj, CLIPVisionConfig)
 
 
 # ---------------------------------------------------------------------------
@@ -147,6 +148,11 @@ def _t5(cfg, **kw):
     return T5Encoder(cfg, **kw)
 
 
+def _clip(cfg, **kw):
+    from frameino_tpu_torch.models.clip_vision import CLIPVision
+    return CLIPVision(cfg, **kw)
+
+
 _LOADERS = {
     "AutoencoderKLWan": (wan_vae_config_from_json, _wan_vae),
     "WanTransformer3DModel": (wan_dit_config_from_json, _wan_dit),
@@ -162,11 +168,14 @@ _CLIP_CLASSES = {"CLIPVisionModel", "CLIPVisionModelWithProjection",
 def _state_dict_for(module, sd: Dict[str, torch.Tensor]):
     """The file's tensors under the module's names: the T5 encoders fold
     the tied ``encoder.embed_tokens`` into ``shared`` and drop a T5 file's
-    decoder; the CogVideoX DiT takes its sincos position table when the
-    file has none (diffusers stores only a learned one)."""
-    from frameino_tpu_torch.models import t5_encoder
+    decoder; the CLIP tower drops the ``vision_model.`` prefix and what is
+    not the vision tower; the CogVideoX DiT takes its sincos position table
+    when the file has none (diffusers stores only a learned one)."""
+    from frameino_tpu_torch.models import clip_vision, t5_encoder
     from frameino_tpu_torch.models.cogvideox_dit import CogVideoXDiT
-    if isinstance(module, t5_encoder.T5Encoder):
+    if isinstance(module, clip_vision.CLIPVision):
+        sd = clip_vision.from_state_dict_names(sd, module)
+    elif isinstance(module, t5_encoder.T5Encoder):
         sd = t5_encoder.from_state_dict_names(
             {k: v for k, v in sd.items()
              if not k.startswith(("decoder.", "lm_head."))})
@@ -195,9 +204,8 @@ def from_pretrained(path: str, class_name: str = None, *,
             f"{path}: config.json has no _class_name; pass class_name "
             f"explicitly")
     if name in _CLIP_CLASSES:
-        raise UnsupportedModelClass(WAN21_NOT_PORTED.format(
-            f"{path}: {name}"))
-    if name in _T5_CLASSES:
+        cfg_fn, build = clip_vision_config_from_json, _clip
+    elif name in _T5_CLASSES:
         cfg_fn, build = t5_config_from_json, _t5
     elif name in _LOADERS:
         cfg_fn, build = _LOADERS[name]
@@ -234,8 +242,12 @@ def load_pipeline_dir(root: str, **kw) -> Dict[str, Tuple[Any, Any]]:
 
 def _class_entry(cfg, module) -> Dict[str, Any]:
     """The config.json fields that name the class of ``module``."""
-    from frameino_tpu_torch.models import (cogvideox_dit, cogvideox_vae,
-                                           t5_encoder, wan_dit, wan_vae)
+    from frameino_tpu_torch.models import (clip_vision, cogvideox_dit,
+                                           cogvideox_vae, t5_encoder, wan_dit,
+                                           wan_vae)
+    if isinstance(module, clip_vision.CLIPVision):
+        return {"architectures": ["CLIPVisionModel"],
+                "model_type": "clip_vision_model"}
     if isinstance(module, t5_encoder.T5Encoder):
         umt5 = cfg.per_layer_relative_bias
         return {"architectures": ["UMT5EncoderModel" if umt5
@@ -256,7 +268,9 @@ def _class_entry(cfg, module) -> Dict[str, Any]:
 def save_pretrained(path: str, cfg, module: torch.nn.Module):
     """Write ``module`` as a checkpoint directory ``from_pretrained``
     reads: ``config.json`` (the config's fields under the released files'
-    keys) and ``model.safetensors`` (its state dict, in its dtypes)."""
+    keys) and ``model.safetensors`` (its state dict, in its dtypes; the
+    CLIP tower's under transformers' ``vision_model.`` prefix)."""
+    from frameino_tpu_torch.models.clip_vision import CLIPVision
     os.makedirs(path, exist_ok=True)
     cj = dict(_class_entry(cfg, module), **dataclasses.asdict(cfg))
     if "use_frame_in" in cj:
@@ -265,5 +279,8 @@ def save_pretrained(path: str, cfg, module: torch.nn.Module):
         cj.pop(key, None)               # implied by model_type, the FFN
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(cj, f, indent=1)
-    save_file(module.state_dict(), os.path.join(path, "model.safetensors"),
+    sd = module.state_dict()
+    if isinstance(module, CLIPVision):
+        sd = {f"vision_model.{k}": v for k, v in sd.items()}
+    save_file(sd, os.path.join(path, "model.safetensors"),
               metadata={"format": "pt"})

@@ -7,7 +7,8 @@ is K7). ``quantize_dit_int8(model)`` swaps, in place, the layers JAX's
 ``_QUANT_PATTERNS`` select, under their diffusers names:
 
 - Wan: ``blocks.{i}.attn{1,2}.to_{q,k,v}``, ``...to_out.0``,
-  ``blocks.{i}.ffn.net.0.proj`` and ``blocks.{i}.ffn.net.2`` (10 a block);
+  ``blocks.{i}.ffn.net.0.proj`` and ``blocks.{i}.ffn.net.2`` (10 a block;
+  Wan2.1 I2V adds ``attn2.add_{k,v}_proj``, 12 a block);
 - CogVideoX: ``transformer_blocks.{i}.attn1.to_{q,k,v}``, ``...to_out.0``,
   ``...ff.net.0.proj`` and ``...ff.net.2`` (6 a block).
 
@@ -34,7 +35,8 @@ from frameino_tpu_torch.ops.linear import dense, dense_int8
 
 _QUANT_PATTERN = re.compile(
     r"(transformer_)?blocks\.\d+\."
-    r"(attn[12]\.(to_[qkv]|to_out\.0)|ffn?\.net\.(0\.proj|2))")
+    r"(attn[12]\.(to_[qkv]|to_out\.0)|attn2\.add_[kv]_proj"
+    r"|ffn?\.net\.(0\.proj|2))")
 
 VAE_NOT_PORTED = ("the int8 Wan VAE (quantize_vae, ops/conv.py::_conv_int8) "
                   "is not ported: ROADMAP.md queue 1, item 13")

@@ -1,4 +1,4 @@
-"""Wan 2.2 video DiT denoiser (counterpart of
+"""Wan 2.1 / 2.2 video DiT denoiser (counterpart of
 ``frameino_tpu/models/wan_dit.py``).
 
 ``WanDiT`` is an ``nn.Module`` with diffusers ``WanTransformer3DModel``
@@ -8,6 +8,15 @@ follows the JAX forward: fp32 AdaLN modulation and residual sums around
 attention and FFN, qk RMS-norm across heads, interleaved 3-axis RoPE,
 patchify-as-dense, the two-level per-token timestep form of the Wan2.2
 expand path, and per-block text K/V computed once per clip.
+
+Wan2.1 I2V (``image_dim`` / ``added_kv_proj_dim`` set) adds the image-KV
+branch: ``condition_embedder.image_embedder`` (FP32 LayerNorm at eps
+1e-5, an exact-GELU MLP, FP32 LayerNorm; with ``pos_embed_seq_len`` the
+first- and last-frame embeds of a sample are joined and a learned table
+added) maps the CLIP penultimate states, and every block's cross-attention
+adds a second attention against their keys (``add_k_proj`` with its own
+RMS-norm across heads, ``add_v_proj``): two softmaxes summed, one over the
+text keys and one over the image keys, never one over both.
 
 The forward runs in the weights' dtype (bf16 at full width): it casts its
 input to that dtype and returns fp32. The serving forward runs without
@@ -31,8 +40,8 @@ fp32 before its bias is added once, and each dp rank runs its slice of
 the batch, the output being gathered over dp. Every rank is called with
 the same full-batch arguments and returns the same full-batch output.
 
-Not ported: the Wan2.1 image-KV branch, the fsdp/pp/sp mesh paths and
-training under a mesh.
+Not ported: the fsdp/pp/sp mesh paths, training under a mesh and the
+image-KV branch under a mesh.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.nn.functional import gelu
 from torch.utils.checkpoint import checkpoint
 
 from frameino_tpu_torch.core.meshes import Mesh, check_supported
@@ -60,6 +70,9 @@ from frameino_tpu_torch.parallel.sharding import shard_state_dict
 SHARDED_TRAINING_NOT_PORTED = (
     "training under a mesh is not ported: sharded training is ROADMAP.md "
     "queue 1, item 12")
+IMAGE_BRANCH_MESH_NOT_PORTED = (
+    "the Wan2.1 image-KV branch under a mesh is not ported: ROADMAP.md "
+    "queue 1, item 12")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,7 +88,10 @@ class WanDiTConfig:
     num_layers: int = 30
     cross_attn_norm: bool = True
     eps: float = 1e-6
+    image_dim: Optional[int] = None
+    added_kv_proj_dim: Optional[int] = None
     rope_max_seq_len: int = 1024
+    pos_embed_seq_len: Optional[int] = None
 
     @property
     def inner_dim(self) -> int:
@@ -86,6 +102,17 @@ class WanDiTConfig:
 WAN22_TI2V_5B = WanDiTConfig()
 # FrameINO motion models: +48 trajectory-latent input channels.
 WAN22_TI2V_5B_MOTION = dataclasses.replace(WAN22_TI2V_5B, in_channels=96)
+
+# Wan2.1-I2V-14B: dim 5120 = 40 x 128, 40 layers, CLIP image-KV branch,
+# 36 input channels (16 noisy + 4 mask + 16 image latents).
+WAN21_I2V_14B = WanDiTConfig(
+    num_attention_heads=40, attention_head_dim=128, in_channels=36,
+    out_channels=16, ffn_dim=13824, num_layers=40,
+    image_dim=1280, added_kv_proj_dim=5120)
+# Wan2.1-T2V-1.3B: dim 1536 = 12 x 128, 30 layers.
+WAN21_T2V_1_3B = WanDiTConfig(
+    num_attention_heads=12, attention_head_dim=128, in_channels=16,
+    out_channels=16, ffn_dim=8960, num_layers=30)
 
 
 def tiny_config(**kw) -> WanDiTConfig:
@@ -109,6 +136,34 @@ class _TwoLinear(nn.Module):
         self.linear_2 = nn.Linear(d_out, d_out, **kw)
 
 
+class _ImageEmbedder(nn.Module):
+    """WanImageEmbedding: FP32 LayerNorm -> FeedForward(mult 1, exact
+    GELU) -> FP32 LayerNorm, an optional learned ``pos_embed``."""
+
+    def __init__(self, image_dim, d, pos_embed_seq_len=None, **kw):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(image_dim, eps=1e-5, **kw)
+        self.ff = _FeedForward(image_dim, image_dim, d_out=d, **kw)
+        self.norm2 = nn.LayerNorm(d, eps=1e-5, **kw)
+        if pos_embed_seq_len is not None:
+            self.pos_embed = nn.Parameter(
+                torch.empty(1, pos_embed_seq_len, image_dim, **kw))
+
+    def forward(self, img, out_dtype):
+        """img [B, S, image_dim] (the CLIP states; with ``pos_embed``, each
+        sample's first- and last-frame embeds in turn) -> [B', S', D] in
+        ``out_dtype``. Runs in img's dtype, as the JAX function does."""
+        if hasattr(self, "pos_embed"):
+            B, S, D = img.shape
+            img = img.reshape(-1, 2 * S, D) + self.pos_embed
+        h = layer_norm(img, self.norm1.weight, self.norm1.bias,
+                       eps=1e-5).to(img.dtype)
+        h = gelu(_lin(h, self.ff.net[0].proj))
+        h = _lin(h, self.ff.net[2])
+        return layer_norm(h, self.norm2.weight, self.norm2.bias,
+                          eps=1e-5).to(out_dtype)
+
+
 class _ConditionEmbedder(nn.Module):
     def __init__(self, cfg: WanDiTConfig, **kw):
         super().__init__()
@@ -116,13 +171,16 @@ class _ConditionEmbedder(nn.Module):
         self.time_embedder = _TwoLinear(cfg.freq_dim, d, **kw)
         self.time_proj = nn.Linear(d, 6 * d, **kw)
         self.text_embedder = _TwoLinear(cfg.text_dim, d, **kw)
+        if cfg.image_dim is not None:
+            self.image_embedder = _ImageEmbedder(
+                cfg.image_dim, d, cfg.pos_embed_seq_len, **kw)
 
 
 class _Attention(nn.Module):
     """q/k/v column-parallel and to_out row-parallel over ``tp`` ranks: a
     rank holds d/tp of their heads (and of the norm gains)."""
 
-    def __init__(self, d, eps, tp=1, **kw):
+    def __init__(self, d, eps, tp=1, added_kv_proj_dim=None, **kw):
         super().__init__()
         d_l = d // tp
         self.to_q = nn.Linear(d, d_l, **kw)
@@ -132,6 +190,11 @@ class _Attention(nn.Module):
                                      nn.Dropout(0.0)])
         self.norm_q = nn.RMSNorm(d_l, eps=eps, **kw)
         self.norm_k = nn.RMSNorm(d_l, eps=eps, **kw)
+        if added_kv_proj_dim is not None:
+            # the Wan2.1 I2V image keys and values (cross-attention only)
+            self.add_k_proj = nn.Linear(added_kv_proj_dim, d_l, **kw)
+            self.add_v_proj = nn.Linear(added_kv_proj_dim, d_l, **kw)
+            self.norm_added_k = nn.RMSNorm(d_l, eps=eps, **kw)
 
 
 class _GeluProj(nn.Module):
@@ -141,11 +204,11 @@ class _GeluProj(nn.Module):
 
 
 class _FeedForward(nn.Module):
-    def __init__(self, d, ffn_dim, tp=1, **kw):
+    def __init__(self, d, ffn_dim, tp=1, d_out=None, **kw):
         super().__init__()
         self.net = nn.ModuleList([_GeluProj(d, ffn_dim // tp, **kw),
                                   nn.Dropout(0.0),
-                                  nn.Linear(ffn_dim // tp, d, **kw)])
+                                  nn.Linear(ffn_dim // tp, d_out or d, **kw)])
 
 
 def _split_heads(x, num_heads):
@@ -173,7 +236,7 @@ class WanBlock(nn.Module):
         self.heads = cfg.num_attention_heads // tp        # this rank's
         self.scale_shift_table = nn.Parameter(torch.empty(1, 6, d, **kw))
         self.attn1 = _Attention(d, cfg.eps, tp, **kw)
-        self.attn2 = _Attention(d, cfg.eps, tp, **kw)
+        self.attn2 = _Attention(d, cfg.eps, tp, cfg.added_kv_proj_dim, **kw)
         if cfg.cross_attn_norm:
             self.norm2 = nn.LayerNorm(d, eps=cfg.eps, **kw)
         self.ffn = _FeedForward(d, cfg.ffn_dim, tp, **kw)
@@ -188,15 +251,24 @@ class WanBlock(nn.Module):
         dist.all_reduce(y, group=self.tp_group)
         return (y + layer.bias.float()).to(x.dtype)
 
-    def text_kv(self, context) -> Tuple[torch.Tensor, torch.Tensor]:
+    def text_kv(self, context, context_img=None) -> Tuple[torch.Tensor, ...]:
         """Cross-attention K/V [B, H, L, Dh] for a fixed text context (this
-        rank's H/tp heads under tp)."""
+        rank's H/tp heads under tp); with ``context_img`` (the image
+        embedder's output) and an image branch, the image K/V follow:
+        (k, v, k_img, v_img)."""
         a = self.attn2
         k = rms_norm(_lin(context, a.to_k), a.norm_k.weight, self.cfg.eps,
                      group=self.tp_group)
         v = _lin(context, a.to_v)
-        return (_split_heads(k, self.heads).contiguous(),
-                _split_heads(v, self.heads).contiguous())
+        kv = (_split_heads(k, self.heads).contiguous(),
+              _split_heads(v, self.heads).contiguous())
+        if context_img is None or not hasattr(a, "add_k_proj"):
+            return kv
+        k_img = rms_norm(_lin(context_img, a.add_k_proj),
+                         a.norm_added_k.weight, self.cfg.eps)
+        v_img = _lin(context_img, a.add_v_proj)
+        return kv + (_split_heads(k_img, self.heads).contiguous(),
+                     _split_heads(v_img, self.heads).contiguous())
 
     def _self_attention(self, x, cos, sin, differentiable):
         cfg, a = self.cfg, self.attn1
@@ -226,24 +298,34 @@ class WanBlock(nn.Module):
                 o = attn_ops.attention_ref(q, k, _split_heads(v, H))
         return self._row_parallel(_merge_heads(o), a.to_out[0])
 
-    def _cross_attention(self, x, context, kv, differentiable):
+    def _cross_attention(self, x, context, context_img, kv, differentiable):
         cfg, a = self.cfg, self.attn2
         q = rms_norm(_lin(x, a.to_q), a.norm_q.weight, cfg.eps,
                      group=self.tp_group)
         qh = _split_heads(q, self.heads)
-        kh, vh = kv if kv is not None else self.text_kv(context)
-        if differentiable:
-            o = attn_ops.flash_attention_train(qh.contiguous(), kh, vh)  # K6
-        elif qh.is_cuda:
-            o = attn_ops.flash_attention_inference(qh, kh, vh)   # K3
-        else:
-            o = attn_ops.attention_ref(qh, kh, vh)
+        if kv is None:
+            kv = self.text_kv(context, context_img)
+
+        def attend(kh, vh):
+            if differentiable:
+                return attn_ops.flash_attention_train(qh.contiguous(), kh,
+                                                      vh)            # K6
+            if qh.is_cuda:
+                return attn_ops.flash_attention_inference(qh, kh, vh)  # K3
+            return attn_ops.attention_ref(qh, kh, vh)
+
+        o = attend(kv[0], kv[1])
+        if len(kv) == 4:
+            # the image keys: a softmax of their own, added
+            o = o + attend(kv[2], kv[3])
         return self._row_parallel(_merge_heads(o), a.to_out[0])
 
     def forward(self, x, context, timestep_proj, cos, sin, kv=None,
-                differentiable=False):
+                differentiable=False, context_img=None):
         """x: [B, S, D] compute dtype; timestep_proj fp32 [B, S|1, 6, D] or
-        the two-level pair ([B, 2, 6, D], selector [B, S, 1])."""
+        the two-level pair ([B, 2, 6, D], selector [B, S, 1]); kv: the
+        block's ``text_kv`` (2 or 4 tensors), or None to project
+        ``context`` (and ``context_img``) here."""
         eps = self.cfg.eps
         table = self.scale_shift_table.float()               # [1, 6, D]
         if isinstance(timestep_proj, tuple):
@@ -269,7 +351,8 @@ class WanBlock(nn.Module):
                                 eps=eps).to(x.dtype)
         else:
             norm_x = x
-        x = x + self._cross_attention(norm_x, context, kv, differentiable)
+        x = x + self._cross_attention(norm_x, context, context_img, kv,
+                                      differentiable)
 
         norm_x = layer_norm(x, eps=eps) * (1 + c_scale) + c_shift
         h = _lin(norm_x.to(x.dtype), self.ffn.net[0].proj)
@@ -317,6 +400,8 @@ class WanDiT(nn.Module):
                 raise ValueError(f"{cfg.num_attention_heads} heads and FFN "
                                  f"width {cfg.ffn_dim} must divide over "
                                  f"tp={mesh.tp}")
+            if cfg.image_dim is not None or cfg.added_kv_proj_dim is not None:
+                raise NotImplementedError(IMAGE_BRANCH_MESH_NOT_PORTED)
         self.cfg = cfg
         self.mesh = mesh
         self.patch_embedding = nn.Conv3d(cfg.in_channels, d, cfg.patch_size,
@@ -336,8 +421,9 @@ class WanDiT(nn.Module):
     def init_random_(self, generator: torch.Generator):
         """Seeded init mirroring ``init_wan_dit``: uniform(+-1/sqrt(fan_in))
         for dense and patch weights and biases, unit norm gains, zero norm
-        biases, N(0, 1/d) AdaLN tables. Draws in fp32 on ``generator``'s
-        device, then casts into each parameter."""
+        biases, N(0, 1/d) AdaLN tables, a zero image ``pos_embed``. Draws
+        in fp32 on ``generator``'s device, then casts into each
+        parameter."""
         d = self.cfg.inner_dim
 
         def fill_uniform(p, fan_in):
@@ -360,29 +446,46 @@ class WanDiT(nn.Module):
                 r = torch.randn(p.shape, generator=generator,
                                 device=generator.device, dtype=torch.float32)
                 p.copy_(r / d ** 0.5)
+            elif name.endswith("pos_embed"):
+                p.zero_()
         return self
 
+    def _image_context(self, encoder_hidden_states_image, dtype):
+        """The image embedder's output [B, 257, D] in ``dtype`` for CLIP
+        states [B, 257, image_dim], or None (no states, or no branch)."""
+        ce = self.condition_embedder
+        if encoder_hidden_states_image is None \
+                or not hasattr(ce, "image_embedder"):
+            return None
+        return ce.image_embedder(encoder_hidden_states_image.to(
+            self.proj_out.weight.device), dtype)
+
     @torch.no_grad()
-    def precompute_text_kv(self, encoder_hidden_states,
+    def precompute_text_kv(self, encoder_hidden_states, image=None,
                            dtype: Optional[torch.dtype] = None
-                           ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+                           ) -> List[Tuple[torch.Tensor, ...]]:
         """Per-block cross-attention K/V for a fixed text context (constant
-        across denoise steps): one (k, v) pair [B, H, L, Dh] per block."""
+        across denoise steps): one (k, v) pair [B, H, L, Dh] per block;
+        with ``image`` (CLIP states [B, 257, image_dim]) and an image
+        branch, (k, v, k_img, v_img)."""
+        dtype = dtype or self.dtype
         te = self.condition_embedder.text_embedder
         context = pixart_text_projection(encoder_hidden_states, te.linear_1,
-                                         te.linear_2,
-                                         out_dtype=dtype or self.dtype)
-        return [blk.text_kv(context) for blk in self.blocks]
+                                         te.linear_2, out_dtype=dtype)
+        context_img = self._image_context(image, dtype)
+        return [blk.text_kv(context, context_img) for blk in self.blocks]
 
-    def forward(self, hidden_states, timestep, encoder_hidden_states=None, *,
-                timestep_mask=None, text_kv=None, differentiable=False,
-                remat=False):
+    def forward(self, hidden_states, timestep, encoder_hidden_states=None,
+                encoder_hidden_states_image=None, *, timestep_mask=None,
+                text_kv=None, differentiable=False, remat=False):
         """hidden_states [B, C, F, H, W] (latent + condition channels);
         timestep [B] or per-token [B, S]; ``timestep_mask`` [B, S] 0/1
         selects per token between timestep 0 and ``timestep`` (the
         two-level expand path; needs timestep [B]);
-        encoder_hidden_states [B, L, text_dim], unused when ``text_kv``
-        (from ``precompute_text_kv``) is given. Returns fp32
+        encoder_hidden_states [B, L, text_dim] and
+        encoder_hidden_states_image [B, 257, image_dim] (Wan2.1 I2V, the
+        CLIP penultimate states), both unused when ``text_kv`` (from
+        ``precompute_text_kv``) is given. Returns fp32
         [B, out_channels, F, H, W].
 
         ``differentiable``: the training forward, under autograd, through
@@ -397,8 +500,9 @@ class WanDiT(nn.Module):
             with torch.no_grad():
                 if self.mesh is None or self.mesh.dp == 1:
                     return self._forward(hidden_states, timestep,
-                                         encoder_hidden_states, timestep_mask,
-                                         text_kv, False, False)
+                                         encoder_hidden_states,
+                                         encoder_hidden_states_image,
+                                         timestep_mask, text_kv, False, False)
                 return self._forward_dp(hidden_states, timestep,
                                         encoder_hidden_states, timestep_mask,
                                         text_kv)
@@ -408,7 +512,8 @@ class WanDiT(nn.Module):
             raise ValueError("the differentiable forward projects the text "
                              "K/V in the graph; pass encoder_hidden_states")
         return self._forward(hidden_states, timestep, encoder_hidden_states,
-                             timestep_mask, None, True, remat)
+                             encoder_hidden_states_image, timestep_mask, None,
+                             True, remat)
 
     def _forward_dp(self, hidden_states, timestep, encoder_hidden_states,
                     timestep_mask, text_kv):
@@ -426,14 +531,15 @@ class WanDiT(nn.Module):
         if text_kv is not None:
             text_kv = [(k[sl], v[sl]) for k, v in text_kv]
         out = self._forward(hidden_states[sl], cut(timestep),
-                            cut(encoder_hidden_states), cut(timestep_mask),
-                            text_kv, False, False)
+                            cut(encoder_hidden_states), None,
+                            cut(timestep_mask), text_kv, False, False)
         parts = [torch.empty_like(out) for _ in range(dp)]
         dist.all_gather(parts, out, group=self.mesh.dp_group)
         return torch.cat(parts)
 
     def _forward(self, hidden_states, timestep, encoder_hidden_states,
-                 timestep_mask, text_kv, differentiable, remat):
+                 encoder_hidden_states_image, timestep_mask, text_kv,
+                 differentiable, remat):
         cfg = self.cfg
         d = cfg.inner_dim
         x = hidden_states.to(self.dtype)
@@ -467,19 +573,22 @@ class WanDiT(nn.Module):
             timestep_proj = timestep_proj.reshape(B, -1 if per_token else 1,
                                                   6, d)
 
-        context = None
+        context = context_img = None
         if text_kv is None:
             context = pixart_text_projection(
                 encoder_hidden_states, ce.text_embedder.linear_1,
                 ce.text_embedder.linear_2, out_dtype=x.dtype)
+            context_img = self._image_context(encoder_hidden_states_image,
+                                              x.dtype)
         for i, blk in enumerate(self.blocks):
             kv = None if text_kv is None else text_kv[i]
             if remat:
                 x = checkpoint(blk, x, context, timestep_proj, cos, sin, kv,
-                               differentiable, use_reentrant=False)
+                               differentiable, context_img,
+                               use_reentrant=False)
             else:
                 x = blk(x, context, timestep_proj, cos, sin, kv,
-                        differentiable)
+                        differentiable, context_img)
 
         # output AdaLN + projection
         table = self.scale_shift_table.float()                   # [1, 2, D]

@@ -91,6 +91,15 @@ def wan_dit_from_jax(params_np: Dict[str, Any], cfg: WanDiTConfig,
         for lin in ("linear_1", "linear_2"):
             _put_lin(sd, f"condition_embedder.{sub}.{lin}", ce[sub][lin])
     _put_lin(sd, "condition_embedder.time_proj", ce["time_proj"])
+    if "image_embedder" in ce:
+        ie, n = ce["image_embedder"], "condition_embedder.image_embedder"
+        for ln in ("norm1", "norm2"):
+            sd[f"{n}.{ln}.weight"] = _t(ie[ln]["weight"])
+            sd[f"{n}.{ln}.bias"] = _t(ie[ln]["bias"])
+        _put_lin(sd, f"{n}.ff.net.0.proj", ie["ff"]["fc1"])
+        _put_lin(sd, f"{n}.ff.net.2", ie["ff"]["fc2"])
+        if "pos_embed" in ie:
+            sd[f"{n}.pos_embed"] = _t(ie["pos_embed"])
     sd["scale_shift_table"] = _t(params_np["norm_out_table"])
     _put_lin(sd, "proj_out", params_np["proj_out"])
 
@@ -106,11 +115,47 @@ def wan_dit_from_jax(params_np: Dict[str, Any], cfg: WanDiTConfig,
             _put_lin(sd, b + f"{an}.to_out.0", a["to_out"])
             sd[b + f"{an}.norm_q.weight"] = _t(a["norm_q"]["weight"])
             sd[b + f"{an}.norm_k.weight"] = _t(a["norm_k"]["weight"])
+        if "add_k_proj" in lp["attn2"]:
+            a = lp["attn2"]
+            _put_lin(sd, b + "attn2.add_k_proj", a["add_k_proj"])
+            _put_lin(sd, b + "attn2.add_v_proj", a["add_v_proj"])
+            sd[b + "attn2.norm_added_k.weight"] = _t(
+                a["norm_added_k"]["weight"])
         _put_lin(sd, b + "ffn.net.0.proj", lp["ffn"]["fc1"])
         _put_lin(sd, b + "ffn.net.2", lp["ffn"]["fc2"])
         if cfg.cross_attn_norm:
             sd[b + "norm2.weight"] = _t(lp["norm2"]["weight"])
             sd[b + "norm2.bias"] = _t(lp["norm2"]["bias"])
+    return sd
+
+
+def clip_vision_from_jax(params_np: Dict[str, Any], cfg) -> StateDict:
+    """``frameino_tpu.models.clip_vision`` tree -> the port's ``CLIPVision``
+    state dict (transformers' ``CLIPVisionModel`` names without the
+    ``vision_model.`` prefix): the patch kernel [C*p*p, D] -> Conv2d
+    [D, C, p, p], the stacked ``layers`` unstacked into
+    ``encoder.layers.{i}``."""
+    sd: StateDict = {}
+    d, p = cfg.hidden_size, cfg.patch_size
+    sd["embeddings.class_embedding"] = _t(params_np["class_embedding"])
+    sd["embeddings.patch_embedding.weight"] = _t(np.asarray(
+        params_np["patch_embedding"]["kernel"]).T.reshape(
+            d, cfg.num_channels, p, p))
+    sd["embeddings.position_embedding.weight"] = _t(
+        params_np["position_embedding"])
+    for ln in ("pre_layrnorm", "post_layernorm"):
+        sd[f"{ln}.weight"] = _t(params_np[ln]["weight"])
+        sd[f"{ln}.bias"] = _t(params_np[ln]["bias"])
+    for i in range(cfg.num_hidden_layers):
+        lp = _index_tree(params_np["layers"], i)
+        b = f"encoder.layers.{i}."
+        for ln in ("layer_norm1", "layer_norm2"):
+            sd[b + f"{ln}.weight"] = _t(lp[ln]["weight"])
+            sd[b + f"{ln}.bias"] = _t(lp[ln]["bias"])
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _put_lin(sd, b + f"self_attn.{proj}", lp["attn"][proj])
+        _put_lin(sd, b + "mlp.fc1", lp["mlp"]["fc1"])
+        _put_lin(sd, b + "mlp.fc2", lp["mlp"]["fc2"])
     return sd
 
 

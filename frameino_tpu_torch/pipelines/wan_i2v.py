@@ -1,13 +1,25 @@
-"""Wan2.2 FrameINO image-to-video pipeline (counterpart of
-``frameino_tpu/pipelines/wan_i2v.py``, the Wan2.2 expand path only).
+"""Wan image-to-video pipelines, the Wan2.2 FrameINO expand path and the
+Wan2.1 I2V path (counterpart of ``frameino_tpu/pipelines/wan_i2v.py``).
 
-The condition algebra is the JAX module's: VAE condition encodes of the
-canvas first frame, the trajectory video and each ID frame; per-step
-blend of the clean first-frame condition; per-token timesteps with two
-values (0 on the condition frame, t elsewhere) passed as a mask; ID
-latents appended on the frame axis and trajectory latents on channels; ID
-predictions dropped; final re-blend. The JAX ``lax.scan`` over steps is a
-Python loop here, with the text K/V computed once per segment.
+The Wan2.2 condition algebra (``expand_timesteps``, the default) is the
+JAX module's: VAE condition encodes of the canvas first frame, the
+trajectory video and each ID frame; per-step blend of the clean
+first-frame condition; per-token timesteps with two values (0 on the
+condition frame, t elsewhere) passed as a mask; ID latents appended on the
+frame axis and trajectory latents on channels; ID predictions dropped;
+final re-blend. The JAX ``lax.scan`` over steps is a Python loop here,
+with the text K/V computed once per segment.
+
+Wan2.1 (``expand_timesteps=False``): the clip [image, zeros] (or [image,
+zeros, last_image]) is encoded whole and concatenated on channels with a
+temporal condition mask (``prepare_conditions_wan21``); the DiT takes
+scalar timesteps and, with an ``image_encoder`` (the CLIP tower of
+``models/clip_vision.py``), the image's CLIP states through its image-KV
+branch, the text and image K/V computed once per segment
+(``denoise_segment_wan21``). Its encodes walk the clip in 8-frame chunks
+(``streaming_encode_moments``, equal to the full-sequence encode that JAX
+runs): the full form of an 81-frame 480x832 clip holds 12 GB fp32
+tensors. The two-expert and ID-frame paths are the expand path's only.
 
 Under a dp x tp ``mesh`` (``core/meshes.py``) one process runs per rank
 and every rank calls the pipeline with the same arguments, as every JAX
@@ -23,8 +35,7 @@ The decode modes are the JAX pipeline's: "full" (``WanVAE.decode``),
 "streaming", "tiled" and "hybrid" (``models/wan_vae_streaming.py``,
 ``models/wan_vae_tiling.py``); the server asks for "hybrid" as JAX's does.
 
-Not ported: the Wan2.1 branch (``prepare_conditions_wan21``,
-``denoise_segment_wan21``) and the int8 DiT under tp > 1.
+Not ported: the int8 DiT under tp > 1 and the Wan2.1 path under a mesh.
 """
 
 from __future__ import annotations
@@ -39,7 +50,8 @@ import torch
 from frameino_tpu_torch.core.meshes import Mesh
 from frameino_tpu_torch.models import quant, wan_vae
 from frameino_tpu_torch.models.wan_dit import WanDiT
-from frameino_tpu_torch.models.wan_vae_streaming import streaming_decode
+from frameino_tpu_torch.models.wan_vae_streaming import (
+    streaming_decode, streaming_encode_moments)
 from frameino_tpu_torch.models.wan_vae_tiling import (hybrid_decode,
                                                       hybrid_encode,
                                                       tiled_decode)
@@ -53,10 +65,16 @@ INT8_TP_NOT_PORTED = (
     "quantize='int8' under tp > 1 is not ported: the row-parallel layers' "
     "activation quantizer needs the row amax all-reduced over tp before "
     "K7 (ROADMAP.md queue 1, item 12)")
+WAN21_MESH_NOT_PORTED = (
+    "the Wan2.1 path (expand_timesteps=False) under a mesh is not ported "
+    "(ROADMAP.md queue 1, item 12)")
+# pixel frames a step of the Wan2.1 condition encodes (1, then this many)
+WAN21_ENCODE_CHUNK = 8
 
 
 @dataclasses.dataclass(frozen=True)
 class WanPipelineConfig:
+    expand_timesteps: bool = True          # Wan2.2 TI2V path
     boundary_ratio: Optional[float] = None
     scheduler: FlowMatchEulerConfig = FlowMatchEulerConfig()
 
@@ -111,6 +129,80 @@ def prepare_conditions(vae: wan_vae.WanVAE, image, traj_video, id_frames):
             traj_latents = torch.cat(
                 [traj_latents, torch.zeros_like(id_latents)], dim=2)
     return condition, traj_latents, id_latents
+
+
+def prepare_conditions_wan21(vae: wan_vae.WanVAE, image, num_frames: int,
+                             traj_video=None, last_image=None):
+    """Wan2.1 I2V conditioning: encode [image, zeros x (F - 1)] (or [image,
+    zeros x (F - 2), last_image]) as one clip, then concatenate on channels
+    the temporal condition mask: 1 on the given frames, frame 0 repeated
+    into the VAE's temporal stride, so ``scale_factor_temporal`` mask
+    channels a latent frame.
+
+    image / last_image [B, 3, H, W] in [-1, 1]; traj_video [B, 3, T, H, W]
+    or None. Returns (condition [B, tscale + z, f, h, w], traj_latents
+    [B, z, f', h, w] or None), posterior mode, normalized."""
+    cfg = vae.cfg
+    B, C, H, W = image.shape
+    tscale = cfg.scale_factor_temporal
+
+    def enc(v):
+        moments = streaming_encode_moments(
+            vae, v, chunk_pixel_frames=WAN21_ENCODE_CHUNK)
+        return wan_vae.normalize_latents(cfg, moments[:, :cfg.z_dim])
+
+    n_zero = num_frames - (1 if last_image is None else 2)
+    frames = [image[:, :, None], image.new_zeros((B, C, n_zero, H, W))]
+    if last_image is not None:
+        frames.append(last_image[:, :, None])
+    latent_condition = enc(torch.cat(frames, dim=2))
+    lh, lw = latent_condition.shape[3:]
+
+    mask = torch.ones((B, 1, num_frames, lh, lw), dtype=torch.float32,
+                      device=image.device)
+    mask[:, :, 1:None if last_image is None else -1] = 0.0
+    mask = torch.cat([mask[:, :, :1].repeat_interleave(tscale, dim=2),
+                      mask[:, :, 1:]], dim=2)
+    mask = mask.reshape(B, -1, tscale, lh, lw).transpose(1, 2)
+    condition = torch.cat([mask, latent_condition], dim=1)
+    traj_latents = enc(traj_video) if traj_video is not None else None
+    return condition, traj_latents
+
+
+def denoise_segment_wan21(dit: WanDiT, latents, condition, traj_latents,
+                          context_2b, image_embeds, sigmas: np.ndarray,
+                          sigmas_next: np.ndarray, timesteps: np.ndarray,
+                          guidance_scale: float):
+    """Wan2.1 denoise: channel-concatenated conditions, scalar timesteps,
+    batch-stacked CFG (the image embeds for both halves), the text and
+    image K/V projected once for the segment, Euler steps.
+
+    latents [B, z, f, h, w] fp32; context_2b [2B, L, text_dim] (cond;
+    uncond); image_embeds [B, 257, image_dim] or None."""
+    B = latents.shape[0]
+    do_cfg = guidance_scale > 1.0
+    if do_cfg:
+        img2 = None if image_embeds is None else torch.cat(
+            [image_embeds, image_embeds], dim=0)
+        kv = dit.precompute_text_kv(context_2b, img2)
+    else:
+        kv = dit.precompute_text_kv(context_2b[:B], image_embeds)
+    for sigma, sigma_next, t in zip(sigmas, sigmas_next, timesteps):
+        latent_in = torch.cat([latents, condition], dim=1)
+        if traj_latents is not None:
+            latent_in = torch.cat([latent_in, traj_latents], dim=1)
+        t_b = torch.full((B,), float(t), dtype=torch.float32,
+                         device=latents.device)
+        if do_cfg:
+            pred = dit(torch.cat([latent_in, latent_in], dim=0),
+                       torch.cat([t_b, t_b], dim=0), text_kv=kv)
+            pred_cond, pred_uncond = pred.chunk(2, dim=0)
+            noise_pred = pred_uncond + guidance_scale * (pred_cond
+                                                         - pred_uncond)
+        else:
+            noise_pred = dit(latent_in, t_b, text_kv=kv)
+        latents = euler_step(latents, noise_pred, sigma, sigma_next)
+    return latents
 
 
 def build_first_frame_mask(num_latent_frames: int, latent_h: int,
@@ -235,6 +327,9 @@ class _StageClock:
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
         self.laps = {}
+        # on the card: the device's peak GiB at each lap since the caller
+        # last reset it (a running maximum)
+        self.peaks_gib = {}
         self.t = self._now()
 
     def _now(self) -> float:
@@ -246,12 +341,17 @@ class _StageClock:
         now = self._now()
         self.laps[name] = now - self.t
         self.t = now
+        if self.cuda:
+            self.peaks_gib[name] = torch.cuda.max_memory_allocated() / 2**30
 
 
 class WanImageToVideoPipeline:
     """Masked-canvas image, trajectory video, optional ID frames and prompt
     embeddings -> video (reference ``__call__`` contract,
-    ``pipeline_wan_i2v_motion_FrameINO.py:581-936``).
+    ``pipeline_wan_i2v_motion_FrameINO.py:581-936``); with
+    ``WanPipelineConfig(expand_timesteps=False)`` the Wan2.1 I2V path
+    (``image_embeds`` or ``image_encoder(image)`` for a DiT with an image
+    branch, ``last_image`` for first + last frame conditioning).
 
     The DiT runs in its weights' dtype and the VAE in fp32; inputs are
     moved to the DiT's device. ``quantize="int8"`` swaps the block matmuls
@@ -267,7 +367,8 @@ class WanImageToVideoPipeline:
 
     def __init__(self, dit: WanDiT, vae: Optional[wan_vae.WanVAE],
                  pipe_cfg: WanPipelineConfig = WanPipelineConfig(),
-                 text_encoder_fn=None, dit_2: Optional[WanDiT] = None,
+                 text_encoder_fn=None, image_encoder=None,
+                 dit_2: Optional[WanDiT] = None,
                  quantize: Optional[str] = None, quantize_vae: bool = False,
                  mesh: Optional[Mesh] = None):
         if quantize not in (None, "int8"):
@@ -277,6 +378,12 @@ class WanImageToVideoPipeline:
                              "mesh")
         if quantize == "int8" and mesh is not None and mesh.tp > 1:
             raise NotImplementedError(INT8_TP_NOT_PORTED)
+        if not pipe_cfg.expand_timesteps and (mesh is not None
+                                              or dit_2 is not None):
+            raise NotImplementedError(
+                WAN21_MESH_NOT_PORTED if mesh is not None else
+                "two experts are the expand path's only (the JAX pipeline's "
+                "Wan2.1 branch runs one DiT)")
         if vae is None and (mesh is None or mesh.rank == 0):
             raise ValueError("the VAE is needed on the mesh's rank 0 (or "
                              "without a mesh)")
@@ -291,10 +398,16 @@ class WanImageToVideoPipeline:
         self.vae = vae
         self.pipe_cfg = pipe_cfg
         self.text_encoder_fn = text_encoder_fn
+        # images [B, 3, H, W] in [-1, 1] -> CLIP states [B, 257, image_dim]
+        # (clip_vision.make_image_encoder), for a DiT with an image branch
+        self.image_encoder = image_encoder
         self.mesh = mesh
-        # seconds of each stage of the last call (text encode, VAE
-        # encodes, denoise, decode), the device synchronized at each end
+        # seconds of each stage of the last call (text encode, image encode,
+        # VAE encodes, denoise, decode), the device synchronized at each
+        # end; on the card the peak GiB at each stage's end (a running
+        # maximum since the caller last reset the device's peak)
         self.timings = {}
+        self.peaks_gib = {}
 
     @property
     def dit_cfg(self):
@@ -317,6 +430,7 @@ class WanImageToVideoPipeline:
                  num_inference_steps: int = 50, guidance_scale: float = 5.0,
                  guidance_scale_2: Optional[float] = None,
                  generator: Optional[torch.Generator] = None, latents=None,
+                 image_embeds=None, last_image=None,
                  output_type: str = "np", decode_mode: str = "full",
                  cfg_mode: str = "batch"):
         if decode_mode not in DECODE_MODES:
@@ -341,6 +455,17 @@ class WanImageToVideoPipeline:
 
         sched = self.pipe_cfg.scheduler
         sigmas, timesteps = inference_sigmas(sched, num_inference_steps)
+        if not self.pipe_cfg.expand_timesteps:
+            if id_tensor is not None:
+                raise ValueError("ID frames are the expand path's only (the "
+                                 "JAX pipeline's Wan2.1 branch takes none)")
+            video = self._wan21(
+                clock, image, prompt_embeds, negative_prompt_embeds,
+                traj_tensor, image_embeds, last_image, num_frames, height,
+                width, generator, latents, sigmas, timesteps,
+                float(guidance_scale), output_type, decode_mode)
+            self.timings, self.peaks_gib = clock.laps, clock.peaks_gib
+            return video
         conds = [None] * 4
         if encoder:
             conds = self._noise_and_conditions(
@@ -366,14 +491,17 @@ class WanImageToVideoPipeline:
                               else float(guidance_scale_2)),
             split_idx=split_idx, cfg_mode=cfg_mode)
         clock.lap("denoise_s")
-        self.timings = clock.laps
+        self.timings, self.peaks_gib = clock.laps, clock.peaks_gib
         if self.mesh is not None:
             assert_same_across_processes(float(latents.double().sum()))
+        if not encoder and output_type != "latent":
+            return None
+        return self._output(clock, latents, output_type, decode_mode)
 
+    def _output(self, clock, latents, output_type: str, decode_mode: str):
+        """The latents, or their decode (a tensor, or numpy for "np")."""
         if output_type == "latent":
             return latents
-        if not encoder:
-            return None
         z = wan_vae.denormalize_latents(self.vae_cfg, latents)
         video = self._decode(z, decode_mode)
         del z
@@ -381,6 +509,40 @@ class WanImageToVideoPipeline:
         if output_type == "np":
             return video.cpu().numpy()
         return video
+
+    def _wan21(self, clock, image, prompt_embeds, negative_prompt_embeds,
+               traj_tensor, image_embeds, last_image, num_frames, height,
+               width, generator, latents, sigmas, timesteps, guidance_scale,
+               output_type, decode_mode):
+        """The Wan2.1 I2V call: CLIP states of ``image`` (unless given),
+        mask + latent channel conditions, scalar-timestep denoise."""
+        dev = self.device
+        image = image.to(dev, torch.float32)
+        if image_embeds is None and self.image_encoder is not None \
+                and self.dit_cfg.image_dim is not None:
+            image_embeds = self.image_encoder(image)
+            clock.lap("image_encode_s")
+        if image_embeds is not None:
+            image_embeds = image_embeds.to(dev)
+        num_frames = round_num_frames(num_frames,
+                                      self.vae_cfg.scale_factor_temporal)
+        latents = self._initial_noise(prompt_embeds.shape[0], num_frames,
+                                      height, width, generator, latents)
+        if traj_tensor is not None and traj_tensor.ndim == 4:
+            traj_tensor = traj_tensor.permute(1, 0, 2, 3)[None]
+        condition, traj_latents = prepare_conditions_wan21(
+            self.vae, image, num_frames,
+            None if traj_tensor is None else traj_tensor.to(dev,
+                                                            torch.float32),
+            None if last_image is None else last_image.to(dev,
+                                                          torch.float32))
+        clock.lap("vae_encode_s")
+        latents = denoise_segment_wan21(
+            self.dit, latents, condition, traj_latents,
+            torch.cat([prompt_embeds, negative_prompt_embeds], dim=0),
+            image_embeds, sigmas[:-1], sigmas[1:], timesteps, guidance_scale)
+        clock.lap("denoise_s")
+        return self._output(clock, latents, output_type, decode_mode)
 
     def _decode(self, z, decode_mode: str):
         """The JAX pipeline's decode modes (``frameino_tpu/pipelines/
@@ -393,22 +555,30 @@ class WanImageToVideoPipeline:
             return hybrid_decode(self.vae, z)
         return self.vae.decode(z)
 
-    def _noise_and_conditions(self, image, traj_tensor, id_tensor, batch,
-                              num_frames, height, width, generator, latents):
-        """The initial noise (drawn from ``generator`` unless ``latents``
-        is given) and the VAE-encoded conditions, on the DiT's device."""
+    def _initial_noise(self, batch, num_frames, height, width, generator,
+                       latents):
+        """``latents`` on the DiT's device in fp32, or a draw of the latent
+        shape from ``generator`` (default: seed 0 on the DiT's device)."""
         dev = self.device
-        vae_cfg = self.vae_cfg
-        num_frames = round_num_frames(num_frames,
-                                      vae_cfg.scale_factor_temporal)
-        shape = latent_shape(vae_cfg, batch, num_frames, height, width)
         if latents is None:
+            shape = latent_shape(self.vae_cfg, batch, num_frames, height,
+                                 width)
             if generator is None:
                 generator = torch.Generator(dev).manual_seed(0)
             latents = torch.randn(shape, generator=generator,
                                   device=generator.device,
                                   dtype=torch.float32)
-        latents = latents.to(dev, torch.float32)
+        return latents.to(dev, torch.float32)
+
+    def _noise_and_conditions(self, image, traj_tensor, id_tensor, batch,
+                              num_frames, height, width, generator, latents):
+        """The initial noise (drawn from ``generator`` unless ``latents``
+        is given) and the VAE-encoded conditions, on the DiT's device."""
+        dev = self.device
+        num_frames = round_num_frames(num_frames,
+                                      self.vae_cfg.scale_factor_temporal)
+        latents = self._initial_noise(batch, num_frames, height, width,
+                                      generator, latents)
 
         # traj arrives [F, C, H, W] as the dataset emits it
         if traj_tensor is not None and traj_tensor.ndim == 4:

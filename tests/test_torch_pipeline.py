@@ -368,8 +368,9 @@ def test_port_never_imports_jax(tmp_path):
     smoke train step of each family, one smoke mass-evaluation round and
     one call of each perception model (DINOv2, CoTracker, SAM2) at its tiny
     config, a greedy generation of the tiny Qwen2.5-VL in int8, two steps of
-    the convergence run and the int8 certification's import leaves jax and
-    every module of the JAX package (frameino_tpu) unimported."""
+    the convergence run and the int8 certification's import, and one step
+    of the tiny Wan2.1 I2V pipeline with its CLIP image encoder, leaves jax
+    and every module of the JAX package (frameino_tpu) unimported."""
     code = textwrap.dedent("""
         import base64, io, json, os, sys
         import numpy as np
@@ -498,6 +499,22 @@ def test_port_never_imports_jax(tmp_path):
             ["--device", "cpu", "--steps", "2", "--sample_steps", "1",
              "--out", os.path.join(root, "conv.json")],
             shape=(5, 16, 16)) == 1
+        # one step of the tiny Wan2.1 I2V pipeline with its CLIP encoder
+        from frameino_tpu_torch.models import clip_vision
+        from frameino_tpu_torch.pipelines import wan_i2v
+        from frameino_tpu_torch.scripts import verify_checkpoint  # noqa
+        clip = clip_vision.init_clip_vision(clip_vision.tiny_config(), g)
+        d21 = wan_dit.tiny_config(in_channels=10, out_channels=4,
+                                  image_dim=16, added_kv_proj_dim=48)
+        pipe21 = wan_i2v.WanImageToVideoPipeline(
+            wan_dit.init_wan_dit(d21, g), wan_vae.init_wan_vae(vcfg, g),
+            wan_i2v.WanPipelineConfig(expand_timesteps=False),
+            image_encoder=clip_vision.make_image_encoder(clip.cfg, clip))
+        lat = pipe21(torch.zeros(1, 3, 16, 16),
+                     prompt_embeds=torch.zeros(1, 4, 16), height=16,
+                     width=16, num_frames=5, num_inference_steps=1,
+                     output_type="latent")
+        assert lat.shape[1] == 4 and bool(torch.isfinite(lat).all())
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "frameino_tpu"

@@ -217,17 +217,33 @@ def test_wan_dit_from_pretrained_matches_jax(tmp_path):
     assert {p.dtype for p in m16.parameters()} == {torch.bfloat16}
 
 
-def test_wan21_dit_and_clip_are_refused(tmp_path):
-    d = tmp_path / "t21"
-    os.makedirs(d)
-    (d / "config.json").write_text(json.dumps(
-        {"_class_name": "WanTransformer3DModel", "image_dim": 1280}))
-    with pytest.raises(NotImplementedError, match="Wan2.1"):
-        P.from_pretrained(str(d), device="cpu")
-    (d / "config.json").write_text(json.dumps(
-        {"architectures": ["CLIPVisionModelWithProjection"]}))
-    with pytest.raises(P.UnsupportedModelClass, match="Wan2.1"):
-        P.from_pretrained(str(d), device="cpu")
+def test_wan21_dit_and_clip_configs_load(tmp_path):
+    """The released Wan2.1-I2V-14B transformer config (image_dim,
+    added_kv_proj_dim) and its CLIP ViT-H/14 image encoder config
+    (CLIPVisionModelWithProjection) give the port's WAN21_I2V_14B and
+    CLIP_VIT_H_14 (full-width meta modules: no weights drawn)."""
+    from frameino_tpu_torch.models import clip_vision as tclip
+    dit = dict(tdit.WAN21_I2V_14B.__dict__, patch_size=[1, 2, 2],
+               _class_name="WanTransformer3DModel")
+    cfg = P.wan_dit_config_from_json(dit)
+    assert cfg == tdit.WAN21_I2V_14B
+    assert JP.wan_dit_config_from_json(dit) == jdit.WAN21_I2V_14B
+    m = tdit.WanDiT(cfg, device="meta")
+    assert tuple(m.blocks[0].attn2.add_k_proj.weight.shape) == (5120, 5120)
+    assert tuple(m.condition_embedder.image_embedder.ff.net[0].proj.weight
+                 .shape) == (1280, 1280)
+    clip = {"architectures": ["CLIPVisionModelWithProjection"],
+            "hidden_size": 1280, "intermediate_size": 5120,
+            "num_hidden_layers": 32, "num_attention_heads": 16,
+            "image_size": 224, "patch_size": 14, "hidden_act": "gelu",
+            "layer_norm_eps": 1e-5, "projection_dim": 1024}
+    assert P.clip_vision_config_from_json(clip) == tclip.CLIP_VIT_H_14
+    assert P.clip_vision_config_from_json(
+        {"architectures": ["CLIPModel"], "vision_config": clip}) \
+        == tclip.CLIP_VIT_H_14
+    n = sum(p.numel() for p in tclip.CLIPVision(tclip.CLIP_VIT_H_14,
+                                                device="meta").parameters())
+    assert 630e6 < n < 635e6
 
 
 def test_cogvideox_dit_from_pretrained_matches_jax(tmp_path):

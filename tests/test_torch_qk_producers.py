@@ -19,13 +19,15 @@ import torch
 from frameino_tpu_torch.ops import attention as A
 from frameino_tpu_torch.scripts import tune_qk_producers as T
 
-# (heads, head_dim): the Wan rows (24 of 128) and their tp = 2 / 4 shards,
-# a ragged 5-head shard, the CUDA tests' 3 and 1 heads, CogVideoX (48 of
-# 64) and its tests' 3 and 2, and the tiny configs' widths (the CogVideoX
-# tiny DiT's 2 heads of 16, the sharded tests' 4 heads of 32 and their
-# tp shards)
-WIDTHS = [(24, 128), (12, 128), (6, 128), (5, 128), (3, 128), (1, 128),
-          (48, 64), (3, 64), (2, 64), (2, 16), (4, 32), (2, 32), (1, 32)]
+# (heads, head_dim): the Wan2.2 rows (24 of 128) and their tp = 2 / 4
+# shards, Wan2.1-I2V-14B's 40 heads (a team of 160 threads, five warps)
+# and Wan2.1-T2V-1.3B's 12 (the tp = 2 shard's width), a ragged 5-head
+# shard, the CUDA tests' 3 and 1 heads, CogVideoX (48 of 64) and its
+# tests' 3 and 2, and the tiny configs' widths (the CogVideoX tiny DiT's 2
+# heads of 16, the sharded tests' 4 heads of 32 and their tp shards)
+WIDTHS = [(24, 128), (40, 128), (12, 128), (6, 128), (5, 128), (3, 128),
+          (1, 128), (48, 64), (3, 64), (2, 64), (2, 16), (4, 32), (2, 32),
+          (1, 32)]
 
 
 def _replay(heads, head_dim, batch, seq, resident):
@@ -109,12 +111,42 @@ def test_reduction_partners_stay_in_their_team_and_head(heads, head_dim):
 
 def test_geometry_of_the_serving_rows():
     """The Wan and CogVideoX rows (384 vectors) leave no slot idle; the
-    tp shards neither; the ragged 5-head shard idles 16 of 96."""
-    for heads, head_dim in ((24, 128), (48, 64), (12, 128), (6, 128)):
+    tp shards neither; the ragged 5-head shard idles 16 of 96; Wan2.1's
+    40 heads (640 vectors) take one team of 160 threads a block, 4
+    vectors a thread."""
+    for heads, head_dim in ((24, 128), (48, 64), (12, 128), (6, 128),
+                            (40, 128)):
         team, vpt, _ = A._producer_geometry(heads, head_dim)
         assert team * vpt == heads * head_dim // 8
     team, vpt, _ = A._producer_geometry(5, 128)
     assert (team, vpt) == (32, 3)
+    assert A._producer_geometry(40, 128) == (160, 4, 1)
+
+
+@pytest.mark.parametrize("heads,head_dim", WIDTHS)
+def test_block_reduction_sums_each_team_once(heads, head_dim):
+    """K2's statistic: the xor tree over min(team, 32) lanes, then, for a
+    team wider than a warp, each warp's lane 0 writes partial[warp] and
+    every thread of the team adds partial[w0 .. w0 + warps) in order: every
+    thread ends with its own team's sum, each thread's value counted once
+    (thread values 2**t, exact integers, make any double count or foreign
+    term show)."""
+    team, _, tpb = A._producer_geometry(heads, head_dim)
+    n = team * tpb
+    ss = [1 << t for t in range(n)]
+    width = min(team, 32)
+    off = width // 2
+    while off:
+        ss = [ss[t] + ss[t ^ off] for t in range(n)]
+        off //= 2
+    if team > 32:
+        warps = team // 32
+        partial = [ss[w * 32] for w in range(n // 32)]
+        ss = [sum(partial[(t // team) * warps + w] for w in range(warps))
+              for t in range(n)]
+    for t in range(n):
+        lo = (t // team) * team
+        assert ss[t] == sum(1 << u for u in range(lo, lo + team)), t
 
 
 @pytest.mark.parametrize("heads,head_dim", [(2, 24), (4, 4), (1, 512),
