@@ -235,6 +235,34 @@ Phases (any failure exits non-zero; there is no CPU path):
     held to DIT_BF16_REL_L2 of the port's fp32 CPU goldens; the CPU's own
     bf16 reading printed beside), a tiny Wan VAE and UMT5 (fp32): all pass;
     block 0's to_q swapped with block 1's must fail (exit code 1).
+24. curation kernels: K13 (multi-scale deformable attention,
+    csrc/ms_deform_attn.cu) against its plain version at OneFormer's
+    [1, 21168, 8, 32] (levels 96x168, 48x84, 24x42, 4 points) and a ragged
+    [2, 333 | 2201, 5, 40] with 4 levels and locations outside [0, 1],
+    within MSDA_MAX_ABS, three planted faults (align_corners coordinates,
+    edge clamping, two levels' first rows swapped) rejected, beside its
+    bound and the reference's grid_sample fallback; K3 at VGGT-1B's shapes
+    for a 65-frame clip ([1040, 782, 64], [16, 50830, 64] launched on its
+    16 rows, row 0 against the plain version and equal to a 1-row launch,
+    [16, 65, 128]) with planted faults;
+25. OneFormer COCO Swin-L and VGGT-1B at full width and depth on seeded
+    weights drawn on the card: a 720x1280 frame through the segmenter (6
+    K13 launches a forward) and a 65-frame clip through the camera
+    estimator (88 K3 launches), seconds and peaks; each at a depth cut on
+    the card against the CPU (CURATION_CPU_REL_L2, 1.5 x the readings), the
+    OneFormer cut with TF32 on over its limit, and VGGT's bf16 cast at K3
+    against fp32 attention;
+26. the curation entry (scripts/run_preprocess_pipeline.main) on the card:
+    (a) --allow_classical --caption_backend template on two 60x64x96
+    fixture clips, rows kept and loaded by FrameINODataset; (b) every
+    learned backend from random-init checkpoints in the released layouts
+    (OneFormer .pth, VGGT .pt, CoTracker3, SAM2.1 with its mask path
+    reading brightness, a Qwen2.5-VL-32B directory cut to 2 text layers and
+    2 vision blocks) on two copies of a synthetic 720x1280x65 clip: each
+    backend's calls, seconds and peak, each clip's seconds per step, exact
+    K13 and K3 launches; clip0 labelled from SAM2.1's masks and kept (ID
+    crops, FrameINODataset loads its row), the copy ranked out by the
+    camera pruning (files in build/chip_smoke_curation/, removed after).
 
 Each serving or training phase sets the launch counts to 0 just before
 its requests or steps and reads them just after. The line before the
@@ -374,6 +402,15 @@ KERNELS.update({k: dict(KERNELS[base]) for k, base in (
     ("qk_norm_rope_w21", "qk_norm_rope"),
     ("flash_fwd_w21", "flash_fwd"),
     ("flash_fwd_w21_image", "flash_fwd"))})
+# K13, the deformable sampling of OneFormer's pixel decoder (curation step
+# 4): the reference's native kernel; and K3 at VGGT-1B's shapes (curation
+# step 5): its ViT and frame blocks, global blocks and camera trunk
+KERNELS["ms_deform_attn"] = dict(
+    label="K13", route="cuda",
+    source="frameino_tpu_torch/csrc/ms_deform_attn.cu",
+    replaces="native/ms_deform_attn.cpp:24")
+KERNELS.update({f"flash_fwd_vggt_{k}": dict(KERNELS["flash_fwd"])
+                for k in ("vit_frame", "global", "trunk")})
 K5 = "qk_norm_rope_rstd"
 K7 = "dynamic_quantize_rows"
 NO_TRAIN = {"flash_attn_train_fwd": 0, "flash_attn_train_bwd": 0}
@@ -5665,9 +5702,857 @@ def phase_verify_checkpoint():
     return dict(rows, write_s=write_s, seconds=time.time() - t0)
 
 
+# ---------------------------------------------------------------------------
+# dataset curation: K13 and K3 at VGGT's shapes, OneFormer Swin-L and
+# VGGT-1B at full width against the CPU, and the curation entry on the card
+# ---------------------------------------------------------------------------
+
+# OneFormer's deformable sampling at the card's clips (720x1280, resized to
+# 750x1333 and padded to 768x1344): levels 1/8, 1/16 and 1/32 of the
+# padded frame (21,168 queries), 8 heads of 32 channels, 4 points a level
+MSDA_LEVELS = ((96, 168), (48, 84), (24, 42))
+MSDA_SHAPE = dict(B=1, levels=MSDA_LEVELS, H=8, D=32, P=4, lo=-0.1,
+                  hi=1.1)
+# a ragged shape: 4 odd-sized levels, 5 heads of 40 channels (a warp's
+# lanes pass twice, the second time 8 wide), 3 points, 2 images, locations
+# from -0.5 to 1.5 (a third of the corners outside the levels)
+MSDA_RAGGED = dict(B=2, levels=((37, 53), (19, 27), (10, 14), (5, 7)),
+                   Q=333, H=5, D=40, P=3, lo=-0.5, hi=1.5)
+# K13's limit against its plain version, fp32 max abs on outputs of order
+# 1 (unit-normal values, softmax weights over the 12 samples, as the
+# encoder layers give them): the two differ only where the card contracts
+# a multiply and an add into one rounding
+MSDA_MAX_ABS = 1e-5
+# K13 launches of one OneFormer forward: one a deformable encoder layer
+MSDA_PER_FORWARD = 6
+# the card's curation clips: 65 frames at 720x1280; VGGT's preprocess_frames
+# makes them 294x518 (21 x 37 patches + the camera token and 4 registers:
+# 782 tokens a frame)
+CLIP_F, CLIP_H, CLIP_W = 65, 720, 1280
+VGGT_TOKENS = 782
+# K3 launches of one VGGT-1B camera estimate: 24 ViT + 24 frame + 24 global
+# blocks at head_dim 64 and 16 camera-trunk blocks (4 x 4 iterations) at
+# head_dim 128
+VGGT_K3 = {"vit_frame": 48, "global": 24, "trunk": 16}
+# card against CPU at depth cuts of the two models at full width, fp32
+# with TF32 off: OneFormer (Swin-L 2/2/2/2 blocks, 6 encoder and 3 decoder
+# layers at 192x256); VGGT (2 ViT blocks, 2 pairs, 2 trunk blocks, 2 frames
+# at 294x518) with K3 in bf16 on the card and the plain version in bf16 on
+# the CPU: their bf16 outputs differ by an ulp here and there. Each limit
+# is 1.5 x the larger of its two readings on an H100 (OneFormer: class
+# logits 8.59e-7, mask logits 2.08e-6; VGGT: poses 2.39e-3, intrinsics
+# 6.95e-5; the same in two runs). The same OneFormer forward with TF32 on
+# must read over its limit (checked)
+CURATION_CPU_REL_L2 = {"oneformer": 3.1e-6, "vggt": 3.6e-3}
+CURATION_ROOT = os.path.join(REPO, "build", "chip_smoke_curation")
+
+
+def _msda_inputs(g, B, levels, H, D, P, lo, hi, Q=None):
+    """value [B, S, H, D] unit normal, locations uniform in [lo, hi],
+    weights a softmax over each (query, head)'s L * P samples; Q defaults
+    to S (the encoder's queries are its value rows)."""
+    import torch
+    S = sum(h * w for h, w in levels)
+    Q = S if Q is None else Q
+    L = len(levels)
+    value = torch.randn(B, S, H, D, device="cuda", generator=g)
+    loc = lo + (hi - lo) * torch.rand(B, Q, H, L, P, 2, device="cuda",
+                                      generator=g)
+    w = torch.softmax(torch.randn(B, Q, H, L * P, device="cuda",
+                                  generator=g), -1).reshape(B, Q, H, L, P)
+    return value, loc, w
+
+
+def _msda_variant(value, levels, loc, w, align_corners=False, clamp=False,
+                  starts=None):
+    """K13's plain arithmetic with a planted fault where asked:
+    ``align_corners`` (x = loc_x * (W - 1)), ``clamp`` (corners outside the
+    level read its edge instead of zero), ``starts`` (the levels' first
+    value rows, e.g. two of them swapped)."""
+    import torch
+    B, S, H, D = value.shape
+    _, Q, _, L, P, _ = loc.shape
+    if starts is None:
+        starts = [0]
+        for h, w_ in levels[:-1]:
+            starts.append(starts[-1] + h * w_)
+    out = torch.zeros(B, Q, H, D, device=value.device)
+    for lvl, (Hl, Wl) in enumerate(levels):
+        v = value[:, starts[lvl]:starts[lvl] + Hl * Wl].permute(0, 2, 1, 3)
+        if v.shape[2] < Hl * Wl:     # a swapped start past the end
+            v = torch.cat([v, v.new_zeros(B, H, Hl * Wl - v.shape[2], D)], 2)
+        if align_corners:
+            x = loc[:, :, :, lvl, :, 0] * (Wl - 1)
+            y = loc[:, :, :, lvl, :, 1] * (Hl - 1)
+        else:
+            x = loc[:, :, :, lvl, :, 0] * Wl - 0.5
+            y = loc[:, :, :, lvl, :, 1] * Hl - 0.5
+        x0, y0 = torch.floor(x), torch.floor(y)
+        fx, fy = x - x0, y - y0
+        acc = 0
+        for dx, dy, cw in ((0, 0, (1 - fx) * (1 - fy)), (1, 0, fx * (1 - fy)),
+                           (0, 1, (1 - fx) * fy), (1, 1, fx * fy)):
+            ix, iy = x0 + dx, y0 + dy
+            inside = (ix >= 0) & (ix < Wl) & (iy >= 0) & (iy < Hl)
+            idx = (iy.clamp(0, Hl - 1) * Wl + ix.clamp(0, Wl - 1)).long()
+            g_ = torch.gather(v, 2, idx.permute(0, 2, 1, 3).reshape(
+                B, H, -1, 1).expand(B, H, Q * P, D))
+            g_ = g_.reshape(B, H, Q, P, D).permute(0, 2, 1, 3, 4)
+            if not clamp:
+                g_ = g_ * inside[..., None]
+            acc = acc + g_ * cw[..., None]
+        out = out + (acc * w[:, :, :, lvl, :, None]).sum(3)
+    return out.reshape(B, Q, H * D)
+
+
+def _msda_grid_sample(value, levels, loc, w):
+    """The reference's pure-PyTorch fallback, ``ms_deform_attn_core_
+    pytorch`` (``F.grid_sample`` per level): the library yardstick, timed
+    here and used nowhere in the port."""
+    import torch
+    import torch.nn.functional as F
+    B, S, H, D = value.shape
+    _, Q, _, L, P, _ = loc.shape
+    value_list = value.split([h * w_ for h, w_ in levels], dim=1)
+    grids = 2 * loc - 1
+    sampled = []
+    for lvl, (Hl, Wl) in enumerate(levels):
+        v = value_list[lvl].flatten(2).transpose(1, 2).reshape(B * H, D, Hl,
+                                                                Wl)
+        grid = grids[:, :, :, lvl].transpose(1, 2).flatten(0, 1)
+        sampled.append(F.grid_sample(v, grid, mode="bilinear",
+                                     padding_mode="zeros",
+                                     align_corners=False))
+    aw = w.transpose(1, 2).reshape(B * H, 1, Q, L * P)
+    out = (torch.stack(sampled, dim=-2).flatten(-2) * aw).sum(-1)
+    return out.view(B, H * D, Q).transpose(1, 2).contiguous()
+
+
+def _msda_bound(value, loc, w):
+    """Each input read once and the output written once (fp32), and 10
+    flops a (query, head, sample, channel): 4 corners multiplied and added
+    and the weight, at the fp32 peak."""
+    B, S, H, D = value.shape
+    _, Q, _, L, P, _ = loc.shape
+    out_bytes = 4 * B * Q * H * D
+    return bound_ms(10 * B * Q * H * L * P * D,
+                    _nbytes(value, loc, w) + out_bytes, PEAK_FP32_FLOPS)
+
+
+def _msda_check(label, value, levels, loc, w):
+    """K13 against its plain version within MSDA_MAX_ABS, each planted fault
+    (align_corners coordinates, edge clamping, levels 0 and 1's first rows
+    swapped) over it; returns (max abs, planted faults' max abs)."""
+    import torch
+    from frameino_tpu_torch.ops import ms_deform_attn as M
+    out = M.ms_deform_attn(value, levels, loc, w)
+    torch.cuda.synchronize()
+    want = M.ms_deform_attn_ref(value, levels, loc, w)
+    check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
+    err = (out - want).abs().max().item()
+    check(err <= MSDA_MAX_ABS, f"{label}: max abs {err:.3e} from its plain "
+                               f"version (limit {MSDA_MAX_ABS:g})")
+    starts = [sum(h * w_ for h, w_ in levels[:i])
+              for i in range(len(levels))]
+    swapped = [starts[1], starts[0], *starts[2:]]
+    faults = {n: (_msda_variant(value, levels, loc, w, **kw) - out
+                  ).abs().max().item()
+              for n, kw in (("align_corners", dict(align_corners=True)),
+                            ("clamped_edges", dict(clamp=True)),
+                            ("levels_0_1_swapped", dict(starts=swapped)))}
+    lib_err = (_msda_grid_sample(value, levels, loc, w) - want
+               ).abs().max().item()
+    print(f"K13 {label}: max abs {err:.3e} (limit {MSDA_MAX_ABS:g}); the "
+          f"grid_sample fallback {lib_err:.3e}; planted faults "
+          + ", ".join(f"{n} {x:.3e}" for n, x in faults.items()))
+    check(all(x > MSDA_MAX_ABS for x in faults.values()),
+          f"{label}: a planted fault passes K13's limit: {faults}")
+    return err, faults, lib_err
+
+
+def _vggt_k3_shapes(frames):
+    """K3's q shapes of a VGGT-1B estimate of ``frames`` frames: the ViT
+    and frame blocks, the global blocks, the camera trunk."""
+    return {"vit_frame": (16 * frames, VGGT_TOKENS, 64),
+            "global": (16, frames * VGGT_TOKENS, 64),
+            "trunk": (16, frames, 128)}
+
+
+def phase_kernels_curation():
+    """K13 against its plain version at OneFormer's shape ([1, 21168, 8,
+    32], 3 levels, 4 points) and a ragged one, within MSDA_MAX_ABS, three
+    planted faults rejected, timed beside the plain version, the bound and
+    the reference's grid_sample fallback; K3 at VGGT-1B's shapes for a
+    65-frame clip (ViT / frame [1040, 782, 64], global [16, 50830, 64]
+    launched on all 16 rows with row 0 against the plain version and equal
+    to a 1-row launch, camera trunk [16, 65, 128]) against its plain
+    version and SDPA, with planted faults."""
+    import torch
+    from frameino_tpu_torch.ops import attention as A
+    from frameino_tpu_torch.ops import ms_deform_attn as M
+    g = torch.Generator("cuda").manual_seed(18)
+    results, checks = {}, {}
+    value, loc, w = _msda_inputs(g, **MSDA_SHAPE)
+    levels = MSDA_SHAPE["levels"]
+    err, faults, lib_err = _msda_check("OneFormer [1, 21168, 8, 32]", value,
+                                       levels, loc, w)
+    rv, rl, rw = _msda_inputs(g, **MSDA_RAGGED)
+    rerr, rfaults, rlib = _msda_check("ragged [2, 333 | 2,201, 5, 40]", rv,
+                                      MSDA_RAGGED["levels"], rl, rw)
+    checks["ms_deform_attn"] = dict(faults=faults, ragged_max_abs=rerr,
+                                    ragged_faults=rfaults,
+                                    grid_sample_max_abs=lib_err)
+    _report(results, "ms_deform_attn", err, 0.0,
+            cuda_ms(lambda: M.ms_deform_attn(value, levels, loc, w), 20),
+            cuda_ms(lambda: M.ms_deform_attn_ref(value, levels, loc, w), 5),
+            _msda_bound(value, loc, w),
+            cuda_ms(lambda: _msda_grid_sample(value, levels, loc, w), 5),
+            ragged_max_abs=rerr,
+            ragged_ms=cuda_ms(lambda: M.ms_deform_attn(
+                rv, MSDA_RAGGED["levels"], rl, rw), 20),
+            note="library_ms: the reference's grid_sample fallback")
+    del value, loc, w, rv, rl, rw
+
+    def normed(bh, n, d):
+        x = torch.randn(bh, n, d, device="cuda", generator=g)
+        return (x * torch.rsqrt(x.square().mean(-1, keepdim=True))
+                ).to(torch.bfloat16)
+
+    for kind, (bh, s, d) in _vggt_k3_shapes(CLIP_F).items():
+        name = f"flash_fwd_vggt_{kind}"
+        q, k = normed(bh, s, d), normed(bh, s, d)
+        v = torch.randn(bh, s, d, device="cuda", generator=g).to(
+            torch.bfloat16)
+        c = d ** -0.5 * A.LOG2E
+        rows = slice(0, 1) if kind == "global" else slice(None)
+        qs, ks, vs = (t[rows].contiguous() for t in (q, k, v))
+        want = A.flash_fwd_ref(qs, ks, vs, c)
+        all_out = A.flash_fwd(q, k, v, c)
+        check(bool(torch.isfinite(all_out).all()),
+              f"K3 ({name}): non-finite output on the {bh} rows")
+        err, rel, rel_l2 = _check_close(f"K3 ({name})", all_out[rows],
+                                        want)
+        if kind == "global":
+            check(bool(torch.equal(all_out[rows], A.flash_fwd(qs, ks, vs,
+                                                              c))),
+                  f"K3 ({name}): the 1-row launch differs from row 0 of "
+                  f"the {bh}-row launch")
+        del all_out
+        checks[name] = (
+            _k3_faults_few_keys(f"K3 {name}", qs, ks, vs, c, want)
+            if s < FLASH_TILE else
+            _flash_faults(f"K3 {name}", qs, ks, vs, want, q_scale=c))
+        del want
+        torch.cuda.empty_cache()
+        _report(results, name, err, rel,
+                cuda_ms(lambda: A.flash_fwd(q, k, v, c), 5),
+                cuda_ms(lambda: A.flash_fwd_ref(qs, ks, vs, c), 2),
+                attn_bound(bh, s, s, d),
+                cuda_ms(lambda: _sdpa(d ** -0.5)(q, k, v), 5),
+                rel_l2=rel_l2, exp2_floor_ms=exp2_floor_ms(bh, s, s),
+                note=("the errors on row 0 of the 16-row launch, held "
+                      "equal to a 1-row launch; plain_ms on 1 row"
+                      if kind == "global" else "all rows"))
+        del q, k, v, qs, ks, vs
+        torch.cuda.empty_cache()
+    return results, checks
+
+
+def _curation_clip(seed, F=CLIP_F, H=CLIP_H, W=CLIP_W):
+    """A synthetic [F, H, W, 3] clip: a smooth random background and a
+    block-textured square that moves and grows (its side from 100 px, the
+    area it uncovers a frame growing linearly: the histogram scene-cut
+    detector's frame distances then spread wide enough that codec noise is
+    no outlier)."""
+    import cv2
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    bg = cv2.GaussianBlur(rs.randint(0, 255, (H // 8, W // 8, 3)).astype(
+        np.uint8), (3, 3), 0)
+    bg = cv2.resize(bg, (W, H), interpolation=cv2.INTER_CUBIC)
+    tex = rs.randint(0, 255, (6, 6, 3)).astype(np.uint8)
+    out = []
+    for t in range(F):
+        f = bg.copy()
+        s = int(np.sqrt(100 ** 2 + 27.5 * t * t))
+        x, y = 60 + 2 * t, 80 + t
+        f[y:y + s, x:x + s] = cv2.resize(tex, (s, s),
+                                         interpolation=cv2.INTER_NEAREST)
+        out.append(f)
+    return np.stack(out)
+
+
+def labelled_clip(seed, F=CLIP_F, H=CLIP_H, W=CLIP_W):
+    """A synthetic [F, H, W, 3] clip that the learned chain labels with
+    ``sam2_reads_brightness``'s SAM2.1: ``_curation_clip``'s moving,
+    growing square (side W / 12 to 0.27 W, bright block texture) starting
+    on a bright strip (x < W / 5, values 150-255) beside a dark field
+    (0-60). The segmenter's mask is the strip and the square, which hold
+    the square's frame-0 points on every frame; on frame 0 the dark field
+    holds the largest region box (x >= W / 4)."""
+    import cv2
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    tex = cv2.resize(rs.rand(H // 8, W // 8), (W, H),
+                     interpolation=cv2.INTER_CUBIC).clip(0, 1)[..., None]
+
+    def shade(lo, hi):
+        return np.asarray(lo) + (np.asarray(hi) - np.asarray(lo)) * tex
+    bg = shade((0, 40, 80), (40, 90, 120))
+    strip = W // 5
+    bg[:, :strip] = shade((100, 200, 150), (160, 255, 220))[:, :strip]
+    bg = bg.astype(np.uint8)
+    blocks = np.stack([rs.randint(lo, hi, (6, 6)) for lo, hi in
+                       ((210, 256), (170, 231), (60, 121))], -1).astype(
+        np.uint8)
+    s0, s1 = W / 12, 0.27 * W
+    out = []
+    for t in range(F):
+        f = bg.copy()
+        tau = t / (F - 1)
+        s = int(np.sqrt(s0 ** 2 + (s1 ** 2 - s0 ** 2) * tau ** 2))
+        x, y = int(W / 30 + 0.1 * W * tau), int(H / 10 + 0.09 * H * tau)
+        f[y:y + s, x:x + s] = cv2.resize(blocks, (s, s),
+                                         interpolation=cv2.INTER_NEAREST)
+        out.append(f)
+    return np.stack(out)
+
+
+def sam2_reads_brightness(model):
+    """A random-init SAM2.1 (``models.sam2.Sam2``) whose mask path reads
+    brightness, in place: stage 0 of the Hiera trunk passes its patch
+    embedding through (attention and MLP outputs zero, no position
+    embedding), the patch embedding's channel 0 is the 7x7 mean of the
+    normalized pixels, the level-0 neck conv and ``conv_s0`` carry that
+    channel (gain 8), the second upscaling deconvolution is zero, every
+    hypernetwork MLP gives e_0 and the object score is +10. The mask logits
+    are then GELU(8 x mean) at stride 4: positive where the image is
+    brighter than about 115 / 255, on every frame, whatever the prompt and
+    the memory. Every other weight stays random and runs. Returns
+    ``model``."""
+    import torch
+    enc = model.image_encoder
+    trunk, dec = enc.trunk, model.sam_mask_decoder
+    with torch.no_grad():
+        for blk in trunk.blocks[:trunk.cfg.stage_ends[0] + 1]:
+            for lin in (blk.attn.proj, blk.mlp.layers[-1]):
+                lin.weight.zero_()
+                lin.bias.zero_()
+        trunk.pos_embed.zero_()
+        trunk.pos_embed_window.zero_()
+        pe = trunk.patch_embed.proj
+        pe.weight.zero_()
+        pe.weight[0] = 1.0 / pe.weight[0].numel()
+        pe.bias.zero_()
+        for conv, gain in ((enc.neck.convs[-1].conv, 1.0),
+                           (dec.conv_s0, 8.0)):
+            conv.weight.zero_()
+            conv.weight[0, 0] = gain
+            conv.bias.zero_()
+        dec.output_upscaling[3].weight.zero_()
+        dec.output_upscaling[3].bias.zero_()
+        for mlp in dec.output_hypernetworks_mlps:
+            mlp.layers[-1].weight.zero_()
+            mlp.layers[-1].bias.zero_()
+            mlp.layers[-1].bias[0] = 1.0
+        dec.pred_obj_score_head.layers[-1].weight.zero_()
+        dec.pred_obj_score_head.layers[-1].bias.fill_(10.0)
+    return model
+
+
+def _write_avi(path, frames, fps=12):
+    """Motion-JPEG .avi (intra-only: no keyframe rhythm in the codec
+    noise), which OpenCV writes without ffmpeg."""
+    import cv2
+    h, w = frames.shape[1:3]
+    out = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), fps, (w, h))
+    for f in frames:
+        out.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+    out.release()
+
+
+def _vggt_fov(sd):
+    """Random weights with a trained head's field of view: the FoV outputs'
+    rows of the pose branch scaled by 1e-2, their bias 0.5 (about 2 rad
+    after the 4 refinements: a finite, positive focal length)."""
+    sd["camera_head.pose_branch.fc2.weight"][7:] *= 1e-2
+    sd["camera_head.pose_branch.fc2.bias"][7:] = 0.5
+    return sd
+
+
+def _card_peak_gib():
+    import torch
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def phase_curation_models():
+    """OneFormer COCO Swin-L and VGGT-1B at full width and depth on seeded
+    random weights drawn on the card: one 720x1280 frame through the
+    segmenter (the forward at 768x1344: 6 K13 launches) and one 65-frame
+    clip through the camera estimator (88 K3 launches), each warmed then
+    timed, with its peak; then each at a depth cut, full width, on the card
+    against the same weights on the CPU (CURATION_CPU_REL_L2, TF32 off;
+    the OneFormer cut with TF32 on must read over its limit), and VGGT's
+    bf16 cast at K3 against fp32 attention on the CPU."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from frameino_tpu_torch.models import oneformer as O
+    from frameino_tpu_torch.models import swin as SW
+    from frameino_tpu_torch.models import vggt as V
+    from frameino_tpu_torch.ops import attention as A
+    from frameino_tpu_torch.ops import ms_deform_attn as M
+    from frameino_tpu_torch.preprocess.panoptic_oneformer import \
+        OneFormerSegmenter
+    out = {}
+    clip = _curation_clip(1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sd = O.init_oneformer(O.ONEFORMER_COCO_SWIN_L,
+                          torch.Generator("cuda").manual_seed(181))
+    seg = OneFormerSegmenter(sd, motionable_only=True)
+    task = torch.from_numpy(O.task_tokens("panoptic")[None]).cuda()
+    x = torch.randn(1, 768, 1344, 3, device="cuda")
+    row = {}
+    for timed in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        M.ms_deform_attn.launches = 0
+        t0 = time.time()
+        logits, masks = O.oneformer_forward(O.ONEFORMER_COCO_SWIN_L, sd, x,
+                                            task)
+        torch.cuda.synchronize()
+        row["forward_s"] = time.time() - t0
+        row["forward_peak_gib"] = _card_peak_gib()
+        check(M.ms_deform_attn.launches == MSDA_PER_FORWARD,
+              f"OneFormer: {M.ms_deform_attn.launches} K13 launches a "
+              f"forward, expected {MSDA_PER_FORWARD}")
+        t0 = time.time()
+        segments = seg(clip[0])
+        row["segmenter_s"] = time.time() - t0
+    check(logits.shape == (1, 150, 134) and masks.shape == (1, 150, 192, 336)
+          and bool(torch.isfinite(logits).all())
+          and bool(torch.isfinite(masks).all()),
+          f"OneFormer: logits {tuple(logits.shape)}, masks "
+          f"{tuple(masks.shape)}, or non-finite")
+    row.update(weights_gib=_nbytes(*sd.values()) / 2 ** 30,
+               segments=len(segments))
+    out["oneformer"] = row
+    print(f"OneFormer Swin-L: {row['weights_gib']:.2f} GiB fp32; forward at "
+          f"768x1344 {row['forward_s']:.3f} s, peak "
+          f"{row['forward_peak_gib']:.2f} GiB, 6 K13 launches; the "
+          f"segmenter on a 720x1280 frame (resize, forward, upsampling, "
+          f"fusion) {row['segmenter_s']:.3f} s, {len(segments)} motionable "
+          f"segments")
+    del sd, seg, logits, masks, x
+    torch.cuda.empty_cache()
+
+    vcfg = V.VGGT_1B
+    vsd = V.init_vggt(vcfg, torch.Generator("cuda").manual_seed(182))
+    _vggt_fov(vsd)
+    est = V.make_camera_estimator(vcfg, vsd)
+    row = {}
+    with _ShapeLog() as log:
+        for timed in (False, True):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            A.reset_launch_counts()
+            t0 = time.time()
+            info = est(clip)
+            torch.cuda.synchronize()
+            row["estimate_s"] = time.time() - t0
+            row["peak_gib"] = _card_peak_gib()
+            counts = A.launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want["flash_fwd"] = sum(VGGT_K3.values())
+    check(counts == want, f"VGGT: launches {counts}, expected {want}")
+    shapes = _vggt_k3_shapes(CLIP_F)
+    by_shape = collections.Counter({kind: sum(
+        n for (qs, _), n in log.counts["flash_fwd"].items() if qs == s)
+        for kind, s in shapes.items()})
+    check(by_shape == collections.Counter({k: 2 * n for k, n in
+                                           VGGT_K3.items()}),
+          f"VGGT: K3 calls by shape {dict(by_shape)} over two estimates, "
+          f"expected {VGGT_K3} each")
+    check(all(np.isfinite(np.asarray(info[k])).all() for k in info),
+          "VGGT: non-finite camera_info: " + ", ".join(
+              k for k in info if not np.isfinite(np.asarray(info[k])).all()))
+    row.update(weights_gib=_nbytes(*vsd.values()) / 2 ** 30,
+               frames=CLIP_F, tokens=CLIP_F * VGGT_TOKENS)
+    out["vggt"] = row
+    print(f"VGGT-1B: {row['weights_gib']:.2f} GiB fp32; a {CLIP_F}-frame "
+          f"720x1280 clip (294x518, {row['tokens']} global tokens) "
+          f"{row['estimate_s']:.3f} s, peak {row['peak_gib']:.2f} GiB, "
+          f"88 K3 launches ({VGGT_K3})")
+    del vsd, est
+    torch.cuda.empty_cache()
+
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ocfg = dataclasses.replace(
+            O.ONEFORMER_COCO_SWIN_L,
+            swin=dataclasses.replace(SW.SWIN_L, depths=(2, 2, 2, 2)),
+            dec_layers=3)
+        cpu_sd = O.init_oneformer(ocfg, torch.Generator().manual_seed(183))
+        xc = torch.randn(1, 192, 256, 3, generator=torch.Generator()
+                         .manual_seed(184))
+        tc = task.cpu()
+        want = O.oneformer_forward(ocfg, cpu_sd, xc, tc)
+        card_sd = {k: v.cuda() for k, v in cpu_sd.items()}
+        got = O.oneformer_forward(ocfg, card_sd, xc.cuda(), task)
+        out["oneformer_cpu_rel_l2"] = [
+            _held_rel(f"OneFormer (cut) {n}", a, b,
+                      CURATION_CPU_REL_L2["oneformer"])
+            for n, a, b in zip(("class logits", "mask logits"), got, want)]
+        # the fault the limit is for: the same forward with TF32 matmuls
+        # and convolutions must read over it
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32 = O.oneformer_forward(ocfg, card_sd, xc.cuda(), task)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        out["oneformer_tf32_rel_l2"] = [
+            _rel_l2(a.float().cpu(), b) for a, b in zip(tf32, want)]
+        print("OneFormer (cut) with TF32 on: class logits "
+              f"{out['oneformer_tf32_rel_l2'][0]:.3e}, mask logits "
+              f"{out['oneformer_tf32_rel_l2'][1]:.3e} relative L2 from the "
+              f"CPU (must exceed {CURATION_CPU_REL_L2['oneformer']:g})")
+        check(min(out["oneformer_tf32_rel_l2"])
+              > CURATION_CPU_REL_L2["oneformer"],
+              "OneFormer (cut): a TF32 forward passes the limit: "
+              f"{out['oneformer_tf32_rel_l2']}")
+        del card_sd, tf32
+        vcut = dataclasses.replace(V.VGGT_1B, depth=2, vit_depth=2,
+                                   cam_trunk_depth=2)
+        cpu_v = V.init_vggt(vcut, torch.Generator().manual_seed(185))
+        _vggt_fov(cpu_v)
+        imgs = torch.from_numpy(V.preprocess_frames(clip[:2])[None])
+        want = V.vggt_camera_forward(vcut, cpu_v, imgs)
+        bf16_attention, V._bf16_attention = V._bf16_attention, \
+            A.attention_ref
+        try:
+            fp32 = V.vggt_camera_forward(vcut, cpu_v, imgs)
+        finally:
+            V._bf16_attention = bf16_attention
+        got = V.vggt_camera_forward(vcut, {k: v.cuda() for k, v in
+                                           cpu_v.items()}, imgs.cuda())
+        out["vggt_cpu_rel_l2"] = [
+            _held_rel(f"VGGT (cut) {n}", a, b, CURATION_CPU_REL_L2["vggt"])
+            for n, a, b in zip(("poses", "intrinsics"), got, want)]
+        out["vggt_bf16_vs_fp32_rel_l2"] = [
+            _rel_l2(a, b) for a, b in zip(want, fp32)]
+        print(f"VGGT (cut, full width) on the CPU: q, k, v in bf16 at K3 "
+              f"against fp32 attention: poses "
+              f"{out['vggt_bf16_vs_fp32_rel_l2'][0]:.3e}, intrinsics "
+              f"{out['vggt_bf16_vs_fp32_rel_l2'][1]:.3e} relative L2")
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = prev
+    return out
+
+
+def _held_rel(label, card, cpu, limit):
+    import torch
+    card = card.float().cpu()
+    check(bool(torch.isfinite(card).all()), f"{label}: non-finite on the "
+                                            f"card")
+    rel = _rel_l2(card, cpu)
+    check(rel <= limit, f"{label}: the card's output is {rel:.3e} relative "
+                        f"L2 from the CPU's (limit {limit:g})")
+    print(f"{label}: card vs CPU relative L2 {rel:.3e} (limit {limit:g})")
+    return rel
+
+
+class _CaptionProcessor:
+    """transformers' Qwen2.5-VL processor contract (absent on the card's
+    host) at the real shapes: the sampled frames (two a temporal patch) as
+    a 20 x 30 patch grid (the judge phase's), 1176-wide patch rows, the
+    video's placeholder tokens inside 62 seeded text tokens; decoding joins
+    the token ids."""
+
+    GRID_HW = (20, 30)
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    def apply_chat_template(self, messages, tokenize, add_generation_prompt):
+        return messages[0]["content"][1]["text"]
+
+    def __call__(self, text, videos, return_tensors):
+        import numpy as np
+        frames = videos[0].numpy().astype(np.float32) / 127.5 - 1.0
+        t = -(-frames.shape[0] // 2)
+        h, w = self.GRID_HW
+        cfg = self.cfg
+        pixels = np.resize(frames.reshape(-1), t * h * w * cfg.vision
+                           .patch_dim).reshape(t * h * w, -1)
+        rs = np.random.RandomState(len(text))
+        n_vis = t * h * w // cfg.vision.merge_unit
+        ids = np.concatenate([
+            rs.randint(0, cfg.vision_start_token_id, 15),
+            [cfg.vision_start_token_id], [cfg.video_token_id] * n_vis,
+            [cfg.vision_start_token_id + 1],
+            rs.randint(0, cfg.vision_start_token_id, 47)]).astype(np.int64)
+        return {"input_ids": ids[None], "pixel_values_videos": pixels,
+                "video_grid_thw": np.asarray([(t, h, w)]),
+                "second_per_grid_ts": np.asarray([2.0])}
+
+    def batch_decode(self, seqs, skip_special_tokens):
+        return [" ".join(f"t{int(t)}" for t in seqs[0])]
+
+
+def _write_curation_checkpoints(root):
+    """Random-init checkpoints in the released layouts: OneFormer COCO
+    Swin-L (.pth, a "model" dict), VGGT-1B (.pt, ``_vggt_fov``),
+    CoTracker3-offline (.pth), SAM2.1-hiera-large (.pt, a "model" dict,
+    its mask path reading brightness: ``sam2_reads_brightness``), a
+    Qwen2.5-VL-32B directory cut to 2 text layers and 2 vision blocks at
+    full width (config.json + bf16 safetensors). Returns their paths and
+    bytes."""
+    import dataclasses
+    import torch
+    from frameino_tpu_torch.models import cotracker as C
+    from frameino_tpu_torch.models import oneformer as O
+    from frameino_tpu_torch.models import qwen_vl as Q
+    from frameino_tpu_torch.models import sam2 as S2
+    from frameino_tpu_torch.models import vggt as V
+    from frameino_tpu_torch.models.safetensors_io import save_file
+
+    def gen(i):
+        return torch.Generator("cuda").manual_seed(1800 + i)
+
+    def cpu(sd):
+        return {k: v.cpu() for k, v in sd.items()}
+    paths = {k: os.path.join(root, n) for k, n in (
+        ("panoptic", "oneformer_swin_large_coco.pth"),
+        ("camera", "vggt4track.pt"), ("tracking", "cotracker3_offline.pth"),
+        ("id_refine", "sam2.1_hiera_large.pt"), ("caption", "qwen2.5-vl"))}
+    torch.save({"model": cpu(O.init_oneformer(O.ONEFORMER_COCO_SWIN_L,
+                                              gen(0)))}, paths["panoptic"])
+    vsd = _vggt_fov(V.init_vggt(V.VGGT_1B, gen(1)))
+    torch.save(cpu(vsd), paths["camera"])
+    del vsd
+    torch.save({"model": cpu(C.init_cotracker(C.COTRACKER3_OFFLINE, gen(2))
+                             .state_dict())}, paths["tracking"])
+    torch.save({"model": cpu(sam2_reads_brightness(S2.init_sam2(
+        S2.SAM21_HIERA_LARGE, gen(3))).state_dict())}, paths["id_refine"])
+    qcfg = dataclasses.replace(
+        Q.QWEN25_VL_32B,
+        vision=dataclasses.replace(Q.QWEN25_VL_32B.vision, depth=2,
+                                   fullatt_block_indexes=(1,)),
+        text=dataclasses.replace(Q.QWEN25_VL_32B.text, num_layers=2))
+    os.makedirs(paths["caption"], exist_ok=True)
+    with open(os.path.join(paths["caption"], "config.json"), "w") as f:
+        json.dump(Q.qwen_vl_config_to_json(qcfg), f)
+    qm = Q.init_qwen_vl(qcfg, gen(4), dtype=torch.bfloat16)
+    save_file(qm.state_dict(), os.path.join(paths["caption"],
+                                            "model.safetensors"))
+    del qm
+    gc.collect()
+    torch.cuda.empty_cache()
+    sizes = {}
+    for k, p in paths.items():
+        files = [os.path.join(p, n) for n in os.listdir(p)] \
+            if os.path.isdir(p) else [p]
+        sizes[k] = sum(os.path.getsize(f) for f in files) / 2 ** 30
+    return paths, sizes, qcfg
+
+
+def phase_curation_entry():
+    """``scripts/run_preprocess_pipeline.main`` in this process on the card:
+    (a) --allow_classical --caption_backend template on the tests' two
+    60x64x96 fixture clips: rows kept, the port's FrameINODataset loads
+    the CSV; (b) every learned backend from random-init checkpoints in the
+    released layouts (OneFormer, VGGT, CoTracker3, SAM2.1, a cut Qwen2.5-VL
+    directory) on two 720x1280x65 Motion-JPEG copies of ``labelled_clip``
+    with --min_motion 0 (random tracker weights give no motion to gate
+    on): each backend called, its calls, seconds and peak, each clip's
+    seconds per step, exact K13 (6 an OneFormer call) and K3 (88 a VGGT
+    call) launches, none of the other kernels; clip0 labelled from
+    SAM2.1's masks and kept, its ID crops written and its row loaded by
+    FrameINODataset, the copy deleted by the ranked camera pruning (the
+    same camera_info, so the later clip is on top of each ranking)."""
+    import numpy as np
+    import torch
+    from frameino_tpu_torch.data.frameino_dataset import (
+        FrameINODataset, FrameINODatasetConfig)
+    from frameino_tpu_torch.data.video_io import write_video
+    from frameino_tpu_torch.ops import attention as A
+    from frameino_tpu_torch.ops import ms_deform_attn as M
+    from frameino_tpu_torch.scripts import run_preprocess_pipeline as R
+    shutil.rmtree(CURATION_ROOT, ignore_errors=True)
+    out = {}
+    # (a) the classical chain and the template captioner
+    raw = os.path.join(CURATION_ROOT, "a", "raw")
+    os.makedirs(raw)
+    for i, seed in enumerate((0, 6)):
+        rs = np.random.RandomState(seed)
+        bg = rs.randint(10, 60, (64, 96, 3)).astype(np.uint8)
+        frames = np.stack([bg] * 60)
+        for t in range(60):
+            x, y = 6 + int(0.8 * t), 8 + int(0.4 * t)
+            frames[t, y:y + 16, x:x + 16] = (220, 180, 60)
+        write_video(os.path.join(raw, f"clip{i}.mp4"), frames, fps=12)
+    data = os.path.join(CURATION_ROOT, "a", "FrameINO_data")
+    t0 = time.time()
+    summary = R.main(["--video_folder", raw, "--output_folder", data,
+                      "--min_frames", "30", "--min_size", "32",
+                      "--caption_backend", "template", "--allow_classical",
+                      "--device", "cuda"])
+    a_s = time.time() - t0
+    check(summary["kept"] >= 1, f"curation (a): no row kept: {summary}")
+    ds = FrameINODataset(
+        FrameINODatasetConfig(
+            target_height=32, target_width=64, sample_accelerate_factor=1,
+            train_frame_num_range=(13, 13), min_train_frame_num=9,
+            dot_radius=45, drop_FrameIn_prob=0.0,
+            point_keep_ratio_regular=1.0, point_keep_ratio_ID=1.0),
+        os.path.join(CURATION_ROOT, "a"),
+        os.path.join("FrameINO_data", "dataset_csv_files"), "raw",
+        os.path.join("FrameINO_data", "video_dataset", "train_ID_FrameIn"),
+        seed=0)
+    item = ds[0]
+    check(len(ds) == summary["kept"]
+          and tuple(item["video_tensor"].shape) == (13, 3, 32, 64),
+          f"curation (a): the dataset holds {len(ds)} rows of "
+          f"{summary['kept']}, video {tuple(item['video_tensor'].shape)}")
+    out["classical"] = dict(kept=summary["kept"], total=summary["total"],
+                            seconds=a_s, step_seconds=summary["step_seconds"])
+    print(f"curation (a) classical + template: kept {summary['kept']}/"
+          f"{summary['total']} in {a_s:.2f} s; FrameINODataset loads "
+          f"{len(ds)} rows")
+
+    # (b) every learned backend
+    root = os.path.join(CURATION_ROOT, "b")
+    raw = os.path.join(root, "raw")
+    os.makedirs(raw)
+    clip = labelled_clip(1)
+    for i in range(2):
+        _write_avi(os.path.join(raw, f"clip{i}.avi"), clip)
+    del clip
+    t0 = time.time()
+    paths, sizes, qcfg = _write_curation_checkpoints(root)
+    write_s = time.time() - t0
+    print(f"curation (b): checkpoints written in {write_s:.1f} s: "
+          + ", ".join(f"{k} {v:.2f} GiB" for k, v in sizes.items()))
+    gc.collect()
+    torch.cuda.empty_cache()
+    A.reset_launch_counts()
+    M.ms_deform_attn.launches = 0
+    t0 = time.time()
+    with _ShapeLog() as log:
+        summary = R.main(
+            ["--video_folder", raw, "--output_folder",
+             os.path.join(root, "FrameINO_data"), "--min_frames", "33",
+             "--min_motion", "0", "--device", "cuda",
+             "--panoptic_checkpoint", paths["panoptic"],
+             "--camera_checkpoint", paths["camera"],
+             "--cotracker_checkpoint", paths["tracking"],
+             "--id_refine", "sam2", "--sam2_checkpoint", paths["id_refine"],
+             "--caption_backend", "qwen_checkpoint", "--caption_model",
+             paths["caption"]],
+            processor=_CaptionProcessor(qcfg))
+    b_s = time.time() - t0
+    counts = A.launch_counts()
+    k13 = M.ms_deform_attn.launches
+    runs = summary["backend_runs"]
+    check(sorted(runs) == ["camera", "caption", "id_refine", "panoptic",
+                           "tracking"]
+          and all(r["calls"] >= 1 for r in runs.values()),
+          f"curation (b): a learned backend did not run: {runs}")
+    check(not any(b.startswith("classical:")
+                  for b in summary["backends"].values()),
+          f"curation (b): a classical step in {summary['backends']}")
+    check(summary["kept"] == 1
+          and summary["dropped"] == {"clip1.avi": "camera_pose"},
+          f"curation (b): kept {summary['kept']}, dropped "
+          f"{summary['dropped']}; expected clip0 kept and its copy ranked "
+          f"out")
+    id_dir = os.path.join(root, "FrameINO_data", "video_dataset",
+                          "train_ID_FrameIn")
+    crops = sorted(os.listdir(id_dir))
+    check(len(crops) >= 2 and all(c.endswith(".png") for c in crops),
+          f"curation (b): ID crops {crops}")
+    ds = FrameINODataset(
+        FrameINODatasetConfig(
+            target_height=32, target_width=64, sample_accelerate_factor=1,
+            train_frame_num_range=(13, 13), min_train_frame_num=9,
+            dot_radius=45, drop_FrameIn_prob=0.0,
+            point_keep_ratio_regular=1.0, point_keep_ratio_ID=1.0),
+        root, os.path.join("FrameINO_data", "dataset_csv_files"), "raw",
+        os.path.join("FrameINO_data", "video_dataset", "train_ID_FrameIn"),
+        seed=0)
+    item = ds[0]
+    check(len(ds) == 1
+          and tuple(item["video_tensor"].shape) == (13, 3, 32, 64),
+          f"curation (b): the dataset holds {len(ds)} rows, video "
+          f"{tuple(item['video_tensor'].shape)}")
+    check(k13 == MSDA_PER_FORWARD * runs["panoptic"]["calls"],
+          f"curation (b): {k13} K13 launches for "
+          f"{runs['panoptic']['calls']} OneFormer calls")
+    want = dict.fromkeys(counts, 0)
+    want["flash_fwd"] = sum(VGGT_K3.values()) * runs["camera"]["calls"]
+    check(counts == want, f"curation (b): launches {counts}, expected "
+                          f"{want}")
+    k3_by_kind = collections.Counter()
+    for (qs, _), n in log.counts["flash_fwd"].items():
+        kind = ("trunk" if qs[2] == 128 else "vit_frame"
+                if qs[1] == VGGT_TOKENS else "global")
+        k3_by_kind[kind] += n
+    check(k3_by_kind == collections.Counter(
+        {k: n * runs["camera"]["calls"] for k, n in VGGT_K3.items()}),
+        f"curation (b): K3 launches by kind {dict(k3_by_kind)}")
+    out["learned"] = dict(
+        kept=summary["kept"], total=summary["total"],
+        dropped=summary["dropped"], id_crops=crops,
+        seconds=b_s, checkpoint_write_s=write_s,
+        checkpoint_gib=sizes, backend_runs=runs,
+        step_seconds=summary["step_seconds"], k13_launches=k13,
+        k3_launches=dict(k3_by_kind),
+        k3_shapes=sorted({qs for qs, _ in log.counts["flash_fwd"]}))
+    print(f"curation (b) learned backends: {b_s:.1f} s (model loads "
+          f"included), kept {summary['kept']}/{summary['total']}, dropped "
+          f"{summary['dropped']}; {len(crops)} ID crops; FrameINODataset "
+          f"loads {len(ds)} row")
+    for k, r in runs.items():
+        print(f"  backend {k}: {r['calls']} calls, {r['seconds']:.2f} s, "
+              f"peak {r['peak_gib']:.2f} GiB")
+    for clip_name, steps in summary["step_seconds"].items():
+        print(f"  {clip_name}: " + ", ".join(f"{k} {v:.2f} s"
+                                             for k, v in steps.items()))
+    print(f"  K13 {k13} launches, K3 {dict(k3_by_kind)} at "
+          f"{out['learned']['k3_shapes']}")
+    shutil.rmtree(CURATION_ROOT, ignore_errors=True)
+    return out, {"ms_deform_attn": k13,
+                 **{f"flash_fwd_vggt_{k}": n for k, n in k3_by_kind.items()}}
+
+
+PHASE_SECONDS = {}
+
+
+def _timed_phase(fn):
+    """``fn`` timed: its seconds printed and added to PHASE_SECONDS."""
+    def run(*a, **kw):
+        t0 = time.time()
+        try:
+            return fn(*a, **kw)
+        finally:
+            dt = time.time() - t0
+            PHASE_SECONDS[fn.__name__] = PHASE_SECONDS.get(fn.__name__,
+                                                           0.0) + dt
+            print(f"chip_smoke: {fn.__name__} {dt:.1f} s", flush=True)
+    return run
+
+
 def main():
     import torch
     profile = "--profile" in sys.argv[1:]
+    for name, fn in list(globals().items()):
+        if name.startswith("phase_") and callable(fn):
+            globals()[name] = _timed_phase(fn)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an "
              "NVIDIA GPU")
@@ -5727,6 +6612,13 @@ def main():
     wan21, w21_launches = phase_wan21()
     verify = phase_verify_checkpoint()
     wan21["phases_20_23_s"] = time.time() - t_w21
+    t_cur = time.time()
+    cur_results, cur_checks = phase_kernels_curation()
+    kernel_results.update(cur_results)
+    flash_checks.update(cur_checks)
+    curation = {"models": phase_curation_models()}
+    curation["entry"], cur_launches = phase_curation_entry()
+    curation["phases_24_26_s"] = time.time() - t_cur
 
     # each kernel's launches on its path (K1 twice: Wan at head_dim 128,
     # CogVideoX at 64; K5 on rank 0 over the tp = 2 request; K6 over the 3
@@ -5756,7 +6648,7 @@ def main():
                        for k in ("flash_attn_train_fwd",
                                  "flash_attn_train_bwd", "flash_fwd_static",
                                  "qk_norm_rope", "flash_fwd")},
-                    **w21_launches)
+                    **w21_launches, **cur_launches)
     for k, n in exp_launches.items():
         check(n > 0, f"kernel {k} was not launched by the experiment scripts")
     summary = {"device": {"name": name, "nvidia_smi": smi}, "kernels": [
@@ -5776,13 +6668,15 @@ def main():
         "experiment_kernels": exp_shapes, "experiment_scripts": exp_scripts,
         "mass_eval": mass_eval, "qwen": qwen, "qwen_vs_cpu": qwen_cpu,
         "overfit_k6": overfit_k6, "overfit": overfit, "wan21": wan21,
-        "verify_checkpoint": verify, "seconds": time.time() - t_start}
+        "verify_checkpoint": verify, "curation": curation,
+        "phase_seconds": PHASE_SECONDS, "seconds": time.time() - t_start}
     out_dir = os.path.join(REPO, "build")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(f"chip_smoke: phases 20-23 (Wan2.1) "
-          f"{wan21['phases_20_23_s']:.1f} s")
+          f"{wan21['phases_20_23_s']:.1f} s, phases 24-26 (curation) "
+          f"{curation['phases_24_26_s']:.1f} s")
     print(f"chip_smoke: all phases passed in {summary['seconds']:.1f} s")
     print(json.dumps({"kernels": summary["kernels"]}))
     print(json.dumps({"ok": True, "device": {

@@ -35,9 +35,26 @@ import numpy as np
 
 
 def _offline() -> None:
-    """Keep the Hugging Face hub off the network in this process."""
+    """Keep the Hugging Face hub off the network in this process, and
+    transformers off its TensorFlow and JAX backends (the port uses
+    neither; importing them costs seconds)."""
     os.environ.setdefault("HF_HUB_OFFLINE", "1")
     os.environ.setdefault("TRANSFORMERS_OFFLINE", "1")
+    os.environ.setdefault("USE_TF", "0")
+    os.environ.setdefault("USE_FLAX", "0")
+
+
+def _hf_local(model_path: str) -> None:
+    """Raise unless ``model_path`` is a directory or a repository already
+    in the Hugging Face cache: checked before transformers is imported."""
+    if os.path.isdir(model_path):
+        return
+    from huggingface_hub import try_to_load_from_cache
+    if not isinstance(try_to_load_from_cache(model_path, "config.json"),
+                      str):
+        raise FileNotFoundError(
+            f"{model_path} is neither a directory nor in the Hugging Face "
+            f"cache; pass a checkpoint directory")
 
 
 def _hub_local(repo: str, model: str):
@@ -257,9 +274,10 @@ def load_qwen_vl(model_path: str = "Qwen/Qwen2.5-VL-32B-Instruct",
     ``(processor, model)``, nf4 4-bit quantized when bitsandbytes is
     present."""
     import torch
+    _offline()
+    _hf_local(model_path)
     from transformers import AutoProcessor
     from transformers import Qwen2_5_VLForConditionalGeneration
-    _offline()
     processor = AutoProcessor.from_pretrained(model_path,
                                               local_files_only=True)
     kwargs = dict(torch_dtype="auto", device_map=device_map,
@@ -399,6 +417,25 @@ def load_sam2_checkpoint(checkpoint_path: str,
     contract without the ``sam2`` package)."""
     from frameino_tpu_torch.models.sam2_video import load_sam2_torch
     return load_sam2_torch(checkpoint_path, device=device)
+
+
+def load_oneformer_checkpoint(checkpoint_path: str, device: str = "cuda",
+                              **kwargs) -> Callable:
+    """The port's OneFormer COCO Swin-L from released weights (detectron2
+    ``.pth`` with its ``"model"`` dict; ``preprocess/panoptic_oneformer``):
+    ``segment(image) -> [(label, mask)]``, the curation step-4 model."""
+    from frameino_tpu_torch.preprocess.panoptic_oneformer import \
+        load_oneformer_segmenter
+    return load_oneformer_segmenter(checkpoint_path, device=device, **kwargs)
+
+
+def load_vggt_checkpoint(checkpoint_path: str,
+                         device: str = "cuda") -> Callable:
+    """The port's VGGT-1B (VGGT4Track) camera estimator from released
+    weights (``.pt`` or ``.safetensors``; ``models/vggt.py``):
+    ``estimate(frames) -> camera_info``, the curation step-5 model."""
+    from frameino_tpu_torch.models.vggt import load_vggt_camera
+    return load_vggt_camera(checkpoint_path, device=device)
 
 
 def load_dinov2_checkpoint(checkpoint_path: str,

@@ -49,6 +49,8 @@ _CUDA_SOURCES = {
         "qk_ln_rope_bf16": [_VP] * 6 + [_INT] * 4 + [_F32] + [_INT] * 4
         + [_VP],
         "qk_producer_blocks_per_sm": [_INT] * 3},
+    "ms_deform_attn": {"ms_deform_attn_fp32": [_VP] * 5 + [_INT] * 7
+                       + [_VP]},
 }
 
 _lib_lock = threading.Lock()

@@ -368,8 +368,10 @@ def test_port_never_imports_jax(tmp_path):
     smoke train step of each family, one smoke mass-evaluation round and
     one call of each perception model (DINOv2, CoTracker, SAM2) at its tiny
     config, a greedy generation of the tiny Qwen2.5-VL in int8, two steps of
-    the convergence run and the int8 certification's import, and one step
-    of the tiny Wan2.1 I2V pipeline with its CLIP image encoder, leaves jax
+    the convergence run and the int8 certification's import, one step of
+    the tiny Wan2.1 I2V pipeline with its CLIP image encoder, and the
+    curation chain (its modules' import, one classical ``process_video`` on
+    a fixture clip, one tiny OneFormer and one tiny VGGT forward) leaves jax
     and every module of the JAX package (frameino_tpu) unimported."""
     code = textwrap.dedent("""
         import base64, io, json, os, sys
@@ -515,6 +517,43 @@ def test_port_never_imports_jax(tmp_path):
                      width=16, num_frames=5, num_inference_steps=1,
                      output_type="latent")
         assert lat.shape[1] == 4 and bool(torch.isfinite(lat).all())
+        # dataset curation: one classical process_video on a fixture clip,
+        # one tiny OneFormer and one tiny VGGT forward
+        import argparse
+        from frameino_tpu_torch.data.video_io import write_video
+        from frameino_tpu_torch.evaluation import perception  # noqa: F401
+        from frameino_tpu_torch.models import oneformer, swin, vggt
+        from frameino_tpu_torch.preprocess import (  # noqa: F401
+            camera_pose, captioning, csv_io, panoptic_oneformer)
+        from frameino_tpu_torch.scripts import run_preprocess_pipeline
+        rs = np.random.RandomState(0)
+        bg = rs.randint(10, 60, (64, 96, 3)).astype(np.uint8)
+        frames = np.stack([bg] * 40)
+        for t in range(40):
+            frames[t, 8 + t // 2:24 + t // 2, 6 + t:22 + t] = (220, 180, 60)
+        os.makedirs(os.path.join(root, "raw"))
+        write_video(os.path.join(root, "raw", "c.mp4"), frames)
+        run_preprocess_pipeline.process_video(
+            "c.mp4", os.path.join(root, "raw"), os.path.join(root, "ids"),
+            argparse.Namespace(
+                min_frames=20, min_size=32, max_aspect=2.5,
+                cut_threshold=0.5, min_clarity=5.0, min_motion=2.0,
+                num_points=5, keep_boxes=5, seed=0,
+                caption_backend="template"))
+        ocfg = oneformer.OneFormerConfig(
+            swin=swin.SwinConfig(embed_dim=16, depths=(1, 1, 1, 1),
+                                 num_heads=(2, 2, 4, 4), window_size=4),
+            num_classes=7, hidden_dim=32, num_queries=6, nheads=4,
+            dim_feedforward=64, enc_ffn_dim=48, enc_layers=2, dec_layers=3,
+            enc_points=2, mask_dim=32)
+        cls, _ = oneformer.oneformer_forward(
+            ocfg, oneformer.init_oneformer(ocfg, g), torch.zeros(1, 64, 64, 3),
+            torch.from_numpy(oneformer.task_tokens("panoptic"))[None])
+        assert cls.shape == (1, 6, 8)
+        vcfg2 = vggt.tiny_vggt_config()
+        poses, _ = vggt.vggt_camera_forward(
+            vcfg2, vggt.init_vggt(vcfg2, g), torch.rand(1, 2, 8, 8, 3))
+        assert poses.shape == (1, 2, 4, 4)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "frameino_tpu"
