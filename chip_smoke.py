@@ -20,14 +20,19 @@
         # also time the mma.sync K8 that the Hopper K8 replaced: FILE is a
         # copy of csrc/flash_packed.cu from before its redesign (with its
         # flash_common.cuh beside it), built beside the sources
+    python3 chip_smoke.py --msda-parent FILE
+        # also time the K13 that the Hopper K13 replaced (one warp per
+        # query and head): FILE is a copy of csrc/ms_deform_attn.cu from
+        # before its redesign, built beside the sources
 
 Phases (any failure exits non-zero; there is no CPU path):
  1. device: the card's name and `nvidia-smi` name, power limit;
- 2. build: compile the seven CUDA sources (nvcc, sm_90a, all at once: the
+ 2. build: compile the ten CUDA sources (nvcc, sm_90a, all at once: the
     serving flash kernels, the qk-norm/RoPE producers K2, K5 and
     qk-LayerNorm/RoPE K4, K6, K7, the experiment variants K9-K10, the
-    int8-QK^T K11-K12 and the packed K8) from the sources in the checkout,
-    and a probe copy of K6 whose backward leaves out its dQ adds;
+    int8-QK^T K11-K12, the packed K8, K13 and the L2 read probe) from the
+    sources in the checkout, and a probe copy of K6 whose backward leaves
+    out its dQ adds;
  3. kernels: each kernel against its plain PyTorch version at the shapes
     the Wan serving path gives it (Wan2.2-TI2V-5B, 49 frames at 480x832:
     CFG batch 2, 24 heads of 128, 5,460 tokens, 512 text tokens), with
@@ -85,11 +90,12 @@ Phases (any failure exits non-zero; there is no CPU path):
  6. reference: a small Wan pipeline (2 blocks at head_dim 128) in bf16 on
     the card against the same weights in fp32 on the CPU's plain path, and
     the same pipeline with quantize="int8" against its int8 weights;
-    then tp: the full-width Wan DiT over dp x tp meshes (tp = 2, tp = 4,
-    dp = 2 x tp = 2), one process a rank on this card over gloo: one CFG
-    forward at 5,460 tokens each, within TP_REL_L2 of the single-process
-    bf16 forward on the same seeded weights, with exact launches on every
-    rank (K5 60, K1 30, K3 30, K2 0) and its time in collectives; at
+    then tp: the full-width Wan DiT at TP_BLOCKS of its 30 blocks over
+    dp x tp meshes (tp = 2, tp = 4, dp = 2 x tp = 2), one process a rank
+    on this card over gloo: one CFG forward at 5,460 tokens each, within
+    TP_REL_L2 of the single-process bf16 forward on the same seeded
+    weights, with exact launches on every rank (K5 2, K1 1, K3 1 and K2 0
+    a block) and its time in collectives; at
     tp = 2 the row-parallel biases added on every rank must exceed the
     limit, and request (a) runs through WanImageToVideoPipeline(mesh=) in
     2 steps, the VAE on rank 0;
@@ -237,11 +243,19 @@ Phases (any failure exits non-zero; there is no CPU path):
     block 0's to_q swapped with block 1's must fail (exit code 1).
 24. curation kernels: K13 (multi-scale deformable attention,
     csrc/ms_deform_attn.cu) against its plain version at OneFormer's
-    [1, 21168, 8, 32] (levels 96x168, 48x84, 24x42, 4 points) and a ragged
-    [2, 333 | 2201, 5, 40] with 4 levels and locations outside [0, 1],
-    within MSDA_MAX_ABS, three planted faults (align_corners coordinates,
-    edge clamping, two levels' first rows swapped) rejected, beside its
-    bound and the reference's grid_sample fallback; K3 at VGGT-1B's shapes
+    [1, 21168, 8, 32] (levels 96x168, 48x84, 24x42, 4 points) under two
+    location patterns (``uniform`` in [-0.1, 1.1]; ``encoder``, each
+    query near its own pixel as OneFormer's encoder samples), at a ragged
+    [2, 333 | 2649, 5, 40] with 4 levels and locations outside [0, 1] and
+    at D = 5 (the scalar instance), within MSDA_MAX_ABS, five planted
+    faults (align_corners coordinates, edge clamping, two levels' first
+    rows swapped, the last partial query tile dropped, heads 0 and 1
+    swapped) rejected at each, timed beside its bound, the L2 floor (the
+    pattern's corner reads over the L2 read rate of csrc/l2_read_probe.cu,
+    measured here), the reference's grid_sample fallback and (with
+    --msda-parent) the kernel it replaced, in turns at both patterns and
+    the ragged shape (the kernels line's ms, plain_ms and library_ms at
+    uniform, encoder_* beside them); K3 at VGGT-1B's shapes
     for a 65-frame clip ([1040, 782, 64], [16, 50830, 64] launched on its
     16 rows, row 0 against the plain version and equal to a 1-row launch,
     [16, 65, 128]) with planted faults;
@@ -417,8 +431,15 @@ NO_TRAIN = {"flash_attn_train_fwd": 0, "flash_attn_train_bwd": 0}
 # launches per denoise step of the 30-block Wan DiT at CFG batch 2
 PER_STEP = {"flash_fwd_static": 30, "qk_norm_rope": 60, "flash_fwd": 30,
             "qk_ln_rope": 0, **NO_TRAIN, K7: 0, K5: 0}
-# ... on every rank of a tp > 1 mesh (dp = 1 or 2): K5 in place of K2
-PER_STEP_TP = dict(PER_STEP, qk_norm_rope=0, **{K5: 60})
+# the tp phase's DiT: the full-width Wan DiT cut to 10 of its 30 blocks
+# (an earlier path run at a smaller depth: with 30 the whole script read
+# 1,323.7 s on an NVIDIA H100 80GB HBM3 at 700 W, the tp phase 339.0 s of
+# it, over the 1,100 s it is kept to)
+TP_BLOCKS = 10
+# ... on every rank of a tp > 1 mesh (dp = 1 or 2) of that DiT: K5 in place
+# of K2, the counts of PER_STEP per block
+PER_STEP_TP = {k: n * TP_BLOCKS // 30
+               for k, n in dict(PER_STEP, qk_norm_rope=0, **{K5: 60}).items()}
 # ... with the DiT in int8: K7 on the input of attn1 q, k, v, out, attn2 q,
 # out, fc1 and fc2 of every block; and per request, the hoisted text K/V
 # (attn2 k, v of every block, once per segment)
@@ -446,8 +467,9 @@ def per_train_step(blocks):
 # Its arithmetic differs only in where it rounds: the row-parallel partial
 # products are summed in another order, the qk statistic is an fp32 sum
 # (K2's is fp64), and each rank's static bound covers its own heads, so
-# bf16 roundings flip and the flips compound over 30 blocks. A bias
-# added on every rank ((tp - 1) x bias too much) must exceed it.
+# bf16 roundings flip and the flips compound over the blocks (30 blocks:
+# 4.74e-3 at tp = 2; TP_BLOCKS = 10: 2.93e-3). A bias added on every rank
+# ((tp - 1) x bias too much) must exceed it (10 blocks: 6.20e-2).
 TP_REL_L2 = 2e-2
 # the dp x tp meshes of the tp phase, one set of processes each; the
 # tp = 2 set also serves a request through the pipeline
@@ -527,11 +549,12 @@ def phase_device():
 
 
 def phase_build():
-    """nvcc of the seven CUDA sources, of K6's probe copy without its dQ
-    adds (and of --int8-parent's, --variants-parent's and
-    --packed-parent's files), one process each, all at once; returns the
+    """nvcc of the ten CUDA sources, of K6's probe copy without its dQ
+    adds (and of --int8-parent's, --variants-parent's, --packed-parent's
+    and --msda-parent's files), one process each, all at once; returns the
     extra libraries {INT8_PARENT: ..., VARIANTS_PARENT: ...,
-    PACKED_PARENT: ..., K6_NO_DQ_ADDS: ...}, None for a flag not given."""
+    PACKED_PARENT: ..., MSDA_PARENT: ..., K6_NO_DQ_ADDS: ...}, None for a
+    flag not given."""
     from frameino_tpu_torch.ops import attention as A
     t0 = time.time()
     parents = {}
@@ -539,7 +562,9 @@ def phase_build():
                               ("--variants-parent", VARIANTS_PARENT,
                                "flash_variants"),
                               ("--packed-parent", PACKED_PARENT,
-                               "flash_packed")):
+                               "flash_packed"),
+                              ("--msda-parent", MSDA_PARENT,
+                               "ms_deform_attn")):
         if flag in sys.argv:
             parents[key] = (source, sys.argv[sys.argv.index(flag) + 1])
     parents[K6_NO_DQ_ADDS] = ("flash_attn_train", _k6_probe_source())
@@ -557,7 +582,7 @@ def phase_build():
             or "Compiling entry" in line))
     return {key: built.get(key)
             for key in (INT8_PARENT, VARIANTS_PARENT, PACKED_PARENT,
-                        K6_NO_DQ_ADDS)}
+                        MSDA_PARENT, K6_NO_DQ_ADDS)}
 
 
 def _parent_triton():
@@ -1679,6 +1704,7 @@ INT8_VARIANTS = ("flash_v3", "flash_v123")
 INT8_PARENT = "int8_parent"
 VARIANTS_PARENT = "variants_parent"
 PACKED_PARENT = "packed_parent"
+MSDA_PARENT = "msda_parent"
 # max abs of a variant from K3 on the scripts' check slice: a little above
 # what the JAX scripts read on the CPU (2-4e-3; int8 8e-3-1.2e-2; the
 # packed script's own assertion)
@@ -4027,6 +4053,7 @@ def _tp_worker(rank, world, tag, mesh_kw, inputs, pg_path):
     one CFG forward checked for its launches, one timed with its time in
     collectives; at tp2 also the duplicated-bias fault and request (a)
     through the pipeline, the VAE on rank 0."""
+    import dataclasses
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -4047,8 +4074,10 @@ def _tp_worker(rank, world, tag, mesh_kw, inputs, pg_path):
         gen = torch.Generator("cuda").manual_seed(0)
         for r in range(world):
             if r == rank:
-                dit = wan_dit.init_wan_dit(wan_dit.WAN22_TI2V_5B_MOTION, gen,
-                                           dtype=torch.bfloat16, mesh=mesh)
+                dit = wan_dit.init_wan_dit(
+                    dataclasses.replace(wan_dit.WAN22_TI2V_5B_MOTION,
+                                        num_layers=TP_BLOCKS), gen,
+                    dtype=torch.bfloat16, mesh=mesh)
                 gc.collect()
                 torch.cuda.empty_cache()
             dist.barrier()
@@ -4131,13 +4160,14 @@ def _tp_worker(rank, world, tag, mesh_kw, inputs, pg_path):
 
 
 def phase_tp():
-    """The full-width Wan2.2-TI2V-5B-motion DiT over each mesh of
-    TP_MESHES, one process a rank on this card: one CFG forward at 5,460
-    tokens held to the single-process bf16 forward on the same seeded
-    weights within TP_REL_L2, with exact launches on every rank (K5 60, K1
-    30, K3 30, K2 0) and its time in collectives; at tp2 the
-    duplicated-bias fault must exceed the limit, and request (a) runs
+    """The full-width Wan2.2-TI2V-5B-motion DiT at TP_BLOCKS blocks over
+    each mesh of TP_MESHES, one process a rank on this card: one CFG
+    forward at 5,460 tokens held to the single-process bf16 forward on the
+    same seeded weights within TP_REL_L2, with exact launches on every rank
+    (K5 2, K1 1, K3 1 and K2 0 a block) and its time in collectives; at tp2
+    the duplicated-bias fault must exceed the limit, and request (a) runs
     through WanImageToVideoPipeline(mesh=) in 2 steps."""
+    import dataclasses
     import types
     import torch
     import torch.multiprocessing as mp
@@ -4146,7 +4176,8 @@ def phase_tp():
     configure_cuda_numerics()
     shutil.rmtree(TP_DIR, ignore_errors=True)
     os.makedirs(TP_DIR)
-    cfg = wan_dit.WAN22_TI2V_5B_MOTION
+    cfg = dataclasses.replace(wan_dit.WAN22_TI2V_5B_MOTION,
+                              num_layers=TP_BLOCKS)
     dit = wan_dit.init_wan_dit(cfg, torch.Generator("cuda").manual_seed(0),
                                dtype=torch.bfloat16)
     inputs = _dit_inputs("wan", types.SimpleNamespace(dit_cfg=cfg))
@@ -5707,17 +5738,20 @@ def phase_verify_checkpoint():
 # VGGT-1B at full width against the CPU, and the curation entry on the card
 # ---------------------------------------------------------------------------
 
-# OneFormer's deformable sampling at the card's clips (720x1280, resized to
-# 750x1333 and padded to 768x1344): levels 1/8, 1/16 and 1/32 of the
-# padded frame (21,168 queries), 8 heads of 32 channels, 4 points a level
-MSDA_LEVELS = ((96, 168), (48, 84), (24, 42))
-MSDA_SHAPE = dict(B=1, levels=MSDA_LEVELS, H=8, D=32, P=4, lo=-0.1,
-                  hi=1.1)
-# a ragged shape: 4 odd-sized levels, 5 heads of 40 channels (a warp's
+# K13 at OneFormer's deformable sampling (the card's clips, 720x1280,
+# resized to 750x1333 and padded to 768x1344: levels 1/8, 1/16 and 1/32,
+# 21,168 queries, 8 heads of 32 channels, 4 points a level) takes its
+# shape and inputs from scripts/tune_ms_deform_attn.py (make_inputs'
+# defaults). A ragged shape: 4 odd-sized levels, 5 heads of 40 channels (a warp's
 # lanes pass twice, the second time 8 wide), 3 points, 2 images, locations
 # from -0.5 to 1.5 (a third of the corners outside the levels)
-MSDA_RAGGED = dict(B=2, levels=((37, 53), (19, 27), (10, 14), (5, 7)),
-                   Q=333, H=5, D=40, P=3, lo=-0.5, hi=1.5)
+MSDA_RAGGED = dict(batch=2, levels=((37, 53), (19, 27), (10, 14), (5, 7)),
+                   queries=333, heads=5, channels=40, points=3, lo=-0.5,
+                   hi=1.5)
+# D = 5, not a multiple of 4: the kernel's scalar instance (1 channel a
+# lane)
+MSDA_ODD_D = dict(batch=2, levels=((5, 7), (3, 1), (1, 1)), queries=11,
+                  heads=3, channels=5, points=3, lo=-0.5, hi=1.5)
 # K13's limit against its plain version, fp32 max abs on outputs of order
 # 1 (unit-normal values, softmax weights over the 12 samples, as the
 # encoder layers give them): the two differ only where the card contracts
@@ -5747,31 +5781,21 @@ CURATION_CPU_REL_L2 = {"oneformer": 3.1e-6, "vggt": 3.6e-3}
 CURATION_ROOT = os.path.join(REPO, "build", "chip_smoke_curation")
 
 
-def _msda_inputs(g, B, levels, H, D, P, lo, hi, Q=None):
-    """value [B, S, H, D] unit normal, locations uniform in [lo, hi],
-    weights a softmax over each (query, head)'s L * P samples; Q defaults
-    to S (the encoder's queries are its value rows)."""
-    import torch
-    S = sum(h * w for h, w in levels)
-    Q = S if Q is None else Q
-    L = len(levels)
-    value = torch.randn(B, S, H, D, device="cuda", generator=g)
-    loc = lo + (hi - lo) * torch.rand(B, Q, H, L, P, 2, device="cuda",
-                                      generator=g)
-    w = torch.softmax(torch.randn(B, Q, H, L * P, device="cuda",
-                                  generator=g), -1).reshape(B, Q, H, L, P)
-    return value, loc, w
-
-
 def _msda_variant(value, levels, loc, w, align_corners=False, clamp=False,
-                  starts=None):
+                  starts=None, drop_tail=False, swap_heads=False):
     """K13's plain arithmetic with a planted fault where asked:
     ``align_corners`` (x = loc_x * (W - 1)), ``clamp`` (corners outside the
     level read its edge instead of zero), ``starts`` (the levels' first
-    value rows, e.g. two of them swapped)."""
+    value rows, e.g. two of them swapped), and two of the work map:
+    ``drop_tail`` (the queries of the last, partial tile of
+    QUERIES_PER_BLOCK left at zero), ``swap_heads`` (heads 0 and 1 reading
+    each other's value columns)."""
     import torch
+    from frameino_tpu_torch.ops import ms_deform_attn as M
     B, S, H, D = value.shape
     _, Q, _, L, P, _ = loc.shape
+    if swap_heads:
+        value = value[:, :, [1, 0, *range(2, H)]]
     if starts is None:
         starts = [0]
         for h, w_ in levels[:-1]:
@@ -5802,6 +5826,10 @@ def _msda_variant(value, levels, loc, w, align_corners=False, clamp=False,
                 g_ = g_ * inside[..., None]
             acc = acc + g_ * cw[..., None]
         out = out + (acc * w[:, :, :, lvl, :, None]).sum(3)
+    if drop_tail:
+        tail = Q % M.QUERIES_PER_BLOCK
+        check(tail > 0, f"{Q} queries leave no partial tile")
+        out[:, Q - tail:] = 0
     return out.reshape(B, Q, H * D)
 
 
@@ -5842,7 +5870,9 @@ def _msda_bound(value, loc, w):
 def _msda_check(label, value, levels, loc, w):
     """K13 against its plain version within MSDA_MAX_ABS, each planted fault
     (align_corners coordinates, edge clamping, levels 0 and 1's first rows
-    swapped) over it; returns (max abs, planted faults' max abs)."""
+    swapped, the last partial query tile dropped, heads 0 and 1 swapped)
+    over it; returns (max abs, planted faults' max abs, the grid_sample
+    fallback's max abs)."""
     import torch
     from frameino_tpu_torch.ops import ms_deform_attn as M
     out = M.ms_deform_attn(value, levels, loc, w)
@@ -5859,7 +5889,9 @@ def _msda_check(label, value, levels, loc, w):
                   ).abs().max().item()
               for n, kw in (("align_corners", dict(align_corners=True)),
                             ("clamped_edges", dict(clamp=True)),
-                            ("levels_0_1_swapped", dict(starts=swapped)))}
+                            ("levels_0_1_swapped", dict(starts=swapped)),
+                            ("last_tile_dropped", dict(drop_tail=True)),
+                            ("heads_0_1_swapped", dict(swap_heads=True)))}
     lib_err = (_msda_grid_sample(value, levels, loc, w) - want
                ).abs().max().item()
     print(f"K13 {label}: max abs {err:.3e} (limit {MSDA_MAX_ABS:g}); the "
@@ -5878,40 +5910,105 @@ def _vggt_k3_shapes(frames):
             "trunk": (16, frames, 128)}
 
 
-def phase_kernels_curation():
+def phase_kernels_curation(msda_parent=None):
     """K13 against its plain version at OneFormer's shape ([1, 21168, 8,
-    32], 3 levels, 4 points) and a ragged one, within MSDA_MAX_ABS, three
-    planted faults rejected, timed beside the plain version, the bound and
-    the reference's grid_sample fallback; K3 at VGGT-1B's shapes for a
-    65-frame clip (ViT / frame [1040, 782, 64], global [16, 50830, 64]
-    launched on all 16 rows with row 0 against the plain version and equal
-    to a 1-row launch, camera trunk [16, 65, 128]) against its plain
-    version and SDPA, with planted faults."""
+    32], 3 levels, 4 points) under the uniform and the encoder location
+    patterns, at a ragged shape and at D = 5, within MSDA_MAX_ABS, five
+    planted faults rejected at each; timed beside the plain version, the
+    bound, the L2 floor (the pattern's in-bounds corner reads over the L2
+    read rate measured here), the reference's grid_sample fallback and
+    (``msda_parent``: the library of --msda-parent, None without) the
+    kernel it replaced, in turns (parent, port, port, parent) at both
+    patterns and the ragged shape; K3 at
+    VGGT-1B's shapes for a 65-frame clip (ViT / frame [1040, 782, 64],
+    global [16, 50830, 64] launched on all 16 rows with row 0 against the
+    plain version and equal to a 1-row launch, camera trunk [16, 65, 128])
+    against its plain version and SDPA, with planted faults."""
     import torch
     from frameino_tpu_torch.ops import attention as A
     from frameino_tpu_torch.ops import ms_deform_attn as M
+    from frameino_tpu_torch.scripts import tune_ms_deform_attn as TM
     g = torch.Generator("cuda").manual_seed(18)
     results, checks = {}, {}
-    value, loc, w = _msda_inputs(g, **MSDA_SHAPE)
-    levels = MSDA_SHAPE["levels"]
-    err, faults, lib_err = _msda_check("OneFormer [1, 21168, 8, 32]", value,
-                                       levels, loc, w)
-    rv, rl, rw = _msda_inputs(g, **MSDA_RAGGED)
-    rerr, rfaults, rlib = _msda_check("ragged [2, 333 | 2,201, 5, 40]", rv,
+    levels = TM.LEVELS
+    build = _build_report("K13", "ms_deform_attn", ("ms_deform_attn_kernel",),
+                          lambda tag: 0)
+    l2_rate = TM.l2_read_rate()
+    print(f"K13: L2 read rate in random 128-byte rows {l2_rate / 1e12:.3f} "
+          f"TB/s (csrc/l2_read_probe.cu)")
+
+    def timed(value, levels, loc, w, label):
+        """The port's (and the parent's) ms in turns: parent, port, port,
+        parent, with the parent held within MSDA_MAX_ABS."""
+        runs = {"port": lambda: M.ms_deform_attn(value, levels, loc, w)}
+        if msda_parent is not None:
+            runs["parent"] = lambda: M.ms_deform_attn_cuda(
+                value, levels, loc, w, library=msda_parent)
+            parent_err = (runs["parent"]() - M.ms_deform_attn_ref(
+                value, levels, loc, w)).abs().max().item()
+            check(parent_err <= MSDA_MAX_ABS,
+                  f"K13's parent {label}: max abs {parent_err:.3e}")
+        times = {v: [] for v in runs}
+        for v in ["parent", "port", "port", "parent"]:
+            if v in runs:
+                times[v].append(cuda_ms(runs[v], 20))
+        print(f"K13 {label}: kernel " + " / ".join(
+            f"{t:.4f}" for t in times["port"]) + " ms, parent "
+            + (" / ".join(f"{t:.4f}" for t in times["parent"]) + " ms"
+               if "parent" in times else "not measured"))
+        return times["port"], times.get("parent")
+
+    inputs = {p: TM.make_inputs(p, 18) for p in TM.PATTERNS}
+    rows = {}
+    for pattern, (value, loc, w) in inputs.items():
+        err, faults, lib_err = _msda_check(
+            f"OneFormer [1, 21168, 8, 32] {pattern}", value, levels, loc, w)
+        ms, parent_ms = timed(value, levels, loc, w, pattern)
+        corner_bytes = TM.corner_reads(levels, loc) * TM.CHANNELS * 4
+        rows[pattern] = dict(
+            max_abs=err, faults=faults, grid_sample_max_abs=lib_err,
+            ms=ms, parent_ms=parent_ms, corner_bytes=corner_bytes,
+            l2_floor_ms=1e3 * corner_bytes / l2_rate,
+            plain_ms=cuda_ms(lambda: M.ms_deform_attn_ref(value, levels,
+                                                          loc, w), 5),
+            library_ms=cuda_ms(lambda: _msda_grid_sample(value, levels, loc,
+                                                         w), 5))
+        print(f"K13 {pattern}: {corner_bytes / 1e9:.3f} GB of corners, L2 "
+              f"floor {rows[pattern]['l2_floor_ms']:.4f} ms")
+    rv, rl, rw = TM.make_inputs("uniform", 19, **MSDA_RAGGED)
+    rerr, rfaults, rlib = _msda_check("ragged [2, 333 | 2,649, 5, 40]", rv,
                                       MSDA_RAGGED["levels"], rl, rw)
-    checks["ms_deform_attn"] = dict(faults=faults, ragged_max_abs=rerr,
-                                    ragged_faults=rfaults,
-                                    grid_sample_max_abs=lib_err)
-    _report(results, "ms_deform_attn", err, 0.0,
-            cuda_ms(lambda: M.ms_deform_attn(value, levels, loc, w), 20),
-            cuda_ms(lambda: M.ms_deform_attn_ref(value, levels, loc, w), 5),
-            _msda_bound(value, loc, w),
-            cuda_ms(lambda: _msda_grid_sample(value, levels, loc, w), 5),
-            ragged_max_abs=rerr,
-            ragged_ms=cuda_ms(lambda: M.ms_deform_attn(
-                rv, MSDA_RAGGED["levels"], rl, rw), 20),
-            note="library_ms: the reference's grid_sample fallback")
-    del value, loc, w, rv, rl, rw
+    ragged_ms, ragged_parent_ms = timed(rv, MSDA_RAGGED["levels"], rl, rw,
+                                        "ragged")
+    ov, ol, ow = TM.make_inputs("uniform", 20, **MSDA_ODD_D)
+    oerr, ofaults, _ = _msda_check("D = 5 [2, 11 | 39, 3, 5]", ov,
+                                   MSDA_ODD_D["levels"], ol, ow)
+    checks["ms_deform_attn"] = dict(
+        patterns=rows, ragged_max_abs=rerr, ragged_faults=rfaults,
+        ragged_grid_sample_max_abs=rlib, odd_d_max_abs=oerr,
+        odd_d_faults=ofaults, build=build, l2_bytes_per_s=l2_rate)
+    enc, uni = rows["encoder"], rows["uniform"]
+
+    def mean(ts):
+        return None if ts is None else sum(ts) / len(ts)
+    # ms, plain_ms, library_ms and parent_ms at the uniform pattern (seed
+    # 18, as every earlier run); the encoder pattern's beside them
+    _report(results, "ms_deform_attn", max(enc["max_abs"], uni["max_abs"]),
+            0.0, mean(uni["ms"]), uni["plain_ms"],
+            _msda_bound(*inputs["uniform"]), uni["library_ms"],
+            parent_ms=mean(uni["parent_ms"]),
+            l2_floor_ms=uni["l2_floor_ms"],
+            encoder_ms=mean(enc["ms"]),
+            encoder_parent_ms=mean(enc["parent_ms"]),
+            encoder_plain_ms=enc["plain_ms"],
+            encoder_library_ms=enc["library_ms"],
+            encoder_l2_floor_ms=enc["l2_floor_ms"], ragged_max_abs=rerr,
+            ragged_ms=mean(ragged_ms),
+            ragged_parent_ms=mean(ragged_parent_ms),
+            note="ms, plain_ms, library_ms, parent_ms at uniform "
+                 "locations, encoder_* at the encoder's; library_ms: the "
+                 "reference's grid_sample fallback")
+    del inputs, value, loc, w, rv, rl, rw, ov, ol, ow
 
     def normed(bh, n, d):
         x = torch.randn(bh, n, d, device="cuda", generator=g)
@@ -6613,7 +6710,7 @@ def main():
     verify = phase_verify_checkpoint()
     wan21["phases_20_23_s"] = time.time() - t_w21
     t_cur = time.time()
-    cur_results, cur_checks = phase_kernels_curation()
+    cur_results, cur_checks = phase_kernels_curation(parents[MSDA_PARENT])
     kernel_results.update(cur_results)
     flash_checks.update(cur_checks)
     curation = {"models": phase_curation_models()}

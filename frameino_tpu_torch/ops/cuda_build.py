@@ -51,6 +51,9 @@ _CUDA_SOURCES = {
         "qk_producer_blocks_per_sm": [_INT] * 3},
     "ms_deform_attn": {"ms_deform_attn_fp32": [_VP] * 5 + [_INT] * 7
                        + [_VP]},
+    # a measurement kernel on no path: K13's L2 yardstick
+    "l2_read_probe": {"l2_read_probe_fp32": [_VP] + [_INT] * 2 + [_VP]
+                      + [_INT, _VP]},
 }
 
 _lib_lock = threading.Lock()

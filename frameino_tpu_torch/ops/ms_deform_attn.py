@@ -18,7 +18,8 @@ for CUDA tensors (fp32, contiguous) and raises on anything else; for CPU
 tensors it runs the plain version, ``ms_deform_attn_ref``: the per-level
 gather of the JAX function, step by step. Nothing on the card's path calls
 the plain version, ``F.grid_sample`` or the reference's native library.
-Launches are counted in ``ms_deform_attn.launches``.
+Launches are counted in ``ms_deform_attn.launches`` (``ms_deform_attn_cuda``
+launches it, or another build of its C interface, uncounted).
 """
 
 from __future__ import annotations
@@ -30,6 +31,14 @@ import numpy as np
 import torch
 
 from frameino_tpu_torch.ops.cuda_build import lib
+
+
+# the kernel's work map (kWarpsPerBlock, kQueriesPerWarp and
+# kQueriesPerBlock in csrc/ms_deform_attn.cu): a block takes 32 consecutive
+# queries of one head, a quarter-warp one query, 8 lanes of 4 channels
+WARPS_PER_BLOCK = 8
+QUERIES_PER_WARP = 4
+QUERIES_PER_BLOCK = WARPS_PER_BLOCK * QUERIES_PER_WARP
 
 
 def _levels(spatial_shapes) -> list:
@@ -83,12 +92,25 @@ def ms_deform_attn_ref(value, spatial_shapes: Sequence[Tuple[int, int]],
 def ms_deform_attn(value, spatial_shapes: Sequence[Tuple[int, int]],
                    sampling_locations, attention_weights):
     """K13 (replaces ``native/ms_deform_attn.cpp::ms_deform_attn_forward``
-    and ``frameino_tpu/ops/ms_deform_attn.py::ms_deform_attn``): one warp
-    per (batch, query, head), the lanes over the channels. CUDA: the
-    kernel, contiguous fp32 only; CPU: ``ms_deform_attn_ref``."""
+    and ``frameino_tpu/ops/ms_deform_attn.py::ms_deform_attn``): a block
+    per 32 consecutive queries of one head, a quarter-warp per query, the
+    lanes over the channels. CUDA: the kernel, contiguous fp32 only; CPU:
+    ``ms_deform_attn_ref``."""
     if not value.is_cuda:
         return ms_deform_attn_ref(value, spatial_shapes, sampling_locations,
                                   attention_weights)
+    out = ms_deform_attn_cuda(value, spatial_shapes, sampling_locations,
+                              attention_weights)
+    ms_deform_attn.launches += 1
+    return out
+
+
+def ms_deform_attn_cuda(value, spatial_shapes: Sequence[Tuple[int, int]],
+                        sampling_locations, attention_weights, *,
+                        library=None):
+    """One launch of ``ms_deform_attn_fp32`` from ``csrc/ms_deform_attn.cu``
+    (or from ``library``, another build of its C interface) on CUDA
+    tensors, after the wrapper's checks; not counted."""
     B, S, H, D = value.shape
     if sampling_locations.ndim != 6 or sampling_locations.shape[-1] != 2:
         raise ValueError(f"ms_deform_attn: locations "
@@ -115,7 +137,7 @@ def ms_deform_attn(value, spatial_shapes: Sequence[Tuple[int, int]],
                          f"{L} levels")
     levels = np.ascontiguousarray(np.asarray(shapes, np.int32).reshape(-1))
     out = torch.empty((B, Q, H * D), dtype=torch.float32, device=value.device)
-    err = lib("ms_deform_attn").ms_deform_attn_fp32(
+    err = (library or lib("ms_deform_attn")).ms_deform_attn_fp32(
         value.data_ptr(), sampling_locations.data_ptr(),
         attention_weights.data_ptr(), out.data_ptr(),
         levels.ctypes.data_as(ctypes.c_void_p), B, S, H, D, Q, L, P,
@@ -123,7 +145,6 @@ def ms_deform_attn(value, spatial_shapes: Sequence[Tuple[int, int]],
     if err != 0:
         raise RuntimeError(f"ms_deform_attn_fp32 launch failed: CUDA error "
                            f"{err}")
-    ms_deform_attn.launches += 1
     return out
 
 
