@@ -276,7 +276,24 @@ Phases (any failure exits non-zero; there is no CPU path):
     backend's calls, seconds and peak, each clip's seconds per step, exact
     K13 and K3 launches; clip0 labelled from SAM2.1's masks and kept (ID
     crops, FrameINODataset loads its row), the copy ranked out by the
-    camera pruning (files in build/chip_smoke_curation/, removed after).
+    camera pruning (files in build/chip_smoke_curation/, removed after);
+27. the learned curation scorers at their released widths on seeded fp32
+    weights, cuDNN and matmul TF32 off for the phase: AutoShot and
+    TransNetV2 score a 120-frame 720x1280 clip (a cut at frame 60) through
+    their scorers and the curation clip through ``score_scene_cuts``;
+    ICNet scores a 720x1280 frame through ``score_images(full=True,
+    complexity_model=)``; seconds and peaks; the card against the CPU
+    within SCORER_LIMITS, the banded lookup one frame off and ICNet's
+    stride-2 convolutions padded "SAME" (planted faults) over them;
+28. the demo app (run in phase 5a, on request (f)'s full-depth
+    Wan2.2-TI2V-5B pipeline and UMT5-XXL): ``InteractiveSession`` and
+    ``make_handlers`` at the UI's 704x1280 canvas and 81 frames, a
+    480x832 image placed inside it, two objects (one with two lines),
+    ``segment`` through SAM2.1-hiera-large wrapped to take one image, and
+    ``run`` with 2 steps, a prompt through UMT5 and the hybrid decode:
+    exactly 30 K1, 60 K2 and 30 K3 launches a step at 19,360 tokens, 81
+    finite, non-constant frames cropped to 480x832 in a readable mp4, the
+    seconds by stage and the peak.
 
 Each serving or training phase sets the launch counts to 0 just before
 its requests or steps and reads them just after. The line before the
@@ -2928,7 +2945,8 @@ def phase_serve_704(umt5):
     full-width UMT5 as its text encoder (stub tokenizer) answers
     704x1280x81 with a trajectory and an ID image, 2 steps, a prompt and
     no decode_mode (so the hybrid decode): 200, 81x704x1280 frames,
-    exactly 30 K1, 60 K2 and 30 K3 launches a step."""
+    exactly 30 K1, 60 K2 and 30 K3 launches a step. Returns (its row, the
+    launch counts, the pipeline, which the demo reuses)."""
     import numpy as np
     import torch
     from frameino_tpu_torch import serve
@@ -2973,16 +2991,201 @@ def phase_serve_704(umt5):
                                      f"the 704x1280x81 request")
     print(f"request 704: text encode {text_s} s, stages {row['stages_s']}, "
           f"peak {row['peak_gib']:.2f} GiB")
-    del pipe, server, httpd
+    del server, httpd
     gc.collect()
     torch.cuda.empty_cache()
-    return row, totals
+    return row, totals, pipe
+
+
+# the demo (phase 28): a 480x832 image placed at (x, y) = DEMO_OFFSET on
+# the UI's default 704x1280 canvas, 81 frames, DEMO_STEPS denoise steps at
+# the UI's guidance 5.0
+DEMO_IMAGE = (480, 832)
+DEMO_OFFSET = (224, 112)
+DEMO_STEPS = 2
+
+
+class _DemoPipeline:
+    """Request (f)'s pipeline as the demo's session calls it, with the
+    hybrid decode (the server's default; the session passes no
+    decode_mode); records whether each raw video is finite."""
+
+    def __init__(self, pipe):
+        self.pipe, self.finite = pipe, []
+
+    @property
+    def device(self):
+        return self.pipe.device
+
+    def __call__(self, *a, **kw):
+        import numpy as np
+        video = self.pipe(*a, decode_mode="hybrid", **kw)
+        self.finite.append(bool(np.isfinite(video).all()))
+        return video
+
+
+@contextlib.contextmanager
+def _timed_calls(module, name, log):
+    """``module.name`` replaced, inside the block, by a wrapper that
+    appends each call's seconds to ``log``."""
+    orig = getattr(module, name)
+
+    def timed(*a, **kw):
+        t0 = time.time()
+        try:
+            return orig(*a, **kw)
+        finally:
+            log.append(time.time() - t0)
+    setattr(module, name, timed)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def phase_demo(pipe, umt5):
+    """The demo app on request (f)'s full-depth Wan2.2-TI2V-5B pipeline
+    (bf16 DiT, fp32 VAE) and UMT5-XXL: ``InteractiveSession`` and
+    ``make_handlers`` at the UI's 704x1280 canvas and 81 frames. A 480x832
+    image placed at DEMO_OFFSET (the model outpaints around it); two
+    objects, the second with two lines (click, new_object, new_line);
+    ``segment`` on a 512x512 ID image through SAM2.1-hiera-large (seeded,
+    its mask path reading brightness: ``sam2_reads_brightness``), the
+    video segmenter wrapped to take one image, ``lambda image, pts:
+    seg(image[None], pts)``; ``run`` with DEMO_STEPS steps, a prompt
+    through UMT5 (stub tokenizer) and the hybrid decode: exactly 30 K1, 60
+    K2 and 30 K3 launches a step at the 19,360-token shapes, a finite video,
+    81 frames cropped to 480x832, not constant, in a readable mp4; the
+    session's seconds by stage and its peak."""
+    import numpy as np
+    import torch
+    from frameino_tpu_torch import serve
+    from frameino_tpu_torch.app import core
+    from frameino_tpu_torch.app.gradio_app import make_handlers
+    from frameino_tpu_torch.data import video_io
+    from frameino_tpu_torch.models import sam2 as S2
+    from frameino_tpu_torch.models.sam2_video import make_segmenter_adapter
+    from frameino_tpu_torch.ops import attention as A
+    t0 = time.time()
+    sam = sam2_reads_brightness(S2.init_sam2(
+        S2.SAM21_HIERA_LARGE, torch.Generator("cuda").manual_seed(28)))
+    video_segmenter = make_segmenter_adapter(sam.eval())
+    text_fn = serve.make_text_encoder_fn(
+        umt5, StubTokenizer(umt5.cfg.vocab_size))
+    text_s, raster_s, write_s, seg_s = [], [], [], []
+
+    def timed_text_fn(prompts):
+        t = time.time()
+        out = text_fn(prompts)
+        torch.cuda.synchronize()
+        text_s.append(time.time() - t)
+        return out
+
+    def segmenter(image, pts):
+        t = time.time()
+        out = video_segmenter(image[None], pts)
+        seg_s.append(time.time() - t)
+        return out
+
+    demo_pipe = _DemoPipeline(pipe)
+    session = core.InteractiveSession(
+        demo_pipe, num_frames=REQUEST704["num_frames"],
+        num_inference_steps=DEMO_STEPS, guidance_scale=5.0,
+        segmenter=segmenter)
+    h = make_handlers(session, timed_text_fn)
+    setup_s = time.time() - t0
+
+    (ih, iw), (ox, oy) = DEMO_IMAGE, DEMO_OFFSET
+    img = labelled_clip(29, F=2, H=ih, W=iw)[0]
+    canvas = (REQUEST704["height"], REQUEST704["width"])
+    visual, h32, w32, hint = h["build"](img, *canvas, ox, oy)
+    check((h32, w32, hint) == (*canvas, "") and visual.shape
+          == (*canvas, 3), f"demo: build gave {h32}x{w32} {hint!r}")
+    for x, y in ((100, 100), (300, 150), (500, 170)):
+        h["click"](ox + x, oy + y)
+    h["new_object"]()
+    for x, y in ((600, 300), (700, 350)):
+        h["click"](ox + x, oy + y)
+    h["new_line"]()
+    for x, y in ((650, 400), (760, 430)):
+        preview, legend = h["click"](ox + x, oy + y)
+    check(session.line_obj == [0, 1, 1] and session.num_objects == 2
+          and preview.shape == (*canvas, 3) and "object 2" in legend,
+          f"demo: objects {session.line_obj}, preview {preview.shape}")
+    id_img = labelled_clip(30, F=2, H=512, W=512)[0]
+    ref = h["segment"](id_img)
+    mask = h["state"]["id_mask"]
+    check(ref.shape == (*canvas, 3) and mask.shape == (512, 512)
+          and 0 < mask.mean() < 1,
+          f"demo: segment gave {ref.shape}, mask {mask.shape} with "
+          f"{mask.mean():.3f} of the image")
+
+    prompt = ("a red ball rolls in from the left edge and a dog chases it "
+              "across the lawn")
+    written = {}
+    orig_write = video_io.write_video
+
+    def write_video(path, frames, fps=12):
+        t = time.time()
+        orig_write(path, frames, fps)
+        written.update(frames=frames, seconds=time.time() - t)
+    video_io.write_video = write_video
+    A.reset_launch_counts()
+    try:
+        with _timed_calls(core, "tracks_to_traj_tensor", raster_s), \
+                _ShapeLog() as log:
+            path, run_s, peak = _timed(lambda: h["run"](prompt, id_img))
+    finally:
+        video_io.write_video = orig_write
+    totals = A.launch_counts()
+    mp4 = read_mp4(path)
+    os.remove(path)
+    frames = written["frames"]
+    check(demo_pipe.finite == [True], "demo: the generated video is not "
+                                      "finite")
+    check(frames.shape == (REQUEST704["num_frames"], ih, iw, 3)
+          and mp4.shape == frames.shape and float(frames.std()) > 0,
+          f"demo: frames {frames.shape}, mp4 {mp4.shape}, std "
+          f"{float(frames.std()):.3f}: not 81 non-constant {ih}x{iw} frames")
+    for k, n in PER_STEP.items():
+        check(totals[k] == n * DEMO_STEPS,
+              f"demo: {k} launched {totals[k]} times, not {n * DEMO_STEPS}")
+    S_ = S704                     # 21 latent frames + the ID frame
+    want = {"flash_fwd_static": ((B * H, S_, D), (B * H, S_, D)),
+            "qk_norm_rope": ((B, S_, H * D), (H * D,)),
+            "flash_fwd": ((B * H, S_, D), (B * H, L_TEXT, D))}
+    by_shape = {}
+    for k, shapes in want.items():
+        got = dict(log.counts[k])
+        check(got == {shapes: totals[k]},
+              f"demo: {k} launched at {got}, not {totals[k]} x {shapes}")
+        by_shape[k] = {str(list(map(list, sh))): n for sh, n in got.items()}
+    stages = dict(pipe.timings)
+    host_s = run_s - text_s[-1] - sum(stages.values())
+    row = dict(setup_s=setup_s, segment_s=seg_s, text_encode_s=text_s[-1],
+               stages_s=stages, raster_s=raster_s[-1],
+               mp4_write_s=written["seconds"], host_s=host_s, run_s=run_s,
+               peak_gib=peak, launches=totals, launches_by_shape=by_shape,
+               tokens=S_, frames=list(frames.shape),
+               frames_std=float(frames.std()), id_mask_share=float(
+                   mask.mean()))
+    print(f"demo: setup {setup_s:.1f} s, segment {seg_s} s (mask "
+          f"{mask.mean():.3f} of the ID image); run {run_s:.2f} s: text "
+          f"{text_s[-1]:.3f} s, stages {stages}, raster {raster_s[-1]:.3f} "
+          f"s, mp4 {written['seconds']:.3f} s, host in all {host_s:.2f} s; "
+          f"peak {peak:.2f} GiB; launches by shape {by_shape}; frames "
+          f"{list(frames.shape)} (std {frames.std():.2f})")
+    del sam, video_segmenter, session, h, demo_pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_wan_default():
     """The slice of the pipeline's default shape: K1-K3 at 19,360 tokens,
     the VAE's streaming / tiled / hybrid paths, the checkpoint round trip,
-    the full-width UMT5-XXL and the 704x1280x81 prompt request."""
+    the full-width UMT5-XXL, the 704x1280x81 prompt request and, on that
+    request's pipeline and UMT5, the demo (phase 28)."""
     import dataclasses
     import numpy as np
     import torch
@@ -3002,13 +3205,15 @@ def phase_wan_default():
     del vae
     torch.cuda.empty_cache()
     umt5, umt5_row = phase_umt5()
-    request, totals = phase_serve_704(umt5)
-    del umt5
+    request, totals, pipe = phase_serve_704(umt5)
+    demo = phase_demo(pipe, umt5)
+    del umt5, pipe
     gc.collect()
     torch.cuda.empty_cache()
     return results, dict(kernel_checks=checks, vae_paths=vae_rows,
                          checkpoint=ckpt, umt5=umt5_row, request=request,
-                         launches=totals, seconds=time.time() - t0)
+                         launches=totals, demo=demo,
+                         seconds=time.time() - t0)
 
 
 def _load(cls, cfg, sd, device, dtype=None, int8=False):
@@ -6627,6 +6832,197 @@ def phase_curation_entry():
                  **{f"flash_fwd_vggt_{k}": n for k, n in k3_by_kind.items()}}
 
 
+# The learned curation scorers (phase 27), cuDNN and matmul TF32 off for
+# the phase: the card against the CPU in relative L2 of one window's logits
+# (AutoShot, TransNetV2) and of ICNet's map, in max abs of the scorers'
+# probabilities and of ICNet's score. Each limit is 1.5x its first reading
+# (NVIDIA H100 80GB HBM3, 700 W): 1.652e-6, 9.54e-7, 1.161e-6, 2.98e-7,
+# 2.33e-7; ICNet's score read 0 (bit-equal), so its reading is taken as one
+# fp32 step at 0.5 (5.96e-8)
+SCORER_LIMITS = {
+    "transnet_logits": 2.48e-6, "transnet_probs": 1.43e-6,
+    "autoshot_logits": 1.74e-6, "autoshot_probs": 4.47e-7,
+    "icnet_map": 3.5e-7, "icnet_score": 8.94e-8}
+SCORER_CLIP_F = 120
+
+
+@contextlib.contextmanager
+def _tf32(enabled):
+    """cuDNN's and cuBLAS's TF32 set to ``enabled`` inside the block,
+    restored after (the other phases keep theirs)."""
+    import torch
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = enabled
+    torch.backends.cuda.matmul.allow_tf32 = enabled
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def _band_off_by_one(orig):
+    """The banded lookup's window moved one frame later (the planted
+    fault): the band of frame t covers t - 49 ... t + 51."""
+    import torch.nn.functional as F
+
+    def band(sim, window):
+        return orig(F.pad(sim, (0, 1))[..., 1:], window)
+    return band
+
+
+def _stride2_same_padding(model):
+    """ICNet's stride-2 3x3 convolutions padded "SAME" (no pixel before,
+    one after: JAX's padding, the planted fault), in place."""
+    import torch
+    import torch.nn.functional as F
+    for m in model.modules():
+        if isinstance(m, torch.nn.Conv2d) and m.stride == (2, 2) \
+                and m.kernel_size == (3, 3):
+            m.padding = (0, 0)
+            m.register_forward_pre_hook(
+                lambda mod, args: (F.pad(args[0], (0, 1, 0, 1)),))
+    return model
+
+
+def _scorer_clip():
+    """120 frames at 720x1280 with a cut at frame 60: two of the curation
+    clips of ``labelled_clip``, the second reversed in time."""
+    import numpy as np
+    half = SCORER_CLIP_F // 2
+    return np.concatenate([labelled_clip(27, F=half),
+                           labelled_clip(28, F=half)[::-1]])
+
+
+def phase_scorers():
+    """The learned curation scorers at their released widths on seeded fp32
+    weights (drawn on the CPU, copied to the card), cuDNN and matmul TF32
+    off for the phase (restored after): AutoShot and TransNetV2 score a
+    120-frame 720x1280 clip through their scorers (resized to 27x48 on the
+    host, 100-frame windows) and, through ``score_scene_cuts``, the
+    curation entry's 65-frame clip; ICNet scores a 720x1280 frame through
+    ``score_images(full=True, complexity_model=)``. Each: its seconds and
+    peak on the card; the card against the CPU on the same weights and
+    input within SCORER_LIMITS (one window's logits and ICNet's map in
+    relative L2; the probabilities and the score in max abs); planted
+    faults over the limits: the banded lookup's window one frame late
+    (both shot models), ICNet's stride-2 convolutions padded "SAME"."""
+    import copy
+    import numpy as np
+    import torch
+    from frameino_tpu_torch.models import autoshot as TA
+    from frameino_tpu_torch.models import icnet as TI
+    from frameino_tpu_torch.models import transnet as TT
+    from frameino_tpu_torch.preprocess import image_scoring, scene_cut
+    out = {"cudnn_allow_tf32": False, "matmul_allow_tf32": False}
+    clip = _scorer_clip()
+    cur = labelled_clip(0)
+    window = torch.from_numpy(TT.resize_27x48(clip[:100])[None])
+    limits = SCORER_LIMITS
+
+    def read(label, key, value):
+        check(np.isfinite(value) and value <= limits[key],
+              f"{label}: {value:.3e} over its limit {limits[key]:g}")
+        print(f"{label}: {value:.3e} (limit {limits[key]:g})")
+        return value
+
+    with _tf32(False):
+        print("phase 27 runs with torch.backends.cudnn.allow_tf32 = False "
+              "and torch.backends.cuda.matmul.allow_tf32 = False")
+        for name, make, scorer in (
+                ("transnet", lambda g: TT.init_transnet(TT.TRANSNETV2, g),
+                 TT.make_transnet_scorer),
+                ("autoshot", lambda g: TA.init_autoshot(TA.AUTOSHOT, g),
+                 TA.make_autoshot_scorer)):
+            cpu = make(torch.Generator().manual_seed(27))
+            card = copy.deepcopy(cpu).cuda()
+            params = sum(p.numel() for p in cpu.parameters())
+            scorer(card)(clip)                              # warm-up
+            probs, secs, peak = _timed(lambda: scorer(card)(clip))
+            want = scorer(cpu)(clip)
+            check(probs.shape == (SCORER_CLIP_F,) and bool(
+                ((probs >= 0) & (probs <= 1)).all()),
+                f"{name}: scores {probs.shape} not [0, 1]^{SCORER_CLIP_F}")
+            with torch.no_grad():
+                logits = [t.float().cpu() for t in card(window.cuda())]
+                cpu_logits = cpu(window)
+                orig = TT.banded_lookup
+                TT.banded_lookup = _band_off_by_one(orig)
+                try:
+                    fault = card(window.cuda())[0].float().cpu()
+                finally:
+                    TT.banded_lookup = orig
+            row = dict(params=params, seconds=secs, peak_gib=peak,
+                       probs_first=probs[:3].tolist(),
+                       probs_at_cut=probs[58:62].tolist())
+            row["logits_rel_l2"] = read(
+                f"{name} one window's logits, card vs CPU, relative L2",
+                f"{name}_logits", max(_rel_l2(a, b) for a, b in
+                                      zip(logits, cpu_logits)))
+            row["probs_max_abs"] = read(
+                f"{name} scores of the 120 frames, card vs CPU, max abs",
+                f"{name}_probs", float(np.abs(probs - want).max()))
+            row["fault_band_off_by_one_rel_l2"] = _rel_l2(fault,
+                                                          cpu_logits[0])
+            check(row["fault_band_off_by_one_rel_l2"]
+                  > limits[f"{name}_logits"],
+                  f"{name}: the banded lookup one frame off reads "
+                  f"{row['fault_band_off_by_one_rel_l2']:.3e}, within the "
+                  f"limit")
+            cut, cut_s, _ = _timed(lambda: scene_cut.score_scene_cuts(
+                cur, model=scorer(card)))
+            check(cut.shape == (len(cur),) and bool(np.isfinite(cut).all()),
+                  f"{name}: score_scene_cuts gave {cut.shape}")
+            row.update(scene_cut_seconds=cut_s, scene_cut_max=float(
+                cut.max()))
+            print(f"{name} ({params / 1e6:.2f} M parameters): 120 frames "
+                  f"at 720x1280 in {secs:.3f} s, peak {peak:.3f} GiB; the "
+                  f"band fault {row['fault_band_off_by_one_rel_l2']:.3e}; "
+                  f"score_scene_cuts on the curation clip ({len(cur)} "
+                  f"frames) {cut_s:.3f} s")
+            out[name] = row
+            del cpu, card
+
+        cpu = TI.init_icnet(TI.ICNET, torch.Generator().manual_seed(28))
+        card = copy.deepcopy(cpu).cuda()
+        frame = clip[0]
+        scorer = TI.make_complexity_scorer(card)
+        scorer(frame)                                       # warm-up
+        scores, secs, peak = _timed(lambda: image_scoring.score_images(
+            frame, full=True, complexity_model=scorer))
+        want = TI.make_complexity_scorer(cpu)(frame)
+        check(0.0 <= scores["complexity"] <= 1.0,
+              f"ICNet: complexity {scores['complexity']} outside [0, 1]")
+        x = torch.randn(1, 3, 512, 512, generator=torch.Generator(
+        ).manual_seed(29))
+        with torch.no_grad():
+            s_card, m_card = card(x.cuda())
+            s_cpu, m_cpu = cpu(x)
+            fault = _stride2_same_padding(copy.deepcopy(card))(x.cuda())[1]
+        row = dict(params=sum(p.numel() for p in cpu.parameters()),
+                   seconds=secs, peak_gib=peak, scores=scores)
+        row["map_rel_l2"] = read("ICNet map, card vs CPU, relative L2",
+                                 "icnet_map", _rel_l2(m_card.cpu(), m_cpu))
+        row["score_max_abs"] = read(
+            "ICNet complexity of the frame, card vs CPU, max abs",
+            "icnet_score", abs(scores["complexity"] - want))
+        row["score_max_abs_random_input"] = float(
+            (s_card.cpu() - s_cpu).abs().max())
+        row["fault_same_padding_rel_l2"] = _rel_l2(fault.cpu(), m_cpu)
+        check(row["fault_same_padding_rel_l2"] > limits["icnet_map"],
+              f"ICNet: stride-2 convolutions padded SAME read "
+              f"{row['fault_same_padding_rel_l2']:.3e}, within the limit")
+        print(f"ICNet ({row['params'] / 1e6:.2f} M parameters): "
+              f"score_images(full=True) of a 720x1280 frame in {secs:.3f} s, "
+              f"peak {peak:.3f} GiB, complexity {scores['complexity']:.4f}; "
+              f"SAME padding fault {row['fault_same_padding_rel_l2']:.3e}")
+        out["icnet"] = row
+    del cpu, card
+    torch.cuda.empty_cache()
+    return out
+
+
 PHASE_SECONDS = {}
 
 
@@ -6716,6 +7112,12 @@ def main():
     curation = {"models": phase_curation_models()}
     curation["entry"], cur_launches = phase_curation_entry()
     curation["phases_24_26_s"] = time.time() - t_cur
+    scorers = phase_scorers()
+    # the demo (phase 28, run on request (f)'s pipeline in phase 5a)
+    # launches K1-K3 at request (f)'s shapes
+    demo = wan_default["demo"]
+    for k in ("flash_fwd_static", "qk_norm_rope", "flash_fwd"):
+        kernel_results[f"{k}_704"]["demo_launches"] = demo["launches"][k]
 
     # each kernel's launches on its path (K1 twice: Wan at head_dim 128,
     # CogVideoX at 64; K5 on rank 0 over the tp = 2 request; K6 over the 3
@@ -6766,14 +7168,17 @@ def main():
         "mass_eval": mass_eval, "qwen": qwen, "qwen_vs_cpu": qwen_cpu,
         "overfit_k6": overfit_k6, "overfit": overfit, "wan21": wan21,
         "verify_checkpoint": verify, "curation": curation,
-        "phase_seconds": PHASE_SECONDS, "seconds": time.time() - t_start}
+        "scorers": scorers, "phase_seconds": PHASE_SECONDS,
+        "seconds": time.time() - t_start}
     out_dir = os.path.join(REPO, "build")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(f"chip_smoke: phases 20-23 (Wan2.1) "
           f"{wan21['phases_20_23_s']:.1f} s, phases 24-26 (curation) "
-          f"{curation['phases_24_26_s']:.1f} s")
+          f"{curation['phases_24_26_s']:.1f} s, phase 27 (scorers) "
+          f"{PHASE_SECONDS['phase_scorers']:.1f} s, phase 28 (demo) "
+          f"{PHASE_SECONDS['phase_demo']:.1f} s")
     print(f"chip_smoke: all phases passed in {summary['seconds']:.1f} s")
     print(json.dumps({"kernels": summary["kernels"]}))
     print(json.dumps({"ok": True, "device": {

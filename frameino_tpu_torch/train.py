@@ -29,7 +29,10 @@ from frameino_tpu_torch.training import cli
 
 
 def parse_args(argv=None):
-    return cli.parser(__doc__.splitlines()[0]).parse_args(argv)
+    p = cli.parser(__doc__.splitlines()[0])
+    p.add_argument("--debug", action="store_true",
+                   help="accepted and unused, as by the JAX CLI")
+    return p.parse_args(argv)
 
 
 def main(argv=None, dit_cfg=None) -> dict:
