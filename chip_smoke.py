@@ -27,12 +27,13 @@
 
 Phases (any failure exits non-zero; there is no CPU path):
  1. device: the card's name and `nvidia-smi` name, power limit;
- 2. build: compile the ten CUDA sources (nvcc, sm_90a, all at once: the
-    serving flash kernels, the qk-norm/RoPE producers K2, K5 and
+ 2. build: compile the eleven CUDA sources (nvcc, sm_90a, all at once:
+    the serving flash kernels, the qk-norm/RoPE producers K2, K5 and
     qk-LayerNorm/RoPE K4, K6, K7, the experiment variants K9-K10, the
-    int8-QK^T K11-K12, the packed K8, K13 and the L2 read probe) from the
-    sources in the checkout, and a probe copy of K6 whose backward leaves
-    out its dQ adds;
+    int8-QK^T K11-K12, the packed K8, K13, the int8 convolution K14 and
+    the L2 read probe) from the sources in the checkout, a probe copy of
+    K6 whose backward leaves out its dQ adds, and K14's five planted-fault
+    copies (K14_FAULTS);
  3. kernels: each kernel against its plain PyTorch version at the shapes
     the Wan serving path gives it (Wan2.2-TI2V-5B, 49 frames at 480x832:
     CFG batch 2, 24 heads of 128, 5,460 tokens, 512 text tokens), with
@@ -293,7 +294,37 @@ Phases (any failure exits non-zero; there is no CPU path):
     ``run`` with 2 steps, a prompt through UMT5 and the hybrid decode:
     exactly 30 K1, 60 K2 and 30 K3 launches a step at 19,360 tokens, 81
     finite, non-constant frames cropped to 480x832 in a readable mp4, the
-    seconds by stage and the peak.
+    seconds by stage and the peak;
+29. the int8 Wan VAE (in phase 5a, after the checkpoint round trip, on
+    its seeded full-width Wan2.2 VAE quantized in place,
+    ``quantize_wan_vae_int8``): at request (a)'s latents and the
+    49x480x832 clip, TF32 off, the full, streaming and hybrid decode and
+    the full and streaming encode, seconds, peaks and K14 launches beside
+    phase 5a's fp32 rows; against the fp32 VAE by JAX's measures (mean
+    abs relative, correlation), streaming against full int8, each within
+    a floor and a limit; a card-vs-CPU int8 decode at VAE_INT8_CPU_LATENTS
+    (the card's quantized weights bit-equal to the CPU's, each K14 call
+    bit-equal to the plain version on its own input, the decoders held
+    at VAE_INT8_CPU_STAGE against an fp32 control); and (in phase 5)
+    request (a) at 2 steps through ``WanImageToVideoPipeline(
+    quantize_vae=True)`` on the int8 DiT: K1-K3 and K7 launches exact,
+    K14's by conv shape, the frames finite and not flat;
+30. K14 against its plain version (max abs 0: exact int32 sums, the same
+    fp32 epilogue) at every distinct conv shape that phase 29's full
+    decode and encode ran, the plain version on K14_PLAIN_SLICE output
+    frames (or images), with the activation scale of the whole input;
+    CUDA event times of the wrapper and of its implicit GEMM alone beside
+    the int8 operation bound and the float cuDNN conv of the same shape
+    (fp32 with TF32 off and on, bf16); the five planted faults rejected;
+    registers and spills (none allowed);
+31. CogVideoX1.5-5B-I2V (patch_size_t 2, ofs 512, RoPE, no position
+    table) and CogVideoX-2B (sincos table, no RoPE) at full width and
+    depth on seeded bf16 weights: one CFG forward each at 480x720 (14 and
+    13 latent frames), timed, launches exact (1.5: K4 84, K1 42; 2B: K3
+    30) with ``attention_ref`` made to raise; K4 -> K1 and K3 at those
+    shapes against their plain versions on block 0's projections, beside
+    SDPA and the bound; each config cut to 2 blocks, the card in bf16
+    within twice the CPU's bf16 error of the CPU's fp32.
 
 Each serving or training phase sets the launch counts to 0 just before
 its requests or steps and reads them just after. The line before the
@@ -442,17 +473,28 @@ KERNELS["ms_deform_attn"] = dict(
     replaces="native/ms_deform_attn.cpp:24")
 KERNELS.update({f"flash_fwd_vggt_{k}": dict(KERNELS["flash_fwd"])
                 for k in ("vit_frame", "global", "trunk")})
+# K14, the w8a8 convolution of the int8 Wan VAE (XLA's int8 conv in JAX, not
+# Pallas; PyTorch has no CUDA int8 conv); and K4 -> K1 at CogVideoX1.5-5B's
+# 480x720 forward, K3 at CogVideoX-2B's
+KERNELS["conv_int8"] = dict(
+    label="K14", route="cuda", source="frameino_tpu_torch/csrc/conv_int8.cu",
+    replaces="frameino_tpu/ops/conv.py:48")
+KERNELS.update({k: dict(KERNELS[base]) for k, base in (
+    ("qk_ln_rope_cog15", "qk_ln_rope"),
+    ("flash_fwd_static_cog15", "flash_fwd_static"),
+    ("flash_fwd_cog2b", "flash_fwd"))})
 K5 = "qk_norm_rope_rstd"
 K7 = "dynamic_quantize_rows"
 NO_TRAIN = {"flash_attn_train_fwd": 0, "flash_attn_train_bwd": 0}
 # launches per denoise step of the 30-block Wan DiT at CFG batch 2
 PER_STEP = {"flash_fwd_static": 30, "qk_norm_rope": 60, "flash_fwd": 30,
             "qk_ln_rope": 0, **NO_TRAIN, K7: 0, K5: 0}
-# the tp phase's DiT: the full-width Wan DiT cut to 10 of its 30 blocks
-# (an earlier path run at a smaller depth: with 30 the whole script read
-# 1,323.7 s on an NVIDIA H100 80GB HBM3 at 700 W, the tp phase 339.0 s of
-# it, over the 1,100 s it is kept to)
-TP_BLOCKS = 10
+# the tp phase's DiT: the full-width Wan DiT cut to 5 of its 30 blocks
+# (an earlier path run at a smaller depth, every check kept: with 30 the
+# whole script read 1,323.7 s on an NVIDIA H100 80GB HBM3 at 700 W, the tp
+# phase 339.0 s of it; at 10, 953.2-1,059.2 s with the tp phase 122-156 s,
+# and the int8 VAE and CogVideoX 1.5 / 2B phases then came on top)
+TP_BLOCKS = 5
 # ... on every rank of a tp > 1 mesh (dp = 1 or 2) of that DiT: K5 in place
 # of K2, the counts of PER_STEP per block
 PER_STEP_TP = {k: n * TP_BLOCKS // 30
@@ -485,8 +527,9 @@ def per_train_step(blocks):
 # products are summed in another order, the qk statistic is an fp32 sum
 # (K2's is fp64), and each rank's static bound covers its own heads, so
 # bf16 roundings flip and the flips compound over the blocks (30 blocks:
-# 4.74e-3 at tp = 2; TP_BLOCKS = 10: 2.93e-3). A bias added on every rank
-# ((tp - 1) x bias too much) must exceed it (10 blocks: 6.20e-2).
+# 4.74e-3 at tp = 2; 10: 2.93e-3; 5: 2.28e-3). A bias added on every rank
+# ((tp - 1) x bias too much) must exceed it (10 blocks: 6.20e-2; 5:
+# 3.70e-2).
 TP_REL_L2 = 2e-2
 # the dp x tp meshes of the tp phase, one set of processes each; the
 # tp = 2 set also serves a request through the pipeline
@@ -566,12 +609,12 @@ def phase_device():
 
 
 def phase_build():
-    """nvcc of the ten CUDA sources, of K6's probe copy without its dQ
-    adds (and of --int8-parent's, --variants-parent's, --packed-parent's
-    and --msda-parent's files), one process each, all at once; returns the
-    extra libraries {INT8_PARENT: ..., VARIANTS_PARENT: ...,
-    PACKED_PARENT: ..., MSDA_PARENT: ..., K6_NO_DQ_ADDS: ...}, None for a
-    flag not given."""
+    """nvcc of the eleven CUDA sources, of K6's probe copy without its dQ
+    adds, of K14's five planted-fault copies (and of --int8-parent's,
+    --variants-parent's, --packed-parent's and --msda-parent's files), one
+    process each, all at once; returns the extra libraries {INT8_PARENT:
+    ..., VARIANTS_PARENT: ..., PACKED_PARENT: ..., MSDA_PARENT: ...,
+    K6_NO_DQ_ADDS: ..., <K14 fault>: ...}, None for a flag not given."""
     from frameino_tpu_torch.ops import attention as A
     t0 = time.time()
     parents = {}
@@ -585,6 +628,7 @@ def phase_build():
         if flag in sys.argv:
             parents[key] = (source, sys.argv[sys.argv.index(flag) + 1])
     parents[K6_NO_DQ_ADDS] = ("flash_attn_train", _k6_probe_source())
+    parents.update(_k14_probe_sources())
     try:
         built = A.build_cuda_libs(alts=parents or None)
     except RuntimeError as e:
@@ -599,7 +643,7 @@ def phase_build():
             or "Compiling entry" in line))
     return {key: built.get(key)
             for key in (INT8_PARENT, VARIANTS_PARENT, PACKED_PARENT,
-                        MSDA_PARENT, K6_NO_DQ_ADDS)}
+                        MSDA_PARENT, K6_NO_DQ_ADDS, *K14_FAULTS)}
 
 
 def _parent_triton():
@@ -2484,6 +2528,9 @@ def phase_serve(family):
         decode_modes = _decode_modes(rows, keep.videos) if twins else None
         del keep
         int8 = serve_int8(family, pipe, port, requests)
+        if family == "wan":
+            int8["int8_vae_request"] = serve_int8_vae(pipe, port, requests,
+                                                      server)
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -2706,14 +2753,15 @@ def _up3d_seeded_from_frames(orig):
     return chunk
 
 
-def phase_vae_paths(vae):
+def phase_vae_paths(vae, keep):
     """The full-width fp32 Wan2.2 VAE's paths at request (a)'s latents
     [1, 48, 13, 30, 52] and its 49x480x832 clip, TF32 off (the chunk
     protocol is exact, so the limits are the CPU tests'): streaming decode
     and encode against the full forms within STREAM_TOL, hybrid against
     tiled within HYBRID_TOL, and a planted fault (upsample3d's cache seeded
     from the first chunk's frames) beyond STREAM_TOL; seconds and peak of
-    each."""
+    each. ``keep`` receives the full and hybrid decodes and the full encode
+    (the int8 VAE's yardsticks)."""
     import torch
     from frameino_tpu_torch.models import wan_vae_streaming as VS
     from frameino_tpu_torch.models import wan_vae_tiling as VT
@@ -2745,12 +2793,14 @@ def phase_vae_paths(vae):
         fault = _allclose_report(bad, full, STREAM_TOL)
         rows["fault_up3d_cache_from_frames"] = dict(max_abs=fault[0],
                                                     over_limit=fault[1])
+        keep["decode"] = full
         del bad, full
         tiled = run("decode_tiled", lambda: VT.tiled_decode(vae, z))
         got = run("decode_hybrid", lambda: VT.hybrid_decode(vae, z))
         rows["decode_hybrid"].update(zip(
             ("max_abs", "over_limit"),
             _allclose_report(got, tiled, HYBRID_TOL)))
+        keep["decode_hybrid"] = got
         del got, tiled, z
         torch.cuda.empty_cache()
         video = torch.tanh(torch.randn(1, 3, 49, 480, 832, device="cuda",
@@ -2763,6 +2813,7 @@ def phase_vae_paths(vae):
             _allclose_report(got, full, STREAM_TOL)))
         got = run("encode_hybrid", lambda: VT.hybrid_encode(vae, video))
         rows["encode_hybrid"]["rel_l2_vs_full"] = _rel_l2(got, full)
+        keep["encode"] = full
         del got, full, video
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
@@ -3181,11 +3232,13 @@ def phase_demo(pipe, umt5):
     return row
 
 
-def phase_wan_default():
+def phase_wan_default(parents):
     """The slice of the pipeline's default shape: K1-K3 at 19,360 tokens,
     the VAE's streaming / tiled / hybrid paths, the checkpoint round trip,
-    the full-width UMT5-XXL, the 704x1280x81 prompt request and, on that
-    request's pipeline and UMT5, the demo (phase 28)."""
+    the int8 VAE at the same latents and K14 at each of its conv shapes
+    (phases 29-30), the full-width UMT5-XXL, the 704x1280x81 prompt
+    request and, on that request's pipeline and UMT5, the demo (phase
+    28)."""
     import dataclasses
     import numpy as np
     import torch
@@ -3200,10 +3253,14 @@ def phase_wan_default():
         latents_mean=tuple(float(x) for x in rs.uniform(-1, 1, 48)),
         latents_std=tuple(float(x) for x in rs.uniform(0.5, 3, 48)))
     vae = wan_vae.init_wan_vae(cfg, torch.Generator("cuda").manual_seed(48))
-    vae_rows = phase_vae_paths(vae)
+    fp32 = {}
+    vae_rows = phase_vae_paths(vae, fp32)
     ckpt = phase_checkpoint(vae)
-    del vae
+    vae_int8, k14_shapes = phase_vae_int8(vae, fp32)
+    del vae, fp32
+    gc.collect()
     torch.cuda.empty_cache()
+    results.update(phase_kernels_k14(k14_shapes, parents))
     umt5, umt5_row = phase_umt5()
     request, totals, pipe = phase_serve_704(umt5)
     demo = phase_demo(pipe, umt5)
@@ -3211,7 +3268,8 @@ def phase_wan_default():
     gc.collect()
     torch.cuda.empty_cache()
     return results, dict(kernel_checks=checks, vae_paths=vae_rows,
-                         checkpoint=ckpt, umt5=umt5_row, request=request,
+                         vae_int8=vae_int8, checkpoint=ckpt, umt5=umt5_row,
+                         request=request,
                          launches=totals, demo=demo,
                          seconds=time.time() - t0)
 
@@ -7026,6 +7084,836 @@ def phase_scorers():
 PHASE_SECONDS = {}
 
 
+# ---------------------------------------------------------------------------
+# the int8 Wan VAE: K14 (w8a8 convolution) and the VAE's int8 walks
+# ---------------------------------------------------------------------------
+
+# planted faults of K14, each an edit of one statement of
+# csrc/conv_int8.cu built beside it (phase_build) and required to differ
+# from the plain version where it applies: the last 32-channel chunk of K
+# dropped; the causal padding at the back of time; channel n+1's weight
+# scale; a stride-2 window one row off; the epilogue's product rounded
+# before the bias (the plain order, JAX's jitted one, is fused)
+K14_FAULTS = {
+    "k14_k_chunk_dropped": ("const int nk = taps * cchunks;",
+                            "const int nk = taps * cchunks - 1;"),
+    "k14_causal_back": ("ti0 = to * g.st - g.pt;", "ti0 = to * g.st;"),
+    "k14_scale_next": ("__fmul_rn(sx, scale[n])",
+                       "__fmul_rn(sx, scale[min(n + 1, g.Cout - 1)])"),
+    "k14_stride2_row": ("hi0 = ho * g.sh - g.ph;",
+                        "hi0 = ho * g.sh - g.ph + (g.sh == 2);"),
+    "k14_unfused": ("bias != nullptr ? __fmaf_rn(a, sn, bias[n])",
+                    "bias != nullptr ? __fadd_rn(__fmul_rn(a, sn), bias[n])"),
+}
+# the output frames (or, for the 2D convs' one-frame [B*T, ...] inputs,
+# images) the plain version computes of each shape: its fp64 product
+# over a whole decoder layer would take seconds
+K14_PLAIN_SLICE = 2
+# int8 VAE against the fp32 VAE by JAX's own measures (mean abs relative
+# and correlation, tests/test_quant.py:181-199), and int8 streaming
+# against int8 full (:216-232). JAX's limits (0.06 decode, 0.03 encode,
+# 0.99; 0.05 streaming) are for its tiny VAE; at full width on seeded
+# random weights the first readings (NVIDIA H100 80GB HBM3, 700 W) were
+# decode 5.53e-2, encode 5.03e-2, correlation >= 0.9984, and streaming
+# against full 7.25e-2 / 6.47e-2 (two walks each a quantization apart from
+# fp32: about sqrt(2) x 5.5e-2). The limits are 1.5x those readings; the
+# hybrid decode is held against the fp32 hybrid decode (the tile seams
+# differ from the full decode's by design) at the decode's limit.
+VAE_INT8_DECODE_REL, VAE_INT8_ENCODE_REL, VAE_INT8_CORR = 0.083, 0.075, 0.99
+VAE_INT8_STREAM_REL = {"decode_streaming": 0.109, "encode_streaming": 0.097}
+# an int8 walk must also sit at least this far from fp32 (and streaming
+# from full int8): a walk that quantized nothing reads 0 here, on the same
+# card and float path. The first readings over 1.5.
+VAE_INT8_MIN_REL, VAE_INT8_STREAM_MIN_REL = 0.03, 0.04
+# the card-vs-CPU int8 decode: the full-width VAE at latents [1, 48, 2, 2,
+# 2] (5 frames of 32x32), TF32 off, the same int8 weights on both sides.
+# Every K14 call of the card's decode must equal the plain version on that
+# call's own input (max abs 0). The float steps between the convs round
+# apart on the two sides, and a per-tensor scale turns that into whole
+# code steps downstream (the codes each call's input takes on the two
+# sides are counted apart), so the decoder's outputs are held where that
+# has not grown yet: at VAE_INT8_CPU_STAGE, within VAE_INT8_CPU_REL, which
+# the control (the card's fp32 decode against the CPU's int8 one) must
+# read over. First readings (NVIDIA H100 80GB HBM3, 700 W): codes apart
+# 0, 0, 1, 71, 294 over the first five calls, 20-59% of them in the last
+# up block; the mid block's output 2.34e-3 apart, the control 1.93e-2;
+# the video 4.87e-2, the control 4.59e-2 (whole videos cannot be held
+# apart from fp32). The limit is 1.5x the mid block's reading.
+VAE_INT8_CPU_LATENTS = (1, 48, 2, 2, 2)
+VAE_INT8_CPU_STAGE, VAE_INT8_CPU_REL = "decoder.mid_block", 3.5e-3
+
+
+def _k14_probe_sources():
+    """build/<fault>.cu: csrc/conv_int8.cu with one planted fault each."""
+    with open(os.path.join(REPO, "frameino_tpu_torch", "csrc",
+                           "conv_int8.cu")) as f:
+        src = f.read()
+    out = {}
+    for name, (old, new) in K14_FAULTS.items():
+        check(src.count(old) == 1, f"K14 fault {name}: '{old}' is not one "
+                                   f"statement of csrc/conv_int8.cu")
+        path = os.path.join(REPO, "build", f"{name}.cu")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.write(src.replace(old, new))
+        out[name] = ("conv_int8", path)
+    return out
+
+
+class _ConvLog:
+    """Records each int8 conv call of ``ops/conv`` (x's shape, the weight's
+    in torch's layout [Cout, C, kt, kh, kw], stride, padding) while open,
+    and hands each call's arguments and output to ``tap`` if one is given;
+    the calls go through unchanged."""
+
+    def __init__(self, tap=None):
+        self.tap = tap
+
+    def __enter__(self):
+        from frameino_tpu_torch.ops import conv as C
+        self.C, self.fn = C, C.conv_int8
+        self.calls = collections.Counter()
+
+        def logged(x, weight_q, scale, bias=None, stride=(1, 1, 1),
+                   padding=((0, 0),) * 3):
+            self.calls[(tuple(x.shape), (weight_q.shape[0], x.shape[1],
+                                         *weight_q.shape[1:4]),
+                        tuple(stride), tuple(map(tuple, padding)))] += 1
+            out = self.fn(x, weight_q, scale, bias, stride, padding)
+            if self.tap is not None:
+                self.tap(x, weight_q, scale, bias, stride, padding, out)
+            return out
+        C.conv_int8 = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.C.conv_int8 = self.fn
+        return False
+
+
+def _vae_measures(got, want):
+    """JAX's int8 measures: mean abs relative and correlation."""
+    import torch
+    got, want = got.float().flatten(), want.float().flatten()
+    rel = ((got - want).abs().mean() / (want.abs().mean() + 1e-8)).item()
+    corr = torch.corrcoef(torch.stack([got, want]))[0, 1].item()
+    return rel, corr
+
+
+def phase_vae_int8(vae, fp32):
+    """The full-width Wan2.2 VAE quantized in place (K14 on every
+    resblock and resampler conv) at request (a)'s latents and the
+    49x480x832 clip, TF32 off, beside phase 5a's fp32 rows: full,
+    streaming and hybrid decode, full and streaming encode, against the
+    fp32 VAE's full and hybrid outputs (``fp32``) with JAX's measures,
+    streaming against full int8; each conv call's shape logged for K14's phase;
+    then a card-vs-CPU int8 decode at a size cut."""
+    import torch
+    from frameino_tpu_torch.models import quant
+    from frameino_tpu_torch.models import wan_vae_streaming as VS
+    from frameino_tpu_torch.models import wan_vae_tiling as VT
+    from frameino_tpu_torch.ops.conv_int8 import conv_int8
+    cpu_sd = {k: v.cpu() for k, v in vae.state_dict().items()}
+    quant.quantize_wan_vae_int8(vae)
+    n_conv = len(quant.vae_quantized_layer_names(vae))
+    g = torch.Generator("cuda").manual_seed(48)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    rows, shapes = {}, {}
+    try:
+        z = torch.randn(VAE_LATENTS, device="cuda", generator=g)
+
+        def run(name, fn, log=None):
+            before = conv_int8.launches
+            if log is None:
+                out, sec, peak = _timed(fn)
+            else:
+                with _ConvLog() as lg:
+                    out, sec, peak = _timed(fn)
+                shapes[log] = lg.calls
+            rows[name] = dict(seconds=sec, peak_gib=peak,
+                              k14_launches=conv_int8.launches - before)
+            print(f"vae int8 {name}: {sec:.2f} s, peak {peak:.2f} GiB, "
+                  f"{rows[name]['k14_launches']} K14 launches")
+            check(bool(torch.isfinite(out).all()),
+                  f"vae int8 {name}: non-finite output")
+            return out
+
+        full = run("decode_full", lambda: vae.decode(z), log="decoder")
+        rows["decode_full"].update(zip(("rel_vs_fp32", "corr_vs_fp32"),
+                                       _vae_measures(full, fp32["decode"])))
+        got = run("decode_streaming", lambda: VS.streaming_decode(vae, z))
+        rows["decode_streaming"]["rel_vs_int8_full"] = \
+            _vae_measures(got, full)[0]
+        del got
+        got = run("decode_hybrid", lambda: VT.hybrid_decode(vae, z))
+        rows["decode_hybrid"].update(zip(
+            ("rel_vs_fp32", "corr_vs_fp32"),
+            _vae_measures(got, fp32["decode_hybrid"])))
+        del got, full, z
+        torch.cuda.empty_cache()
+        video = torch.tanh(torch.randn(1, 3, 49, 480, 832, device="cuda",
+                                       generator=g))
+        full = run("encode_full", lambda: vae.encode_moments(video),
+                   log="encoder")
+        rows["encode_full"].update(zip(("rel_vs_fp32", "corr_vs_fp32"),
+                                       _vae_measures(full, fp32["encode"])))
+        got = run("encode_streaming",
+                  lambda: VS.streaming_encode_moments(vae, video))
+        rows["encode_streaming"]["rel_vs_int8_full"] = \
+            _vae_measures(got, full)[0]
+        del got, full, video
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.cuda.empty_cache()
+    rows["quantized_convs"] = n_conv
+    rows["cpu"] = _vae_int8_vs_cpu(vae, cpu_sd)
+    print("vae int8: " + json.dumps(rows))
+    for name, limit in (("decode_full", VAE_INT8_DECODE_REL),
+                        ("decode_hybrid", VAE_INT8_DECODE_REL),
+                        ("encode_full", VAE_INT8_ENCODE_REL)):
+        check(VAE_INT8_MIN_REL <= rows[name]["rel_vs_fp32"] <= limit
+              and rows[name]["corr_vs_fp32"] >= VAE_INT8_CORR,
+              f"vae int8 {name}: {rows[name]} against the fp32 VAE (limits "
+              f"{VAE_INT8_MIN_REL} to {limit}, correlation {VAE_INT8_CORR})")
+    for name, limit in VAE_INT8_STREAM_REL.items():
+        check(VAE_INT8_STREAM_MIN_REL <= rows[name]["rel_vs_int8_full"]
+              <= limit,
+              f"vae int8 {name}: {rows[name]['rel_vs_int8_full']:.3e} from "
+              f"the full int8 walk (limits {VAE_INT8_STREAM_MIN_REL} to "
+              f"{limit})")
+    check(rows["decode_full"]["k14_launches"] > 0,
+          "vae int8: K14 was not launched by the decode")
+    return rows, shapes
+
+
+def _vae_int8_vs_cpu(vae, cpu_sd):
+    """The card's int8 decode (``vae``, quantized on the card) against the
+    CPU's, at VAE_INT8_CPU_LATENTS, TF32 off: the two quantizations of the
+    fp32 weights ``cpu_sd`` bit-equal (beside the channels whose scale the
+    host-scalar division of CUDA would move); every K14 call bit-equal to
+    the plain version on its own input; each call's input codes counted
+    apart, card against CPU; the decoder's stage outputs and the video,
+    card int8 against CPU int8, beside the control (card fp32 against CPU
+    int8) and the CPU's int8-vs-fp32 distance."""
+    import torch
+    from frameino_tpu_torch.models import quant, wan_vae
+    from frameino_tpu_torch.ops import conv_int8 as K
+    cpu = {}
+    for name in ("fp32", "int8"):
+        cpu[name] = wan_vae.WanVAE(vae.cfg, device="meta")
+        cpu[name].load_state_dict(cpu_sd, assign=True)
+        cpu[name].eval()
+    quant.quantize_wan_vae_int8(cpu["int8"])
+    names = quant.vae_quantized_layer_names(cpu["int8"])
+    want_sd, card_sd = cpu["int8"].state_dict(), vae.state_dict()
+    weights_apart = [k for k, v in want_sd.items()
+                     if not torch.equal(card_sd[k].cpu(), v)]
+    moved = 0
+    for n in names:
+        w = cpu_sd[f"{n}.weight"].cuda()
+        by_host_scalar = torch.clamp_min(
+            w.abs().amax(dim=tuple(range(1, w.ndim))) / 127.0, 1e-12)
+        moved += int((by_host_scalar.cpu() != want_sd[f"{n}.scale"]).sum())
+    channels = sum(want_sd[f"{n}.scale"].numel() for n in names)
+    card32 = wan_vae.WanVAE(vae.cfg, device="meta")
+    card32.load_state_dict({k: v.cuda() for k, v in cpu_sd.items()},
+                           assign=True)
+    card32.eval()
+    stages = ["decoder.mid_block"] + [
+        f"decoder.up_blocks.{i}" for i in range(len(vae.decoder.up_blocks))]
+    outs = {}
+
+    def decode(key, model, z, tap=None):
+        store = outs[key] = {}
+        hooks = [model.get_submodule(n).register_forward_hook(
+            lambda m, i, o, n=n: store.__setitem__(n, o.detach().cpu()))
+            for n in stages]
+        try:
+            with _ConvLog(tap):
+                store["video"] = model.decode(z).cpu()
+        finally:
+            for h in hooks:
+                h.remove()
+    card_calls, cpu_calls = [], []
+
+    def card_tap(x, weight_q, scale, bias, stride, padding, out):
+        xc = x.cpu()
+        want = K.conv_int8_ref(xc, weight_q.cpu(), scale.cpu(),
+                               None if bias is None else bias.cpu(),
+                               stride, padding)
+        codes, s_x = K.quantize_activation_ref(xc)
+        card_calls.append(dict(max_abs=(out.cpu() - want).abs().max().item(),
+                               codes=codes.to(torch.int8), s_x=s_x.item()))
+
+    def cpu_tap(x, *args):
+        codes, s_x = K.quantize_activation_ref(x)
+        cpu_calls.append(dict(codes=codes.to(torch.int8), s_x=s_x.item()))
+    z = torch.randn(VAE_INT8_CPU_LATENTS,
+                    generator=torch.Generator().manual_seed(49))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        before = K.conv_int8.launches
+        decode("card", vae, z.cuda(), card_tap)
+        launches = K.conv_int8.launches - before
+        decode("card_fp32", card32, z.cuda())
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    del card32
+    t0 = time.time()
+    decode("cpu", cpu["int8"], z, cpu_tap)
+    decode("cpu_fp32", cpu["fp32"], z)
+    cpu_s = time.time() - t0
+    flips = [dict(shape=list(a["codes"].shape),
+                  apart=int((a["codes"] != b["codes"]).sum()),
+                  most=int((a["codes"].short() - b["codes"].short())
+                           .abs().max()),
+                  same_scale=a["s_x"] == b["s_x"])
+             for a, b in zip(card_calls, cpu_calls)
+             if a["codes"].shape == b["codes"].shape]
+    depth = {}
+    for n in stages + ["video"]:
+        want = outs["cpu"][n]
+        depth[n] = dict(
+            int8_card_vs_cpu=_vae_measures(outs["card"][n], want)[0],
+            control_fp32_card_vs_int8_cpu=_vae_measures(
+                outs["card_fp32"][n], want)[0],
+            cpu_int8_vs_fp32=_vae_measures(want, outs["cpu_fp32"][n])[0],
+            fp32_card_vs_cpu=_vae_measures(outs["card_fp32"][n],
+                                           outs["cpu_fp32"][n])[0])
+    rel, corr = _vae_measures(outs["card"]["video"], outs["cpu"]["video"])
+    row = dict(latents=list(z.shape), weights_apart=weights_apart,
+               scales_moved_by_host_scalar_division=moved,
+               scale_channels=channels, k14_calls=len(card_calls),
+               k14_launches=launches, cpu_calls=len(cpu_calls),
+               call_max_abs=max(c["max_abs"] for c in card_calls),
+               codes_apart=[f["apart"] for f in flips],
+               codes_apart_most=max(f["most"] for f in flips),
+               codes_per_call=[int(c["codes"].numel()) for c in cpu_calls],
+               scales_apart=sum(not f["same_scale"] for f in flips),
+               depth=depth, rel=rel, corr=corr,
+               max_abs=(outs["card"]["video"] - outs["cpu"]["video"]).abs()
+               .max().item(), cpu_s=cpu_s)
+    print(f"vae int8 card vs CPU at {list(z.shape)}: weights apart "
+          f"{len(weights_apart)} (the host-scalar division would move "
+          f"{moved} of {channels} scales); {len(card_calls)} K14 calls, each "
+          f"against the plain version on its own input: max abs "
+          f"{row['call_max_abs']:.3e}; input codes apart per call "
+          f"{row['codes_apart']} of {row['codes_per_call']} (at most "
+          f"{row['codes_apart_most']} steps; {row['scales_apart']} scales "
+          f"apart)")
+    for n, d in depth.items():
+        print(f"vae int8 card vs CPU, {n}: int8 {d['int8_card_vs_cpu']:.3e}, "
+              f"control (fp32 card vs int8 CPU) "
+              f"{d['control_fp32_card_vs_int8_cpu']:.3e}, CPU int8 vs fp32 "
+              f"{d['cpu_int8_vs_fp32']:.3e}, fp32 card vs CPU "
+              f"{d['fp32_card_vs_cpu']:.3e}")
+    print(f"vae int8 card vs CPU, video: correlation {corr:.6f}, max abs "
+          f"{row['max_abs']:.3e}")
+    check(not weights_apart, f"vae int8: the card's int8 weights differ from "
+                             f"the CPU's at {weights_apart[:4]}")
+    check(len(card_calls) == len(cpu_calls) == launches > 0
+          and len(flips) == launches,
+          f"vae int8: {launches} K14 launches, {len(card_calls)} card and "
+          f"{len(cpu_calls)} CPU int8 calls of matching shapes "
+          f"{len(flips)}")
+    check(row["call_max_abs"] == 0,
+          f"vae int8: a K14 call of the decode differs from the plain version "
+          f"on its input: {[c['max_abs'] for c in card_calls]}")
+    held = depth[VAE_INT8_CPU_STAGE]
+    check(held["int8_card_vs_cpu"] <= VAE_INT8_CPU_REL
+          < held["control_fp32_card_vs_int8_cpu"],
+          f"vae int8: at {VAE_INT8_CPU_STAGE} the card's int8 decode is "
+          f"{held['int8_card_vs_cpu']:.3e} from the CPU's and the fp32 "
+          f"control {held['control_fp32_card_vs_int8_cpu']:.3e} (limit "
+          f"{VAE_INT8_CPU_REL}, which the control must exceed)")
+    check(bool(torch.isfinite(outs["card"]["video"]).all()),
+          "vae int8: the card's decode is not finite")
+    return row
+
+
+def _k14_ops(xs, ws):
+    """2 M N K of a conv of x [B, C, T, H, W] by w [N, C, kt, kh, kw] at
+    stride 1 (a ranking only)."""
+    return 2 * xs[0] * xs[2] * xs[3] * xs[4] * ws[0] * ws[1] * ws[2] \
+        * ws[3] * ws[4]
+
+
+def _k14_inputs(xs, ws, g):
+    """Seeded operands of one conv shape (``ws`` in torch's layout): x with
+    one value far out (the scale is the tensor's absmax), int8 codes in
+    the kernel's layout, fp32 scales and biases."""
+    import torch
+    from frameino_tpu_torch.ops import conv_int8 as K
+    x = torch.randn(xs, device="cuda", generator=g)
+    x.view(-1)[x.numel() // 3] = 9.0
+    w = K.kernel_weight(torch.randint(-127, 128, ws, device="cuda",
+                                      generator=g, dtype=torch.int8))
+    scale = torch.rand(ws[0], device="cuda", generator=g) * 1e-4 + 1e-5
+    bias = torch.randn(ws[0], device="cuda", generator=g) * 0.1
+    return x, w, scale, bias
+
+
+def _k14_slice(x, kt, stride, pads, n_out):
+    """(x's slice, its padding, the output's (batch, frame) slices) of the
+    first ``n_out`` output frames, or images when x has one frame."""
+    (t0, _), hp, wp = pads
+    if x.shape[2] == 1:
+        return x[:n_out], pads, (slice(0, n_out), slice(None))
+    n_in = max(1, (n_out - 1) * stride[0] + kt - t0)
+    if n_in >= x.shape[2]:
+        return x, pads, (slice(None), slice(None))
+    return (x[:, :, :n_in], ((t0, 0), hp, wp),
+            (slice(None), slice(0, n_out)))
+
+
+def _k14_check(x, w, scale, bias, stride, pads, out):
+    """max abs of the kernel's output slice against the plain version on
+    the same slice (with the activation scale of the whole x)."""
+    from frameino_tpu_torch.ops import conv_int8 as K
+    xs, spads, (bsel, tsel) = _k14_slice(x, w.shape[1], stride, pads,
+                                         K14_PLAIN_SLICE)
+    want = K.conv_int8_ref(xs, w, scale, bias, stride, spads,
+                           s_x=K.activation_scale(x))
+    got = out[bsel, :, tsel]
+    check(got.shape == want.shape, f"K14: the plain slice {tuple(want.shape)}"
+                                   f" is not the kernel's {tuple(got.shape)}")
+    return (got - want).abs().max().item()
+
+
+def _ms(fn, iters=2):
+    """CUDA-event ms of fn after one warm-up launch."""
+    import torch
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _k14_row(key, count, g, fp32=False):
+    """K14 at one logged conv shape: exact against the plain version on a
+    slice, timed beside its bound, its own igemm and the float cuDNN conv
+    at the same shape (TF32 and bf16; with ``fp32``, fp32 with TF32 off
+    too: 0.4-1.2 s a call at the decoder's widest shapes, so only where
+    the kernels line reads it)."""
+    import torch
+    import torch.nn.functional as F
+    from frameino_tpu_torch.ops import conv_int8 as K
+    xs, ws, stride, pads = key
+    x, w, scale, bias = _k14_inputs(xs, ws, g)
+    out = K.conv_int8_cuda(x, w, scale, bias, stride, pads)
+    err = _k14_check(x, w, scale, bias, stride, pads, out)
+    B, C = xs[:2]
+    To, Ho, Wo = out.shape[2:]
+    M, N, Kd = B * To * Ho * Wo, ws[0], C * ws[2] * ws[3] * ws[4]
+    bound = bound_ms(2 * M * N * Kd, x.numel() * 4 + w.numel()
+                     + out.numel() * 4 + 8 * N, PEAK_INT8_OPS)
+    # the igemm alone, on operands quantized by the library's own passes
+    L = K.lib("conv_int8")
+    stream = torch.cuda.current_stream().cuda_stream
+    T, H, W = xs[2:]
+    cp = w.shape[4]
+    amax = torch.zeros(1, dtype=torch.int32, device="cuda")
+    xq = torch.empty((B, T, H, W, cp), dtype=torch.int8, device="cuda")
+    check(L.conv_int8_absmax(x.data_ptr(), x.numel(), amax.data_ptr(),
+                             stream) == 0
+          and L.conv_int8_quantize(x.data_ptr(), xq.data_ptr(),
+                                   amax.data_ptr(), B, C, cp, T * H * W,
+                                   stream) == 0, "K14: a quantize pass failed")
+    (t0, t1), (h0, h1), (w0, w1) = pads
+
+    def igemm():
+        L.conv_int8_igemm(xq.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                          bias.data_ptr(), amax.data_ptr(), out.data_ptr(),
+                          B, T, H, W, cp, N, *ws[2:], *stride, t0, h0, w0,
+                          To, Ho, Wo, stream)
+    xp = F.pad(x, (w0, w1, h0, h1, t0, t1))
+    wf = K.torch_weight(w, C).float()
+
+    def cudnn(dtype, tf32):
+        a, b = xp.to(dtype), wf.to(dtype)
+        old = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            return _ms(lambda: F.conv3d(a, b, bias.to(dtype),
+                                        stride=stride), 1)
+        finally:
+            torch.backends.cudnn.allow_tf32 = old
+    xs_, spads, _ = _k14_slice(x, ws[2], stride, pads, K14_PLAIN_SLICE)
+    row = dict(
+        x=list(xs), weight=list(ws), stride=list(stride),
+        padding=[list(q) for q in pads], calls=count, max_abs_err=err,
+        ms=_ms(lambda: K.conv_int8_cuda(x, w, scale, bias, stride, pads)),
+        igemm_ms=_ms(igemm), bound_ms=bound[0], bound_by=bound[1],
+        tera_ops=2 * M * N * Kd / 1e12,
+        plain_ms_on_slice=_ms(lambda: K.conv_int8_ref(
+            xs_, w, scale, bias, stride, spads), 1),
+        cudnn_fp32_ms=cudnn(torch.float32, False) if fp32 else None,
+        cudnn_tf32_ms=cudnn(torch.float32, True),
+        cudnn_bf16_ms=cudnn(torch.bfloat16, False))
+    del x, w, out, xp, wf, xq
+    torch.cuda.empty_cache()
+    return row
+
+
+def _k14_fault_readings(parents, decoder, encoder, g):
+    """Each planted fault's max abs from the plain version, at a shape where
+    it applies: the decoder's smallest causal conv of three frames (a
+    padded front) for all but the stride-2 one, the encoder's stride-2 2D
+    conv for it."""
+    from frameino_tpu_torch.ops import conv_int8 as K
+    causal = min((k for k in decoder if k[1][2] == 3 and k[3][0][0] > 0),
+                 key=lambda k: k[0][2] * k[0][3] * k[0][4])
+    strided = next(k for k in encoder if k[2][1] == 2)
+    out = {}
+    for name, lib in parents.items():
+        key = strided if name == "k14_stride2_row" else causal
+        xs, ws, stride, pads = key
+        x, w, scale, bias = _k14_inputs(xs, ws, g)
+        got = K.conv_int8_cuda(x, w, scale, bias, stride, pads, library=lib)
+        out[name] = _k14_check(x, w, scale, bias, stride, pads, got)
+        del x, w, got
+    print("K14 planted faults (max abs from the plain version): "
+          + ", ".join(f"{n} {v:.3e}" for n, v in out.items()))
+    check(all(v > 0 for v in out.values()),
+          f"K14: a planted fault matches the plain version: {out}")
+    return out
+
+
+def phase_kernels_k14(shapes, parents):
+    """K14 against its plain version at every distinct conv shape the int8
+    decoder (request (a)'s latents) and encoder (the 49x480x832 clip) ran
+    in phase_vae_int8, max abs 0 required; timed beside its bound and the
+    float cuDNN conv; the planted faults rejected; registers and spills."""
+    import torch
+    g = torch.Generator("cuda").manual_seed(140)
+    report = _build_report("K14", "conv_int8", ("absmax_kernel",
+                                                 "quantize_kernel",
+                                                 "igemm_kernel"),
+                           lambda tag: None)
+    rows = {}
+    # the kernels line's shape: the decoder's largest conv by operations
+    head_key = max(shapes["decoder"], key=lambda k: _k14_ops(*k[:2]))
+    for walk in ("decoder", "encoder"):
+        for i, (key, count) in enumerate(sorted(shapes[walk].items())):
+            row = _k14_row(key, count, g, fp32=key == head_key)
+            rows[f"{walk}{i}"] = row
+            print(f"K14 {walk} {row['x']} * {row['weight']} s{row['stride']}"
+                  f" p{row['padding']} x{count}: max abs "
+                  f"{row['max_abs_err']:.1e}, {row['ms']:.3f} ms (igemm "
+                  f"{row['igemm_ms']:.3f}; bound {row['bound_ms']:.3f}, "
+                  f"{row['bound_by']}); cuDNN fp32 {row['cudnn_fp32_ms']}, "
+                  f"TF32 {row['cudnn_tf32_ms']:.3f}, bf16 "
+                  f"{row['cudnn_bf16_ms']:.3f}")
+    bad = {k: r["max_abs_err"] for k, r in rows.items() if r["max_abs_err"]}
+    check(not bad, f"K14 differs from its plain version: {bad}")
+    faults = _k14_fault_readings(
+        {n: parents[n] for n in K14_FAULTS}, shapes["decoder"],
+        shapes["encoder"], g)
+    dec = [r for k, r in rows.items() if k.startswith("decoder")]
+    head = next(r for r in dec if r["cudnn_fp32_ms"] is not None)
+    sums = {f"decode_{k}": sum(r[k] * r["calls"] for r in dec)
+            for k in ("ms", "igemm_ms", "bound_ms", "cudnn_tf32_ms",
+                      "cudnn_bf16_ms")}
+    print("K14 over one int8 full decode (each shape times its calls): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in sums.items()))
+    result = dict(max_abs_err=max(r["max_abs_err"] for r in rows.values()),
+                  ms=head["ms"], plain_ms=head["plain_ms_on_slice"],
+                  bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                  library_ms=None, igemm_ms=head["igemm_ms"],
+                  cudnn_fp32_ms=head["cudnn_fp32_ms"],
+                  cudnn_tf32_ms=head["cudnn_tf32_ms"],
+                  cudnn_bf16_ms=head["cudnn_bf16_ms"], shape=head["x"],
+                  weight=head["weight"], faults=faults, build=report,
+                  shapes=rows, **sums)
+    return {"conv_int8": result}
+
+
+def serve_int8_vae(pipe, port, requests, server):
+    """Request (a) at 2 steps through ``WanImageToVideoPipeline(...,
+    quantize_vae=True)`` on the serving pipeline's int8 DiT: K1-K3 and K7
+    launches exact per step, K14's by conv shape; the frames finite and
+    not flat."""
+    import torch
+    from frameino_tpu_torch.ops import attention as A
+    from frameino_tpu_torch.ops.conv_int8 import conv_int8
+    from frameino_tpu_torch.pipelines.wan_i2v import WanImageToVideoPipeline
+    pipe8 = WanImageToVideoPipeline(pipe.dit, pipe.vae, pipe.pipe_cfg,
+                                    text_encoder_fn=pipe.text_encoder_fn,
+                                    quantize_vae=True)
+    server.pipeline = keep = _KeepVideos(pipe8)
+    req = dict(requests[0][1], num_inference_steps=2)
+    A.reset_launch_counts()
+    conv_int8.launches = 0
+    with _ConvLog() as lg, _ShapeLog() as sl:
+        rows = serve_requests(port, [("a_int8_vae", req)], PER_STEP_INT8,
+                              PER_REQUEST_INT8, pipe=pipe8)
+    server.pipeline = pipe
+    video = keep.videos[0]
+    video = video if torch.is_tensor(video) else torch.as_tensor(video)
+    std = video.float().std().item()
+    row = dict(rows[0], k14_launches=conv_int8.launches,
+               k14_by_shape={f"{list(k[0])} * {list(k[1])} s{list(k[2])}": n
+                             for k, n in lg.calls.items()},
+               attention_by_shape={
+                   name: {f"{list(a)} * {list(b)}": n
+                          for (a, b), n in c.items()}
+                   for name, c in sl.counts.items() if c},
+               frames_std=std)
+    print(f"request a, int8 DiT + int8 VAE, 2 steps: {row['seconds']:.2f} s, "
+          f"K14 {conv_int8.launches} launches over {len(lg.calls)} shapes, "
+          f"frames std {std:.4f}; K1-K3 by shape "
+          f"{json.dumps(row['attention_by_shape'])}")
+    check(bool(torch.isfinite(video.float()).all()) and std > 1e-3,
+          f"request a (int8 VAE): frames non-finite or flat (std {std:.3e})")
+    check(conv_int8.launches > 0 and conv_int8.launches == sum(
+        lg.calls.values()), "request a (int8 VAE): K14 was not launched on "
+                            "every int8 conv")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# CogVideoX 1.5 and 2B (queue 1 item 14)
+# ---------------------------------------------------------------------------
+
+# the released configs' widths (JAX defines no constants for them):
+# CogVideoX1.5-5B-I2V (48 x 64 heads, 42 layers, in 32 = 16 noisy + 16
+# image latents, patch_size_t 2, ofs 512, RoPE, no learned positions) and
+# CogVideoX-2B (30 x 64 heads, 30 layers, in 16, sincos table, no RoPE)
+COG15 = dict(num_attention_heads=48, attention_head_dim=64, in_channels=32,
+             out_channels=16, time_embed_dim=512, ofs_embed_dim=512,
+             text_embed_dim=4096, num_layers=42, sample_width=300,
+             sample_height=300, sample_frames=81, patch_size=2,
+             patch_size_t=2, use_rotary_positional_embeddings=True,
+             use_learned_positional_embeddings=False)
+COG2B = dict(num_attention_heads=30, attention_head_dim=64, in_channels=16,
+             out_channels=16, time_embed_dim=512, text_embed_dim=4096,
+             num_layers=30, sample_width=90, sample_height=60,
+             sample_frames=49, patch_size=2,
+             use_rotary_positional_embeddings=False,
+             use_learned_positional_embeddings=False)
+# one CFG forward (batch 2) at 480x720: 1.5 on 13 latent frames padded to
+# 14 (the public 1.5 pipeline pads to a multiple of patch_size_t), 2B on
+# 13 (49 frames); and the 2-block card-vs-CPU cut on a small grid
+COG_CONFIGS = {"cog15": (COG15, 14), "cog2b": (COG2B, 13)}
+COG_SMALL = dict(frames=2, height=16, width=16)
+
+
+def _cog_args(cfg, frames, height, width, batch, g, device):
+    """(x, text, t, rope or None, ofs or None) of one forward."""
+    import torch
+    from frameino_tpu_torch.models import cogvideox_dit as CD
+    x = torch.randn(batch, frames, cfg.in_channels, height, width,
+                    device=device, generator=g)
+    text = torch.randn(batch, COG_L_TEXT, cfg.text_embed_dim, device=device,
+                       generator=g)
+    t = torch.tensor([999.0, 500.0][:batch], device=device)
+    rope = None
+    if cfg.use_rotary_positional_embeddings:
+        rope = CD.cogvideox_rope(cfg, frames // (cfg.patch_size_t or 1),
+                                 height, width, device=device)
+    ofs = (torch.full((batch,), 2.0, device=device)
+           if cfg.ofs_embed_dim else None)
+    return x, text, t, rope, ofs
+
+
+@contextlib.contextmanager
+def _no_attention_ref():
+    """attention_ref made to raise: the card's main path must not reach
+    the plain attention."""
+    from frameino_tpu_torch.ops import attention as A
+    orig = A.attention_ref
+
+    def refuse(*a, **kw):
+        raise AssertionError("attention_ref on the card's main path")
+    A.attention_ref = refuse
+    try:
+        yield
+    finally:
+        A.attention_ref = orig
+
+
+def _cog_config_vs_cpu(name, cfg):
+    """The config cut to 2 blocks: the card in bf16 against the CPU in
+    fp32 (limit twice the CPU's own bf16 error, relative L2), with K1 / K3
+    / K4 launches counted."""
+    import dataclasses
+    import torch
+    from frameino_tpu_torch.models import cogvideox_dit as CD
+    from frameino_tpu_torch.ops import attention as A
+    cut = dataclasses.replace(cfg, num_layers=2)
+    sd = CD.init_cogvideox_dit(cut, torch.Generator().manual_seed(21),
+                               dtype=torch.bfloat16).state_dict()
+    models = {k: _load(CD.CogVideoXDiT, cut, sd, dev, dt)
+              for k, dev, dt in (("fp32", "cpu", torch.float32),
+                                 ("cpu16", "cpu", None),
+                                 ("card", "cuda", None))}
+    x, text, t, rope, ofs = _cog_args(
+        cut, COG_SMALL["frames"] * (cut.patch_size_t or 1),
+        COG_SMALL["height"], COG_SMALL["width"], 1,
+        torch.Generator().manual_seed(22), "cpu")
+
+    def fwd(m, dev):
+        to = (lambda v: None if v is None else
+              (tuple(u.to(dev) for u in v) if isinstance(v, tuple)
+               else v.to(dev)))
+        return m(to(x), to(text), to(t), to(rope), to(ofs)).float().cpu()
+    want = fwd(models["fp32"], "cpu")
+    A.reset_launch_counts()
+    with _no_attention_ref():
+        got = fwd(models["card"], "cuda")
+    counts = A.launch_counts()
+
+    def rel(a):
+        return ((a - want).norm() / want.norm()).item()
+    row = dict(card_rel_l2=rel(got), cpu_bf16_rel_l2=rel(fwd(models["cpu16"],
+                                                             "cpu")),
+               launches={k: v for k, v in counts.items() if v})
+    print(f"{name} 2 blocks, card vs CPU fp32: relative L2 card bf16 "
+          f"{row['card_rel_l2']:.3e}, CPU bf16 {row['cpu_bf16_rel_l2']:.3e} "
+          f"(limit 2x the CPU's); launches {row['launches']}")
+    check(bool(torch.isfinite(got).all())
+          and row["card_rel_l2"] <= 2 * row["cpu_bf16_rel_l2"],
+          f"{name}: the card is {row['card_rel_l2']:.3e} from the CPU's "
+          f"fp32 (limit twice {row['cpu_bf16_rel_l2']:.3e})")
+    return row, counts
+
+
+def _cog_attention_rows(name, model, args, g):
+    """K4 -> K1 (RoPE configs) or K3 (the 2B) at the forward's own shapes,
+    on block 0's real projections: the kernel against its plain version on
+    4 rows, timed beside the plain version, SDPA and the bound."""
+    import torch
+    from frameino_tpu_torch.models import cogvideox_dit as CD
+    from frameino_tpu_torch.ops import attention as A
+    cfg, blk = model.cfg, model.transformer_blocks[0]
+    x, text, t, rope, ofs = args
+    with torch.no_grad():
+        h = model._patch_embed(text.to(model.dtype), x.to(model.dtype))
+        a = blk.attn1
+        q, k = CD._lin(h, a.to_q), CD._lin(h, a.to_k)
+        v = CD._split_heads(CD._lin(h, a.to_v), cfg.num_attention_heads)
+    B, S = h.shape[:2]
+    Hh, D = cfg.num_attention_heads, cfg.attention_head_dim
+    results, rows = {}, torch.tensor([0, 1, B * Hh // 2, B * Hh - 1],
+                                     device="cuda")
+    scale = D ** -0.5
+    if rope is None:
+        def normed(raw, norm):
+            return CD.layer_norm(CD._split_heads(raw, Hh), norm.weight,
+                                 norm.bias, eps=cfg.qk_norm_eps
+                                 ).to(raw.dtype).reshape(B * Hh, S,
+                                                         D).contiguous()
+        qh, kh = normed(q, a.norm_q), normed(k, a.norm_k)
+        vh = v.reshape(B * Hh, S, D).contiguous()
+        qs, ks, vs = (u[rows].contiguous() for u in (qh, kh, vh))
+        c = scale * A.LOG2E
+        want = A.flash_fwd_ref(qs, ks, vs, c)
+        err, rel, rel_l2 = _check_close(f"K3 {name}", A.flash_fwd(qs, ks, vs,
+                                                                  c), want)
+        _report(results, f"flash_fwd_{name}", err, rel,
+                cuda_ms(lambda: A.flash_fwd(qh, kh, vh, c), 5),
+                cuda_ms(lambda: A.flash_fwd_ref(qs, ks, vs, c), 2),
+                attn_bound(B * Hh, S, S, D),
+                cuda_ms(lambda: _sdpa(scale)(qh, kh, vh), 5),
+                rel_l2=rel_l2, plain_rows=4, shape=[B * Hh, S, D])
+        return results
+    L = text.shape[1]
+    cos, sin = (u.float() for u in rope)
+    half = cos.shape[-1]
+    cos_j = torch.cat([torch.ones(L, half, device="cuda"), cos]).contiguous()
+    sin_j = torch.cat([torch.zeros(L, half, device="cuda"), sin]).contiguous()
+    gain = scale * A.LOG2E
+    cq, sq = (cos_j * gain).contiguous(), (sin_j * gain).contiguous()
+    args_q = (q.contiguous(), a.norm_q.weight.float(), a.norm_q.bias.float(),
+              cq, sq, Hh, cfg.qk_norm_eps)
+    out_q = A.qk_ln_rope(*args_q)
+    err, rel = _check_ulp(f"K4 {name}", out_q, A.qk_ln_rope_ref(*args_q))
+    ms = cuda_ms(lambda: A.qk_ln_rope(*args_q), 10)
+    _report(results, f"qk_ln_rope_{name}", err, rel, ms,
+            cuda_ms(lambda: A.qk_ln_rope_ref(*args_q), 2),
+            bound_ms(14 * out_q.numel(), _nbytes(q, cq, sq, out_q),
+                     PEAK_FP32_FLOPS), None, shape=list(q.shape))
+    kh = A.qk_ln_rope_ref(k.contiguous(), a.norm_k.weight.float(),
+                          a.norm_k.bias.float(), cos_j, sin_j, Hh,
+                          cfg.qk_norm_eps)
+    qh, vh = out_q, v.reshape(B * Hh, S, D).contiguous()
+    bound = A._rowmax_norm(qh) * A._rowmax_norm(kh)
+    qs, ks, vs = (u[rows].contiguous() for u in (qh, kh, vh))
+    want = A.flash_fwd_static_ref(qs, ks, vs, bound)
+    err, rel, rel_l2 = _check_close(f"K1 {name}", A.flash_fwd_static(
+        qs, ks, vs, bound), want)
+    _report(results, f"flash_fwd_static_{name}", err, rel,
+            cuda_ms(lambda: A.flash_fwd_static(qh, kh, vh, bound), 5),
+            cuda_ms(lambda: A.flash_fwd_static_ref(qs, ks, vs, bound), 2),
+            attn_bound(B * Hh, S, S, D),
+            cuda_ms(lambda: _sdpa(math.log(2))(qh, kh, vh), 5),
+            rel_l2=rel_l2, plain_rows=4, shape=[B * Hh, S, D])
+    return results
+
+
+def phase_cog_configs():
+    """CogVideoX1.5-5B-I2V and CogVideoX-2B at full width and depth on
+    seeded bf16 weights: one CFG forward (batch 2) at 480x720 each, timed,
+    with exact K1 / K3 / K4 launches and attention_ref refused; the
+    attention kernels at those shapes against their plain versions; each
+    config cut to 2 blocks against the CPU."""
+    import torch
+    from frameino_tpu_torch.models import cogvideox_dit as CD
+    from frameino_tpu_torch.ops import attention as A
+    results, rows = {}, {}
+    for name, (kw, frames) in COG_CONFIGS.items():
+        cfg = CD.CogVideoXConfig(**kw)
+        g = torch.Generator("cuda").manual_seed(150)
+        t0 = time.time()
+        model = CD.init_cogvideox_dit(cfg, g, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        build_s = time.time() - t0
+        args = _cog_args(cfg, frames, 60, 90, 2, g, "cuda")
+        model(*args)                                      # warm-up
+        A.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with _no_attention_ref():
+            out, sec, peak = _timed(lambda: model(*args))
+        counts = A.launch_counts()
+        rope = cfg.use_rotary_positional_embeddings
+        want = dict(NO_SERVE, **NO_TRAIN,
+                    **({"qk_ln_rope": 2 * cfg.num_layers,
+                                  "flash_fwd_static": cfg.num_layers}
+                                 if rope else {"flash_fwd": cfg.num_layers}))
+        check(counts == want, f"{name}: launches {counts}, expected {want}")
+        check(bool(torch.isfinite(out).all()) and out.shape == (
+            2, frames, cfg.out_channels, 60, 90), f"{name}: output "
+                                                  f"{tuple(out.shape)}")
+        tokens = COG_L_TEXT + frames // (cfg.patch_size_t or 1) * 30 * 45
+        rows[name] = dict(forward_s=sec, peak_gib=peak, build_s=build_s,
+                          tokens=tokens, launches={k: v for k, v in
+                                                   counts.items() if v})
+        print(f"{name}: CFG forward at 480x720x{frames} latent frames "
+              f"({tokens} tokens) {sec:.3f} s, peak {peak:.2f} GiB, "
+              f"launches {rows[name]['launches']}")
+        results.update(_cog_attention_rows(name, model, args, g))
+        for key in results:
+            if key.endswith(name):
+                results[key]["launches_per_forward"] = counts[
+                    key[:-len(name) - 1]]
+        del model, out, args
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows[name]["cpu"], cut_counts = _cog_config_vs_cpu(name, cfg)
+        want_cut = (dict(qk_ln_rope=4, flash_fwd_static=2) if rope
+                    else dict(flash_fwd=2))
+        check({k: v for k, v in cut_counts.items() if v} == want_cut,
+              f"{name} 2 blocks: launches {cut_counts}, expected {want_cut}")
+    return results, rows
+
+
 def _timed_phase(fn):
     """``fn`` timed: its seconds printed and added to PHASE_SECONDS."""
     def run(*a, **kw):
@@ -7064,7 +7952,7 @@ def main():
     kernel_results.update(phase_kernels_k7())
     dense_int8 = phase_dense_int8()
     rows, totals, int8_wan = phase_serve("wan")
-    res704, wan_default = phase_wan_default()
+    res704, wan_default = phase_wan_default(parents)
     kernel_results.update(res704)
     ref_err = phase_reference()
     ref_err_int8 = phase_reference("int8")
@@ -7074,6 +7962,8 @@ def main():
     flash_checks.update(cog_checks)
     rows_cog, totals_cog, int8_cog = phase_serve("cogvideox")
     ref_err_cog = phase_reference_cog()
+    cog_cfg_results, cog_configs = phase_cog_configs()
+    kernel_results.update(cog_cfg_results)
     k6_results, k6_shapes = phase_kernels_train()
     kernel_results.update(k6_results)
     _, data = _train_dataset()
@@ -7147,7 +8037,10 @@ def main():
                        for k in ("flash_attn_train_fwd",
                                  "flash_attn_train_bwd", "flash_fwd_static",
                                  "qk_norm_rope", "flash_fwd")},
-                    **w21_launches, **cur_launches)
+                    **w21_launches, **cur_launches,
+                    conv_int8=int8_wan["int8_vae_request"]["k14_launches"],
+                    **{k: r["launches_per_forward"]
+                       for k, r in cog_cfg_results.items()})
     for k, n in exp_launches.items():
         check(n > 0, f"kernel {k} was not launched by the experiment scripts")
     summary = {"device": {"name": name, "nvidia_smi": smi}, "kernels": [
@@ -7168,7 +8061,8 @@ def main():
         "mass_eval": mass_eval, "qwen": qwen, "qwen_vs_cpu": qwen_cpu,
         "overfit_k6": overfit_k6, "overfit": overfit, "wan21": wan21,
         "verify_checkpoint": verify, "curation": curation,
-        "scorers": scorers, "phase_seconds": PHASE_SECONDS,
+        "scorers": scorers, "cog_configs": cog_configs,
+        "phase_seconds": PHASE_SECONDS,
         "seconds": time.time() - t_start}
     out_dir = os.path.join(REPO, "build")
     os.makedirs(out_dir, exist_ok=True)
@@ -7178,7 +8072,11 @@ def main():
           f"{wan21['phases_20_23_s']:.1f} s, phases 24-26 (curation) "
           f"{curation['phases_24_26_s']:.1f} s, phase 27 (scorers) "
           f"{PHASE_SECONDS['phase_scorers']:.1f} s, phase 28 (demo) "
-          f"{PHASE_SECONDS['phase_demo']:.1f} s")
+          f"{PHASE_SECONDS['phase_demo']:.1f} s, phases 29-30 (int8 VAE, "
+          f"K14) {PHASE_SECONDS['phase_vae_int8']
+                  + PHASE_SECONDS['phase_kernels_k14']:.1f} s, "
+          f"phase 31 (CogVideoX 1.5 / 2B) "
+          f"{PHASE_SECONDS['phase_cog_configs']:.1f} s")
     print(f"chip_smoke: all phases passed in {summary['seconds']:.1f} s")
     print(json.dumps({"kernels": summary["kernels"]}))
     print(json.dumps({"ok": True, "device": {

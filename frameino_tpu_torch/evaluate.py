@@ -19,8 +19,7 @@ so ``--evaluate-only`` scores either package's output.
 Differences from the JAX script: ``--backends random`` (the perception
 models at released widths on seeded random weights, on ``--device``)
 stands for JAX's ``jax-random``; ``--qwen_checkpoint`` judges with the
-port's Qwen2.5-VL (bf16, on ``--device``); ``--quantize_vae`` raises (not
-ported); the denoise loop is Python, so
+port's Qwen2.5-VL (bf16, on ``--device``); the denoise loop is Python, so
 JAX's ``steps_per_program`` has no counterpart. On CUDA the script also
 prints ``GENERATION_PEAK_GIB`` per instance and ``SCORING_PEAK_GIB`` per
 perception backend.
@@ -66,7 +65,7 @@ def parse_args(argv=None):
                    help="CSV schema: 'old' = the paper-v1.0 contract")
     p.add_argument("--quantize", choices=["int8"], default=None)
     p.add_argument("--quantize_vae", action="store_true",
-                   help="the int8 Wan VAE; not ported")
+                   help="the int8 w8a8 Wan VAE (the wan family only)")
     return p.parse_args(argv)
 
 
@@ -81,9 +80,8 @@ def build_pipeline(args, config: Dict, device: torch.device):
     directories when both exist, else seeded random weights (tiny under
     ``--smoke``)."""
     from frameino_tpu_torch import serve
-    if args.quantize_vae:
-        raise SystemExit("--quantize_vae: the int8 Wan VAE is not ported "
-                         "(ROADMAP queue 1 item 13)")
+    if args.quantize_vae and args.family != "wan":
+        raise SystemExit("--quantize_vae supports the wan family only")
     tp = config.get("pretrained_transformer_path")
     vp = config.get("pretrained_vae_path")
     dirs = [p for p in (tp, vp) if p and os.path.exists(str(p))]
@@ -96,6 +94,9 @@ def build_pipeline(args, config: Dict, device: torch.device):
     else:
         pipe = serve.build_pipeline(smoke=args.smoke,
                                     random_init=not args.smoke, **kw)
+    if args.quantize_vae:
+        from frameino_tpu_torch.models.quant import quantize_wan_vae_int8
+        quantize_wan_vae_int8(pipe.vae)
     if args.family == "cogvideox":
         from frameino_tpu_torch.pipelines.cogvideox_i2v import \
             CogPipelineConfig

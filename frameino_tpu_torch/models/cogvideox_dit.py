@@ -7,23 +7,33 @@ and the weight bridge (``models/weights.py``) both load through
 ``load_state_dict``. The math follows the JAX forward:
 
 - the patch embed projects the text tokens and puts them BEFORE the video
-  tokens, then adds the joint position table; with ``use_frame_in`` one
-  more frame of position embeddings is appended, sliced at the actual text
-  length (the reference's quirk), and the video part is resized to the
-  patch grid with JAX's antialiased trilinear filter;
+  tokens (a Conv2d patchify, or CogVideoX 1.5's linear one over
+  ``patch_size_t`` frames, layout (pt, ph, pw, C)), then adds the joint
+  position table when the config has one (the 5B's learned table, the
+  2B's fixed sincos; 1.5, RoPE without learned positions, has none); with
+  ``use_frame_in`` one more frame of position embeddings is appended,
+  sliced at the actual text length (the reference's quirk), and the video
+  part is resized to the patch grid with JAX's antialiased trilinear
+  filter;
 - AdaLN-Zero on the joint sequence as a per-token select over a video
   mask (text and video rows get their own shift/scale/gate);
+- the time embedding, plus the ``ofs`` embedding (CogVideoX 1.5's
+  ``ofs_embed_dim``) when ``ofs`` is passed;
 - joint self-attention with per-head LayerNorm on q/k and RoPE whose
   tables are identity over the text prefix. On CUDA tensors it runs K4
   (LayerNorm + RoPE producer) -> bound -> K1 at head_dim 64
-  (``ops/attention.fused_ln_qk_flash_attention``); on the CPU the plain
-  path, or the same fused function's plain versions with
-  ``attn_impl="fused"``. The training forward (``differentiable=True``)
-  takes JAX's route instead, which refuses the fused producer under
-  autograd: the plain per-head LayerNorm and RoPE, then K6
+  (``ops/attention.fused_ln_qk_flash_attention``); the 2B (no RoPE) runs
+  K3 over the LayerNormed q/k (``ops/attention.
+  flash_attention_inference``, JAX's ``dispatch_attention`` ->
+  ``_flash_fwd``). On the CPU: the plain path, or the same kernels' plain
+  versions with ``attn_impl="fused"``. The training forward
+  (``differentiable=True``) takes JAX's route instead, which refuses the
+  fused producer under autograd: the plain per-head LayerNorm and RoPE,
+  then K6
   (``ops/attention.flash_attention_train``; its plain version on the CPU);
-- gelu_tanh FFN, ``norm_final`` over the joint sequence, ``norm_out``,
-  ``proj_out`` and the 2D unpatchify.
+- gelu_tanh FFN, ``norm_final`` over the joint sequence (the 2B: over the
+  video tokens only), ``norm_out``, ``proj_out`` and the unpatchify (over
+  ``patch_size_t`` frames too in 1.5).
 
 The forward runs in the weights' dtype (bf16 at full width): it casts its
 inputs to that dtype and returns fp32. It runs under ``torch.no_grad``
@@ -39,8 +49,7 @@ the table without slicing when the sample grid matches; the port appends
 one table frame (ph * pw tokens) and always slices to the sequence. Both
 equal JAX wherever JAX runs (ROADMAP queue 3).
 
-Not ported (they raise): CogVideoX 1.5's ``patch_size_t``,
-``ofs_embed_dim``, the 2B path without RoPE, and the pp/mesh paths.
+Not ported (ROADMAP queue 1 item 12): the pp and mesh paths.
 """
 
 from __future__ import annotations
@@ -63,10 +72,6 @@ from frameino_tpu_torch.ops.norms import layer_norm
 from frameino_tpu_torch.ops.resize import resize_antialiased
 from frameino_tpu_torch.ops.rope import (apply_rope_interleaved,
                                          cogvideox_rope_table)
-
-NOT_PORTED = ("{} is not ported: CogVideoX 1.5 (patch_size_t), ofs "
-              "embeddings and the 2B path without RoPE are ROADMAP.md "
-              "queue 1, item 14")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +104,13 @@ class CogVideoXConfig:
     @property
     def inner_dim(self) -> int:
         return self.num_attention_heads * self.attention_head_dim
+
+    @property
+    def has_pos_embedding(self) -> bool:
+        """The joint position table: learned (5B) or the 2B's fixed sincos;
+        CogVideoX 1.5 (RoPE, no learned positions) has none."""
+        return (not self.use_rotary_positional_embeddings
+                or self.use_learned_positional_embeddings)
 
 
 # CogVideoX-5B-I2V; motion (Stage 1): in_channels 48 = 16 noisy + 16 image
@@ -135,17 +147,23 @@ class _TwoLinear(nn.Module):
 
 
 class _PatchEmbed(nn.Module):
-    """CogVideoXPatchEmbed: Conv2d patchify, text projection, joint table."""
+    """CogVideoXPatchEmbed: Conv2d patchify (1.5: a Linear over
+    ``patch_size_t`` frames), text projection, the joint table if any."""
 
     def __init__(self, cfg: CogVideoXConfig, **kw):
         super().__init__()
         d, p = cfg.inner_dim, cfg.patch_size
-        self.proj = nn.Conv2d(cfg.in_channels, d, p, stride=p, **kw)
+        if cfg.patch_size_t is None:
+            self.proj = nn.Conv2d(cfg.in_channels, d, p, stride=p, **kw)
+        else:
+            self.proj = nn.Linear(cfg.in_channels * p * p * cfg.patch_size_t,
+                                  d, **kw)
         self.text_proj = nn.Linear(cfg.text_embed_dim, d, **kw)
         ph, pw = cfg.sample_height // p, cfg.sample_width // p
         pf = (cfg.sample_frames - 1) // cfg.temporal_compression_ratio + 1
         self.register_buffer("pos_embedding", torch.empty(
-            1, cfg.max_text_seq_length + pf * ph * pw, d, **kw))
+            1, cfg.max_text_seq_length + pf * ph * pw, d, **kw)
+            if cfg.has_pos_embedding else None)
 
     def default_pos_embedding(self, cfg: CogVideoXConfig) -> torch.Tensor:
         """Zeros over the text slots, 3D sincos over the sample patch
@@ -238,12 +256,13 @@ class CogVideoXBlock(nn.Module):
                                     **kw)
         self.ff = _FeedForward(d, **kw)
 
-    def _attention(self, x, cos_j, sin_j, fused: bool, differentiable: bool):
+    def _attention(self, x, cos_j, sin_j, kernels: bool,
+                   differentiable: bool):
         cfg, a = self.cfg, self.attn1
         H = cfg.num_attention_heads
         q, k = _lin(x, a.to_q), _lin(x, a.to_k)
         v = _split_heads(_lin(x, a.to_v), H)
-        if fused:
+        if kernels and cos_j is not None and not differentiable:
             # K4 (LayerNorm + RoPE producer) -> bound -> K1
             o = attn_ops.fused_ln_qk_flash_attention(
                 q, k, v.contiguous(), a.norm_q.weight, a.norm_q.bias,
@@ -254,20 +273,24 @@ class CogVideoXBlock(nn.Module):
                 return layer_norm(_split_heads(t, H), norm.weight, norm.bias,
                                   eps=cfg.qk_norm_eps).to(t.dtype)
 
-            q = apply_rope_interleaved(head_norm(q, a.norm_q), cos_j, sin_j)
-            k = apply_rope_interleaved(head_norm(k, a.norm_k), cos_j, sin_j)
+            q, k = head_norm(q, a.norm_q), head_norm(k, a.norm_k)
+            if cos_j is not None:
+                q = apply_rope_interleaved(q, cos_j, sin_j)
+                k = apply_rope_interleaved(k, cos_j, sin_j)
             if differentiable:
                 o = attn_ops.flash_attention_train(             # K6
                     q.contiguous(), k.contiguous(), v.contiguous())
+            elif kernels:
+                o = attn_ops.flash_attention_inference(q, k, v)  # K3
             else:
                 o = attn_ops.attention_ref(q, k, v)
         return _lin(_merge_heads(o), a.to_out[0])
 
-    def forward(self, x, temb, cos_j, sin_j, video_mask, fused: bool,
+    def forward(self, x, temb, cos_j, sin_j, video_mask, kernels: bool,
                 differentiable: bool = False):
         eps = self.cfg.norm_eps
         nx, gate = _adaln_zero(self.norm1, x, temb, eps, video_mask)
-        a = self._attention(nx, cos_j, sin_j, fused, differentiable)
+        a = self._attention(nx, cos_j, sin_j, kernels, differentiable)
         x = x + (gate * a.float()).to(x.dtype)
         nx, gate_ff = _adaln_zero(self.norm2, x, temb, eps, video_mask)
         f = _lin(gelu_tanh(_lin(nx, self.ff.net[0].proj)), self.ff.net[2])
@@ -275,7 +298,9 @@ class CogVideoXBlock(nn.Module):
 
 
 class CogVideoXDiT(nn.Module):
-    """CogVideoXTransformer3DModel (5B layout, RoPE + learned positions).
+    """CogVideoXTransformer3DModel: the 5B (RoPE + learned positions), 1.5
+    (``patch_size_t``, ``ofs_embed_dim``, RoPE alone) and 2B (sincos
+    positions, no RoPE) layouts.
 
     Build with ``device="meta"`` and then ``to_empty`` + ``init_random_``
     or ``load_state_dict(..., assign=True)`` to skip torch's default init.
@@ -283,26 +308,22 @@ class CogVideoXDiT(nn.Module):
 
     def __init__(self, cfg: CogVideoXConfig, device=None, dtype=None):
         super().__init__()
-        if cfg.patch_size_t is not None:
-            raise NotImplementedError(NOT_PORTED.format("patch_size_t"))
-        if cfg.ofs_embed_dim:
-            raise NotImplementedError(NOT_PORTED.format("ofs_embed_dim"))
-        if not (cfg.use_rotary_positional_embeddings
-                and cfg.use_learned_positional_embeddings):
-            raise NotImplementedError(NOT_PORTED.format(
-                "a config without RoPE and learned positions"))
         kw = dict(device=device, dtype=dtype)
         d = cfg.inner_dim
         p = cfg.patch_size
         self.cfg = cfg
         self.patch_embed = _PatchEmbed(cfg, **kw)
         self.time_embedding = _TwoLinear(d, cfg.time_embed_dim, **kw)
+        if cfg.ofs_embed_dim:
+            self.ofs_embedding = _TwoLinear(cfg.ofs_embed_dim,
+                                            cfg.ofs_embed_dim, **kw)
         self.transformer_blocks = nn.ModuleList(
             [CogVideoXBlock(cfg, **kw) for _ in range(cfg.num_layers)])
         self.norm_final = nn.LayerNorm(d, eps=cfg.norm_eps, **kw)
         self.norm_out = _LayerNormZero(cfg.time_embed_dim, d, 2, cfg.norm_eps,
                                        **kw)
-        self.proj_out = nn.Linear(d, cfg.out_channels * p * p, **kw)
+        self.proj_out = nn.Linear(
+            d, cfg.out_channels * p * p * (cfg.patch_size_t or 1), **kw)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -312,7 +333,10 @@ class CogVideoXDiT(nn.Module):
         """{name: buffer} of the buffers that training updates: the joint
         position table. diffusers keeps it a buffer that no optimizer sees;
         the JAX package holds it in the parameter tree, so its train step
-        differentiates and updates it, and so does the port's."""
+        differentiates and updates it, and so does the port's. Empty
+        without a table (1.5)."""
+        if self.patch_embed.pos_embedding is None:
+            return {}
         return {"patch_embed.pos_embedding": self.patch_embed.pos_embedding}
 
     @torch.no_grad()
@@ -337,7 +361,8 @@ class CogVideoXDiT(nn.Module):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
         pe = self.patch_embed
-        pe.pos_embedding.copy_(pe.default_pos_embedding(self.cfg))
+        if pe.pos_embedding is not None:
+            pe.pos_embedding.copy_(pe.default_pos_embedding(self.cfg))
         return self
 
     def _patch_embed(self, text, video):
@@ -347,13 +372,26 @@ class CogVideoXDiT(nn.Module):
         B, F, C, H, W = video.shape
         text = _lin(text, pe.text_proj)
         L = text.shape[1]
-        v = video.reshape(B, F, C, H // ps, ps, W // ps, ps)
-        v = v.permute(0, 1, 3, 5, 2, 4, 6).reshape(
-            B, F * (H // ps) * (W // ps), C * ps * ps)
+        pt = cfg.patch_size_t
+        if pt is None:
+            v = video.reshape(B, F, C, H // ps, ps, W // ps, ps)
+            v = v.permute(0, 1, 3, 5, 2, 4, 6).reshape(
+                B, F * (H // ps) * (W // ps), C * ps * ps)
+        else:
+            # CogVideoX 1.5's linear patchify: layout (pt, ph, pw, C)
+            if F % pt:
+                raise ValueError(f"CogVideoX 1.5 takes a multiple of "
+                                 f"patch_size_t={pt} latent frames, got {F}")
+            v = video.permute(0, 1, 3, 4, 2).reshape(
+                B, F // pt, pt, H // ps, ps, W // ps, ps, C)
+            v = v.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(
+                B, (F // pt) * (H // ps) * (W // ps), pt * ps * ps * C)
         v = dense(v, pe.proj.weight.reshape(d, -1), pe.proj.bias)
         embeds = torch.cat([text, v], dim=1)
 
         pos = pe.pos_embedding
+        if pos is None:
+            return embeds
         ph, pw = cfg.sample_height // ps, cfg.sample_width // ps
         post_t = (cfg.sample_frames - 1) // cfg.temporal_compression_ratio + 1
         if cfg.use_frame_in:
@@ -379,16 +417,17 @@ class CogVideoXDiT(nn.Module):
         return embeds + pos[:, :L + seq_length].to(embeds.dtype)
 
     def forward(self, hidden_states, encoder_hidden_states, timestep,
-                image_rotary_emb: Tuple[torch.Tensor, torch.Tensor], *,
-                attn_impl: Optional[str] = None, differentiable: bool = False,
-                remat: bool = False):
+                image_rotary_emb: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                ofs=None, *, attn_impl: Optional[str] = None,
+                differentiable: bool = False, remat: bool = False):
         """hidden_states [B, F, C, H, W]; encoder_hidden_states
         [B, L, text_dim]; timestep [B]; image_rotary_emb: the (cos, sin)
-        [F*h*w, head_dim/2] tables of the video tokens. ``attn_impl``:
-        None takes the kernels on CUDA and the plain path on the CPU;
-        "fused" takes ``fused_ln_qk_flash_attention`` (on the CPU its
-        plain versions); "xla" the plain path, CPU only. Returns fp32
-        [B, F, out_channels, H, W].
+        [F/pt*h*w, head_dim/2] tables of the video tokens (None for the
+        2B, which has no RoPE); ``ofs`` [B]: 1.5's ofs embedding input.
+        ``attn_impl``: None takes the kernels on CUDA and the plain path
+        on the CPU; "fused" takes ``fused_ln_qk_flash_attention`` (the
+        2B: K3; on the CPU their plain versions); "xla" the plain path,
+        CPU only. Returns fp32 [B, F, out_channels, H, W].
 
         ``differentiable``: the training forward under autograd, through
         K6 (no fused producer, whatever ``attn_impl``). ``remat``: with
@@ -403,17 +442,17 @@ class CogVideoXDiT(nn.Module):
         if not differentiable:
             with torch.no_grad():
                 return self._forward(hidden_states, encoder_hidden_states,
-                                     timestep, image_rotary_emb, attn_impl,
-                                     False, False)
+                                     timestep, image_rotary_emb, ofs,
+                                     attn_impl, False, False)
         return self._forward(hidden_states, encoder_hidden_states, timestep,
-                             image_rotary_emb, attn_impl, True, remat)
+                             image_rotary_emb, ofs, attn_impl, True, remat)
 
     def _forward(self, hidden_states, encoder_hidden_states, timestep,
-                 image_rotary_emb, attn_impl, differentiable, remat):
+                 image_rotary_emb, ofs, attn_impl, differentiable, remat):
         cfg = self.cfg
         x = hidden_states.to(self.dtype)
         B, F, C, H, W = x.shape
-        fused = not differentiable and (
+        kernels = not differentiable and (
             attn_impl == "fused" or (attn_impl is None and x.is_cuda))
 
         te = self.time_embedding
@@ -421,6 +460,12 @@ class CogVideoXDiT(nn.Module):
             timestep.float().to(x.device), cfg.inner_dim,
             downscale_freq_shift=float(cfg.freq_shift))
         emb = timestep_embedding_mlp(t_freq, te.linear_1, te.linear_2)
+        if cfg.ofs_embed_dim and ofs is not None:
+            oe = self.ofs_embedding
+            ofs_freq = sinusoidal_timestep_embedding(
+                ofs.float().to(x.device), cfg.ofs_embed_dim)
+            emb = emb + timestep_embedding_mlp(ofs_freq, oe.linear_1,
+                                               oe.linear_2)
 
         x = self._patch_embed(encoder_hidden_states.to(x.device, self.dtype),
                               x)
@@ -429,30 +474,41 @@ class CogVideoXDiT(nn.Module):
         video_mask = torch.cat([torch.zeros(L, device=x.device),
                                 torch.ones(S - L, device=x.device)]
                                )[None, :, None]
-        cos, sin = (t.float().to(x.device) for t in image_rotary_emb)
-        half = cos.shape[-1]
-        cos_j = torch.cat([torch.ones(L, half, device=x.device), cos])
-        sin_j = torch.cat([torch.zeros(L, half, device=x.device), sin])
+        cos_j = sin_j = None
+        if image_rotary_emb is not None:
+            cos, sin = (t.float().to(x.device) for t in image_rotary_emb)
+            half = cos.shape[-1]
+            cos_j = torch.cat([torch.ones(L, half, device=x.device), cos])
+            sin_j = torch.cat([torch.zeros(L, half, device=x.device), sin])
         for blk in self.transformer_blocks:
             if remat:
-                x = checkpoint(blk, x, emb, cos_j, sin_j, video_mask, fused,
+                x = checkpoint(blk, x, emb, cos_j, sin_j, video_mask, kernels,
                                differentiable, use_reentrant=False)
             else:
-                x = blk(x, emb, cos_j, sin_j, video_mask, fused,
+                x = blk(x, emb, cos_j, sin_j, video_mask, kernels,
                         differentiable)
 
-        # 5B: norm over the joint sequence, then the video span
-        h = layer_norm(x, self.norm_final.weight, self.norm_final.bias,
-                       eps=cfg.norm_eps).to(x.dtype)[:, L:]
+        if not cfg.use_rotary_positional_embeddings:
+            # 2B: norm over the video stream only
+            h = layer_norm(x[:, L:], self.norm_final.weight,
+                           self.norm_final.bias, eps=cfg.norm_eps).to(x.dtype)
+        else:
+            # 5B and 1.5: norm over the joint sequence, then the video span
+            h = layer_norm(x, self.norm_final.weight, self.norm_final.bias,
+                           eps=cfg.norm_eps).to(x.dtype)[:, L:]
         no = self.norm_out
         mod = _lin(silu(emb.float()), no.linear, out_dtype=torch.float32)
         shift, scale = mod.chunk(2, dim=-1)
         h = layer_norm(h, no.norm.weight, no.norm.bias, eps=cfg.norm_eps)
         h = (h * (1 + scale[:, None]) + shift[:, None]).to(x.dtype)
         h = _lin(h, self.proj_out)
-        p = cfg.patch_size
-        out = h.reshape(B, F, H // p, W // p, -1, p, p)
-        out = out.permute(0, 1, 4, 2, 5, 3, 6).reshape(B, F, -1, H, W)
+        p, pt = cfg.patch_size, cfg.patch_size_t
+        if pt is None:
+            out = h.reshape(B, F, H // p, W // p, -1, p, p)
+            out = out.permute(0, 1, 4, 2, 5, 3, 6).reshape(B, F, -1, H, W)
+        else:
+            out = h.reshape(B, F // pt, H // p, W // p, -1, pt, p, p)
+            out = out.permute(0, 1, 5, 4, 2, 6, 3, 7).reshape(B, F, -1, H, W)
         return out.float()
 
 

@@ -179,7 +179,7 @@ def _state_dict_for(module, sd: Dict[str, torch.Tensor]):
         sd = t5_encoder.from_state_dict_names(
             {k: v for k, v in sd.items()
              if not k.startswith(("decoder.", "lm_head."))})
-    elif isinstance(module, CogVideoXDiT) \
+    elif isinstance(module, CogVideoXDiT) and module.cfg.has_pos_embedding \
             and "patch_embed.pos_embedding" not in sd:
         sd = dict(sd, **{"patch_embed.pos_embedding":
                          module.patch_embed.default_pos_embedding(

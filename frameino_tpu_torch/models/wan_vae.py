@@ -171,10 +171,11 @@ class Resample(nn.Module):
         conv = self.resample[1]
         if self.mode.startswith("upsample"):
             x2 = cops.nearest_exact_upsample2d(x2.float()).to(x.dtype)
-            x2 = cops.conv2d(x2, conv.weight, conv.bias, padding="same")
+            x2 = cops.conv2d(x2, **cops.conv_weights(conv), padding="same")
         else:
-            x2 = cops.conv2d(cops.zero_pad_hw_br(x2), conv.weight, conv.bias,
-                             stride=2, padding="valid")
+            # nn.ZeroPad2d((0, 1, 0, 1)), then the stride-2 'valid' conv
+            x2 = cops.conv2d(x2, **cops.conv_weights(conv), stride=2,
+                             padding=((0, 1), (0, 1)))
         return x2.reshape(B, T, *x2.shape[1:]).permute(0, 2, 1, 3, 4)
 
     def forward(self, x):
@@ -185,8 +186,8 @@ class Resample(nn.Module):
             B, C, T, H, W = x.shape
             xz = x.clone()
             xz[:, :, 0] = 0.0
-            o = cops.causal_conv3d(xz, self.time_conv.weight,
-                                   self.time_conv.bias, padding=(1, 0, 0))
+            o = cops.causal_conv3d(xz, **cops.conv_weights(self.time_conv),
+                                   padding=(1, 0, 0))
             del xz
             o = o[:, :, 1:].reshape(B, 2, C, T - 1, H, W)
             o = o.permute(0, 2, 3, 1, 4, 5).reshape(B, C, 2 * (T - 1), H, W)
@@ -195,7 +196,7 @@ class Resample(nn.Module):
         x = self._spatial(x)
         if self.mode == "downsample3d" and x.shape[2] >= 3:
             # shorter clips have no full window: frame 0 alone passes
-            y = cops.conv3d(x, self.time_conv.weight, self.time_conv.bias,
+            y = cops.conv3d(x, **cops.conv_weights(self.time_conv),
                             stride=(2, 1, 1))
             x = torch.cat([x[:, :, :1], y], dim=2)
         elif self.mode == "downsample3d":

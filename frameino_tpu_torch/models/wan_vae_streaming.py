@@ -24,7 +24,6 @@ from __future__ import annotations
 from typing import List, Optional
 
 import torch
-import torch.nn.functional as F
 
 from frameino_tpu_torch.models import wan_vae as M
 from frameino_tpu_torch.ops import conv as cops
@@ -58,15 +57,13 @@ class _Caches:
 def _cconv_fwd(x, conv, cache, padding, stride=1):
     """WanCausalConv3d.forward with an explicit cache (the previous
     chunk's last frames stand in for part of the front zero padding)."""
-    pt, ph, pw = cops._triple(padding)
-    front = 2 * pt
+    front = 2 * cops._triple(padding)[0]
     if cache is not None and front > 0:
         x = torch.cat([cache, x], dim=2)
         front -= cache.shape[2]
-    if front:
-        x = F.pad(x, (0, 0, 0, 0, front, 0))
-    return cops.scoped_conv(F.conv3d, x, conv.weight, conv.bias,
-                            stride=cops._triple(stride), padding=(0, ph, pw))
+    # an int8 conv's activation scale spans the cache and the chunk, as JAX
+    return cops.causal_conv3d(x, **cops.conv_weights(conv), stride=stride,
+                              padding=padding, front=front)
 
 
 def _tail(x, cache):
@@ -119,8 +116,8 @@ def _down3d_chunk(rs: M.Resample, x, caches: _Caches):
     cache = caches.get()
     tail = x[:, :, -1:].clone()
     if cache is not None:
-        x = cops.conv3d(torch.cat([cache, x], dim=2), rs.time_conv.weight,
-                        rs.time_conv.bias, stride=(2, 1, 1))
+        x = cops.conv3d(torch.cat([cache, x], dim=2),
+                        **cops.conv_weights(rs.time_conv), stride=(2, 1, 1))
     caches.put(tail)
     return x
 

@@ -33,6 +33,7 @@ from frameino_tpu_torch.models.cogvideox_vae import CogVideoXVAEConfig
 from frameino_tpu_torch.models.safetensors_io import load_file
 from frameino_tpu_torch.models.wan_dit import WanDiTConfig
 from frameino_tpu_torch.models.wan_vae import WanVAEConfig
+from frameino_tpu_torch.ops.conv_int8 import kernel_weight
 from frameino_tpu_torch.parallel.sharding import shard_state_dict
 
 StateDict = Dict[str, torch.Tensor]
@@ -169,14 +170,26 @@ def _index_tree(tree, i):
 # Wan VAE
 # ---------------------------------------------------------------------------
 
-def _put_cconv(sd: StateDict, name: str, p):
-    sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).transpose(4, 3, 0, 1, 2))
+def _put_conv(sd: StateDict, name: str, p, axes):
+    """A conv's kernel (DHWIO / HWIO, ``axes`` to torch's layout), or the
+    int8 ``kernel_q`` with its ``scale`` (``quantize_wan_vae_int8``'s
+    tree, into the port's ``weight_q`` in K14's layout and ``scale``), and
+    its bias."""
+    if "kernel_q" in p:
+        sd[f"{name}.weight_q"] = kernel_weight(
+            _t(np.asarray(p["kernel_q"]).transpose(axes)))
+        sd[f"{name}.scale"] = _t(p["scale"])
+    else:
+        sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).transpose(axes))
     sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def _put_cconv(sd: StateDict, name: str, p):
+    _put_conv(sd, name, p, (4, 3, 0, 1, 2))
 
 
 def _put_conv2d(sd: StateDict, name: str, p):
-    sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
-    sd[f"{name}.bias"] = _t(p["bias"])
+    _put_conv(sd, name, p, (3, 2, 0, 1))
 
 
 def _put_gamma(sd: StateDict, name: str, p, images: bool = False):
@@ -289,14 +302,21 @@ def cogvideox_dit_from_jax(params_np: Dict[str, Any],
     d, p = cfg.inner_dim, cfg.patch_size
     sd: StateDict = {}
     pe = params_np["patch_embed"]
-    sd["patch_embed.proj.weight"] = _t(np.asarray(pe["proj"]["kernel"]).T
-                                       .reshape(d, cfg.in_channels, p, p))
-    sd["patch_embed.proj.bias"] = _t(pe["proj"]["bias"])
+    if cfg.patch_size_t is None:
+        sd["patch_embed.proj.weight"] = _t(np.asarray(pe["proj"]["kernel"]).T
+                                           .reshape(d, cfg.in_channels, p, p))
+        sd["patch_embed.proj.bias"] = _t(pe["proj"]["bias"])
+    else:                                # CogVideoX 1.5: a Linear
+        _put_lin(sd, "patch_embed.proj", pe["proj"])
     _put_lin(sd, "patch_embed.text_proj", pe["text_proj"])
-    sd["patch_embed.pos_embedding"] = _t(pe["pos_embedding"])
+    if "pos_embedding" in pe:            # 5B and 2B; 1.5 has none
+        sd["patch_embed.pos_embedding"] = _t(pe["pos_embedding"])
     for lin in ("linear_1", "linear_2"):
         _put_lin(sd, f"time_embedding.{lin}",
                  params_np["time_embedding"][lin])
+        if "ofs_embedding" in params_np:
+            _put_lin(sd, f"ofs_embedding.{lin}",
+                     params_np["ofs_embedding"][lin])
     _put_norm(sd, "norm_final", params_np["norm_final"])
     _put_lin(sd, "norm_out.linear", params_np["norm_out"]["linear"])
     _put_norm(sd, "norm_out.norm", params_np["norm_out"]["norm"])

@@ -27,6 +27,7 @@ BUILD_DIR = _REPO_ROOT / "build"
 
 # source -> {C function: argtypes}; every function returns a CUDA error code
 _VP, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_I64 = ctypes.c_int64
 _CUDA_SOURCES = {
     "flash_fwd": {"flash_fwd_bf16": [_VP] * 5 + [_INT] * 5 + [_F32, _VP],
                   "flash_fwd_config": [_INT] * 2},
@@ -51,6 +52,10 @@ _CUDA_SOURCES = {
         "qk_producer_blocks_per_sm": [_INT] * 3},
     "ms_deform_attn": {"ms_deform_attn_fp32": [_VP] * 5 + [_INT] * 7
                        + [_VP]},
+    "conv_int8": {"conv_int8_absmax": [_VP, _I64, _VP, _VP],
+                  "conv_int8_quantize": [_VP] * 3 + [_INT] * 3
+                  + [_I64, _VP],
+                  "conv_int8_igemm": [_VP] * 6 + [_INT] * 18 + [_VP]},
     # a measurement kernel on no path: K13's L2 yardstick
     "l2_read_probe": {"l2_read_probe_fp32": [_VP] + [_INT] * 2 + [_VP]
                       + [_INT, _VP]},

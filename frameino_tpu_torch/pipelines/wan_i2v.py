@@ -356,8 +356,9 @@ class WanImageToVideoPipeline:
     The DiT runs in its weights' dtype and the VAE in fp32; inputs are
     moved to the DiT's device. ``quantize="int8"`` swaps the block matmuls
     of ``dit`` and ``dit_2`` for int8 w8a8 layers, in place
-    (``models/quant.quantize_dit_int8``); ``quantize_vae`` (the int8 VAE)
-    is not ported and raises.
+    (``models/quant.quantize_dit_int8``); ``quantize_vae`` swaps the VAE's
+    resblock and resampler convs for w8a8 ones (``models/quant.
+    quantize_wan_vae_int8``; K14 on the card), in either branch.
 
     ``mesh``: serve over a dp x tp process mesh (module docstring). Both
     experts must be built on it (``WanDiT(cfg, mesh=mesh)``, sharded by
@@ -387,8 +388,8 @@ class WanImageToVideoPipeline:
         if vae is None and (mesh is None or mesh.rank == 0):
             raise ValueError("the VAE is needed on the mesh's rank 0 (or "
                              "without a mesh)")
-        if quantize_vae:
-            quant.quantize_wan_vae_int8(vae)          # raises: not ported
+        if quantize_vae and vae is not None:
+            quant.quantize_wan_vae_int8(vae)
         if quantize == "int8":
             quant.quantize_dit_int8(dit)
             if dit_2 is not None and dit_2 is not dit:

@@ -14,9 +14,9 @@ slot for the learned model:
 - aesthetic: colorfulness/exposure/rule-of-thirds composite (NIMA
   stand-in, same 1..10 scale);
 - complexity: edge-density × compression-ratio composite in [0,1];
-  the JAX package's ``preprocess.icnet`` holds the full IC9600 ICNet,
-  not ported yet (ROADMAP queue 1), for when the released ``ck.pth``
-  is present;
+  the full IC9600 ICNet is ``models/icnet.py``, scored through
+  ``score_images(full=True, complexity_model=make_complexity_scorer(m))``
+  when the released ``ck.pth`` is loaded;
 - clarity/brightness/contrast: classical scores as before.
 """
 

@@ -10,7 +10,8 @@ other. This is the gate behind quoting the port's int8 serving: it may be
 called "matching" only when the certification passes.
 
     python -m frameino_tpu_torch.scripts.certify_int8 --output_dir DIR \\
-        [--device cuda|cpu] [--families wan cogvideox] [--report PATH]
+        [--device cuda|cpu] [--families wan cogvideox] [--report PATH] \\
+        [--quantize_vae]
 
 ``--device cuda`` (the default; it raises without a card) certifies the
 card's int8 path, K7 then ``torch._int_mm`` and JAX's dequant, at the
@@ -30,7 +31,10 @@ so JAX never checked the PSNR; here the clips are read and a missing clip
 fails the family. The tiny CogVideoX runs at its sample grid, 9 frames at
 32x32: at JAX's 13 frames it decodes 16, which the port's mass evaluation
 refuses to score (JAX scores the mismatched frames silently).
-``--quantize_vae`` (the int8 Wan VAE) is not ported.
+
+``--quantize_vae`` certifies the wan int8 side with its VAE quantized too
+(``evaluate --quantize_vae``: the w8a8 VAE, K14 on the card), as JAX's
+``certify_family`` does; CogVideoX's int8 side keeps its float VAE.
 """
 
 from __future__ import annotations
@@ -45,7 +49,6 @@ from typing import Dict
 import numpy as np
 import torch
 
-from frameino_tpu_torch.models.quant import VAE_NOT_PORTED
 from frameino_tpu_torch.scripts import pick_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -94,7 +97,8 @@ def make_fixture(root: str, device: str = "cpu") -> Dict[str, str]:
 
 
 def run_eval(cfg_path: str, out_dir: str, family: str, quantize: bool,
-             in_process: bool = False, device: str = "cpu") -> Dict:
+             in_process: bool = False, device: str = "cpu",
+             quantize_vae: bool = False) -> Dict:
     """One ``evaluate`` run on ``device`` (one frame-in instance, the naive
     backends; the tiny models under ``--smoke`` on the CPU); returns its
     results.json."""
@@ -105,6 +109,8 @@ def run_eval(cfg_path: str, out_dir: str, family: str, quantize: bool,
         argv.append("--smoke")
     if quantize:
         argv += ["--quantize", "int8"]
+    if quantize_vae:
+        argv.append("--quantize_vae")
     if in_process:
         from frameino_tpu_torch import evaluate
         evaluate.main(argv)
@@ -151,10 +157,12 @@ def compare(bf16: Dict, int8: Dict, psnr) -> Dict:
 
 
 def certify_family(cfg_path: str, out_root: str, family: str,
-                   in_process: bool = False, device: str = "cpu") -> Dict:
+                   in_process: bool = False, device: str = "cpu",
+                   quantize_vae: bool = False) -> Dict:
     dirs = {q: os.path.join(out_root, f"{family}_{'int8' if q else 'bf16'}")
             for q in (False, True)}
-    runs = {q: run_eval(cfg_path, d, family, q, in_process, device)
+    runs = {q: run_eval(cfg_path, d, family, q, in_process, device,
+                        quantize_vae=q and quantize_vae and family == "wan")
             for q, d in dirs.items()}
     clips = [os.path.join(d, "instance0", "gen_video.mp4")
              for d in dirs.values()]
@@ -174,14 +182,13 @@ def parse_args(argv=None):
                    help="the certification JSON (default "
                         "<output_dir>/int8_parity.json)")
     p.add_argument("--quantize_vae", action="store_true",
-                   help="the int8 Wan VAE: not ported")
+                   help="certify the wan int8 side with its VAE's resblock "
+                        "and resampler convs quantized too")
     return p.parse_args(argv)
 
 
 def main(argv=None, in_process: bool = False) -> int:
     args = parse_args(argv)
-    if args.quantize_vae:
-        raise SystemExit(f"--quantize_vae: {VAE_NOT_PORTED}")
     device = pick_device(args.device).type
     os.makedirs(args.output_dir, exist_ok=True)
     configs = make_fixture(args.output_dir, device)
@@ -189,7 +196,8 @@ def main(argv=None, in_process: bool = False) -> int:
                   if device == "cuda" else "cpu"}, True
     for family in args.families:
         report[family] = certify_family(configs[family], args.output_dir,
-                                        family, in_process, device)
+                                        family, in_process, device,
+                                        args.quantize_vae)
         ok &= report[family]["pass"]
         print(f"{family}: {'PASS' if report[family]['pass'] else 'FAIL'} "
               f"psnr {report[family]['generated_psnr_db']} "

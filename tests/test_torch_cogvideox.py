@@ -239,11 +239,41 @@ def test_dit_matches_jax(dit_pair, impl, grid):
                                rtol=1e-4)
 
 
-def test_dit_unported_branches_raise():
-    for kw in (dict(patch_size_t=2), dict(ofs_embed_dim=512),
-               dict(use_rotary_positional_embeddings=False)):
-        with pytest.raises(NotImplementedError, match="queue 1, item 14"):
-            tdit.CogVideoXDiT(tdit.tiny_config(**kw), device="meta")
+@pytest.mark.parametrize("kw", [
+    dict(patch_size_t=2, ofs_embed_dim=16,
+         use_learned_positional_embeddings=False),
+    dict(ofs_embed_dim=16),
+    dict(use_rotary_positional_embeddings=False,
+         use_learned_positional_embeddings=False)],
+    ids=["patch_size_t", "ofs", "no_rope"])
+def test_dit_unported_branches_raise(kw):
+    """The three layouts that once raised (CogVideoX 1.5's patch_size_t,
+    the ofs embedding, the 2B without RoPE) now build and match JAX's
+    forward on the sample grid (fp32, 2 blocks: 1e-4; the fuller checks
+    are tests/test_torch_cogvideox_configs.py)."""
+    jcfg, tcfg = jdit.tiny_config(**kw), tdit.tiny_config(**kw)
+    params = jdit.init_cogvideox_dit(jax.random.key(2), jcfg)
+    m = tdit.CogVideoXDiT(tcfg, device="meta")
+    m.load_state_dict(tweights.cogvideox_dit_from_jax(
+        jax.tree.map(np.asarray, params), tcfg), assign=True, strict=True)
+    pt = jcfg.patch_size_t or 1
+    F = 2 * pt
+    rs = np.random.RandomState(5)
+    x = rs.randn(1, F, jcfg.in_channels, 8, 8).astype(np.float32)
+    text = rs.randn(1, 8, 16).astype(np.float32)
+    t = np.array([500.0], np.float32)
+    ofs = np.array([2.0], np.float32) if jcfg.ofs_embed_dim else None
+    rope = (jdit.cogvideox_rope(jcfg, F // pt, 8, 8)
+            if jcfg.use_rotary_positional_embeddings else None)
+    ref = jdit.cogvideox_forward(
+        jcfg, params, jnp.asarray(x), jnp.asarray(text), jnp.asarray(t),
+        image_rotary_emb=rope, ofs=None if ofs is None else jnp.asarray(ofs),
+        attn_impl="xla")
+    got = m(_t(x), _t(text), _t(t),
+            None if rope is None else tuple(_t(np.array(r)) for r in rope),
+            None if ofs is None else _t(ofs), attn_impl="xla")
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4,
+                               rtol=1e-4)
 
 
 def test_dit_rejects_an_unknown_attn_impl_and_a_short_prompt(dit_pair):

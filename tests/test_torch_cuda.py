@@ -1012,3 +1012,81 @@ def test_umt5_bf16_on_cuda_follows_fp32_on_the_cpu(dev):
     got = T5.encode_and_mask(card, ids.to(dev), mask.to(dev), 48).float()
     assert torch.all(got[1, 25:] == 0)
     assert _rel_l2(got.cpu(), want) < 3e-2
+
+
+# ---------------------------------------------------------------------------
+# K14: the w8a8 convolution of the int8 Wan VAE
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("x_shape, w_shape, stride, pads", [
+    # causal 3x3x3 over 40 channels (a ragged channel chunk), the 1x1x1
+    # shortcut, the 2D upsample conv, the stride-2 2D and time convs
+    ((2, 40, 5, 7, 9), (20, 40, 3, 3, 3), (1, 1, 1),
+     ((2, 0), (1, 1), (1, 1))),
+    ((1, 64, 3, 6, 5), (32, 64, 1, 1, 1), (1, 1, 1), ((0, 0),) * 3),
+    ((3, 32, 1, 9, 11), (16, 32, 1, 3, 3), (1, 1, 1),
+     ((0, 0), (1, 1), (1, 1))),
+    ((3, 32, 1, 9, 11), (32, 32, 1, 3, 3), (1, 2, 2),
+     ((0, 0), (0, 1), (0, 1))),
+    ((1, 32, 7, 4, 3), (32, 32, 3, 1, 1), (2, 1, 1), ((0, 0),) * 3),
+    ((1, 32, 5, 4, 3), (64, 32, 3, 1, 1), (1, 1, 1), ((2, 0), (0, 0), (0, 0))),
+])
+def test_conv_int8_kernel_bit_equal(dev, x_shape, w_shape, stride, pads):
+    """K14 against its plain version on the same card: exact int32 sums,
+    the same fp32 epilogue, so bit-equal; launches counted."""
+    from frameino_tpu_torch.ops import conv_int8 as K
+    g = torch.Generator(device="cuda").manual_seed(14)
+    x = torch.randn(x_shape, device=dev, generator=g)
+    w = K.kernel_weight(torch.randint(-127, 128, w_shape, device=dev,
+                                      generator=g, dtype=torch.int8))
+    scale = torch.rand(w_shape[0], device=dev, generator=g) * 1e-3
+    bias = torch.randn(w_shape[0], device=dev, generator=g)
+    before = K.conv_int8.launches
+    got = K.conv_int8(x, w, scale, bias, stride, pads)
+    assert K.conv_int8.launches == before + 1
+    want = K.conv_int8_ref(x, w, scale, bias, stride, pads)
+    assert torch.equal(got, want)
+    assert torch.equal(K.conv_int8(x, w, scale, None, stride, pads),
+                       K.conv_int8_ref(x, w, scale, None, stride, pads))
+
+
+def test_conv_int8_rejects_what_the_kernel_does_not_take(dev):
+    from frameino_tpu_torch.ops import conv_int8 as K
+    x = torch.randn(1, 32, 3, 4, 4, device=dev)
+    w = torch.zeros(8, 3, 3, 3, 32, dtype=torch.int8, device=dev)
+    s = torch.ones(8, device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        K.conv_int8(x.bfloat16(), w, s, padding=((2, 0), (1, 1), (1, 1)))
+    with pytest.raises(ValueError, match="scale on cpu"):
+        K.conv_int8(x, w, s.cpu(), padding=((2, 0), (1, 1), (1, 1)))
+
+
+def test_vae_weight_quantizer_divides_on_cuda(dev):
+    """The int8 VAE's weight scale is JAX's eager one (the absmax divided
+    by 127) on the card as on the CPU: CUDA's true division by a host
+    scalar multiplies by the fp32 reciprocal, a divisor tensor does not.
+    The weights are drawn so that the two rules part on some channels."""
+    from frameino_tpu_torch.models import quant as Q
+    from frameino_tpu_torch.models import wan_vae as V
+    w = torch.randn(512, 16, 3, 3, 3,
+                    generator=torch.Generator().manual_seed(21))
+    amax = w.abs().amax(dim=(1, 2, 3, 4))
+    assert not torch.equal(amax / 127.0, amax * torch.tensor(1.0 / 127.0))
+    q_cpu, s_cpu = Q.quantize_conv_weight(w)
+    q_dev, s_dev = Q.quantize_conv_weight(w.to(dev))
+    assert torch.equal(s_dev.cpu(), s_cpu)
+    assert torch.equal(q_dev.cpu(), q_cpu)
+    cfg = V.WanVAEConfig(base_dim=8, decoder_base_dim=12, z_dim=4,
+                         dim_mult=(1, 2, 2), num_res_blocks=1,
+                         temperal_downsample=(True, True), is_residual=True,
+                         in_channels=12, out_channels=12, patch_size=2,
+                         latents_mean=(0.0,) * 4, latents_std=(1.0,) * 4)
+    cpu = V.init_wan_vae(cfg, torch.Generator().manual_seed(0))
+    card = V.WanVAE(cfg, device="meta")
+    card.load_state_dict({k: v.to(dev) for k, v in cpu.state_dict().items()},
+                         assign=True)
+    Q.quantize_wan_vae_int8(cpu)
+    Q.quantize_wan_vae_int8(card)
+    want = cpu.state_dict()
+    for k, v in card.state_dict().items():
+        assert torch.equal(v.cpu(), want[k]), k

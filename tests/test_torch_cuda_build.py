@@ -162,7 +162,8 @@ def test_every_source_is_compiled_for_sm90a(tmp_path, monkeypatch):
     assert all("arch=compute_90a,code=sm_90a" in c for c in calls)
 
 
-_C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float}
+_C_TYPES = {"int": ctypes.c_int, "int64_t": ctypes.c_int64,
+            "float": ctypes.c_float}
 
 
 @pytest.mark.parametrize("source", sorted(cuda_build._CUDA_SOURCES))

@@ -153,8 +153,19 @@ def test_port_entry_options(runs, extra):
 
 
 def test_port_entry_refuses_the_int8_vae(runs):
+    """``--smoke --quantize int8 --quantize_vae`` serves the wan family with
+    the int8 DiT and the int8 VAE and scores finite metrics; CogVideoX
+    refuses ``--quantize_vae``, as JAX's entry does."""
     root, _, _ = runs
-    with pytest.raises(SystemExit, match="quantize_vae"):
+    out = evaluate.main(["--config_path", str(root / "jax.yaml"),
+                         "--output_dir", str(root / "vae8"), "--smoke",
+                         "--num_instances", "1", "--quantize", "int8",
+                         "--quantize_vae"])
+    results = out["results"]
+    assert results and all(np.isfinite(float(v)) for v in results.values()
+                           if isinstance(v, (int, float)))
+    assert (root / "vae8" / "instance0" / "gen_video.mp4").exists()
+    with pytest.raises(SystemExit, match="wan family only"):
         evaluate.main(["--config_path", str(root / "jax.yaml"),
-                       "--output_dir", str(root / "vae8"), "--smoke",
-                       "--quantize_vae"])
+                       "--output_dir", str(root / "cog8"), "--smoke",
+                       "--family", "cogvideox", "--quantize_vae"])

@@ -191,12 +191,12 @@ def test_convs_match_jax():
     b2 = rs.randn(5).astype(np.float32)
     x2t = torch.from_numpy(x2.transpose(0, 3, 1, 2).copy())
     w2t = torch.from_numpy(k2.transpose(3, 2, 0, 1).copy())
+    # the downsampler's nn.ZeroPad2d((0, 1, 0, 1)) is conv2d's own padding
     for stride, tpad, jpad, pre in [(1, "same", "SAME", False),
-                                    (2, "valid", "VALID", True)]:
-        xi_t = tconv.zero_pad_hw_br(x2t) if pre else x2t
+                                    (2, ((0, 1), (0, 1)), "VALID", True)]:
         xi_j = jconv.zero_pad_hw_br(jnp.asarray(x2)) if pre \
             else jnp.asarray(x2)
-        got = tconv.conv2d(xi_t, w2t, torch.from_numpy(b2), stride, tpad)
+        got = tconv.conv2d(x2t, w2t, torch.from_numpy(b2), stride, tpad)
         ref = jconv.conv2d(xi_j, jnp.asarray(k2), jnp.asarray(b2), stride,
                            jpad)
         np.testing.assert_allclose(got.numpy().transpose(0, 2, 3, 1),

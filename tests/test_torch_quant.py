@@ -289,6 +289,9 @@ def test_bridged_int8_dit_matches_jax(family):
 
 
 def test_quantize_options_raise():
+    """int4 / fp8 are refused before anything is swapped; ``quantize_vae``
+    alone swaps the VAE's resblock and resampler convs (the int8 VAE,
+    tests/test_torch_vae_int8.py) and leaves the DiT float."""
     dit = twan.init_wan_dit(twan.tiny_config(**WAN_KW),
                             torch.Generator().manual_seed(0))
     vae = tvae.init_wan_vae(tvae.WanVAEConfig(
@@ -297,14 +300,18 @@ def test_quantize_options_raise():
         scale_factor_temporal=2, scale_factor_spatial=2,
         latents_mean=(0.0,) * 4, latents_std=(1.0,) * 4),
         torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="queue 1, item 13"):
-        twpipe.WanImageToVideoPipeline(dit, vae, quantize_vae=True)
-    with pytest.raises(NotImplementedError, match="queue 1, item 13"):
-        quant.quantize_wan_vae_int8(vae)
     with pytest.raises(ValueError, match="quantize"):
         twpipe.WanImageToVideoPipeline(dit, vae, quantize="int4")
     with pytest.raises(ValueError, match="quantize"):
         tcpipe.CogVideoXImageToVideoPipeline(None, None, quantize="fp8")
-    # neither refusal touched the DiT
+    # neither refusal touched the DiT or the VAE
     assert quant.quantized_layer_names(dit)
+    assert not any(isinstance(m, quant.QuantLinear) for m in dit.modules())
+    assert not any(isinstance(m, (quant.QuantConv3d, quant.QuantConv2d))
+                   for m in vae.modules())
+    pipe = twpipe.WanImageToVideoPipeline(dit, vae, quantize_vae=True)
+    swapped = [n for n, m in pipe.vae.named_modules()
+               if isinstance(m, (quant.QuantConv3d, quant.QuantConv2d))]
+    assert swapped == quant.vae_quantized_layer_names(vae)
+    assert "decoder.up_blocks.0.upsamplers.0.time_conv" in swapped
     assert not any(isinstance(m, quant.QuantLinear) for m in dit.modules())
