@@ -24,6 +24,11 @@
         # also time the K13 that the Hopper K13 replaced (one warp per
         # query and head): FILE is a copy of csrc/ms_deform_attn.cu from
         # before its redesign, built beside the sources
+    python3 chip_smoke.py --conv-int8-parent FILE
+        # also time the mma.sync K14 that the wgmma K14 replaced: FILE is a
+        # copy of csrc/conv_int8.cu from before its redesign (under the
+        # gitignored build/), built beside the sources, timed in turns with
+        # K14 at each timed conv shape and bit-equal to it
 
 Phases (any failure exits non-zero; there is no CPU path):
  1. device: the card's name and `nvidia-smi` name, power limit;
@@ -32,7 +37,7 @@ Phases (any failure exits non-zero; there is no CPU path):
     qk-LayerNorm/RoPE K4, K6, K7, the experiment variants K9-K10, the
     int8-QK^T K11-K12, the packed K8, K13, the int8 convolution K14 and
     the L2 read probe) from the sources in the checkout, a probe copy of
-    K6 whose backward leaves out its dQ adds, and K14's five planted-fault
+    K6 whose backward leaves out its dQ adds, and K14's seven planted-fault
     copies (K14_FAULTS);
  3. kernels: each kernel against its plain PyTorch version at the shapes
     the Wan serving path gives it (Wan2.2-TI2V-5B, 49 frames at 480x832:
@@ -300,7 +305,11 @@ Phases (any failure exits non-zero; there is no CPU path):
     ``quantize_wan_vae_int8``): at request (a)'s latents and the
     49x480x832 clip, TF32 off, the full, streaming and hybrid decode and
     the full and streaming encode, seconds, peaks and K14 launches beside
-    phase 5a's fp32 rows; against the fp32 VAE by JAX's measures (mean
+    phase 5a's fp32 rows, then each walk again under torch.profiler for
+    K14's device time (its three kernels) beside the walk's busy time;
+    the full decode's, the full encode's and the hybrid decode's conv
+    shapes logged with their call counts; against the fp32 VAE by JAX's
+    measures (mean
     abs relative, correlation), streaming against full int8, each within
     a floor and a limit; a card-vs-CPU int8 decode at VAE_INT8_CPU_LATENTS
     (the card's quantized weights bit-equal to the CPU's, each K14 call
@@ -311,12 +320,16 @@ Phases (any failure exits non-zero; there is no CPU path):
     K14's by conv shape, the frames finite and not flat;
 30. K14 against its plain version (max abs 0: exact int32 sums, the same
     fp32 epilogue) at every distinct conv shape that phase 29's full
-    decode and encode ran, the plain version on K14_PLAIN_SLICE output
-    frames (or images), with the activation scale of the whole input;
-    CUDA event times of the wrapper and of its implicit GEMM alone beside
-    the int8 operation bound and the float cuDNN conv of the same shape
-    (fp32 with TF32 off and on, bf16); the five planted faults rejected;
-    registers and spills (none allowed);
+    decode, full encode and hybrid decode ran, the plain version on
+    K14_PLAIN_SLICE output frames (or images), with the activation scale
+    of the whole input; at the full walks' shapes and the K14_HYBRID_TIMED
+    hybrid shapes with the most calls x operations, CUDA event times of
+    the wrapper and of its implicit GEMM alone beside the int8 operation
+    bound and the float cuDNN conv of the same shape (fp32 with TF32 off
+    and on, bf16), and (--conv-int8-parent) the mma.sync kernel it
+    replaced in turns, bit-equal; the seven planted faults rejected;
+    registers, spills and serialised wgmma (none allowed), the igemm's
+    shared memory;
 31. CogVideoX1.5-5B-I2V (patch_size_t 2, ofs 512, RoPE, no position
     table) and CogVideoX-2B (sincos table, no RoPE) at full width and
     depth on seeded bf16 weights: one CFG forward each at 480x720 (14 and
@@ -337,6 +350,7 @@ goes to build/chip_smoke.json.
 import base64
 import collections
 import contextlib
+import ctypes
 import gc
 import io
 import json
@@ -610,10 +624,11 @@ def phase_device():
 
 def phase_build():
     """nvcc of the eleven CUDA sources, of K6's probe copy without its dQ
-    adds, of K14's five planted-fault copies (and of --int8-parent's,
-    --variants-parent's, --packed-parent's and --msda-parent's files), one
-    process each, all at once; returns the extra libraries {INT8_PARENT:
-    ..., VARIANTS_PARENT: ..., PACKED_PARENT: ..., MSDA_PARENT: ...,
+    adds, of K14's planted-fault copies (and of --int8-parent's,
+    --variants-parent's, --packed-parent's, --msda-parent's and
+    --conv-int8-parent's files), one process each, all at once; returns
+    the extra libraries {INT8_PARENT: ..., VARIANTS_PARENT: ...,
+    PACKED_PARENT: ..., MSDA_PARENT: ..., CONV_INT8_PARENT: ...,
     K6_NO_DQ_ADDS: ..., <K14 fault>: ...}, None for a flag not given."""
     from frameino_tpu_torch.ops import attention as A
     t0 = time.time()
@@ -624,7 +639,9 @@ def phase_build():
                               ("--packed-parent", PACKED_PARENT,
                                "flash_packed"),
                               ("--msda-parent", MSDA_PARENT,
-                               "ms_deform_attn")):
+                               "ms_deform_attn"),
+                              ("--conv-int8-parent", CONV_INT8_PARENT,
+                               "conv_int8")):
         if flag in sys.argv:
             parents[key] = (source, sys.argv[sys.argv.index(flag) + 1])
     parents[K6_NO_DQ_ADDS] = ("flash_attn_train", _k6_probe_source())
@@ -641,9 +658,15 @@ def phase_build():
             for line in log.splitlines()
             if "registers" in line or "spill" in line
             or "Compiling entry" in line))
+    if built.get(CONV_INT8_PARENT) is not None:
+        # the replaced kernel's C interface: no workspace, tile width or
+        # split
+        built[CONV_INT8_PARENT].conv_int8_igemm.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 18 + [ctypes.c_void_p])
     return {key: built.get(key)
             for key in (INT8_PARENT, VARIANTS_PARENT, PACKED_PARENT,
-                        MSDA_PARENT, K6_NO_DQ_ADDS, *K14_FAULTS)}
+                        MSDA_PARENT, CONV_INT8_PARENT, K6_NO_DQ_ADDS,
+                        *K14_FAULTS)}
 
 
 def _parent_triton():
@@ -1766,6 +1789,7 @@ INT8_PARENT = "int8_parent"
 VARIANTS_PARENT = "variants_parent"
 PACKED_PARENT = "packed_parent"
 MSDA_PARENT = "msda_parent"
+CONV_INT8_PARENT = "conv_int8_parent"
 # max abs of a variant from K3 on the scripts' check slice: a little above
 # what the JAX scripts read on the CPU (2-4e-3; int8 8e-3-1.2e-2; the
 # packed script's own assertion)
@@ -4332,18 +4356,17 @@ def _tp_worker(rank, world, tag, mesh_kw, inputs, pg_path):
     try:
         mesh = make_mesh(MeshConfig(**mesh_kw))
         t0 = time.time()
-        # one rank at a time: the full seeded DiT (9.3 GiB) is built, cut
-        # to the rank's slice and freed before the next rank builds its
+        # every rank at once: the full seeded DiT at TP_BLOCKS blocks (1.5
+        # GiB at 5) is built, cut to the rank's slice and freed (the
+        # ranks' builds side by side take a fraction of the card)
         gen = torch.Generator("cuda").manual_seed(0)
-        for r in range(world):
-            if r == rank:
-                dit = wan_dit.init_wan_dit(
-                    dataclasses.replace(wan_dit.WAN22_TI2V_5B_MOTION,
-                                        num_layers=TP_BLOCKS), gen,
-                    dtype=torch.bfloat16, mesh=mesh)
-                gc.collect()
-                torch.cuda.empty_cache()
-            dist.barrier()
+        dit = wan_dit.init_wan_dit(
+            dataclasses.replace(wan_dit.WAN22_TI2V_5B_MOTION,
+                                num_layers=TP_BLOCKS), gen,
+            dtype=torch.bfloat16, mesh=mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
         build_s = time.time() - t0
         resident = torch.cuda.memory_allocated() / 2 ** 30
         x, t, mask, ctx = (a.cuda() for a in inputs)
@@ -7090,21 +7113,32 @@ PHASE_SECONDS = {}
 
 # planted faults of K14, each an edit of one statement of
 # csrc/conv_int8.cu built beside it (phase_build) and required to differ
-# from the plain version where it applies: the last 32-channel chunk of K
+# from the plain version where it applies: the last 128-byte stage of K
 # dropped; the causal padding at the back of time; channel n+1's weight
 # scale; a stride-2 window one row off; the epilogue's product rounded
-# before the bias (the plain order, JAX's jitted one, is fused)
+# before the bias (the plain order, JAX's jitted one, is fused); the A
+# gathers written one row off the swizzle phase that wgmma reads; the last
+# split's partial sums left out of a split K (the last taps: a causal
+# conv's first splits read only its zero front pad)
 K14_FAULTS = {
-    "k14_k_chunk_dropped": ("const int nk = taps * cchunks;",
-                            "const int nk = taps * cchunks - 1;"),
+    "k14_k_chunk_dropped": ("const int nk = g.nk;",
+                            "const int nk = g.nk - 1;"),
     "k14_causal_back": ("ti0 = to * g.st - g.pt;", "ti0 = to * g.st;"),
     "k14_scale_next": ("__fmul_rn(sx, scale[n])",
                        "__fmul_rn(sx, scale[min(n + 1, g.Cout - 1)])"),
     "k14_stride2_row": ("hi0 = ho * g.sh - g.ph;",
                         "hi0 = ho * g.sh - g.ph + (g.sh == 2);"),
-    "k14_unfused": ("bias != nullptr ? __fmaf_rn(a, sn, bias[n])",
-                    "bias != nullptr ? __fadd_rn(__fmul_rn(a, sn), bias[n])"),
+    "k14_unfused": ("has_bias ? __fmaf_rn(a, sn, bn)",
+                    "has_bias ? __fadd_rn(__fmul_rn(a, sn), bn)"),
+    "k14_swizzle_row": ("((c ^ (r0 & 7)) << 4)",
+                        "((c ^ ((r0 + 1) & 7)) << 4)"),
+    "k14_split_dropped": ("red_partial_add<BN>(wt, acc, w, warp, lane);",
+                          "if (blockIdx.y + 1 != gridDim.y) "
+                          "red_partial_add<BN>(wt, acc, w, warp, lane);"),
 }
+# the hybrid decode's conv shapes timed in phase 30 (the most calls x
+# operations; every one of its shapes is held exact)
+K14_HYBRID_TIMED = 10
 # the output frames (or, for the 2D convs' one-frame [B*T, ...] inputs,
 # images) the plain version computes of each shape: its fp64 product
 # over a whole decoder layer would take seconds
@@ -7191,6 +7225,29 @@ class _ConvLog:
         return False
 
 
+def _k14_device(fn):
+    """``fn`` again under torch.profiler: K14's device seconds (its
+    absmax, quantize and igemm kernels), all kernels' device seconds and
+    the wall seconds of the profiled run."""
+    import torch
+    from torch.autograd import DeviceType
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    k14 = busy = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            busy += e.self_device_time_total / 1e6
+            if any(k in e.key for k in ("absmax_kernel", "quantize_kernel",
+                                        "igemm_kernel")):
+                k14 += e.self_device_time_total / 1e6
+    return dict(k14_device_s=k14, device_busy_s=busy, profiled_wall_s=wall)
+
+
 def _vae_measures(got, want):
     """JAX's int8 measures: mean abs relative and correlation."""
     import torch
@@ -7206,8 +7263,10 @@ def phase_vae_int8(vae, fp32):
     49x480x832 clip, TF32 off, beside phase 5a's fp32 rows: full,
     streaming and hybrid decode, full and streaming encode, against the
     fp32 VAE's full and hybrid outputs (``fp32``) with JAX's measures,
-    streaming against full int8; each conv call's shape logged for K14's phase;
-    then a card-vs-CPU int8 decode at a size cut."""
+    streaming against full int8; each walk profiled once more for K14's
+    device time; the full decode's, full encode's and hybrid decode's conv
+    shapes logged with their calls for K14's phase; then a card-vs-CPU
+    int8 decode at a size cut."""
     import torch
     from frameino_tpu_torch.models import quant
     from frameino_tpu_torch.models import wan_vae_streaming as VS
@@ -7233,8 +7292,12 @@ def phase_vae_int8(vae, fp32):
                 shapes[log] = lg.calls
             rows[name] = dict(seconds=sec, peak_gib=peak,
                               k14_launches=conv_int8.launches - before)
+            rows[name].update(_k14_device(fn))
             print(f"vae int8 {name}: {sec:.2f} s, peak {peak:.2f} GiB, "
-                  f"{rows[name]['k14_launches']} K14 launches")
+                  f"{rows[name]['k14_launches']} K14 launches; profiled "
+                  f"again: K14 {rows[name]['k14_device_s']:.3f} s of "
+                  f"{rows[name]['device_busy_s']:.3f} s device busy "
+                  f"({rows[name]['profiled_wall_s']:.2f} s)")
             check(bool(torch.isfinite(out).all()),
                   f"vae int8 {name}: non-finite output")
             return out
@@ -7246,7 +7309,8 @@ def phase_vae_int8(vae, fp32):
         rows["decode_streaming"]["rel_vs_int8_full"] = \
             _vae_measures(got, full)[0]
         del got
-        got = run("decode_hybrid", lambda: VT.hybrid_decode(vae, z))
+        got = run("decode_hybrid", lambda: VT.hybrid_decode(vae, z),
+                  log="hybrid")
         rows["decode_hybrid"].update(zip(
             ("rel_vs_fp32", "corr_vs_fp32"),
             _vae_measures(got, fp32["decode_hybrid"])))
@@ -7267,6 +7331,12 @@ def phase_vae_int8(vae, fp32):
         torch.backends.cudnn.allow_tf32 = tf32
         torch.cuda.empty_cache()
     rows["quantized_convs"] = n_conv
+    rows["decode_hybrid"]["conv_shapes"] = {
+        f"{list(xs)} * {list(ws)} s{list(st)} p{[list(q) for q in pads]}": n
+        for (xs, ws, st, pads), n in sorted(shapes["hybrid"].items(),
+                                             key=lambda kv: -kv[1])}
+    print(f"vae int8 decode_hybrid: {len(shapes['hybrid'])} conv shapes, "
+          f"calls each: {json.dumps(rows['decode_hybrid']['conv_shapes'])}")
     rows["cpu"] = _vae_int8_vs_cpu(vae, cpu_sd)
     print("vae int8: " + json.dumps(rows))
     for name, limit in (("decode_full", VAE_INT8_DECODE_REL),
@@ -7496,12 +7566,41 @@ def _ms(fn, iters=2):
     return start.elapsed_time(end) / iters
 
 
-def _k14_row(key, count, g, fp32=False):
+def _k14_parent_call(L, x, w, scale, bias, stride, pads):
+    """K14 as the replaced library ``L`` (--conv-int8-parent) computes it:
+    its absmax, quantize and mma.sync igemm through its own C
+    interface."""
+    import torch
+    from frameino_tpu_torch.ops import conv_int8 as K
+    B, C, T, H, W = x.shape
+    cout, kt, kh, kw, cp = w.shape
+    To, Ho, Wo = K.out_extents(x.shape, w.shape, stride, pads)
+    amax = torch.zeros(1, dtype=torch.int32, device=x.device)
+    xq = torch.empty((B, T, H, W, cp), dtype=torch.int8, device=x.device)
+    out = torch.empty((B, cout, To, Ho, Wo), device=x.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    check(L.conv_int8_absmax(x.data_ptr(), x.numel(), amax.data_ptr(),
+                             stream) == 0
+          and L.conv_int8_quantize(x.data_ptr(), xq.data_ptr(),
+                                   amax.data_ptr(), B, C, cp, T * H * W,
+                                   stream) == 0
+          and L.conv_int8_igemm(
+              xq.data_ptr(), w.data_ptr(), scale.data_ptr(),
+              None if bias is None else bias.data_ptr(), amax.data_ptr(),
+              out.data_ptr(), B, T, H, W, cp, cout, kt, kh, kw, *stride,
+              pads[0][0], pads[1][0], pads[2][0], To, Ho, Wo, stream) == 0,
+          "K14: the parent's launch failed")
+    return out
+
+
+def _k14_row(key, count, g, fp32=False, parent=None):
     """K14 at one logged conv shape: exact against the plain version on a
     slice, timed beside its bound, its own igemm and the float cuDNN conv
     at the same shape (TF32 and bf16; with ``fp32``, fp32 with TF32 off
     too: 0.4-1.2 s a call at the decoder's widest shapes, so only where
-    the kernels line reads it)."""
+    the kernels line reads it); with ``parent`` (the replaced library), that
+    kernel bit-equal and timed in turns with K14 (parent, K14, K14,
+    parent)."""
     import torch
     import torch.nn.functional as F
     from frameino_tpu_torch.ops import conv_int8 as K
@@ -7515,24 +7614,27 @@ def _k14_row(key, count, g, fp32=False):
     bound = bound_ms(2 * M * N * Kd, x.numel() * 4 + w.numel()
                      + out.numel() * 4 + 8 * N, PEAK_INT8_OPS)
     # the igemm alone, on operands quantized by the library's own passes
+    # (a split plan's workspace zeroed before each launch, as the wrapper
+    # allocates it zeroed)
     L = K.lib("conv_int8")
     stream = torch.cuda.current_stream().cuda_stream
     T, H, W = xs[2:]
     cp = w.shape[4]
-    amax = torch.zeros(1, dtype=torch.int32, device="cuda")
+    plan = K.igemm_plan(M, N, ws[2] * ws[3] * ws[4] * cp, K.sm_count("cuda"))
+    buf = torch.zeros(4 + plan["workspace"], dtype=torch.int32, device="cuda")
     xq = torch.empty((B, T, H, W, cp), dtype=torch.int8, device="cuda")
-    check(L.conv_int8_absmax(x.data_ptr(), x.numel(), amax.data_ptr(),
+    check(L.conv_int8_absmax(x.data_ptr(), x.numel(), buf.data_ptr(),
                              stream) == 0
           and L.conv_int8_quantize(x.data_ptr(), xq.data_ptr(),
-                                   amax.data_ptr(), B, C, cp, T * H * W,
+                                   buf.data_ptr(), B, C, cp, T * H * W,
                                    stream) == 0, "K14: a quantize pass failed")
     (t0, t1), (h0, h1), (w0, w1) = pads
 
     def igemm():
-        L.conv_int8_igemm(xq.data_ptr(), w.data_ptr(), scale.data_ptr(),
-                          bias.data_ptr(), amax.data_ptr(), out.data_ptr(),
-                          B, T, H, W, cp, N, *ws[2:], *stride, t0, h0, w0,
-                          To, Ho, Wo, stream)
+        if plan["split"] > 1:
+            buf[4:].zero_()
+        check(K.igemm(L, xq, w, scale, bias, buf, out, stride, pads, plan,
+                      stream) == 0, "K14: the igemm launch failed")
     xp = F.pad(x, (w0, w1, h0, h1, t0, t1))
     wf = K.torch_weight(w, C).float()
 
@@ -7546,10 +7648,21 @@ def _k14_row(key, count, g, fp32=False):
         finally:
             torch.backends.cudnn.allow_tf32 = old
     xs_, spads, _ = _k14_slice(x, ws[2], stride, pads, K14_PLAIN_SLICE)
+    new = lambda: K.conv_int8_cuda(x, w, scale, bias, stride, pads)
     row = dict(
         x=list(xs), weight=list(ws), stride=list(stride),
         padding=[list(q) for q in pads], calls=count, max_abs_err=err,
-        ms=_ms(lambda: K.conv_int8_cuda(x, w, scale, bias, stride, pads)),
+        block_n=plan["block_n"], split=plan["split"], tiles=plan["tiles"])
+    if parent is None:
+        row["ms"] = _ms(new)
+    else:
+        before = lambda: _k14_parent_call(parent, x, w, scale, bias, stride,
+                                          pads)
+        row["parent_equal"] = bool(torch.equal(before(), out))
+        turns = [_ms(before), _ms(new), _ms(new), _ms(before)]
+        row.update(ms=(turns[1] + turns[2]) / 2,
+                   parent_ms=(turns[0] + turns[3]) / 2, turns_ms=turns)
+    row.update(
         igemm_ms=_ms(igemm), bound_ms=bound[0], bound_by=bound[1],
         tera_ops=2 * M * N * Kd / 1e12,
         plain_ms_on_slice=_ms(lambda: K.conv_int8_ref(
@@ -7557,24 +7670,51 @@ def _k14_row(key, count, g, fp32=False):
         cudnn_fp32_ms=cudnn(torch.float32, False) if fp32 else None,
         cudnn_tf32_ms=cudnn(torch.float32, True),
         cudnn_bf16_ms=cudnn(torch.bfloat16, False))
-    del x, w, out, xp, wf, xq
+    del x, w, out, xp, wf, xq, buf
     torch.cuda.empty_cache()
     return row
 
 
-def _k14_fault_readings(parents, decoder, encoder, g):
+def _k14_exact(key, g):
+    """K14 at one logged conv shape against the plain version on a slice
+    (max abs), untimed."""
+    import torch
+    from frameino_tpu_torch.ops import conv_int8 as K
+    xs, ws, stride, pads = key
+    x, w, scale, bias = _k14_inputs(xs, ws, g)
+    out = K.conv_int8_cuda(x, w, scale, bias, stride, pads)
+    err = _k14_check(x, w, scale, bias, stride, pads, out)
+    del x, w, out
+    return err
+
+
+def _k14_plan(key):
+    """K14's igemm_plan of a logged conv shape."""
+    from frameino_tpu_torch.ops import conv_int8 as K
+    xs, ws, stride, pads = key
+    To, Ho, Wo = K.out_extents(xs, (ws[0], *ws[2:], 0), stride, pads)
+    return K.igemm_plan(xs[0] * To * Ho * Wo, ws[0],
+                        ws[2] * ws[3] * ws[4] * K.padded_channels(ws[1]),
+                        K.sm_count("cuda"))
+
+
+def _k14_fault_readings(parents, shapes, g):
     """Each planted fault's max abs from the plain version, at a shape where
     it applies: the decoder's smallest causal conv of three frames (a
-    padded front) for all but the stride-2 one, the encoder's stride-2 2D
-    conv for it."""
+    padded front) for most, the encoder's stride-2 2D conv for the stride
+    one, the hybrid decode's smallest conv that splits K for the dropped
+    split."""
     from frameino_tpu_torch.ops import conv_int8 as K
-    causal = min((k for k in decoder if k[1][2] == 3 and k[3][0][0] > 0),
+    causal = min((k for k in shapes["decoder"] if k[1][2] == 3
+                  and k[3][0][0] > 0),
                  key=lambda k: k[0][2] * k[0][3] * k[0][4])
-    strided = next(k for k in encoder if k[2][1] == 2)
+    strided = next(k for k in shapes["encoder"] if k[2][1] == 2)
+    split = min((k for k in shapes["hybrid"] if _k14_plan(k)["split"] > 1),
+                key=lambda k: k[0][2] * k[0][3] * k[0][4])
+    at = {"k14_stride2_row": strided, "k14_split_dropped": split}
     out = {}
     for name, lib in parents.items():
-        key = strided if name == "k14_stride2_row" else causal
-        xs, ws, stride, pads = key
+        xs, ws, stride, pads = at.get(name, causal)
         x, w, scale, bias = _k14_inputs(xs, ws, g)
         got = K.conv_int8_cuda(x, w, scale, bias, stride, pads, library=lib)
         out[name] = _k14_check(x, w, scale, bias, stride, pads, got)
@@ -7586,44 +7726,86 @@ def _k14_fault_readings(parents, decoder, encoder, g):
     return out
 
 
+def _k14_build_report():
+    """K14's kernels: registers, spills and shared memory (the igemm's
+    from the library); fails on a spill or a serialised wgmma."""
+    from frameino_tpu_torch.ops import attention as A
+    from frameino_tpu_torch.ops import conv_int8 as K
+    lib = K.lib("conv_int8")
+    serial = [line for line in A.BUILD_LOG.get("conv_int8", "").splitlines()
+              if "serialized" in line]
+    check(not serial, "K14: ptxas serialises wgmma: " + "; ".join(serial))
+    return _build_report(
+        "K14", "conv_int8", ("absmax_kernel", "quantize_kernel",
+                             "igemm_kernel"),
+        lambda tag: lib.conv_int8_igemm_smem_bytes(
+            int(tag.split("<")[1].rstrip(">")))
+        if tag.startswith("igemm_kernel<") else None)
+
+
 def phase_kernels_k14(shapes, parents):
     """K14 against its plain version at every distinct conv shape the int8
-    decoder (request (a)'s latents) and encoder (the 49x480x832 clip) ran
-    in phase_vae_int8, max abs 0 required; timed beside its bound and the
-    float cuDNN conv; the planted faults rejected; registers and spills."""
+    decoder (request (a)'s latents), encoder (the 49x480x832 clip) and
+    hybrid decoder ran in phase_vae_int8, max abs 0 required; the full
+    walks' shapes and the K14_HYBRID_TIMED hybrid shapes with the most
+    calls x operations timed beside the bound and the float cuDNN conv
+    (and the replaced kernel in turns with --conv-int8-parent); the planted
+    faults rejected; registers, spills, serialised wgmma and shared
+    memory."""
     import torch
     g = torch.Generator("cuda").manual_seed(140)
-    report = _build_report("K14", "conv_int8", ("absmax_kernel",
-                                                 "quantize_kernel",
-                                                 "igemm_kernel"),
-                           lambda tag: None)
+    report = _k14_build_report()
+    parent = parents.get(CONV_INT8_PARENT)
     rows = {}
     # the kernels line's shape: the decoder's largest conv by operations
     head_key = max(shapes["decoder"], key=lambda k: _k14_ops(*k[:2]))
-    for walk in ("decoder", "encoder"):
-        for i, (key, count) in enumerate(sorted(shapes[walk].items())):
-            row = _k14_row(key, count, g, fp32=key == head_key)
+    hybrid = sorted(shapes["hybrid"].items(),
+                    key=lambda kv: -kv[1] * _k14_ops(*kv[0][:2]))
+    timed = {"decoder": sorted(shapes["decoder"].items()),
+             "encoder": sorted(shapes["encoder"].items()),
+             "hybrid": hybrid[:K14_HYBRID_TIMED]}
+    for walk, items in timed.items():
+        for i, (key, count) in enumerate(items):
+            row = _k14_row(key, count, g, fp32=key == head_key,
+                           parent=parent)
             rows[f"{walk}{i}"] = row
             print(f"K14 {walk} {row['x']} * {row['weight']} s{row['stride']}"
-                  f" p{row['padding']} x{count}: max abs "
-                  f"{row['max_abs_err']:.1e}, {row['ms']:.3f} ms (igemm "
-                  f"{row['igemm_ms']:.3f}; bound {row['bound_ms']:.3f}, "
-                  f"{row['bound_by']}); cuDNN fp32 {row['cudnn_fp32_ms']}, "
-                  f"TF32 {row['cudnn_tf32_ms']:.3f}, bf16 "
+                  f" p{row['padding']} x{count} (tile {row['block_n']}, "
+                  f"split {row['split']}): max abs {row['max_abs_err']:.1e}, "
+                  f"{row['ms']:.3f} ms (igemm {row['igemm_ms']:.3f}; bound "
+                  f"{row['bound_ms']:.3f}, {row['bound_by']}); "
+                  + ("" if parent is None else
+                     f"the replaced kernel {row['parent_ms']:.3f} ms (turns "
+                     f"{[round(t, 3) for t in row['turns_ms']]}, bit-equal "
+                     f"{row['parent_equal']}); ")
+                  + f"cuDNN fp32 {row['cudnn_fp32_ms']}, TF32 "
+                  f"{row['cudnn_tf32_ms']:.3f}, bf16 "
                   f"{row['cudnn_bf16_ms']:.3f}")
+    # every other hybrid shape: exact, untimed
+    hybrid_err = {f"{list(k[0])} * {list(k[1])}": _k14_exact(k, g)
+                  for k, _ in hybrid[K14_HYBRID_TIMED:]}
+    torch.cuda.empty_cache()
+    print(f"K14 hybrid decode: {len(hybrid)} shapes, "
+          f"{sum(n for _, n in hybrid)} calls; the {len(hybrid_err)} "
+          f"untimed ones max abs {max(hybrid_err.values(), default=0):.1e}")
     bad = {k: r["max_abs_err"] for k, r in rows.items() if r["max_abs_err"]}
+    bad.update({k: v for k, v in hybrid_err.items() if v})
     check(not bad, f"K14 differs from its plain version: {bad}")
-    faults = _k14_fault_readings(
-        {n: parents[n] for n in K14_FAULTS}, shapes["decoder"],
-        shapes["encoder"], g)
+    if parent is not None:
+        apart = [k for k, r in rows.items() if not r["parent_equal"]]
+        check(not apart, f"K14: the replaced kernel is not bit-equal at "
+                         f"{apart}")
+    faults = _k14_fault_readings({n: parents[n] for n in K14_FAULTS},
+                                 shapes, g)
     dec = [r for k, r in rows.items() if k.startswith("decoder")]
     head = next(r for r in dec if r["cudnn_fp32_ms"] is not None)
-    sums = {f"decode_{k}": sum(r[k] * r["calls"] for r in dec)
-            for k in ("ms", "igemm_ms", "bound_ms", "cudnn_tf32_ms",
-                      "cudnn_bf16_ms")}
+    keys = ("ms", "igemm_ms", "bound_ms", "cudnn_tf32_ms", "cudnn_bf16_ms")
+    keys += () if parent is None else ("parent_ms",)
+    sums = {f"decode_{k}": sum(r[k] * r["calls"] for r in dec) for k in keys}
     print("K14 over one int8 full decode (each shape times its calls): "
           + ", ".join(f"{k} {v:.1f}" for k, v in sums.items()))
-    result = dict(max_abs_err=max(r["max_abs_err"] for r in rows.values()),
+    result = dict(max_abs_err=max([r["max_abs_err"] for r in rows.values()]
+                                  + list(hybrid_err.values())),
                   ms=head["ms"], plain_ms=head["plain_ms_on_slice"],
                   bound_ms=head["bound_ms"], bound_by=head["bound_by"],
                   library_ms=None, igemm_ms=head["igemm_ms"],
@@ -7631,7 +7813,10 @@ def phase_kernels_k14(shapes, parents):
                   cudnn_tf32_ms=head["cudnn_tf32_ms"],
                   cudnn_bf16_ms=head["cudnn_bf16_ms"], shape=head["x"],
                   weight=head["weight"], faults=faults, build=report,
-                  shapes=rows, **sums)
+                  shapes=rows, hybrid_shapes=len(hybrid),
+                  hybrid_untimed_max_abs=hybrid_err, **sums)
+    if parent is not None:
+        result["parent_ms"] = head["parent_ms"]
     return {"conv_int8": result}
 
 

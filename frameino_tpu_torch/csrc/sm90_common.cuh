@@ -10,8 +10,8 @@
 //     and for unswizzled operands, fence / commit / wait, m64nNk16 f32 +=
 //     bf16 x bf16 with A from shared memory or from registers, B from
 //     shared memory, either K-major or MN-major (the transpose bits), and
-//     m64n128k32 s32 += s8 x s8 with both operands K-major in shared
-//     memory (integer wgmma has no transpose bits);
+//     m64nNk32 s32 += s8 x s8 (N = 128, 160, 256) with both operands
+//     K-major in shared memory (integer wgmma has no transpose bits);
 //   - setmaxnreg, named barriers, the generic -> async proxy fence.
 //
 // Tile layout. Every tile lives in shared memory as TMA writes it with
@@ -229,6 +229,10 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 #define SM90_R16(d, i) \
   SM90_R4(d, i), SM90_R4(d, i + 4), SM90_R4(d, i + 8), SM90_R4(d, i + 12)
 #define SM90_R64(d) SM90_R16(d, 0), SM90_R16(d, 16), SM90_R16(d, 32), SM90_R16(d, 48)
+#define SM90_R80(d) SM90_R64(d), SM90_R16(d, 64)
+#define SM90_R128(d)                                                \
+  SM90_R64(d), SM90_R16(d, 64), SM90_R16(d, 80), SM90_R16(d, 96), \
+      SM90_R16(d, 112)
 
 #define SM90_D32                                                            \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
@@ -240,6 +244,25 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
   "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
   "%58, %59, %60, %61, %62, %63}"
+
+#define SM90_D80                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "  \
+  "%72, %73, %74, %75, %76, %77, %78, %79}"
+#define SM90_D128                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "  \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "  \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "  \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, " \
+  "%124, %125, %126, %127}"
 
 // d (64 x N fp32, the accumulator layout: row 16 * warp + lane / 4 (+ 8),
 // column 8 * j + 2 * (lane % 4) (+ 1) in d[4 j + {0, 1, 2, 3}]) =
@@ -304,6 +327,30 @@ __device__ __forceinline__ void mma_ss_s8<128>(uint32_t (&d)[64], uint64_t a,
       : "memory");
 }
 
+template <>
+__device__ __forceinline__ void mma_ss_s8<160>(uint32_t (&d)[80], uint64_t a,
+                                               uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k32.s32.s8.s8 " SM90_D80
+      ", %80, %81, p;\n}\n"
+      : SM90_R80(d)
+      : "l"(a), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void mma_ss_s8<256>(uint32_t (&d)[128], uint64_t a,
+                                               uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " SM90_D128
+      ", %128, %129, p;\n}\n"
+      : SM90_R128(d)
+      : "l"(a), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
 // d (64 x N fp32) = scale_d * d + A (64 x 16 bf16 in registers, the
 // mma.m16n8k16 A fragment of each warp's 16 rows, which is also the layout
 // of two neighbouring 8-column blocks of an accumulator) * B (descriptor).
@@ -357,9 +404,13 @@ __device__ __forceinline__ void mma_rs<8, 0>(float (&d)[4],
 #undef SM90_F64
 #undef SM90_D32
 #undef SM90_D64
+#undef SM90_D80
+#undef SM90_D128
 #undef SM90_R4
 #undef SM90_R16
 #undef SM90_R64
+#undef SM90_R80
+#undef SM90_R128
 
 // ---------------------------------------------------------------------------
 // registers, barriers, proxies

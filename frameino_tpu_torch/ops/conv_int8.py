@@ -23,8 +23,9 @@ channels last and zero-padded to ``CHANNEL_GRANULE``: ``kernel_weight``
 lays out torch's [Cout, C, kt, kh, kw] once, when a conv is quantized)
 and ``padding`` ((front, back), (top, bottom), (left, right)). For a CUDA
 tensor it launches K14 (``csrc/conv_int8.cu``: the absmax, the quantizer
-into a channels-last int8 copy, the implicit GEMM with the epilogue
-fused; fp32 only) and raises on anything else; for a CPU tensor it runs
+into a channels-last int8 copy, the implicit GEMM on wgmma with the
+epilogue fused, its tile width and K split from ``igemm_plan``; fp32
+only) and raises on anything else; for a CPU tensor it runs
 the plain version, ``conv_int8_ref``, whose int8 product is a float64
 ``F.conv3d`` (exact: every sum stays under 2**53). Launches are counted
 in ``conv_int8.launches`` (``conv_int8_cuda`` launches it, or another
@@ -43,8 +44,15 @@ from frameino_tpu_torch.ops.dyn_quant import INV_127, SCALE_FLOOR
 
 Pads = Sequence[Tuple[int, int]]
 
-# the channel granule of the kernel's int8 operands (kBK in the source)
+# the channel granule of the kernel's int8 operands (kChannelGranule in
+# the source)
 CHANNEL_GRANULE = 32
+# the implicit GEMM's tiling (kBM, kStageK, kMinSplitStages, kMaxTaps in the
+# source): 128 output positions a tile, 128 bytes of K a stage, a tile of
+# BLOCK_N_CHOICES output channels, at least MIN_SPLIT_STAGES stages a split
+# of K, at most MAX_TAPS taps (their bit mask is 32 bits)
+BLOCK_M, STAGE_K, MIN_SPLIT_STAGES, MAX_TAPS = 128, 128, 16, 32
+BLOCK_N_CHOICES = (256, 160)
 
 
 def activation_scale(x):
@@ -152,6 +160,33 @@ def conv_int8(x, weight_q, scale, bias=None, stride=(1, 1, 1),
     return out
 
 
+def igemm_plan(m: int, n: int, k: int, sms: int) -> dict:
+    """K14's implicit-GEMM launch for M = ``m`` output positions, N = ``n``
+    output channels and K = ``k`` bytes of depth on ``sms`` SMs: the tile
+    width ``block_n`` (256 where it divides N, the decoder's widths, else
+    160, the encoder's, else the one that pads N least), the ``tiles``
+    (128 positions x block_n), the K ``stages`` (128 bytes), the ``split``
+    of K where the tiles leave SMs idle (as many splits as fill them, each
+    at least MIN_SPLIT_STAGES stages) and the zeroed int32 ``workspace``
+    the splits add into (partial sums, then a counter a tile)."""
+    fits = [b for b in BLOCK_N_CHOICES if n % b == 0]
+    block_n = fits[0] if fits else min(
+        BLOCK_N_CHOICES, key=lambda b: (-(-n // b) * b, -b))
+    tiles = -(-m // BLOCK_M) * -(-n // block_n)
+    stages = -(-k // STAGE_K)
+    split = 1
+    if tiles < sms:
+        split = max(1, min(sms // tiles, stages // MIN_SPLIT_STAGES))
+    workspace = tiles * (block_n * BLOCK_M + 1) if split > 1 else 0
+    return dict(block_n=block_n, tiles=tiles, stages=stages, split=split,
+                workspace=workspace)
+
+
+def sm_count(device) -> int:
+    """The SMs of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launched(fn: str, code: int):
     if code != 0:
         raise RuntimeError(f"{fn} launch failed: CUDA error {code}")
@@ -161,7 +196,8 @@ def conv_int8_cuda(x, weight_q, scale, bias=None, stride=(1, 1, 1),
                    padding: Pads = ((0, 0),) * 3, *, library=None):
     """The three launches of ``csrc/conv_int8.cu`` (or of ``library``,
     another build of its C interface) on CUDA tensors, after the
-    wrapper's checks; not counted."""
+    wrapper's checks; not counted. One zeroed int32 buffer holds the
+    absmax and, where the plan splits K, the splits' workspace."""
     _check_args(x, weight_q, scale, bias, stride, padding)
     tensors = [("x", x), ("weight", weight_q), ("scale", scale)]
     if bias is not None:
@@ -175,29 +211,52 @@ def conv_int8_cuda(x, weight_q, scale, bias=None, stride=(1, 1, 1),
     B, C, T, H, W = x.shape
     cout = weight_q.shape[0]
     kt, kh, kw, cp = weight_q.shape[1:]
+    if kt * kh * kw > MAX_TAPS:
+        raise ValueError(f"conv_int8: the CUDA kernel takes at most "
+                         f"{MAX_TAPS} taps, got {kt}x{kh}x{kw}")
     To, Ho, Wo = out_extents(x.shape, weight_q.shape, stride, padding)
     x, weight_q = (t.contiguous() for t in (x, weight_q))
     x, weight_q = (t.clone() if t.data_ptr() % 16 else t
                    for t in (x, weight_q))
     scale = scale.contiguous()
     bias = None if bias is None else bias.contiguous()
-    amax = torch.zeros(1, dtype=torch.int32, device=x.device)
+    plan = igemm_plan(B * To * Ho * Wo, cout, kt * kh * kw * cp,
+                      sm_count(x.device))
+    # the absmax at word 0, the workspace 16 bytes in
+    buf = torch.zeros(4 + plan["workspace"], dtype=torch.int32,
+                      device=x.device)
     xq = torch.empty((B, T, H, W, cp), dtype=torch.int8, device=x.device)
     out = torch.empty((B, cout, To, Ho, Wo), dtype=torch.float32,
                       device=x.device)
     L = library or lib("conv_int8")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _launched("conv_int8_absmax", L.conv_int8_absmax(
-        x.data_ptr(), x.numel(), amax.data_ptr(), stream))
+        x.data_ptr(), x.numel(), buf.data_ptr(), stream))
     _launched("conv_int8_quantize", L.conv_int8_quantize(
-        x.data_ptr(), xq.data_ptr(), amax.data_ptr(), B, C, cp, T * H * W,
+        x.data_ptr(), xq.data_ptr(), buf.data_ptr(), B, C, cp, T * H * W,
         stream))
-    _launched("conv_int8_igemm", L.conv_int8_igemm(
-        xq.data_ptr(), weight_q.data_ptr(), scale.data_ptr(),
-        None if bias is None else bias.data_ptr(), amax.data_ptr(),
-        out.data_ptr(), B, T, H, W, cp, cout, kt, kh, kw, *stride,
-        padding[0][0], padding[1][0], padding[2][0], To, Ho, Wo, stream))
+    _launched("conv_int8_igemm", igemm(
+        L, xq, weight_q, scale, bias, buf, out, stride, padding, plan,
+        stream))
     return out
+
+
+def igemm(L, xq, weight_q, scale, bias, buf, out, stride, padding, plan,
+          stream) -> int:
+    """``conv_int8_igemm`` of library ``L`` on the channels-last codes
+    ``xq`` [B, T, H, W, Cp] into ``out`` [B, Cout, To, Ho, Wo] by
+    ``plan`` (``igemm_plan``); ``buf`` holds the absmax bits at word 0 and,
+    zeroed, the plan's workspace from word 4. Returns the C call's code."""
+    B, T, H, W, cp = xq.shape
+    cout, kt, kh, kw = weight_q.shape[:4]
+    To, Ho, Wo = out.shape[2:]
+    ws = buf[4:].data_ptr() if plan["split"] > 1 else None
+    return L.conv_int8_igemm(
+        xq.data_ptr(), weight_q.data_ptr(), scale.data_ptr(),
+        None if bias is None else bias.data_ptr(), buf.data_ptr(),
+        out.data_ptr(), ws, B, T, H, W, cp, cout, kt, kh, kw, *stride,
+        padding[0][0], padding[1][0], padding[2][0], To, Ho, Wo,
+        plan["block_n"], plan["split"], stream)
 
 
 conv_int8.launches = 0

@@ -55,7 +55,8 @@ _CUDA_SOURCES = {
     "conv_int8": {"conv_int8_absmax": [_VP, _I64, _VP, _VP],
                   "conv_int8_quantize": [_VP] * 3 + [_INT] * 3
                   + [_I64, _VP],
-                  "conv_int8_igemm": [_VP] * 6 + [_INT] * 18 + [_VP]},
+                  "conv_int8_igemm": [_VP] * 7 + [_INT] * 20 + [_VP],
+                  "conv_int8_igemm_smem_bytes": [_INT]},
     # a measurement kernel on no path: K13's L2 yardstick
     "l2_read_probe": {"l2_read_probe_fp32": [_VP] + [_INT] * 2 + [_VP]
                       + [_INT, _VP]},

@@ -1020,8 +1020,19 @@ def test_umt5_bf16_on_cuda_follows_fp32_on_the_cpu(dev):
 
 @pytest.mark.parametrize("x_shape, w_shape, stride, pads", [
     # causal 3x3x3 over 40 channels (a ragged channel chunk), the 1x1x1
-    # shortcut, the 2D upsample conv, the stride-2 2D and time convs
+    # shortcut, the 2D upsample conv, the stride-2 2D and time convs; the
+    # encoder's widths (Cp = 160 and 320 on the 160-wide tile, a 128-byte
+    # stage spanning two taps; its stride-2 conv at 160); a hybrid-sized
+    # call, M = 256, N = 1024, K = 27,648, whose K is split
     ((2, 40, 5, 7, 9), (20, 40, 3, 3, 3), (1, 1, 1),
+     ((2, 0), (1, 1), (1, 1))),
+    ((1, 160, 3, 10, 12), (160, 160, 3, 3, 3), (1, 1, 1),
+     ((2, 0), (1, 1), (1, 1))),
+    ((1, 320, 3, 6, 8), (320, 320, 3, 3, 3), (1, 1, 1),
+     ((2, 0), (1, 1), (1, 1))),
+    ((4, 160, 1, 20, 24), (160, 160, 1, 3, 3), (1, 2, 2),
+     ((0, 0), (0, 1), (0, 1))),
+    ((1, 1024, 1, 16, 16), (1024, 1024, 3, 3, 3), (1, 1, 1),
      ((2, 0), (1, 1), (1, 1))),
     ((1, 64, 3, 6, 5), (32, 64, 1, 1, 1), (1, 1, 1), ((0, 0),) * 3),
     ((3, 32, 1, 9, 11), (16, 32, 1, 3, 3), (1, 1, 1),
@@ -1059,6 +1070,10 @@ def test_conv_int8_rejects_what_the_kernel_does_not_take(dev):
         K.conv_int8(x.bfloat16(), w, s, padding=((2, 0), (1, 1), (1, 1)))
     with pytest.raises(ValueError, match="scale on cpu"):
         K.conv_int8(x, w, s.cpu(), padding=((2, 0), (1, 1), (1, 1)))
+    # 45 taps: the kernel's tap mask holds 32
+    w5 = torch.zeros(8, 5, 3, 3, 32, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="taps"):
+        K.conv_int8(torch.randn(1, 32, 5, 4, 4, device=dev), w5, s)
 
 
 def test_vae_weight_quantizer_divides_on_cuda(dev):

@@ -441,130 +441,280 @@ def _constant(name):
                          SRC.read_text()).group(1))
 
 
-def _replay_igemm(xq, wk, g):
-    """The int32 sums of ``igemm_kernel`` as its threads compute them: each
-    block's copy slots gather their rows tap by tap into the swizzled
-    stages, each warp's lanes read their m16n8k32 fragments back through
-    the same swizzle, and the fragments multiply as the PTX ISA lays them
-    out. Returns [B, Cout, To, Ho, Wo] int64."""
-    BM, BN, BK = _constant("kBM"), _constant("kBN"), _constant("kBK")
-    threads = _constant("kThreads")
+def _tap_mask(ti0, hi0, wi0, dims, kernel):
+    """``tap_mask`` of the source: bit (dt * kh + dh) * kw + dw set where
+    the tap reads inside the input."""
+    (Ti, Hi, Wi), (kt, kh, kw) = dims, kernel
+    mask = np.zeros(np.shape(ti0), np.int64)
+    for dt in range(kt):
+        for dh in range(kh):
+            for dw in range(kw):
+                ok = ((0 <= ti0 + dt) & (ti0 + dt < Ti) & (0 <= hi0 + dh)
+                      & (hi0 + dh < Hi) & (0 <= wi0 + dw) & (wi0 + dw < Wi))
+                mask |= ok.astype(np.int64) << ((dt * kh + dh) * kw + dw)
+    return mask
+
+
+def _sw128(row, chunk):
+    """Byte offset of 16-byte chunk ``chunk`` of row ``row`` of a 128-byte
+    swizzled tile that starts on a 1024-byte boundary (TMA's and wgmma's
+    CU_TENSOR_MAP_SWIZZLE_128B)."""
+    return row * 128 + ((chunk ^ (row % 8)) << 4)
+
+
+def _replay_igemm(xq, wk, g, sms):
+    """The int32 sums of ``igemm_kernel`` as its threads compute them, on
+    ``sms`` SMs. The plan (``igemm_plan``: tile width, tiles with N
+    fastest, K splits); per block and split, the producer's threads (chunk
+    c = t % 8 of rows t / 8 + 16 i) keep each row's first input position
+    and tap mask and advance their chunk's tap and channel by counters,
+    gathering 16 bytes a row into the swizzled A stage (zeros outside the
+    input or past K); B arrives as TMA's box of 128 bytes x block_n rows
+    at (k0, n0), zero past Cout and K, swizzled; each consumer warpgroup
+    reads its 64 rows and the B tile as the k32 descriptors address them
+    and accumulates; the accumulator's registers (m64nN: row 16 warp +
+    lane / 4 (+ 8), column 8 j + 2 (lane % 4) (+ 1) in acc[4 j + e]) go to
+    the staged [block_n][128 + pad] tile (each warp's stores on 32
+    distinct banks) or, split, are added into the workspace, whose last
+    split runs the stores; the stores write channel rows, 4 positions a
+    lane, 16-byte aligned where the vector path is taken. Returns [B,
+    Cout, To, Ho, Wo] int64, every element written once."""
+    src = SRC.read_text()
+    BM, SK, CH, WG = (_constant(n) for n in ("kBM", "kStageK", "kChunk",
+                                              "kWG"))
+    assert (BM, SK) == (K14.BLOCK_M, K14.STAGE_K)
+    assert _constant("kMinSplitStages") == K14.MIN_SPLIT_STAGES
+    assert _constant("kChannelGranule") == K14.CHANNEL_GRANULE
+    stride_w = BM + int(re.search(r"constexpr int kStgStride = kBM \+ (\d+);",
+                                  src).group(1))
+    rows_per = BM * (SK // CH) // WG
     B, Ti, Hi, Wi, Cp = xq.shape
     (Cout, kt, kh, kw, _), (st, sh, sw, pt, ph, pw, To, Ho, Wo) = \
         wk.shape, g
-    M, P = B * To * Ho * Wo, To * Ho * Wo
-    K = kt * kh * kw * Cp
-    cchunks, nk = Cp // BK, kt * kh * kw * Cp // BK
-    out = np.zeros((B, Cout, P), np.int64)
-    tid = np.arange(threads)
-    lrow, lhalf = tid // 2, tid % 2
+    P, taps = To * Ho * Wo, kt * kh * kw
+    M, K = B * P, taps * Cp
+    assert taps <= _constant("kMaxTaps")
+    plan = K14.igemm_plan(M, Cout, K, sms)
+    BN, split, nk = plan["block_n"], plan["split"], plan["stages"]
+    assert re.search(rf"mma_ss_s8<{BN}>", (SRC.parent / "sm90_common.cuh")
+                     .read_text())
+    n_tiles = -(-Cout // BN)
+    assert nk == -(-K // SK) and plan["tiles"] == -(-M // BM) * n_tiles
+    w2, xflat = wk.reshape(Cout, K), xq.reshape(-1)
+    out = np.zeros(B * Cout * P, np.int64)
+    written = np.zeros(B * Cout * P, np.int64)
+    ws = np.zeros(plan["workspace"], np.int64)
+    t = np.arange(WG)
+    c, r0 = t & 7, t >> 3
+    rows = r0[:, None] + 16 * np.arange(rows_per)           # [WG, 8]
     lane = np.arange(32)
-    grp, tig = lane // 4, lane % 4
+    # the A gather's destination: the kernel's a_dst0 + 2048 i
+    dst = _sw128(rows, c[:, None])
+    assert np.array_equal(dst, (r0 * SK + ((c ^ (r0 & 7)) << 4))[:, None]
+                          + 2048 * np.arange(rows_per))
+    # B's box through TMA's swizzle, and both operands as the descriptors
+    # read them (chunk (32 kk + byte) / 16 of row r at _sw128)
+    b_rows, b_cols = np.meshgrid(np.arange(BN), np.arange(SK), indexing="ij")
+    b_phys = _sw128(b_rows, b_cols // 16) + b_cols % 16
 
-    def swz(row, half):
-        return row * BK + 16 * (half ^ ((row >> 2) & 1))
+    def operand(buf, base, nrows, kk):
+        r, byte = np.meshgrid(np.arange(nrows), 32 * kk + np.arange(32),
+                              indexing="ij")
+        return buf[base + _sw128(r, byte // 16) + byte % 16]
 
-    def lds32(tile, row, half, word):
-        o = swz(row, half) + 4 * word
-        return np.stack([tile[o + i] for i in range(4)], -1)  # 4 int8s
+    def stores(tile_src, stride, m0, n0):
+        for cwarp in range(8):
+            m = m0 + 4 * lane
+            for ln in range(32):
+                me = m[ln] + np.arange(4)
+                b = me // P
+                base = np.where(me < M, b * Cout * P + me - b * P, -1)
+                v = P % 4 == 0 and me[3] < M
+                for nl in range(cwarp, BN, 8):
+                    n = n0 + nl
+                    if n >= Cout:
+                        break
+                    a = tile_src[nl * stride + 4 * ln:nl * stride + 4 * ln + 4]
+                    if v:
+                        assert (base[0] + n * P) % 4 == 0
+                        idx = base[0] + n * P + np.arange(4)
+                    else:
+                        idx = (base + n * P)[base >= 0]
+                        a = a[base >= 0]
+                    out[idx] = a
+                    written[idx] += 1
 
-    for m0 in range(0, M, BM):
-        m = m0 + lrow
-        m_ok = m < M
-        b, r = np.divmod(np.minimum(m, M - 1), P)
-        to, r = np.divmod(r, Ho * Wo)
-        ho, wo = np.divmod(r, Wo)
-        ti0, hi0, wi0 = to * st - pt, ho * sh - ph, wo * sw - pw
-        for n0 in range(0, Cout, BN):
-            n_row = n0 + lrow
-            n_ok = n_row < Cout
-            acc = np.zeros((8, 2, 8, 32, 4), np.int64)  # warp, i, j, lane
-            for ks in range(nk):
-                tap, cc = divmod(ks, cchunks)
-                dt, dhw = divmod(tap, kh * kw)
-                dh, dw = divmod(dhw, kw)
-                ti, hi, wi = ti0 + dt, hi0 + dh, wi0 + dw
-                a_ok = (m_ok & (ti >= 0) & (ti < Ti) & (hi >= 0) & (hi < Hi)
-                        & (wi >= 0) & (wi < Wi))
-                ta = np.zeros(BM * BK, np.int64)
-                tb = np.zeros(BN * BK, np.int64)
-                for t in tid:
-                    dst = swz(lrow[t], lhalf[t])
-                    c0 = cc * BK + 16 * lhalf[t]
-                    if a_ok[t]:
-                        ta[dst:dst + 16] = xq[b[t], ti[t], hi[t], wi[t],
-                                              c0:c0 + 16]
-                    if n_ok[t]:
-                        k0 = ks * BK + 16 * lhalf[t]
-                        tb[dst:dst + 16] = wk.reshape(Cout, K)[n_row[t],
-                                                               k0:k0 + 16]
-                for warp in range(8):
-                    wm, wn = warp % 4, warp // 4
-                    for i in range(2):
-                        row = wm * 32 + i * 16 + grp
-                        a = [lds32(ta, r, half, tig)
-                             for half, r in ((0, row), (0, row + 8),
-                                             (1, row), (1, row + 8))]
-                        # A[16 x 32]: a0 row g cols 4t.., a1 row g+8, a2 row
-                        # g cols 16+4t.., a3 row g+8 cols 16+4t..
-                        A = np.zeros((16, 32), np.int64)
-                        for ln in range(32):
-                            g_, t_ = grp[ln], tig[ln]
-                            A[g_, 4 * t_:4 * t_ + 4] = a[0][ln]
-                            A[g_ + 8, 4 * t_:4 * t_ + 4] = a[1][ln]
-                            A[g_, 16 + 4 * t_:20 + 4 * t_] = a[2][ln]
-                            A[g_ + 8, 16 + 4 * t_:20 + 4 * t_] = a[3][ln]
-                        for j in range(8):
-                            nrow = wn * 64 + j * 8 + grp
-                            b0, b1 = lds32(tb, nrow, 0, tig), \
-                                lds32(tb, nrow, 1, tig)
-                            # B[32 x 8]: b0 k 4t.. col g, b1 k 16+4t..
-                            Bm = np.zeros((32, 8), np.int64)
-                            for ln in range(32):
-                                g_, t_ = grp[ln], tig[ln]
-                                Bm[4 * t_:4 * t_ + 4, g_] = b0[ln]
-                                Bm[16 + 4 * t_:20 + 4 * t_, g_] = b1[ln]
-                            C = A @ Bm
-                            for ln in range(32):
-                                g_, t_ = grp[ln], tig[ln]
-                                acc[warp, i, j, ln] += [
-                                    C[g_, 2 * t_], C[g_, 2 * t_ + 1],
-                                    C[g_ + 8, 2 * t_], C[g_ + 8, 2 * t_ + 1]]
-            # the epilogue's map: c0 c1 row g, c2 c3 row g + 8; cols 2t, 2t+1
-            for warp in range(8):
-                wm, wn = warp % 4, warp // 4
-                for i in range(2):
-                    for h in range(2):
-                        for j in range(8):
-                            for e in range(2):
-                                for ln in range(32):
-                                    mr = (m0 + wm * 32 + i * 16 + grp[ln]
-                                          + 8 * h)
-                                    n = n0 + wn * 64 + j * 8 + 2 * tig[ln] + e
-                                    if mr < M and n < Cout:
-                                        bb, p = divmod(mr, P)
-                                        out[bb, n, p] = acc[warp, i, j, ln,
-                                                            2 * h + e]
+    for tile in range(plan["tiles"]):
+        m0, n0 = (tile // n_tiles) * BM, (tile % n_tiles) * BN
+        arrived = 0
+        for z in range(split):
+            ks0, ks1 = z * nk // split, (z + 1) * nk // split
+            assert split == 1 or ks1 - ks0 >= K14.MIN_SPLIT_STAGES
+            m = m0 + rows
+            ok_m = m < M
+            mm = np.minimum(m, M - 1)
+            b, r = np.divmod(mm, P)
+            to, r = np.divmod(r, Ho * Wo)
+            ho, wo = np.divmod(r, Wo)
+            ti0, hi0, wi0 = to * st - pt, ho * sh - ph, wo * sw - pw
+            rowpos = np.where(ok_m, b * Ti * Hi * Wi + (ti0 * Hi + hi0) * Wi
+                              + wi0, 0)
+            rowmask = np.where(ok_m, _tap_mask(ti0, hi0, wi0, (Ti, Hi, Wi),
+                                               (kt, kh, kw)), 0)
+            k_first = ks0 * SK + CH * c
+            tap, ch = np.divmod(k_first, Cp)
+            dt = tap // (kh * kw)
+            dh = (tap - dt * kh * kw) // kw
+            dw = tap - (dt * kh + dh) * kw
+            acc = np.zeros((2, 64, BN), np.int64)
+            for it in range(ks1 - ks0):
+                assert np.array_equal(tap * Cp + ch,
+                                      (ks0 + it) * SK + CH * c)
+                A = np.zeros(BM * SK, np.int64)
+                tappos = (dt * Hi + dh) * Wi + dw
+                for i in range(rows_per):
+                    ok = (tap < taps) & (((rowmask[:, i] >> (tap & 31)) & 1)
+                                         == 1)
+                    s0 = (rowpos[ok, i] + tappos[ok]) * Cp + ch[ok]
+                    A[dst[ok, i][:, None] + np.arange(16)] = \
+                        xflat[s0[:, None] + np.arange(16)]
+                ch = ch + SK
+                while (wrap := ch >= Cp).any():
+                    ch = np.where(wrap, ch - Cp, ch)
+                    tap = tap + wrap
+                    dw = dw + wrap
+                    carry = wrap & (dw == kw)
+                    dw = np.where(carry, 0, dw)
+                    dh = dh + carry
+                    carry = carry & (dh == kh)
+                    dh = np.where(carry, 0, dh)
+                    dt = dt + carry
+                k0 = (ks0 + it) * SK
+                box = np.zeros((BN, SK), np.int64)
+                part = w2[n0:n0 + BN, k0:k0 + SK]
+                box[:part.shape[0], :part.shape[1]] = part
+                Bt = np.zeros(BN * SK, np.int64)
+                Bt[b_phys] = box
+                for w in range(2):
+                    for kk in range(SK // 32):
+                        acc[w] += operand(A, w * 64 * SK, 64, kk) @ \
+                            operand(Bt, 0, BN, kk).T
+            # the accumulator registers, then the stage or the workspace
+            stg = np.zeros(BN * stride_w, np.int64)
+            for w in range(2):
+                for warp in range(4):
+                    mrow = 64 * w + 16 * warp + lane // 4
+                    for j in range(BN // 8):
+                        for e in range(4):
+                            col = 8 * j + 2 * (lane % 4) + (e & 1)
+                            row = mrow + 8 * (e >> 1)
+                            val = acc[w][row - 64 * w, col]
+                            if split == 1:
+                                addr = col * stride_w + row
+                                assert len(set(addr % 32)) == 32
+                                stg[addr] = val
+                            else:
+                                ws[tile * BN * BM + col * BM + row] += val
+            if split == 1:
+                stores(stg, stride_w, m0, n0)
+            else:
+                ws[plan["tiles"] * BN * BM + tile] += 1
+                arrived += 1
+        if split > 1:
+            assert ws[plan["tiles"] * BN * BM + tile] == arrived == split
+            stores(ws[tile * BN * BM:(tile + 1) * BN * BM], BM, m0, n0)
+    assert (written == 1).all()
     return out.reshape(B, Cout, To, Ho, Wo)
+
+
+def _ring(block_n):
+    """(stages, lag) of ``igemm_kernel<block_n>``'s ring, from the source:
+    its depth and how many stages the producer's arrivals trail its
+    copies."""
+    src = SRC.read_text()
+    deep, shallow = map(int, re.search(
+        r"kStages = BN == 256 \? (\d+) : (\d+);", src).groups())
+    stages = deep if block_n == 256 else shallow
+    return stages, stages - int(re.search(r"constexpr int L = S - (\d+);",
+                                          src).group(1))
+
+
+def _replay_ring(n_it, stages, lag):
+    """The mbarrier protocol of one block over ``n_it`` stages, stepped
+    until nothing can move: the producer waits for a slot's empty barrier
+    (the 8 consumer warps of the stage that held it), issues TMA's bytes
+    (one arrival) and its copies, and its 4 warps arrive for the stage
+    ``lag`` back once those copies landed (then for the last ``lag`` after
+    the loop); each consumer warpgroup waits for a stage's full barrier (5
+    arrivals), issues its products and, once the previous stage's are done
+    (wait_group 1), frees that one. Returns (producer stages, drained,
+    consumer stages)."""
+    full, empty = [0] * n_it, [0] * n_it
+    p_it, drained, c_it = 0, False, [0, 0]
+    moved = True
+    while moved:
+        moved = False
+        if p_it < n_it and (p_it < stages or empty[p_it - stages] == 8):
+            full[p_it] += 1
+            if p_it >= lag:
+                full[p_it - lag] += 4
+            p_it, moved = p_it + 1, True
+        elif p_it == n_it and not drained:
+            for j in range(max(0, n_it - lag), n_it):
+                full[j] += 4
+            drained = moved = True
+        for w in range(2):
+            it = c_it[w]
+            if it < n_it and full[it] == 5:
+                if it > 0:
+                    empty[it - 1] += 4
+                c_it[w], moved = it + 1, True
+    return p_it, drained, c_it
+
+
+@pytest.mark.parametrize("block_n", [256, 160])
+@pytest.mark.parametrize("n_it", [1, 2, 4, 5, 13, 216])
+def test_igemm_ring_never_stalls(block_n, n_it):
+    """K14's full / empty barrier protocol runs every stage of a block (a
+    small conv's 1-5 stages, a split's 13-16, a whole K's 216) without a
+    stall, and a slot is refilled only after both consumers freed it: with
+    the producer's arrivals one stage later (stages - 1 behind) it
+    stalls."""
+    stages, lag = _ring(block_n)
+    assert 0 <= lag < stages
+    assert _replay_ring(n_it, stages, lag) == (n_it, True, [n_it, n_it])
+    if n_it > stages:
+        assert _replay_ring(n_it, stages, stages - 1)[0] < n_it
 
 
 @pytest.mark.parametrize("case", [
     # x [B, C, T, H, W], kernel, stride, ((front, back), (top, bottom),
-    # (left, right)): causal 3x3x3 over a ragged 40 channels (two chunks
-    # of 32, the second half padding); a stride-2 2D window with its far
-    # zero pad read by bounds; a stride-2 time conv over two batches
-    ((1, 40, 3, 5, 4), (3, 3, 3), (1, 1, 1), ((2, 0), (1, 1), (1, 1))),
-    ((2, 8, 1, 7, 6), (1, 3, 3), (1, 2, 2), ((0, 0), (0, 1), (0, 1))),
-    ((2, 16, 7, 3, 3), (3, 1, 1), (2, 1, 1), ((0, 0), (0, 0), (0, 0))),
+    # (left, right)), Cout, SMs: causal 3x3x3 over a ragged 40 channels
+    # (Cp = 64: a 128-byte stage spans two taps); a stride-2 2D window with
+    # its far zero pad read by bounds; a stride-2 time conv over two
+    # batches; the encoder's Cp = 160 / Cout = 160 (a stage spans two taps,
+    # the 160-wide tile, two M tiles, the last ragged); a small M (96, the
+    # hybrid decode's first tiles) whose K (54 stages) is split three ways
+    # on 132 SMs, two 256-wide N tiles
+    ((1, 40, 3, 5, 4), (3, 3, 3), (1, 1, 1), ((2, 0), (1, 1), (1, 1)),
+     10, 1),
+    ((2, 8, 1, 7, 6), (1, 3, 3), (1, 2, 2), ((0, 0), (0, 1), (0, 1)),
+     10, 1),
+    ((2, 16, 7, 3, 3), (3, 1, 1), (2, 1, 1), ((0, 0), (0, 0), (0, 0)),
+     10, 1),
+    ((1, 160, 3, 7, 13), (3, 3, 3), (1, 1, 1), ((2, 0), (1, 1), (1, 1)),
+     160, 1),
+    ((1, 256, 1, 6, 16), (3, 3, 3), (1, 1, 1), ((2, 0), (1, 1), (1, 1)),
+     512, 132),
 ])
 def test_igemm_index_map_replays_the_plain_conv(case):
-    """A numpy replay of K14's tiling, gathers, swizzle and fragment maps
+    """A numpy replay of K14's plan, gathers, swizzle, TMA box, wgmma
+    operand and accumulator maps, split-K partials and staged epilogue
     gives the plain version's int32 sums exactly (this pins the source's
     index arithmetic, not the compiled kernel: only the card runs that)."""
-    shape, k, stride, pads = case
+    shape, k, stride, pads, cout, sms = case
     rs = np.random.RandomState(7)
     x = torch.from_numpy(rs.randn(*shape).astype(np.float32))
-    cout = 10
     w = torch.from_numpy(rs.randint(-127, 128, (cout, shape[1], *k))
                          .astype(np.int8))
     codes, _ = K14.quantize_activation_ref(x)
@@ -576,7 +726,7 @@ def test_igemm_index_map_replays_the_plain_conv(case):
     To, Ho, Wo = K14.out_extents(shape, wk.shape, stride, pads)
     wk = wk.numpy().astype(np.int64)
     got = _replay_igemm(xq, wk, (*stride, pads[0][0], pads[1][0],
-                                 pads[2][0], To, Ho, Wo))
+                                 pads[2][0], To, Ho, Wo), sms)
     xp = torch.nn.functional.pad(codes, (pads[2][0], pads[2][1], pads[1][0],
                                          pads[1][1], pads[0][0], pads[0][1]))
     want = torch.nn.functional.conv3d(xp.double(), w.double(),
