@@ -96,15 +96,7 @@ Phases (any failure exits non-zero; there is no CPU path):
  6. reference: a small Wan pipeline (2 blocks at head_dim 128) in bf16 on
     the card against the same weights in fp32 on the CPU's plain path, and
     the same pipeline with quantize="int8" against its int8 weights;
-    then tp: the full-width Wan DiT at TP_BLOCKS of its 30 blocks over
-    dp x tp meshes (tp = 2, tp = 4, dp = 2 x tp = 2), one process a rank
-    on this card over gloo: one CFG forward at 5,460 tokens each, within
-    TP_REL_L2 of the single-process bf16 forward on the same seeded
-    weights, with exact launches on every rank (K5 2, K1 1, K3 1 and K2 0
-    a block) and its time in collectives; at
-    tp = 2 the row-parallel biases added on every rank must exceed the
-    limit, and request (a) runs through WanImageToVideoPipeline(mesh=) in
-    2 steps, the VAE on rank 0;
+    the mesh phase ("tp") runs beside phase 19;
  7. CogVideoX kernels: K4 and K1 at head_dim 64 against their plain
     versions at the CogVideoX-5B shapes (49 frames at 480x720 plus the ID
     frame: CFG batch 2, 48 heads of 64, 226 + 18,900 = 19,126 tokens);
@@ -225,7 +217,30 @@ Phases (any failure exits non-zero; there is no CPU path):
     cosine), twice at once (bf16 state in a second process): fp32 state
     must pass JAX's three gates, bf16 state must finish finite; exact K6,
     K1, K2 and K3 launches in each; reports in
-    build/train_convergence_<state>.json;
+    build/train_convergence_<state>.json; beside it (all three bound by
+    the host, the card mostly idle), the mesh phase ("tp"): every mesh
+    in one spawn of MESH_PROCESSES = 4 processes on this card over gloo,
+    each mesh laid
+    over the first of them (make_mesh(ranks=)): the full-width Wan DiT at
+    TP_BLOCKS of its 30 blocks over tp = 2, tp = 4, dp = 2 x tp = 2 (K5 2,
+    K1 1, K3 1 and K2 0 a block), sp = 2 with the keys gathered and
+    through the ring, and tp = 2 x sp = 2 (K3 2 a block, the ring 1, no
+    K1/K2/K5), and the full-width CogVideoX-5B-I2V-FrameINO DiT at
+    COG_TP_BLOCKS of its 42 over tp = 2 (K4 2, K1 1 a block) and sp = 2
+    (K3 1 a block): one CFG forward each (5,460 / 19,126 tokens), counted,
+    within TP_REL_L2 of the single-process bf16 forward on the same seeded
+    weights, with exact launches on every rank, and block 0's
+    self-attention on each rank's own batch and token rows within the
+    limit of the single process's; a second forward timed with its time
+    in collectives; planted faults over the limit (MESH_FAULT_AT): at
+    tp = 2 the row-parallel biases added on every rank (Wan at the
+    output, CogVideoX at block 0's attention), at sp = 2 each rank
+    attending its own key shard alone and the ring handing each rank its
+    own shard back (at block 0's attention, on every rank); requests (a) and (d) through
+    WanImageToVideoPipeline(mesh=) / CogVideoXImageToVideoPipeline(mesh=)
+    at tp = 2 in 2 steps, the VAE on rank 0; after the processes end,
+    K4 -> K1 at CogVideoX's tp = 2 rank shapes and K3 at the sp = 2 ones
+    (both DiTs) against their plain versions, beside SDPA and the bound;
 20. Wan2.1 kernels: K2 at [2, 32760, 5120] (40 heads: one team of 160
     threads, five warps, a block) within one bf16 ulp of its fp64
     statistics (a warp's partial sum dropped must show), K1 at [80, 32760,
@@ -497,6 +512,17 @@ KERNELS.update({k: dict(KERNELS[base]) for k, base in (
     ("qk_ln_rope_cog15", "qk_ln_rope"),
     ("flash_fwd_static_cog15", "flash_fwd_static"),
     ("flash_fwd_cog2b", "flash_fwd"))})
+# K4 -> K1 and K3 at the mesh phase's rank shapes: CogVideoX at tp = 2
+# (24 of the 48 heads), its sp = 2 self-attention (a rank's 9,563 queries
+# against the 19,126 gathered keys); Wan's at sp = 2 (2,730 queries against
+# 5,460 keys) and its cross-attention from a rank's queries to the 512
+# text keys
+KERNELS.update({k: dict(KERNELS[base]) for k, base in (
+    ("qk_ln_rope_cog_tp2", "qk_ln_rope"),
+    ("flash_fwd_static_cog_tp2", "flash_fwd_static"),
+    ("flash_fwd_cog_sp2", "flash_fwd"),
+    ("flash_fwd_sp2", "flash_fwd"),
+    ("flash_fwd_sp2_text", "flash_fwd"))})
 K5 = "qk_norm_rope_rstd"
 K7 = "dynamic_quantize_rows"
 NO_TRAIN = {"flash_attn_train_fwd": 0, "flash_attn_train_bwd": 0}
@@ -509,10 +535,22 @@ PER_STEP = {"flash_fwd_static": 30, "qk_norm_rope": 60, "flash_fwd": 30,
 # phase 339.0 s of it; at 10, 953.2-1,059.2 s with the tp phase 122-156 s,
 # and the int8 VAE and CogVideoX 1.5 / 2B phases then came on top)
 TP_BLOCKS = 5
+# ... and the mesh phase's CogVideoX DiT: the full-width 5B-I2V-FrameINO at
+# 2 of its 42 blocks (a tp = 2 forward is nearly all gloo all-reduces of
+# [2, 19126, 3072] fp32 partial products through host memory, two a
+# block, and the phase runs four forwards of it)
+COG_TP_BLOCKS = 2
 # ... on every rank of a tp > 1 mesh (dp = 1 or 2) of that DiT: K5 in place
 # of K2, the counts of PER_STEP per block
 PER_STEP_TP = {k: n * TP_BLOCKS // 30
                for k, n in dict(PER_STEP, qk_norm_rope=0, **{K5: 60}).items()}
+# ... on every rank of an sp = 2 mesh (tp = 1 or 2): K3 over the gathered
+# keys and K3 against the text, a block each; through the ring, K3 against
+# the text alone (the ring's products are plain fp32 ops, as JAX's
+# einsums)
+PER_STEP_SP = dict(PER_STEP, flash_fwd_static=0, qk_norm_rope=0,
+                   flash_fwd=2 * TP_BLOCKS)
+PER_STEP_SP_RING = dict(PER_STEP_SP, flash_fwd=TP_BLOCKS)
 # ... with the DiT in int8: K7 on the input of attn1 q, k, v, out, attn2 q,
 # out, fc1 and fc2 of every block; and per request, the hoisted text K/V
 # (attn2 k, v of every block, once per segment)
@@ -523,6 +561,14 @@ PER_REQUEST_INT8 = {K7: 2 * 30}
 PER_STEP_COG = {"flash_fwd_static": 42, "qk_norm_rope": 0, "flash_fwd": 0,
                 "qk_ln_rope": 84, **NO_TRAIN, K7: 0, K5: 0}
 PER_STEP_COG_INT8 = dict(PER_STEP_COG, **{K7: 6 * 42})
+# ... on every rank of the CogVideoX meshes (COG_TP_BLOCKS blocks): at
+# tp = 2 K4 twice and K1 once a block on the rank's heads; at sp = 2 K3
+# once a block over the gathered keys (the LayerNorm and RoPE plain, as
+# JAX's route there)
+PER_STEP_COG_TP = {k: n * COG_TP_BLOCKS // 42
+                   for k, n in PER_STEP_COG.items()}
+PER_STEP_COG_SP = dict(PER_STEP_COG, qk_ln_rope=0, flash_fwd_static=0,
+                       flash_fwd=COG_TP_BLOCKS)
 # launches per train step of an n-block Wan DiT with remat, at B = 1: each
 # block's self- and cross-attention run forward, again when the block is
 # recomputed in the backward, and backward once
@@ -545,12 +591,30 @@ def per_train_step(blocks):
 # ((tp - 1) x bias too much) must exceed it (10 blocks: 6.20e-2; 5:
 # 3.70e-2).
 TP_REL_L2 = 2e-2
-# the dp x tp meshes of the tp phase, one set of processes each; the
-# tp = 2 set also serves a request through the pipeline
+# the dp x tp meshes of the Wan DiT in the tp phase; the tp = 2 mesh also
+# serves request (a) through the pipeline
 TP_MESHES = {"tp2": dict(tp=2), "tp4": dict(tp=4),
              "dp2xtp2": dict(dp=2, tp=2)}
 TP_REQUEST = dict(height=480, width=832, num_frames=49,
                   num_inference_steps=2)
+# ... the sp meshes of the Wan DiT, as (mesh, sequence-parallel method):
+# the keys and values gathered over sp, or passed round the fp32 ring
+SP_MESHES = {"sp2": (dict(sp=2), "allgather"),
+             "sp2_ring": (dict(sp=2), "ring"),
+             "tp2xsp2": (dict(tp=2, sp=2), "allgather")}
+# ... and the meshes of the full-width CogVideoX-5B-I2V-FrameINO DiT at
+# COG_TP_BLOCKS of its 42 blocks (19,126 tokens: sp = 2 divides, 4 does
+# not); the tp = 2 mesh also serves request (d) through the pipeline
+COG_MESHES = {"cog_tp2": dict(tp=2), "cog_sp2": dict(sp=2)}
+COG_TP_REQUEST = dict(height=480, width=720, num_frames=49,
+                      num_inference_steps=2)
+# every mesh runs in one spawn of this many processes, each laid over the
+# first of them (make_mesh(ranks=)), in this order
+MESH_PROCESSES = 4
+# seconds from the spawn by which every mesh must have run (they take
+# 160-190 s beside the convergence run): a hung collective fails the run
+# here, with time left to report it
+MESH_DEADLINE_S = 330
 
 # Relative L2 limit of the int8 DiT's CFG forward against the bf16 one on
 # the same weights, at full depth and the serving shapes (the JAX package
@@ -4293,11 +4357,14 @@ TP_DIR = os.path.join(REPO, "build", "chip_smoke_tp")
 
 @contextlib.contextmanager
 def _timed_collectives(acc):
-    """Adds to acc[0] the host seconds spent in dist.all_reduce and
-    dist.all_gather (the card synchronized on both sides of each)."""
+    """Adds to acc[0] the host seconds spent in dist.all_reduce,
+    dist.all_gather and the ring's hops (the card synchronized on both
+    sides of each)."""
     import torch
     import torch.distributed as dist
-    orig = {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
+    from frameino_tpu_torch.ops import attention as A
+    orig = [(dist, n, getattr(dist, n)) for n in ("all_reduce", "all_gather")]
+    orig.append((A, "_ring_pass", A._ring_pass))
 
     def timed(fn):
         def call(*a, **kw):
@@ -4309,234 +4376,690 @@ def _timed_collectives(acc):
             return out
         return call
 
-    for n, fn in orig.items():
-        setattr(dist, n, timed(fn))
+    for mod, n, fn in orig:
+        setattr(mod, n, timed(fn))
     try:
         yield
     finally:
-        for n, fn in orig.items():
-            setattr(dist, n, fn)
+        for mod, n, fn in orig:
+            setattr(mod, n, fn)
 
 
-def _tp_request_inputs(rank):
-    """Request (a)'s inputs from a seed: every rank's prompt embeddings;
-    rank 0's image, trajectory video and ID frame (only rank 0 encodes)."""
+def _request_inputs(rank, family):
+    """Request (a)'s (Wan) or (d)'s (CogVideoX) inputs from a seed: every
+    rank's prompt embeddings; rank 0's image, trajectory video and ID frame
+    (only rank 0 encodes)."""
     import numpy as np
     import torch
     rs = np.random.RandomState(5)
-    text = torch.from_numpy(rs.randn(1, L_TEXT, 4096).astype(np.float32))
+    req = TP_REQUEST if family == "wan" else COG_TP_REQUEST
+    text = torch.from_numpy(rs.randn(
+        1, L_TEXT if family == "wan" else COG_L_TEXT, 4096).astype(
+        np.float32))
     if rank:
         return None, text, None, None
-    h, w, f = (TP_REQUEST[k] for k in ("height", "width", "num_frames"))
+    h, w, f = (req[k] for k in ("height", "width", "num_frames"))
 
     def video(*shape):
         return torch.from_numpy(np.tanh(rs.randn(*shape)).astype(np.float32))
-    return video(1, 3, h, w), text, video(1, 3, f, h, w), video(1, 3, 1, h, w)
+    ids = video(1, 3, 1, h, w) if family == "wan" else video(1, 3, h, w)
+    return video(1, 3, h, w), text, video(1, 3, f, h, w), ids
 
 
-def _tp_worker(rank, world, tag, mesh_kw, inputs, pg_path):
-    """One rank of a dp x tp mesh on this card (gloo collectives, staged
-    through host memory): the rank's slice of the seeded full-width DiT,
-    one CFG forward checked for its launches, one timed with its time in
-    collectives; at tp2 also the duplicated-bias fault and request (a)
-    through the pipeline, the VAE on rank 0."""
+def _mesh_specs():
+    """tag -> (family, mesh, sp method) of every mesh, in the phase's
+    order."""
+    out = {tag: ("wan", kw, "allgather") for tag, kw in TP_MESHES.items()}
+    out.update({tag: ("wan", kw, m) for tag, (kw, m) in SP_MESHES.items()})
+    out.update({tag: ("cog", kw, "allgather")
+                for tag, kw in COG_MESHES.items()})
+    return out
+
+
+def _mesh_configs():
     import dataclasses
+    from frameino_tpu_torch.models import cogvideox_dit, wan_dit
+    return {"wan": dataclasses.replace(wan_dit.WAN22_TI2V_5B_MOTION,
+                                       num_layers=TP_BLOCKS),
+            "cog": dataclasses.replace(
+                cogvideox_dit.COGVIDEOX_5B_I2V_FRAMEINO,
+                num_layers=COG_TP_BLOCKS)}
+
+
+def _cog_mesh_inputs():
+    """One CFG-batch input of the CogVideoX DiT at request (d)'s 480x720x49
+    with the ID frame (14 latent frames of 60x90: 226 + 14 * 30 * 45 =
+    19,126 tokens), seeded."""
+    import torch
+    from frameino_tpu_torch.models.cogvideox_dit import cogvideox_rope
+    cfg = _mesh_configs()["cog"]
+    g = torch.Generator("cuda").manual_seed(23)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+    return (randn(2, 14, cfg.in_channels, 60, 90),
+            randn(2, COG_L_TEXT, cfg.text_embed_dim),
+            torch.full((2,), 900.0, device="cuda"),
+            cogvideox_rope(cfg, 13, 60, 90, duplicate_first_frame_for_id=True,
+                           device="cuda"))
+
+
+def _mesh_fault(tag, dit, mesh):
+    """The planted fault of mesh ``tag`` as a context manager, or None:
+    the row-parallel biases added on every rank (tp x bias; scaling by 2
+    and back is exact in bf16), each sp rank attending its own key shard
+    alone (no gather), the ring's hop handing each rank its own shard
+    back (at sp = 2 the own shard is merged twice: the running max
+    unchanged, the sum and the accumulator exactly doubled, bit for bit
+    the ring with its last hop dropped)."""
+    import torch
+    from frameino_tpu_torch.ops import attention as A
+
+    @contextlib.contextmanager
+    def swap(name, fn):
+        orig = getattr(A, name)
+        setattr(A, name, fn(orig))
+        try:
+            yield
+        finally:
+            setattr(A, name, orig)
+
+    @contextlib.contextmanager
+    def biases(params):
+        with torch.no_grad():
+            for p in params:
+                p.mul_(mesh.tp)
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for p in params:
+                    p.div_(mesh.tp)
+
+    if tag == "tp2":
+        return biases([p for b in dit.blocks for p in (
+            b.attn1.to_out[0].bias, b.attn2.to_out[0].bias,
+            b.ffn.net[2].bias)])
+    if tag == "cog_tp2":
+        return biases([p for b in dit.transformer_blocks for p in (
+            b.attn1.to_out[0].bias, b.ff.net[2].bias)])
+    if tag == "sp2":
+        return swap("sp_attention", lambda orig: (
+            lambda q, k, v, m, scale=None, gather_kv=True:
+            orig(q, k, v, m, scale, gather_kv=False)))
+    if tag == "sp2_ring":
+        return swap("_ring_pass", lambda orig: lambda t, m: t)
+    return None
+
+
+# where each planted fault is held over TP_REL_L2: the whole forward's
+# output, or block 0's self-attention output (each rank's own rows of it)
+# against the single process's. The seeded random blocks' self-attention
+# moves their output little: at the output the sp faults and CogVideoX's
+# duplicated to_out / ff.net.2 biases read under the limit (printed as
+# fault_rel_l2), though each changes the attention it touches by far more
+# (PERF.md §6).
+MESH_FAULT_AT = {"tp2": "forward", "cog_tp2": "attention",
+                 "sp2": "attention", "sp2_ring": "attention"}
+
+
+def _own_rows(want, got, mesh):
+    """The rows of the single process's [B, S, C] ``want`` that this rank's
+    [B_l, S_l, C] ``got`` holds: from batch row dp_rank * B_l where dp cuts
+    the batch, from token sp_rank * S_l where sp cuts the sequence (counted
+    here from the shapes, not taken from the DiT's own cut)."""
+    b, n = got.shape[:2]
+    b0 = mesh.dp_rank * b if b < want.shape[0] else 0
+    s0 = mesh.sp_rank * n if n < want.shape[1] else 0
+    return want[b0:b0 + b, s0:s0 + n]
+
+
+def _attention_rel_l2(got, want, mesh):
+    """Relative L2 of this rank's block 0 self-attention ``got`` (on the
+    card) from its own rows of the single process's ``want``."""
+    ref = _own_rows(want, got, mesh).cuda()
+    return ((got - ref).norm() / ref.norm()).item()
+
+
+@contextlib.contextmanager
+def _block0_attention(dit, got):
+    """Appends to ``got`` the self-attention output of the DiT's block 0
+    (after to_out; fp32, on the card) at each forward while open."""
+    blk, name = ((dit.blocks[0], "_self_attention") if hasattr(dit, "blocks")
+                 else (dit.transformer_blocks[0], "_attention"))
+    orig = getattr(blk, name)
+
+    def keep(*a, **kw):
+        out = orig(*a, **kw)
+        got.append(out.float())
+        return out
+    setattr(blk, name, keep)
+    try:
+        yield
+    finally:
+        delattr(blk, name)
+
+
+def _mesh_request(tag, family, dit, mesh, gen, row):
+    """Request (a) (Wan, tp2) or (d) (CogVideoX, cog_tp2) through the
+    pipeline on the mesh in 2 steps, the VAE on rank 0: its seconds, launches
+    and peak into ``row``, rank 0's video checked in the main process."""
     import numpy as np
     import torch
     import torch.distributed as dist
-    from frameino_tpu_torch.core.meshes import MeshConfig, make_mesh
-    from frameino_tpu_torch.models import wan_dit, wan_vae
+    from frameino_tpu_torch.ops import attention as A
+    if family == "wan":
+        from frameino_tpu_torch.models import wan_vae
+        from frameino_tpu_torch.pipelines.wan_i2v import \
+            WanImageToVideoPipeline as Pipe
+        vae = (wan_vae.init_wan_vae(wan_vae.WAN22_VAE_CONFIG, gen)
+               if mesh.rank == 0 else None)
+        req = TP_REQUEST
+    else:
+        from frameino_tpu_torch.models import cogvideox_vae
+        from frameino_tpu_torch.pipelines.cogvideox_i2v import \
+            CogVideoXImageToVideoPipeline as Pipe
+        vae = (cogvideox_vae.init_cogvideox_vae(
+            cogvideox_vae.COGVIDEOX_VAE_CONFIG, gen, dtype=torch.bfloat16)
+            if mesh.rank == 0 else None)
+        req = COG_TP_REQUEST
+    pipe = Pipe(dit, vae, mesh=mesh)
+    image, text, traj, ids = _request_inputs(mesh.rank, family)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    t0 = time.time()
+    video = pipe(image, prompt_embeds=text, traj_tensor=traj, id_tensor=ids,
+                 generator=torch.Generator("cuda").manual_seed(0), **req)
+    torch.cuda.synchronize()
+    row.update(request_s=time.time() - t0, request_launches=A.launch_counts(),
+               request_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if mesh.rank:
+        # nothing left to do here while rank 0 decodes
+        torch.cuda.empty_cache()
+    dist.barrier(group=mesh.group)
+    if mesh.rank == 0:
+        row.update(video_shape=list(video.shape),
+                   video_finite=bool(np.isfinite(video).all()),
+                   video_mean=float(video.mean()))
+    else:
+        row.update(video_none=video is None)
+
+
+def _mesh_run(tag, family, mesh, inputs, want_attention):
+    """One mesh on this rank: the rank's slice of the seeded full-width DiT
+    (built by every rank at once, cut and freed), one CFG forward counted
+    (by kernel and shape) with block 0's self-attention held to the rank's
+    rows of the single process's, a second (warm, unlogged) timed with its
+    time in collectives, the planted fault's forward, and at tp2 / cog_tp2
+    the request. Returns the rank's row; rank 0 saves the outputs."""
+    import torch
+    import torch.distributed as dist
+    from frameino_tpu_torch.models import cogvideox_dit, wan_dit
     from frameino_tpu_torch.ops import attention as A
     from frameino_tpu_torch.parallel import multihost
-    from frameino_tpu_torch.pipelines.wan_i2v import WanImageToVideoPipeline
-    from frameino_tpu_torch.serve import configure_cuda_numerics
-    torch.cuda.set_device(0)
-    configure_cuda_numerics()
-    multihost.initialize(f"file://{pg_path}", world, rank, backend="gloo")
-    try:
-        mesh = make_mesh(MeshConfig(**mesh_kw))
-        t0 = time.time()
-        # every rank at once: the full seeded DiT at TP_BLOCKS blocks (1.5
-        # GiB at 5) is built, cut to the rank's slice and freed (the
-        # ranks' builds side by side take a fraction of the card)
-        gen = torch.Generator("cuda").manual_seed(0)
-        dit = wan_dit.init_wan_dit(
-            dataclasses.replace(wan_dit.WAN22_TI2V_5B_MOTION,
-                                num_layers=TP_BLOCKS), gen,
-            dtype=torch.bfloat16, mesh=mesh)
-        gc.collect()
-        torch.cuda.empty_cache()
-        dist.barrier()
-        build_s = time.time() - t0
-        resident = torch.cuda.memory_allocated() / 2 ** 30
-        x, t, mask, ctx = (a.cuda() for a in inputs)
+    cfg = _mesh_configs()[family]
+    t0 = time.time()
+    gen = torch.Generator("cuda").manual_seed(0)
+    init = (wan_dit.init_wan_dit if family == "wan"
+            else cogvideox_dit.init_cogvideox_dit)
+    dit = init(cfg, gen, dtype=torch.bfloat16, mesh=mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier(group=mesh.group)
+    build_s = time.time() - t0
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    inputs = [a.cuda() if isinstance(a, torch.Tensor)
+              else tuple(u.cuda() for u in a) for a in inputs]
+    if family == "wan":
+        x, t, mask, ctx = inputs
         kv = dit.precompute_text_kv(ctx)
 
         def forward():
             out = dit(x, t, timestep_mask=mask, text_kv=kv)
             torch.cuda.synchronize()
             return out
+    else:
+        def forward():
+            out = dit(*inputs)
+            torch.cuda.synchronize()
+            return out
 
-        torch.cuda.reset_peak_memory_stats()
-        A.reset_launch_counts()
+    attn = []
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    with _ShapeLog() as log, _block0_attention(dit, attn):
         out = forward()
-        counts = A.launch_counts()
-        multihost.assert_same_across_processes(float(out.double().sum()))
-        coll = [0.0]
-        with _timed_collectives(coll):
-            t0 = time.time()
-            forward()
-            seconds = time.time() - t0
-        row = dict(rank=rank, coords=mesh.coords, build_s=build_s,
-                   resident_gib=resident, launches=counts, forward_s=seconds,
-                   collective_s=coll[0],
-                   forward_peak_gib=torch.cuda.max_memory_allocated()
-                   / 2 ** 30)
-        if rank == 0:
-            torch.save(out.cpu(), os.path.join(TP_DIR, f"{tag}_out.pt"))
-        if tag == "tp2":
-            # the fault: every rank adds the row-parallel biases before the
-            # sum, i.e. tp x bias; scaling by 2 and back is exact in bf16
-            biases = [p for b in dit.blocks for p in (
-                b.attn1.to_out[0].bias, b.attn2.to_out[0].bias,
-                b.ffn.net[2].bias)]
-            with torch.no_grad():
-                for p in biases:
-                    p.mul_(mesh.tp)
-                fault = forward()
-                for p in biases:
-                    p.div_(mesh.tp)
-            if rank == 0:
-                torch.save(fault.cpu(), os.path.join(TP_DIR,
-                                                     f"{tag}_fault.pt"))
-            del fault, out, x, t, mask, ctx, kv
-            torch.cuda.empty_cache()
-            vae = (wan_vae.init_wan_vae(wan_vae.WAN22_VAE_CONFIG, gen)
-                   if rank == 0 else None)
-            pipe = WanImageToVideoPipeline(dit, vae, mesh=mesh)
-            image, text, traj, ids = _tp_request_inputs(rank)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            A.reset_launch_counts()
-            t0 = time.time()
-            video = pipe(image, prompt_embeds=text, traj_tensor=traj,
-                         id_tensor=ids,
-                         generator=torch.Generator("cuda").manual_seed(0),
-                         **TP_REQUEST)
-            torch.cuda.synchronize()
-            request_s = time.time() - t0
-            launches = A.launch_counts()
-            if rank:
-                # nothing left to do here while rank 0 decodes
-                torch.cuda.empty_cache()
+    counts = A.launch_counts()
+    attention_rel_l2 = _attention_rel_l2(attn.pop(), want_attention, mesh)
+    multihost.assert_same_across_processes(float(out.double().sum()),
+                                           group=mesh.group)
+    if mesh.rank == 0:
+        torch.save(out.cpu(), os.path.join(TP_DIR, f"{tag}_out.pt"))
+    del out
+    coll = [0.0]
+    with _timed_collectives(coll):
+        t0 = time.time()
+        forward()
+        seconds = time.time() - t0
+    row = dict(rank=mesh.rank, coords=mesh.coords, build_s=build_s,
+               resident_gib=resident, launches=counts, forward_s=seconds,
+               collective_s=coll[0], attention_rel_l2=attention_rel_l2,
+               forward_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launch_shapes={n: {json.dumps(k): v for k, v in c.items()}
+                              for n, c in log.counts.items() if c})
+    fault = _mesh_fault(tag, dit, mesh)
+    if fault is not None:
+        at_attention = MESH_FAULT_AT[tag] == "attention"
+        with fault, (_block0_attention(dit, attn) if at_attention
+                     else contextlib.nullcontext()):
+            bad = forward()
+        if at_attention:
+            row["fault_attention_rel_l2"] = _attention_rel_l2(
+                attn.pop(), want_attention, mesh)
+        if mesh.rank == 0:
+            torch.save(bad.cpu(), os.path.join(TP_DIR, f"{tag}_fault.pt"))
+        del bad
+    if tag in ("tp2", "cog_tp2"):
+        del inputs
+        if family == "wan":
+            del x, t, mask, ctx, kv
+        torch.cuda.empty_cache()
+        _mesh_request(tag, family, dit, mesh, gen, row)
+    return row
+
+
+def _warm_up():
+    """A tiny build and CFG forward of each DiT on the card (head_dim 128 /
+    64, so that the kernels run)."""
+    import torch
+    from frameino_tpu_torch.models import cogvideox_dit, wan_dit
+    from frameino_tpu_torch.ops import attention as A
+    g = torch.Generator("cuda").manual_seed(0)
+    wan = wan_dit.init_wan_dit(wan_dit.tiny_config(attention_head_dim=128),
+                               g, dtype=torch.bfloat16)
+    wan(torch.randn(2, 8, 2, 4, 4, device="cuda"),
+        torch.full((2,), 500.0, device="cuda"),
+        torch.randn(2, 7, 16, device="cuda"))
+    cfg = cogvideox_dit.tiny_config(attention_head_dim=64)
+    cog = cogvideox_dit.init_cogvideox_dit(cfg, g, dtype=torch.bfloat16)
+    cog(torch.randn(2, 2, cfg.in_channels, 8, 8, device="cuda"),
+        torch.randn(2, 8, cfg.text_embed_dim, device="cuda"),
+        torch.full((2,), 500.0, device="cuda"),
+        cogvideox_dit.cogvideox_rope(cfg, 2, 8, 8, device="cuda"))
+    torch.cuda.synchronize()
+    A.reset_launch_counts()
+
+
+def _mesh_worker(rank, world, pg_path):
+    """One of the MESH_PROCESSES processes on this card (gloo collectives,
+    staged through host memory): waits for the main process's inputs, then
+    every mesh in turn, each laid over the first processes (a process
+    outside it waits at the barrier), its seconds on rank 0 between the
+    barriers."""
+    import torch
+    import torch.distributed as dist
+    from frameino_tpu_torch.core.meshes import MeshConfig, make_mesh
+    from frameino_tpu_torch.ops import attention as A
+    from frameino_tpu_torch.parallel import multihost
+    from frameino_tpu_torch.serve import configure_cuda_numerics
+    torch.cuda.set_device(0)
+    configure_cuda_numerics()
+    multihost.initialize(f"file://{pg_path}", world, rank, backend="gloo")
+    try:
+        # while the main process runs the single-process forwards: a tiny
+        # build and forward of each DiT, so that the process's first use of
+        # each CUDA kernel (which loads it) and of cuBLAS is not timed
+        _warm_up()
+        go = os.path.join(TP_DIR, "inputs.pt")
+        while not os.path.exists(go + ".done"):
+            time.sleep(0.1)
+        inputs = torch.load(go, mmap=True)
+        for tag, (family, mesh_kw, method) in _mesh_specs().items():
+            cfg = MeshConfig(**mesh_kw)
+            mesh = make_mesh(cfg, ranks=range(cfg.size))
             dist.barrier()
-            row.update(request_s=request_s, request_launches=launches,
-                       request_peak_gib=torch.cuda.max_memory_allocated()
-                       / 2 ** 30)
+            t0 = time.time()
+            if mesh is not None:
+                A.DEFAULT_SP_METHOD = method
+                row = _mesh_run(tag, family, mesh, inputs[family],
+                                inputs[family + "_attention"])
+                with open(os.path.join(TP_DIR, f"{tag}_{rank}.json"),
+                          "w") as f:
+                    json.dump(row, f)
+                for g in {mesh.tp_group, mesh.dp_group, mesh.sp_group,
+                          mesh.group} - {None}:
+                    dist.destroy_process_group(g)
+            A.DEFAULT_SP_METHOD = "allgather"
+            gc.collect()
+            torch.cuda.empty_cache()
+            dist.barrier()
             if rank == 0:
-                row.update(video_shape=list(video.shape),
-                           video_finite=bool(np.isfinite(video).all()),
-                           video_mean=float(video.mean()))
-            else:
-                row.update(video_none=video is None)
-        with open(os.path.join(TP_DIR, f"{tag}_{rank}.json"), "w") as f:
-            json.dump(row, f)
+                with open(os.path.join(TP_DIR, f"{tag}_wall.json"), "w") as f:
+                    json.dump(time.time() - t0, f)
     finally:
         dist.destroy_process_group()
 
 
+def _mesh_kernel_rows(cog, cog_inputs, g):
+    """K4 -> K1 at CogVideoX's tp = 2 rank shapes, K3 at its sp = 2 ones
+    (block 0's real projections of the single-process DiT ``cog``; the
+    rank's 24 heads, or its 9,563 queries against the whole sequence), and
+    K3 at Wan's sp = 2 self- and cross-attention (normed random rows):
+    each against its plain version (the flash kernels on 4 rows), timed
+    beside the plain version, SDPA and the bound."""
+    import torch
+    from frameino_tpu_torch.models import cogvideox_dit as CD
+    from frameino_tpu_torch.ops import attention as A
+    results = {}
+    cfg, blk = cog.cfg, cog.transformer_blocks[0]
+    x, text, t, rope = cog_inputs
+    with torch.no_grad():
+        h = cog._patch_embed(text.to(cog.dtype), x.to(cog.dtype))
+        a = blk.attn1
+        q, k = CD._lin(h, a.to_q), CD._lin(h, a.to_k)
+        v = CD._split_heads(CD._lin(h, a.to_v), cfg.num_attention_heads)
+    del h
+    Bc, Sc = q.shape[:2]
+    Hc, Dc = cfg.num_attention_heads, cfg.attention_head_dim
+    cos, sin = (u.float() for u in rope)
+    half = cos.shape[-1]
+    cos_j = torch.cat([torch.ones(COG_L_TEXT, half, device="cuda"),
+                       cos]).contiguous()
+    sin_j = torch.cat([torch.zeros(COG_L_TEXT, half, device="cuda"),
+                       sin]).contiguous()
+    scale = Dc ** -0.5
+    gain = scale * A.LOG2E
+    w = [u.float().contiguous() for u in (a.norm_q.weight, a.norm_q.bias,
+                                          a.norm_k.weight, a.norm_k.bias)]
+    def rows(n):
+        return torch.tensor([0, 1, n // 2, n - 1], device="cuda")
+
+    def flash(name, kernel, plain, q4, k4, v4, qf, kf, vf, sdpa, label):
+        """kernel(q, k, v) on 4 rows against plain, then on the whole
+        shape timed beside plain (4 rows), SDPA and the bound."""
+        err, rel, rel_l2 = _check_close(f"{label} {name}", kernel(q4, k4, v4),
+                                        plain(q4, k4, v4))
+        _report(results, name, err, rel, cuda_ms(lambda: kernel(qf, kf, vf),
+                                                 5),
+                cuda_ms(lambda: plain(q4, k4, v4), 2),
+                attn_bound(qf.shape[0], qf.shape[1], kf.shape[1],
+                           qf.shape[2]),
+                cuda_ms(lambda: sdpa(qf, kf, vf), 5), rel_l2=rel_l2,
+                plain_rows=4, shape=[list(qf.shape), list(kf.shape)])
+
+    # tp = 2, rank 0: heads 0-23 of the raw projections
+    hl = Hc // 2
+    q_r, k_r = (u[..., :hl * Dc].contiguous() for u in (q, k))
+    args_q = (q_r, w[0], w[1], (cos_j * gain).contiguous(),
+              (sin_j * gain).contiguous(), hl, cfg.qk_norm_eps)
+    out_q = A.qk_ln_rope(*args_q)
+    err, rel = _check_ulp("K4 cog_tp2", out_q, A.qk_ln_rope_ref(*args_q))
+    _report(results, "qk_ln_rope_cog_tp2", err, rel,
+            cuda_ms(lambda: A.qk_ln_rope(*args_q), 10),
+            cuda_ms(lambda: A.qk_ln_rope_ref(*args_q), 2),
+            bound_ms(14 * out_q.numel(), _nbytes(q_r, *args_q[3:5], out_q),
+                     PEAK_FP32_FLOPS), None, shape=list(q_r.shape))
+    kh = A.qk_ln_rope_ref(k_r, w[2], w[3], cos_j, sin_j, hl, cfg.qk_norm_eps)
+    vh = v[:, :hl].reshape(Bc * hl, Sc, Dc).contiguous()
+    bound = A._rowmax_norm(out_q) * A._rowmax_norm(kh)
+    r4 = rows(Bc * hl)
+    flash("flash_fwd_static_cog_tp2",
+          lambda q_, k_, v_: A.flash_fwd_static(q_, k_, v_, bound),
+          lambda q_, k_, v_: A.flash_fwd_static_ref(q_, k_, v_, bound),
+          *(u[r4].contiguous() for u in (out_q, kh, vh)), out_q, kh, vh,
+          _sdpa(math.log(2)), "K1")
+    del q_r, k_r, out_q, kh, vh, args_q
+    # sp = 2, rank 0: the first 9,563 of the normed, roped queries against
+    # every key (unit-gain tables; K3 scales q)
+    qh = A.qk_ln_rope_ref(q.contiguous(), w[0], w[1], cos_j, sin_j, Hc,
+                          cfg.qk_norm_eps)
+    kh = A.qk_ln_rope_ref(k.contiguous(), w[2], w[3], cos_j, sin_j, Hc,
+                          cfg.qk_norm_eps)
+    vh = v.reshape(Bc * Hc, Sc, Dc).contiguous()
+    qs = qh[:, :Sc // 2].contiguous()
+    del q, k, v, qh
+    flash("flash_fwd_cog_sp2", lambda q_, k_, v_: A.flash_fwd(q_, k_, v_,
+                                                               gain),
+          lambda q_, k_, v_: A.flash_fwd_ref(q_, k_, v_, gain),
+          *(u[rows(Bc * Hc)].contiguous() for u in (qs, kh, vh)), qs, kh,
+          vh,
+          _sdpa(scale), "K3")
+    del qs, kh, vh
+    torch.cuda.empty_cache()
+
+    # Wan sp = 2, rank 0: 2,730 queries against the 5,460 gathered keys,
+    # and against the 512 text keys
+    def normed(n):
+        u = torch.randn(B * H, n, D, device="cuda", generator=g)
+        return (u * torch.rsqrt(u.square().mean(-1, keepdim=True))
+                ).to(torch.bfloat16)
+
+    c = D ** -0.5 * A.LOG2E
+    qw = normed(S // 2)
+    for name, n in (("flash_fwd_sp2", S), ("flash_fwd_sp2_text", L_TEXT)):
+        kw_ = normed(n)
+        vw = torch.randn(B * H, n, D, device="cuda", generator=g,
+                         dtype=torch.bfloat16)
+        flash(name, lambda q_, k_, v_: A.flash_fwd(q_, k_, v_, c),
+              lambda q_, k_, v_: A.flash_fwd_ref(q_, k_, v_, c),
+              *(u[rows(B * H)].contiguous() for u in (qw, kw_, vw)), qw, kw_,
+              vw,
+              _sdpa(D ** -0.5), "K3")
+    torch.cuda.empty_cache()
+    return results
+
+
 def phase_tp():
-    """The full-width Wan2.2-TI2V-5B-motion DiT at TP_BLOCKS blocks over
-    each mesh of TP_MESHES, one process a rank on this card: one CFG
-    forward at 5,460 tokens held to the single-process bf16 forward on the
-    same seeded weights within TP_REL_L2, with exact launches on every rank
-    (K5 2, K1 1, K3 1 and K2 0 a block) and its time in collectives; at tp2
-    the duplicated-bias fault must exceed the limit, and request (a) runs
-    through WanImageToVideoPipeline(mesh=) in 2 steps."""
-    import dataclasses
-    import types
+    """The mesh phase, started: every mesh of TP_MESHES and SP_MESHES (the
+    full-width Wan2.2-TI2V-5B-motion DiT at TP_BLOCKS blocks) and of
+    COG_MESHES (CogVideoX-5B-I2V-FrameINO at COG_TP_BLOCKS) in one spawn of
+    MESH_PROCESSES processes on this card. While they start, the
+    single-process forwards run here; then the processes run the meshes
+    while the caller runs the convergence run (both bound by the host,
+    the card mostly idle), and ``phase_tp_checks`` holds each mesh to the
+    single-process bf16 forward on the same seeded weights within
+    TP_REL_L2, with exact launches on every rank and its time in
+    collectives, the planted faults over the limit and requests (a) and
+    (d) through the pipelines at tp = 2. Returns the running phase."""
     import torch
     import torch.multiprocessing as mp
-    from frameino_tpu_torch.models import wan_dit
+    import types
+    from frameino_tpu_torch.models import cogvideox_dit, wan_dit
     from frameino_tpu_torch.serve import configure_cuda_numerics
     configure_cuda_numerics()
     shutil.rmtree(TP_DIR, ignore_errors=True)
     os.makedirs(TP_DIR)
-    cfg = dataclasses.replace(wan_dit.WAN22_TI2V_5B_MOTION,
-                              num_layers=TP_BLOCKS)
-    dit = wan_dit.init_wan_dit(cfg, torch.Generator("cuda").manual_seed(0),
+    t_spawn = time.time()
+    # daemonic: a failure anywhere in this process ends them
+    procs = mp.start_processes(
+        _mesh_worker, args=(MESH_PROCESSES, os.path.join(TP_DIR, "pg")),
+        nprocs=MESH_PROCESSES, join=False, daemon=True,
+        start_method="spawn")
+    cfgs = _mesh_configs()
+    dit = wan_dit.init_wan_dit(cfgs["wan"],
+                               torch.Generator("cuda").manual_seed(0),
                                dtype=torch.bfloat16)
-    inputs = _dit_inputs("wan", types.SimpleNamespace(dit_cfg=cfg))
-    single_ms, want = _time_forward("wan", dit, inputs, 1, 3)
-    want = want.cpu()
-    inputs = [a.cpu() for a in inputs]
+    wan_in = _dit_inputs("wan", types.SimpleNamespace(dit_cfg=cfgs["wan"]))
+    single_ms, want_wan = _time_forward("wan", dit, wan_in, 1, 3)
+    attn = []
+    with _block0_attention(dit, attn):
+        _forward_fn("wan", dit, wan_in)()
     del dit
+    cog = cogvideox_dit.init_cogvideox_dit(
+        cfgs["cog"], torch.Generator("cuda").manual_seed(0),
+        dtype=torch.bfloat16)
+    cog_in = _cog_mesh_inputs()
+    cog_ms, want_cog = _time_forward("cog", cog, cog_in, 1, 3)
+    with _block0_attention(cog, attn):
+        _forward_fn("cog", cog, cog_in)()
+    del cog
+    wants = {"wan": want_wan.cpu(), "cog": want_cog.cpu()}
+    inputs = {"wan": [a.cpu() for a in wan_in],
+              "cog": [a.cpu() if isinstance(a, torch.Tensor)
+                      else tuple(u.cpu() for u in a) for a in cog_in],
+              "wan_attention": attn[0].cpu(), "cog_attention": attn[1].cpu()}
+    del attn, want_wan, want_cog, wan_in, cog_in
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"tp: single-process bf16 CFG forward {single_ms:.1f} ms")
+    print(f"tp: single-process bf16 CFG forwards: Wan ({TP_BLOCKS} blocks) "
+          f"{single_ms:.1f} ms, CogVideoX ({COG_TP_BLOCKS} blocks, {COG_S} "
+          f"tokens) {cog_ms:.1f} ms")
+    path = os.path.join(TP_DIR, "inputs.pt")
+    torch.save(inputs, path)
+    open(path + ".done", "w").close()
+    return dict(procs=procs, t_spawn=t_spawn, t_inputs=time.time(),
+                wants=wants,
+                out={"single_forward_ms": single_ms,
+                     "cog_single_forward_ms": cog_ms,
+                     "rel_l2_limit": TP_REL_L2,
+                     "inputs_s": time.time() - t_spawn})
+
+
+def phase_tp_checks(run):
+    """The mesh phase's end: waits for its processes (``phase_tp``), then
+    the checks of every mesh, then (the card free again) the kernels at
+    the ranks' shapes on the single-process CogVideoX DiT's block 0;
+    returns (the rows, the kernels' rows, their launches on the path)."""
+    import torch
+    from frameino_tpu_torch.models import cogvideox_dit
+    from frameino_tpu_torch.serve import configure_cuda_numerics
+    t0 = time.time()
+    deadline = run["t_spawn"] + MESH_DEADLINE_S
+    while not run["procs"].join(timeout=max(1.0, deadline - time.time())):
+        if time.time() >= deadline:
+            fail(f"tp: the mesh processes had not ended {MESH_DEADLINE_S} s "
+                 f"after their spawn")
+    out = dict(run["out"], waited_s=time.time() - t0,
+               meshes_s=time.time() - run["t_inputs"],
+               processes_s=time.time() - run["t_spawn"])
+    family_of = {}
+    for tag, (family, mesh_kw, method) in _mesh_specs().items():
+        out[tag] = _mesh_check(tag, family, mesh_kw, method,
+                               run["wants"][family])
+        family_of[tag] = family
+    print(f"tp: {len(family_of)} meshes in one spawn of {MESH_PROCESSES} "
+          f"processes: {out['processes_s']:.1f} s from the spawn, "
+          f"{out['meshes_s']:.1f} s after the inputs, {out['waited_s']:.1f} "
+          f"s waited for after the convergence run; per mesh "
+          + ", ".join(f"{t} {out[t]['wall_s']:.1f}" for t in family_of)
+          + " s")
+    configure_cuda_numerics()
+    cog = cogvideox_dit.init_cogvideox_dit(
+        _mesh_configs()["cog"], torch.Generator("cuda").manual_seed(0),
+        dtype=torch.bfloat16)
+    kernel_results = _mesh_kernel_rows(
+        cog, _cog_mesh_inputs(), torch.Generator("cuda").manual_seed(24))
+    del cog
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the rank-shape kernels' launches on their paths (rank 0): K4 and K1
+    # over request (d) at tp = 2, K3 by shape over the sp forwards
+    r0 = {tag: out[tag]["ranks"][0] for tag in family_of}
+    cog_req = r0["cog_tp2"]["request_launches"]
+    launches = {"qk_ln_rope_cog_tp2": cog_req["qk_ln_rope"],
+                "flash_fwd_static_cog_tp2": cog_req["flash_fwd_static"]}
+    for name, tag in (("flash_fwd_cog_sp2", "cog_sp2"),
+                      ("flash_fwd_sp2", "sp2"), ("flash_fwd_sp2_text", "sp2")):
+        qs, ks = kernel_results[name]["shape"]
+        launches[name] = r0[tag]["launch_shapes"]["flash_fwd"].get(
+            json.dumps([qs, ks]), 0)
+    for name, n in launches.items():
+        check(n > 0, f"tp: {name} was not launched at its rank shape "
+                     f"{kernel_results[name]['shape']}")
+    return out, kernel_results, launches
+
+
+def _mesh_check(tag, family, mesh_kw, method, want):
+    """The checks of one mesh on what its processes wrote: relative L2
+    from the single process, exact launches on every rank, the fault over
+    the limit (MESH_FAULT_AT), the request's video and launches."""
+    world = math.prod(mesh_kw.values())
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(TP_DIR, f"{tag}_{r}.json")) as f:
+            ranks.append(json.load(f))
+    with open(os.path.join(TP_DIR, f"{tag}_wall.json")) as f:
+        wall = json.load(f)
 
     def rel_l2(name):
+        import torch
         got = torch.load(os.path.join(TP_DIR, name))
         check(bool(torch.isfinite(got).all()), f"tp {name}: non-finite")
         return ((got - want).norm() / want.norm()).item()
 
-    out = {"single_forward_ms": single_ms, "rel_l2_limit": TP_REL_L2}
-    for tag, mesh_kw in TP_MESHES.items():
-        world = math.prod(mesh_kw.values())
-        t0 = time.time()
-        mp.spawn(_tp_worker, args=(world, tag, mesh_kw, inputs,
-                                   os.path.join(TP_DIR, f"{tag}_pg")),
-                 nprocs=world, join=True)
-        wall = time.time() - t0
-        ranks = []
-        for r in range(world):
-            with open(os.path.join(TP_DIR, f"{tag}_{r}.json")) as f:
-                ranks.append(json.load(f))
-        rel = rel_l2(f"{tag}_out.pt")
-        row = dict(mesh=mesh_kw, rel_l2=rel, ranks=ranks, wall_s=wall)
-        share = max(k["collective_s"] / k["forward_s"] for k in ranks)
-        print(f"tp {tag}: {world} processes in {wall:.1f} s; CFG forward "
-              f"{max(k['forward_s'] for k in ranks):.2f} s, collectives "
-              f"{share:.3f} of it; relative L2 from the single process "
-              f"{rel:.3e} (limit {TP_REL_L2}); peak per rank "
-              + ", ".join(f"{k['forward_peak_gib']:.2f}" for k in ranks)
-              + " GiB")
-        check(rel <= TP_REL_L2, f"tp {tag}: relative L2 {rel:.3e} from the "
-                                f"single-process forward over {TP_REL_L2}")
+    rel = rel_l2(f"{tag}_out.pt")
+    row = dict(family=family, mesh=mesh_kw, sp_method=method, rel_l2=rel,
+               ranks=ranks, wall_s=wall)
+    share = max(k["collective_s"] / k["forward_s"] for k in ranks)
+    print(f"tp {tag}: {world} processes, {wall:.1f} s; CFG forward "
+          f"{max(k['forward_s'] for k in ranks):.2f} s, collectives "
+          f"{share:.3f} of it; relative L2 from the single process "
+          f"{rel:.3e} (limit {TP_REL_L2}); peak per rank "
+          + ", ".join(f"{k['forward_peak_gib']:.2f}" for k in ranks)
+          + " GiB")
+    check(rel <= TP_REL_L2, f"tp {tag}: relative L2 {rel:.3e} from the "
+                            f"single-process forward over {TP_REL_L2}")
+    print(f"tp {tag}: block 0's self-attention on each rank's own rows "
+          + ", ".join(f"{k['attention_rel_l2']:.3e}" for k in ranks)
+          + f" from the single process (limit {TP_REL_L2})")
+    for k in ranks:
+        check(k["attention_rel_l2"] <= TP_REL_L2,
+              f"tp {tag} rank {k['rank']}: block 0's self-attention "
+              f"{k['attention_rel_l2']:.3e} from the single process")
+    row["attention_rel_l2"] = max(k["attention_rel_l2"] for k in ranks)
+    per = {"tp2": PER_STEP_TP, "tp4": PER_STEP_TP, "dp2xtp2": PER_STEP_TP,
+           "sp2": PER_STEP_SP, "sp2_ring": PER_STEP_SP_RING,
+           "tp2xsp2": PER_STEP_SP, "cog_tp2": PER_STEP_COG_TP,
+           "cog_sp2": PER_STEP_COG_SP}[tag]
+    for k in ranks:
+        check(k["launches"] == per, f"tp {tag} rank {k['rank']}: launches "
+                                    f"{k['launches']}, expected {per}")
+    at = MESH_FAULT_AT.get(tag)
+    if at is not None:
+        check(os.path.exists(os.path.join(TP_DIR, f"{tag}_fault.pt")),
+              f"tp {tag}: no planted fault ran")
+        row["fault_rel_l2"] = rel_l2(f"{tag}_fault.pt")
+        print(f"tp {tag}: the planted fault reads {row['fault_rel_l2']:.3e} "
+              f"relative L2 at the output"
+              + (f" (must exceed {TP_REL_L2})" if at == "forward" else ""))
+        if at == "attention":
+            # every rank's rows must show it
+            row["fault_attention_rel_l2"] = min(
+                k["fault_attention_rel_l2"] for k in ranks)
+            print(f"tp {tag}: block 0's self-attention with the planted "
+                  f"fault on each rank's own rows "
+                  + ", ".join(f"{k['fault_attention_rel_l2']:.3e}"
+                              for k in ranks)
+                  + f" (each must exceed {TP_REL_L2})")
+            key = "fault_attention_rel_l2"
+        else:
+            key = "fault_rel_l2"
+        check(row[key] > TP_REL_L2, f"tp {tag}: the planted fault "
+                                    f"({row[key]:.3e}) is within the limit")
+    if "request_s" in ranks[0]:
+        req = TP_REQUEST if family == "wan" else COG_TP_REQUEST
+        steps = req["num_inference_steps"]
+        want_req = {k: n * steps for k, n in per.items()}
+        r0 = ranks[0]
+        check(r0["video_finite"] and r0["video_shape"] == [
+            1, 3, req["num_frames"], req["height"], req["width"]],
+            f"tp {tag} request: video {r0['video_shape']}, finite "
+            f"{r0['video_finite']}")
+        check(all(k["video_none"] for k in ranks[1:]),
+              f"tp {tag} request: a rank other than 0 returned a video")
         for k in ranks:
-            check(k["launches"] == PER_STEP_TP,
-                  f"tp {tag} rank {k['rank']}: launches {k['launches']}, "
-                  f"expected {PER_STEP_TP}")
-        if tag == "tp2":
-            row["fault_rel_l2"] = rel_l2(f"{tag}_fault.pt")
-            print(f"tp {tag}: the biases added on every rank read "
-                  f"{row['fault_rel_l2']:.3e} relative L2 (must exceed "
-                  f"{TP_REL_L2})")
-            check(row["fault_rel_l2"] > TP_REL_L2,
-                  f"tp {tag}: the duplicated-bias fault ("
-                  f"{row['fault_rel_l2']:.3e}) is within the limit")
-            steps = TP_REQUEST["num_inference_steps"]
-            want_req = {k: n * steps for k, n in PER_STEP_TP.items()}
-            r0 = ranks[0]
-            check(r0["video_finite"] and r0["video_shape"] == [
-                1, 3, TP_REQUEST["num_frames"], TP_REQUEST["height"],
-                TP_REQUEST["width"]], f"tp {tag} request: video "
-                                      f"{r0['video_shape']}, finite "
-                                      f"{r0['video_finite']}")
-            check(all(k["video_none"] for k in ranks[1:]),
-                  f"tp {tag} request: a rank other than 0 returned a video")
-            for k in ranks:
-                check(k["request_launches"] == want_req,
-                      f"tp {tag} request, rank {k['rank']}: launches "
-                      f"{k['request_launches']}, expected {want_req}")
-            print(f"tp {tag} request (a) "
-                  f"{TP_REQUEST['height']}x{TP_REQUEST['width']}x"
-                  f"{TP_REQUEST['num_frames']}, {steps} steps: "
-                  f"{r0['request_s']:.2f} s; peak per rank "
-                  + ", ".join(f"{k['request_peak_gib']:.2f}" for k in ranks)
-                  + " GiB")
-        out[tag] = row
-    return out
+            check(k["request_launches"] == want_req,
+                  f"tp {tag} request, rank {k['rank']}: launches "
+                  f"{k['request_launches']}, expected {want_req}")
+        print(f"tp {tag} request {req['height']}x{req['width']}x"
+              f"{req['num_frames']}, {steps} steps: {r0['request_s']:.2f} s;"
+              f" peak per rank "
+              + ", ".join(f"{k['request_peak_gib']:.2f}" for k in ranks)
+              + " GiB")
+    elif tag in ("tp2", "cog_tp2"):
+        fail(f"tp {tag}: the request did not run")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -8141,7 +8664,6 @@ def main():
     kernel_results.update(res704)
     ref_err = phase_reference()
     ref_err_int8 = phase_reference("int8")
-    tp = phase_tp()
     cog_results, cog_checks = phase_kernels_cog(parent)
     kernel_results.update(cog_results)
     flash_checks.update(cog_checks)
@@ -8172,7 +8694,13 @@ def main():
     qwen_cpu = phase_qwen_vs_cpu()
     overfit_results, overfit_k6 = phase_kernels_overfit()
     kernel_results.update(overfit_results)
+    # the mesh phase's processes run every mesh while the convergence run
+    # goes on here: both are bound by the host and leave the card mostly
+    # idle
+    meshes = phase_tp()
     overfit = phase_overfit()
+    tp, tp_results, tp_launches = phase_tp_checks(meshes)
+    kernel_results.update(tp_results)
     t_w21 = time.time()
     w21_results, w21_checks = phase_kernels_wan21()
     kernel_results.update(w21_results)
@@ -8224,6 +8752,7 @@ def main():
                                  "qk_norm_rope", "flash_fwd")},
                     **w21_launches, **cur_launches,
                     conv_int8=int8_wan["int8_vae_request"]["k14_launches"],
+                    **tp_launches,
                     **{k: r["launches_per_forward"]
                        for k, r in cog_cfg_results.items()})
     for k, n in exp_launches.items():

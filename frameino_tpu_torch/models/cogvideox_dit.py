@@ -49,7 +49,28 @@ the table without slicing when the sample grid matches; the port appends
 one table frame (ph * pw tokens) and always slices to the sequence. Both
 equal JAX wherever JAX runs (ROADMAP queue 3).
 
-Not ported (ROADMAP queue 1 item 12): the pp and mesh paths.
+Under a dp x tp x sp ``mesh`` (``core/meshes.py``), one process runs per
+rank and ``CogVideoXDiT(cfg, mesh=mesh)`` holds blocks of the rank's width
+(``parallel/sharding.py``): H/tp heads of to_q/to_k/to_v and 4 D/tp of
+the FFN's hidden width; the row-parallel to_out and ff.net.2 all-reduce
+their fp32 partial products over tp and add their bias once. Each dp rank
+runs its slice of the batch, the output gathered over dp. The routes are
+JAX's: on an sp = 1 mesh the 5B and 1.5 take K4 -> bound -> K1 on the
+rank's heads (``ops/attention.fused_ln_qk_flash_attention`` with the
+rank's head count, the body of JAX's sharded function: the per-head
+LayerNorm needs no collective); the 2B the per-head LayerNorm,
+then ``dispatch_attention`` (K3 on the rank's heads). With sp > 1 each sp
+rank runs its contiguous slice of the joint tokens, cut after the patch
+embed and the position table (with the identity-padded RoPE rows and the
+video mask) and gathered over sp before ``norm_final``: the per-head
+LayerNorm and RoPE as plain ops, then ``dispatch_attention`` (K3 over the
+keys and values gathered over sp, or the fp32 ring); a sequence that sp
+does not divide runs whole on every sp rank (K3, no sp collective). Every
+rank is called with the same full-batch arguments and returns the same
+full-batch output.
+
+Not ported (ROADMAP queue 1 item 12): the pp and fsdp paths and training
+under a mesh.
 """
 
 from __future__ import annotations
@@ -62,6 +83,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from frameino_tpu_torch.core.meshes import Mesh, check_supported
 from frameino_tpu_torch.models.quant import linear as _lin
 from frameino_tpu_torch.ops import attention as attn_ops
 from frameino_tpu_torch.ops.embeddings import (cogvideox_3d_sincos_pos_embed,
@@ -72,6 +94,12 @@ from frameino_tpu_torch.ops.norms import layer_norm
 from frameino_tpu_torch.ops.resize import resize_antialiased
 from frameino_tpu_torch.ops.rope import (apply_rope_interleaved,
                                          cogvideox_rope_table)
+from frameino_tpu_torch.parallel.sharding import (row_parallel, run_dp,
+                                                 shard_state_dict)
+
+SHARDED_TRAINING_NOT_PORTED = (
+    "training under a mesh is not ported: sharded training is ROADMAP.md "
+    "queue 1, item 12")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,14 +218,19 @@ class _LayerNormZero(nn.Module):
 
 
 class _Attention(nn.Module):
-    def __init__(self, cfg: CogVideoXConfig, **kw):
+    """q/k/v column-parallel and to_out row-parallel over ``tp`` ranks: a
+    rank holds d/tp of their heads; the per-head LayerNorm is shared."""
+
+    def __init__(self, cfg: CogVideoXConfig, tp: int = 1, **kw):
         super().__init__()
         d, hd = cfg.inner_dim, cfg.attention_head_dim
+        d_l = d // tp
         bias = cfg.attention_bias
-        self.to_q = nn.Linear(d, d, bias=bias, **kw)
-        self.to_k = nn.Linear(d, d, bias=bias, **kw)
-        self.to_v = nn.Linear(d, d, bias=bias, **kw)
-        self.to_out = nn.ModuleList([nn.Linear(d, d, **kw), nn.Dropout(0.0)])
+        self.to_q = nn.Linear(d, d_l, bias=bias, **kw)
+        self.to_k = nn.Linear(d, d_l, bias=bias, **kw)
+        self.to_v = nn.Linear(d, d_l, bias=bias, **kw)
+        self.to_out = nn.ModuleList([nn.Linear(d_l, d, **kw),
+                                     nn.Dropout(0.0)])
         self.norm_q = nn.LayerNorm(hd, eps=cfg.qk_norm_eps, **kw)
         self.norm_k = nn.LayerNorm(hd, eps=cfg.qk_norm_eps, **kw)
 
@@ -209,10 +242,11 @@ class _GeluProj(nn.Module):
 
 
 class _FeedForward(nn.Module):
-    def __init__(self, d, **kw):
+    def __init__(self, d, tp: int = 1, **kw):
         super().__init__()
-        self.net = nn.ModuleList([_GeluProj(d, 4 * d, **kw), nn.Dropout(0.0),
-                                  nn.Linear(4 * d, d, **kw)])
+        self.net = nn.ModuleList([_GeluProj(d, 4 * d // tp, **kw),
+                                  nn.Dropout(0.0),
+                                  nn.Linear(4 * d // tp, d, **kw)])
 
 
 def _split_heads(x, num_heads):
@@ -243,31 +277,41 @@ def _adaln_zero(norm: _LayerNormZero, x, temb, eps, video_mask):
 
 
 class CogVideoXBlock(nn.Module):
-    """CogVideoXBlock on the joint [text; video] sequence."""
+    """CogVideoXBlock on the joint [text; video] sequence (this rank's
+    width under a mesh)."""
 
-    def __init__(self, cfg: CogVideoXConfig, **kw):
+    def __init__(self, cfg: CogVideoXConfig, mesh: Optional[Mesh] = None,
+                 **kw):
         super().__init__()
         d = cfg.inner_dim
+        tp = 1 if mesh is None else mesh.tp
         self.cfg = cfg
+        self.mesh = mesh
+        self.tp_group = mesh.tp_group if tp > 1 else None
+        self.heads = cfg.num_attention_heads // tp        # this rank's
         self.norm1 = _LayerNormZero(cfg.time_embed_dim, d, 6, cfg.norm_eps,
                                     **kw)
-        self.attn1 = _Attention(cfg, **kw)
+        self.attn1 = _Attention(cfg, tp, **kw)
         self.norm2 = _LayerNormZero(cfg.time_embed_dim, d, 6, cfg.norm_eps,
                                     **kw)
-        self.ff = _FeedForward(d, **kw)
+        self.ff = _FeedForward(d, tp, **kw)
 
     def _attention(self, x, cos_j, sin_j, kernels: bool,
-                   differentiable: bool):
+                   differentiable: bool, seq_mesh=None):
         cfg, a = self.cfg, self.attn1
-        H = cfg.num_attention_heads
+        H = self.heads
         q, k = _lin(x, a.to_q), _lin(x, a.to_k)
         v = _split_heads(_lin(x, a.to_v), H)
-        if kernels and cos_j is not None and not differentiable:
-            # K4 (LayerNorm + RoPE producer) -> bound -> K1
+        if kernels and cos_j is not None and not differentiable and (
+                self.mesh is None or attn_ops.fused_sharded_supported(
+                    self.mesh, x.shape[0] * self.mesh.dp,
+                    cfg.num_attention_heads)):
+            # K4 (LayerNorm + RoPE producer) -> bound -> K1, on the rank's
+            # heads under a mesh
+            args = (q, k, v.contiguous(), a.norm_q.weight, a.norm_q.bias,
+                    a.norm_k.weight, a.norm_k.bias, cos_j, sin_j)
             o = attn_ops.fused_ln_qk_flash_attention(
-                q, k, v.contiguous(), a.norm_q.weight, a.norm_q.bias,
-                a.norm_k.weight, a.norm_k.bias, cos_j, sin_j, num_heads=H,
-                eps=cfg.qk_norm_eps)
+                *args, num_heads=H, eps=cfg.qk_norm_eps)
         else:
             def head_norm(t, norm):
                 return layer_norm(_split_heads(t, H), norm.weight, norm.bias,
@@ -280,20 +324,28 @@ class CogVideoXBlock(nn.Module):
             if differentiable:
                 o = attn_ops.flash_attention_train(             # K6
                     q.contiguous(), k.contiguous(), v.contiguous())
+            elif self.mesh is not None:
+                # K3 on the rank's heads: over the keys gathered over sp (or
+                # the ring) where seq_mesh cuts the sequence
+                o = attn_ops.dispatch_attention(q, k, v, mesh=seq_mesh)
             elif kernels:
                 o = attn_ops.flash_attention_inference(q, k, v)  # K3
             else:
                 o = attn_ops.attention_ref(q, k, v)
-        return _lin(_merge_heads(o), a.to_out[0])
+        return row_parallel(_merge_heads(o), a.to_out[0], self.tp_group)
 
     def forward(self, x, temb, cos_j, sin_j, video_mask, kernels: bool,
-                differentiable: bool = False):
+                differentiable: bool = False, seq_mesh=None):
+        """``seq_mesh``: the mesh when x, the tables and the mask are the
+        rank's sequence shard (sp > 1), else None."""
         eps = self.cfg.norm_eps
         nx, gate = _adaln_zero(self.norm1, x, temb, eps, video_mask)
-        a = self._attention(nx, cos_j, sin_j, kernels, differentiable)
+        a = self._attention(nx, cos_j, sin_j, kernels, differentiable,
+                            seq_mesh)
         x = x + (gate * a.float()).to(x.dtype)
         nx, gate_ff = _adaln_zero(self.norm2, x, temb, eps, video_mask)
-        f = _lin(gelu_tanh(_lin(nx, self.ff.net[0].proj)), self.ff.net[2])
+        f = row_parallel(gelu_tanh(_lin(nx, self.ff.net[0].proj)),
+                         self.ff.net[2], self.tp_group)
         return x + (gate_ff * f.float()).to(x.dtype)
 
 
@@ -304,21 +356,31 @@ class CogVideoXDiT(nn.Module):
 
     Build with ``device="meta"`` and then ``to_empty`` + ``init_random_``
     or ``load_state_dict(..., assign=True)`` to skip torch's default init.
+    With a dp x tp x sp ``mesh`` the block layers have this rank's width:
+    load ``parallel.sharding.shard_state_dict`` of a full state dict.
     """
 
-    def __init__(self, cfg: CogVideoXConfig, device=None, dtype=None):
+    def __init__(self, cfg: CogVideoXConfig, device=None, dtype=None,
+                 mesh: Optional[Mesh] = None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         d = cfg.inner_dim
         p = cfg.patch_size
+        if mesh is not None:
+            check_supported(mesh.cfg)
+            if cfg.num_attention_heads % mesh.tp or 4 * d % mesh.tp:
+                raise ValueError(f"{cfg.num_attention_heads} heads and FFN "
+                                 f"width {4 * d} must divide over "
+                                 f"tp={mesh.tp}")
         self.cfg = cfg
+        self.mesh = mesh
         self.patch_embed = _PatchEmbed(cfg, **kw)
         self.time_embedding = _TwoLinear(d, cfg.time_embed_dim, **kw)
         if cfg.ofs_embed_dim:
             self.ofs_embedding = _TwoLinear(cfg.ofs_embed_dim,
                                             cfg.ofs_embed_dim, **kw)
         self.transformer_blocks = nn.ModuleList(
-            [CogVideoXBlock(cfg, **kw) for _ in range(cfg.num_layers)])
+            [CogVideoXBlock(cfg, mesh, **kw) for _ in range(cfg.num_layers)])
         self.norm_final = nn.LayerNorm(d, eps=cfg.norm_eps, **kw)
         self.norm_out = _LayerNormZero(cfg.time_embed_dim, d, 2, cfg.norm_eps,
                                        **kw)
@@ -432,20 +494,43 @@ class CogVideoXDiT(nn.Module):
         ``differentiable``: the training forward under autograd, through
         K6 (no fused producer, whatever ``attn_impl``). ``remat``: with
         ``differentiable``, recompute each block in the backward instead
-        of keeping its activations."""
+        of keeping its activations.
+
+        Under a mesh the kernels run (their plain versions on the CPU;
+        ``attn_impl`` "xla" is refused), and with dp > 1 each dp rank runs
+        its slice of the batch (of every argument), the output gathered
+        over the dp group."""
         if attn_impl not in (None, "fused", "xla"):
             raise ValueError(f"attn_impl must be None, 'fused' or 'xla', got "
                              f"{attn_impl!r}")
-        if attn_impl == "xla" and hidden_states.is_cuda:
-            raise ValueError("attn_impl='xla' is the CPU plain path; CUDA "
-                             "tensors run the kernels")
+        if attn_impl == "xla" and (hidden_states.is_cuda
+                                   or self.mesh is not None):
+            raise ValueError("attn_impl='xla' is the CPU plain path without "
+                             "a mesh; CUDA tensors and meshes run the "
+                             "kernels")
         if not differentiable:
             with torch.no_grad():
+                if self.mesh is not None and self.mesh.dp > 1:
+                    return self._forward_dp(hidden_states,
+                                            encoder_hidden_states, timestep,
+                                            image_rotary_emb, ofs, attn_impl)
                 return self._forward(hidden_states, encoder_hidden_states,
                                      timestep, image_rotary_emb, ofs,
                                      attn_impl, False, False)
+        if self.mesh is not None:
+            raise NotImplementedError(SHARDED_TRAINING_NOT_PORTED)
         return self._forward(hidden_states, encoder_hidden_states, timestep,
                              image_rotary_emb, ofs, attn_impl, True, remat)
+
+    def _forward_dp(self, hidden_states, encoder_hidden_states, timestep,
+                    image_rotary_emb, ofs, attn_impl):
+        """The dp rank's batch slice through ``_forward``, then the slices
+        of every dp rank gathered into the full batch."""
+        return run_dp(self.mesh, hidden_states.shape[0], lambda sl: (
+            self._forward(hidden_states[sl], encoder_hidden_states[sl],
+                          timestep[sl], image_rotary_emb,
+                          None if ofs is None else ofs[sl], attn_impl,
+                          False, False)))
 
     def _forward(self, hidden_states, encoder_hidden_states, timestep,
                  image_rotary_emb, ofs, attn_impl, differentiable, remat):
@@ -453,7 +538,8 @@ class CogVideoXDiT(nn.Module):
         x = hidden_states.to(self.dtype)
         B, F, C, H, W = x.shape
         kernels = not differentiable and (
-            attn_impl == "fused" or (attn_impl is None and x.is_cuda))
+            self.mesh is not None or attn_impl == "fused"
+            or (attn_impl is None and x.is_cuda))
 
         te = self.time_embedding
         t_freq = sinusoidal_timestep_embedding(
@@ -480,13 +566,24 @@ class CogVideoXDiT(nn.Module):
             half = cos.shape[-1]
             cos_j = torch.cat([torch.ones(L, half, device=x.device), cos])
             sin_j = torch.cat([torch.zeros(L, half, device=x.device), sin])
+        # under sp, the blocks run the rank's rows of the joint tokens, of
+        # the RoPE tables and of the video mask
+        seq_mesh, cut = attn_ops.sequence_cut(
+            self.mesh, cfg.num_attention_heads, S)
+        xb, video_mask = cut(x, 1), cut(video_mask, 1)
+        if cos_j is not None:
+            cos_j, sin_j = cut(cos_j), cut(sin_j)
         for blk in self.transformer_blocks:
             if remat:
-                x = checkpoint(blk, x, emb, cos_j, sin_j, video_mask, kernels,
-                               differentiable, use_reentrant=False)
+                xb = checkpoint(blk, xb, emb, cos_j, sin_j, video_mask,
+                                kernels, differentiable, use_reentrant=False)
             else:
-                x = blk(x, emb, cos_j, sin_j, video_mask, kernels,
-                        differentiable)
+                xb = blk(xb, emb, cos_j, sin_j, video_mask, kernels,
+                         differentiable, seq_mesh)
+        # the whole sequence again before norm_final (the 2B's slice at L
+        # may straddle a rank's rows)
+        x = (xb if seq_mesh is None
+             else attn_ops.gather_sequence(xb, seq_mesh, dim=1))
 
         if not cfg.use_rotary_positional_embeddings:
             # 2B: norm over the video stream only
@@ -526,8 +623,17 @@ def cogvideox_rope(cfg: CogVideoXConfig, F: int, H: int, W: int,
 
 
 def init_cogvideox_dit(cfg: CogVideoXConfig, generator: torch.Generator,
-                       dtype: torch.dtype = torch.float32) -> CogVideoXDiT:
-    """Seeded random CogVideoXDiT on ``generator``'s device."""
+                       dtype: torch.dtype = torch.float32,
+                       mesh: Optional[Mesh] = None) -> CogVideoXDiT:
+    """Seeded random CogVideoXDiT on ``generator``'s device. With a
+    ``mesh``, the rank's slice of the same full model (built whole, cut,
+    and freed)."""
     model = CogVideoXDiT(cfg, device="meta", dtype=dtype)
     model.to_empty(device=generator.device)
-    return model.init_random_(generator).eval()
+    model.init_random_(generator)
+    if mesh is None:
+        return model.eval()
+    local = CogVideoXDiT(cfg, device="meta", dtype=dtype, mesh=mesh)
+    local.load_state_dict(shard_state_dict(model.state_dict(), mesh),
+                          assign=True)
+    return local.eval()

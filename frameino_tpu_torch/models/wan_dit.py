@@ -29,18 +29,28 @@ qk RMS-norm and RoPE run as plain ops, every attention goes through K6
 and ``remat`` recomputes each block in the backward
 (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``).
 
-Under a dp x tp ``mesh`` (``core/meshes.py``), one process runs per rank
-and ``WanDiT(cfg, mesh=mesh)`` holds layers of the rank's width
+Under a dp x tp x sp ``mesh`` (``core/meshes.py``), one process runs per
+rank and ``WanDiT(cfg, mesh=mesh)`` holds layers of the rank's width
 (``parallel/sharding.py``): each tp rank computes its contiguous slice of
 the heads and of the FFN hidden width, the qk RMS statistic across heads
-is completed by an all-reduce of the fp32 sum of squares (self-attention:
-K5 then K1, ``fused_qk_flash_attention_sharded``; cross-attention and the
-text K: plain ops, then K3), each row-parallel output is all-reduced in
-fp32 before its bias is added once, and each dp rank runs its slice of
-the batch, the output being gathered over dp. Every rank is called with
-the same full-batch arguments and returns the same full-batch output.
+is completed by an all-reduce of the fp32 sum of squares, each
+row-parallel output is all-reduced in fp32 before its bias is added once,
+and each dp rank runs its slice of the batch, the output being gathered
+over dp. With sp = 1 self-attention takes K5 then K1
+(``fused_qk_flash_attention_sharded``). With sp > 1 (JAX's route, which
+leaves the fused path there) each sp rank runs its contiguous slice of the
+tokens, cut after the patch embed and the position tables (RoPE rows, the
+per-token timestep rows) and gathered over sp before the head: the RMS
+norm and RoPE run as plain ops on the rank's rows, then
+``ops/attention.dispatch_attention``, K3 over the keys and values gathered
+over sp or the fp32 ring (``DEFAULT_SP_METHOD``). A sequence that sp does
+not divide runs whole on every sp rank (K3, no sp collective), as JAX
+falls back to unsharded attention. Cross-attention (plain norm, then K3)
+runs each rank's queries against the replicated text K/V. Every rank is
+called with the same full-batch arguments and returns the same
+full-batch output.
 
-Not ported: the fsdp/pp/sp mesh paths, training under a mesh and the
+Not ported: the fsdp/pp mesh paths, training under a mesh and the
 image-KV branch under a mesh.
 """
 
@@ -51,7 +61,6 @@ import math
 from typing import List, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 from torch import nn
 from torch.nn.functional import gelu
 from torch.utils.checkpoint import checkpoint
@@ -65,7 +74,8 @@ from frameino_tpu_torch.ops.embeddings import (pixart_text_projection,
 from frameino_tpu_torch.ops.linear import dense, gelu_tanh, silu
 from frameino_tpu_torch.ops.norms import layer_norm, rms_norm
 from frameino_tpu_torch.ops.rope import apply_rope_interleaved, wan_rope_table
-from frameino_tpu_torch.parallel.sharding import shard_state_dict
+from frameino_tpu_torch.parallel.sharding import (row_parallel, run_dp,
+                                                 shard_state_dict)
 
 SHARDED_TRAINING_NOT_PORTED = (
     "training under a mesh is not ported: sharded training is ROADMAP.md "
@@ -231,6 +241,7 @@ class WanBlock(nn.Module):
         self.cfg = cfg
         self.mesh = mesh
         self.tp = tp
+        self.sp = 1 if mesh is None else mesh.sp
         # the tp group of the row-parallel sums and the qk statistics
         self.tp_group = mesh.tp_group if tp > 1 else None
         self.heads = cfg.num_attention_heads // tp        # this rank's
@@ -240,16 +251,6 @@ class WanBlock(nn.Module):
         if cfg.cross_attn_norm:
             self.norm2 = nn.LayerNorm(d, eps=cfg.eps, **kw)
         self.ffn = _FeedForward(d, cfg.ffn_dim, tp, **kw)
-
-    def _row_parallel(self, x, layer):
-        """A row-parallel layer (to_out, ffn.net.2): under tp, the rank's
-        fp32 partial product is summed over the tp group and the bias,
-        held by every rank, is added once after the sum."""
-        if self.tp == 1:
-            return _lin(x, layer)
-        y = dense(x, layer.weight, out_dtype=torch.float32)
-        dist.all_reduce(y, group=self.tp_group)
-        return (y + layer.bias.float()).to(x.dtype)
 
     def text_kv(self, context, context_img=None) -> Tuple[torch.Tensor, ...]:
         """Cross-attention K/V [B, H, L, Dh] for a fixed text context (this
@@ -270,11 +271,23 @@ class WanBlock(nn.Module):
         return kv + (_split_heads(k_img, self.heads).contiguous(),
                      _split_heads(v_img, self.heads).contiguous())
 
-    def _self_attention(self, x, cos, sin, differentiable):
+    def _self_attention(self, x, cos, sin, differentiable, seq_mesh=None):
         cfg, a = self.cfg, self.attn1
         H = self.heads
         q, k, v = _lin(x, a.to_q), _lin(x, a.to_k), _lin(x, a.to_v)
-        if self.tp > 1:
+        if self.sp > 1:
+            # the norm across heads (statistic all-reduced over tp), RoPE
+            # on the rank's rows, then K3 over the gathered keys or the
+            # ring (seq_mesh None: the whole sequence here, K3 alone)
+            q = _split_heads(rms_norm(q, a.norm_q.weight, cfg.eps,
+                                      group=self.tp_group), H)
+            k = _split_heads(rms_norm(k, a.norm_k.weight, cfg.eps,
+                                      group=self.tp_group), H)
+            o = attn_ops.dispatch_attention(
+                apply_rope_interleaved(q, cos, sin),
+                apply_rope_interleaved(k, cos, sin), _split_heads(v, H),
+                mesh=seq_mesh)
+        elif self.tp > 1:
             # the across-heads statistic all-reduced -> K5 -> bound -> K1
             o = attn_ops.fused_qk_flash_attention_sharded(
                 q, k, _split_heads(v, H).contiguous(), a.norm_q.weight,
@@ -296,7 +309,7 @@ class WanBlock(nn.Module):
                     _split_heads(v, H).contiguous())
             else:
                 o = attn_ops.attention_ref(q, k, _split_heads(v, H))
-        return self._row_parallel(_merge_heads(o), a.to_out[0])
+        return row_parallel(_merge_heads(o), a.to_out[0], self.tp_group)
 
     def _cross_attention(self, x, context, context_img, kv, differentiable):
         cfg, a = self.cfg, self.attn2
@@ -318,14 +331,16 @@ class WanBlock(nn.Module):
         if len(kv) == 4:
             # the image keys: a softmax of their own, added
             o = o + attend(kv[2], kv[3])
-        return self._row_parallel(_merge_heads(o), a.to_out[0])
+        return row_parallel(_merge_heads(o), a.to_out[0], self.tp_group)
 
     def forward(self, x, context, timestep_proj, cos, sin, kv=None,
-                differentiable=False, context_img=None):
+                differentiable=False, context_img=None, seq_mesh=None):
         """x: [B, S, D] compute dtype; timestep_proj fp32 [B, S|1, 6, D] or
         the two-level pair ([B, 2, 6, D], selector [B, S, 1]); kv: the
         block's ``text_kv`` (2 or 4 tensors), or None to project
-        ``context`` (and ``context_img``) here."""
+        ``context`` (and ``context_img``) here. ``seq_mesh``: the mesh when
+        x, cos, sin and the per-token rows are the rank's sequence shard
+        (sp > 1), else None."""
         eps = self.cfg.eps
         table = self.scale_shift_table.float()               # [1, 6, D]
         if isinstance(timestep_proj, tuple):
@@ -343,7 +358,7 @@ class WanBlock(nn.Module):
 
         norm_x = layer_norm(x, eps=eps) * (1 + scale_msa) + shift_msa
         attn_out = self._self_attention(norm_x.to(x.dtype), cos, sin,
-                                        differentiable)
+                                        differentiable, seq_mesh)
         x = (x.float() + attn_out.float() * gate_msa).to(x.dtype)
 
         if self.cfg.cross_attn_norm:
@@ -356,7 +371,7 @@ class WanBlock(nn.Module):
 
         norm_x = layer_norm(x, eps=eps) * (1 + c_scale) + c_shift
         h = _lin(norm_x.to(x.dtype), self.ffn.net[0].proj)
-        h = self._row_parallel(gelu_tanh(h), self.ffn.net[2])
+        h = row_parallel(gelu_tanh(h), self.ffn.net[2], self.tp_group)
         return (x.float() + h.float() * c_gate).to(x.dtype)
 
 
@@ -519,23 +534,16 @@ class WanDiT(nn.Module):
                     timestep_mask, text_kv):
         """The dp rank's batch slice through ``_forward``, then the slices
         of every dp rank gathered into the full batch."""
-        dp, r = self.mesh.dp, self.mesh.dp_rank
-        B = hidden_states.shape[0]
-        if B % dp:
-            raise ValueError(f"batch {B} does not divide over dp={dp}")
-        sl = slice(r * (B // dp), (r + 1) * (B // dp))
+        def run(sl):
+            def cut(t):
+                return None if t is None else t[sl]
 
-        def cut(t):
-            return None if t is None else t[sl]
-
-        if text_kv is not None:
-            text_kv = [(k[sl], v[sl]) for k, v in text_kv]
-        out = self._forward(hidden_states[sl], cut(timestep),
-                            cut(encoder_hidden_states), None,
-                            cut(timestep_mask), text_kv, False, False)
-        parts = [torch.empty_like(out) for _ in range(dp)]
-        dist.all_gather(parts, out, group=self.mesh.dp_group)
-        return torch.cat(parts)
+            kv = (None if text_kv is None
+                  else [(k[sl], v[sl]) for k, v in text_kv])
+            return self._forward(hidden_states[sl], cut(timestep),
+                                 cut(encoder_hidden_states), None,
+                                 cut(timestep_mask), kv, False, False)
+        return run_dp(self.mesh, hidden_states.shape[0], run)
 
     def _forward(self, hidden_states, timestep, encoder_hidden_states,
                  encoder_hidden_states_image, timestep_mask, text_kv,
@@ -580,15 +588,26 @@ class WanDiT(nn.Module):
                 ce.text_embedder.linear_2, out_dtype=x.dtype)
             context_img = self._image_context(encoder_hidden_states_image,
                                               x.dtype)
+        # under sp, the blocks run the rank's rows of the tokens and of
+        # every per-token table
+        seq_mesh, cut = attn_ops.sequence_cut(
+            self.mesh, cfg.num_attention_heads, x.shape[1])
+        xb, cos, sin = cut(x, 1), cut(cos), cut(sin)
+        if two_level:
+            proj_b = (timestep_proj[0], cut(sel, 1))
+        else:
+            proj_b = (cut(timestep_proj, 1) if per_token else timestep_proj)
         for i, blk in enumerate(self.blocks):
             kv = None if text_kv is None else text_kv[i]
             if remat:
-                x = checkpoint(blk, x, context, timestep_proj, cos, sin, kv,
-                               differentiable, context_img,
-                               use_reentrant=False)
+                xb = checkpoint(blk, xb, context, proj_b, cos, sin, kv,
+                                differentiable, context_img,
+                                use_reentrant=False)
             else:
-                x = blk(x, context, timestep_proj, cos, sin, kv,
-                        differentiable, context_img)
+                xb = blk(xb, context, proj_b, cos, sin, kv, differentiable,
+                         context_img, seq_mesh)
+        x = (xb if seq_mesh is None
+             else attn_ops.gather_sequence(xb, seq_mesh, dim=1))
 
         # output AdaLN + projection
         table = self.scale_shift_table.float()                   # [1, 2, D]

@@ -295,10 +295,15 @@ def _put_norm(sd: StateDict, name: str, p):
 
 
 def cogvideox_dit_from_jax(params_np: Dict[str, Any],
-                           cfg: CogVideoXConfig) -> StateDict:
+                           cfg: CogVideoXConfig,
+                           mesh: Optional[Mesh] = None) -> StateDict:
     """JAX ``init_cogvideox_dit``-layout tree, float or int8-quantized ->
     ``CogVideoXDiT`` state dict (the names of
-    ``weights.cogvideox_dit_to_state_dict``)."""
+    ``weights.cogvideox_dit_to_state_dict``). With a dp x tp x sp ``mesh``,
+    this rank's slice of it (``parallel.sharding.shard_state_dict``), for
+    ``CogVideoXDiT(cfg, mesh=mesh)``."""
+    if mesh is not None:
+        return shard_state_dict(cogvideox_dit_from_jax(params_np, cfg), mesh)
     d, p = cfg.inner_dim, cfg.patch_size
     sd: StateDict = {}
     pe = params_np["patch_embed"]

@@ -28,6 +28,13 @@ raises on anything else; for CPU tensors it runs the plain PyTorch
 version beside it. Each wrapper counts its kernel launches in
 ``<wrapper>.launches``.
 
+Under a process mesh (``core/meshes.py``) each rank runs the body of
+JAX's shard_map on its own tensors: ``fused_qk_flash_attention_sharded``
+and ``fused_ln_qk_flash_attention_sharded`` on a tp rank's heads, and the
+sequence-parallel ``dispatch_attention``: ``sp_attention`` (K3 over the
+keys and values gathered over sp) or ``ring_attention`` (JAX's fp32
+online-softmax ring in plain ops, its shards passed round the sp group).
+
 Layouts follow the JAX package: attention tensors are [B, H, S, D],
 raw q/k are [B, S, H*D].
 """
@@ -48,6 +55,7 @@ from frameino_tpu_torch.ops.cuda_build import (  # noqa: F401 (re-exported)
 
 LOG2E = 1.4426950408889634
 _EXP_FLOOR = -120.0
+_NEG_INF = -1e30      # the ring's running max before its first hop
 
 
 def _default_scale(head_dim: int) -> float:
@@ -671,6 +679,204 @@ def fused_ln_qk_flash_attention(q_raw, k_raw, v, w_q, b_q, w_k, b_k, cos,
     else:
         out = flash_fwd(qh, kh, vh, 1.0)
     return out.reshape(B, H, S, D)
+
+
+# ---------------------------------------------------------------------------
+# Under a process mesh (core/meshes.py): the fused CogVideoX path on a tp
+# rank, and the sequence-parallel dispatch. Every function here runs on the
+# rank's own tensors: the body of JAX's shard_map, not its global view.
+# ---------------------------------------------------------------------------
+
+def fused_sharded_supported(mesh, batch: int, num_heads: int) -> bool:
+    """True iff the fused-producer paths run under ``mesh`` (JAX's
+    ``fused_sharded_supported``): the sequence unsharded (the producers
+    take the whole sequence's RoPE rows), the whole ``batch`` dividing dp,
+    the heads dividing tp."""
+    if mesh.sp > 1 or mesh.cfg.pp > 1:
+        return False
+    return (batch % (mesh.dp * mesh.cfg.fsdp) == 0
+            and num_heads % mesh.tp == 0)
+
+
+def fused_ln_qk_flash_attention_sharded(q_raw, k_raw, v, w_q, b_q, w_k,
+                                        b_k, cos, sin, mesh, *,
+                                        num_heads: int, eps: float,
+                                        scale: Optional[float] = None):
+    """``fused_ln_qk_flash_attention`` on one rank of a dp x tp mesh: the
+    body of JAX's ``fused_ln_qk_flash_attention_sharded`` shard_map, on the
+    rank's own tensors.
+
+    q_raw/k_raw: [B_l, S, H_l*D], the rank's batch slice and contiguous
+    head slice straight out of its column-parallel to_q/to_k; v
+    [B_l, H_l, S, D]; w/b: the [D] LayerNorm gamma/beta, replicated;
+    ``num_heads`` counts ALL heads (H = H_l * tp). Returns
+    [B_l, H_l, S, D]. The per-head LayerNorm statistic is local to each
+    head, so no collective runs: K4 on the rank's heads, the rank's own
+    static bound (from its heads only, as each JAX shard computes it),
+    then K1: ``fused_ln_qk_flash_attention`` with the rank's head count,
+    which is what the CogVideoX DiT calls; this form pins it to JAX's
+    sharded function."""
+    if num_heads % mesh.tp:
+        raise ValueError(f"{num_heads} heads do not divide over "
+                         f"tp={mesh.tp}")
+    return fused_ln_qk_flash_attention(q_raw, k_raw, v, w_q, b_q, w_k, b_k,
+                                       cos, sin,
+                                       num_heads=num_heads // mesh.tp,
+                                       eps=eps, scale=scale)
+
+
+# The sequence-parallel strategy (JAX's switch): "allgather" gathers the
+# keys and values over the sp group once; "ring" passes their shards round
+# it, one hop at a time, with an fp32 online softmax across the hops.
+DEFAULT_SP_METHOD = "allgather"
+SP_METHODS = ("allgather", "ring")
+
+# the fp32 scores of one ring hop, per head chunk, are kept near this size
+RING_SCORE_BYTES = 2 << 30
+
+
+def sp_supported(mesh, q_shape) -> bool:
+    """True iff ``mesh`` can cut this self-attention's sequence over sp
+    (JAX's ``sp_supported``, on the GLOBAL shape ``q_shape`` [B, H, S, D]
+    of the whole batch, heads and sequence): sp > 1, S divides sp, B
+    divides dp, H divides tp. Where it fails, the DiTs run the whole
+    sequence on every sp rank: the same result, no sp collective."""
+    if mesh.sp <= 1:
+        return False
+    B, H, S, _ = q_shape
+    return (S % mesh.sp == 0 and B % (mesh.dp * mesh.cfg.fsdp) == 0
+            and H % mesh.tp == 0)
+
+
+def dispatch_attention(q, k, v, *, mesh=None, gather_kv: bool = True,
+                       scale: Optional[float] = None,
+                       sp_method: Optional[str] = None):
+    """Attention on one rank's [B_l, H_l, S_l, D] tensors (JAX's
+    ``dispatch_attention``, forward only).
+
+    ``mesh``: the mesh, where q holds the rank's shard of a sequence cut
+    over sp (and k/v theirs, with ``gather_kv``); None where every rank
+    holds the whole sequence (no mesh, an sp = 1 mesh, a sequence that sp
+    does not divide). Then, and for an sp = 1 mesh, K3 runs on the local
+    tensors. Otherwise ``sp_method`` (default ``DEFAULT_SP_METHOD``)
+    decides: "ring" with ``gather_kv`` runs ``ring_attention``, anything
+    else ``sp_attention`` (K3 over the gathered keys, or over the
+    replicated ones without ``gather_kv``: cross-attention to the text)."""
+    method = sp_method or DEFAULT_SP_METHOD
+    if method not in SP_METHODS:
+        raise ValueError(f"sp_method must be one of {SP_METHODS}, got "
+                         f"{method!r}")
+    if mesh is None or mesh.sp == 1:
+        return flash_attention_inference(q, k, v, scale)
+    if method == "ring" and gather_kv:
+        return ring_attention(q, k, v, mesh, scale)
+    return sp_attention(q, k, v, mesh, scale, gather_kv=gather_kv)
+
+
+def sequence_cut(mesh, num_heads: int, n_tokens: int):
+    """How a DiT cuts its ``n_tokens`` over sp (after the dp slice of the
+    batch, which divides): under a mesh with sp > 1 whose cut
+    ``sp_supported`` passes, (mesh, a function taking this sp rank's
+    contiguous ``n_tokens / sp`` rows of a tensor along a dim, 0 by
+    default); otherwise (None, the identity): every sp rank keeps the
+    whole sequence."""
+    if mesh is None or not sp_supported(mesh,
+                                        (mesh.dp, num_heads, n_tokens, 1)):
+        return None, lambda t, dim=0: t
+    n = n_tokens // mesh.sp
+    r0 = mesh.sp_rank * n
+    return mesh, lambda t, dim=0: t.narrow(dim, r0, n)
+
+
+def gather_sequence(t, mesh, dim: int):
+    """Every sp rank's shard of ``t``, joined in sp order along ``dim``."""
+    parts = [torch.empty_like(t) for _ in range(mesh.sp)]
+    dist.all_gather(parts, t.contiguous(), group=mesh.sp_group)
+    return torch.cat(parts, dim=dim)
+
+
+def sp_attention(q, k, v, mesh, scale: Optional[float] = None, *,
+                 gather_kv: bool = True):
+    """All-gather-KV sequence-parallel attention on one rank (the body of
+    JAX's ``sp_attention`` shard_map): q [B_l, H_l, S/sp, D] is the rank's
+    sequence shard. With ``gather_kv`` the k/v shards of every sp rank are
+    gathered over the sp group (one all-gather of both, in rank order),
+    then K3 runs the rank's queries against the whole sequence; without it
+    (cross-attention to replicated text) K3 runs on the k/v given."""
+    if gather_kv and mesh.sp > 1:
+        k, v = gather_sequence(torch.stack([k, v]), mesh, dim=3).unbind(0)
+    return flash_attention_inference(q, k, v, scale)
+
+
+def _ring_pass(t, mesh):
+    """``t`` sent to the next sp rank, the previous one's received (i ->
+    i + 1 round the ring; both posted at once, so no rank waits on another's
+    order). gloo sends host tensors, so a CUDA tensor goes through host
+    memory under gloo and stays on the card under NCCL."""
+    sp, r = mesh.sp, mesh.sp_rank
+    base = mesh.rank - r
+    nxt = mesh.process(base + (r + 1) % sp)
+    prv = mesh.process(base + (r - 1) % sp)
+    staged = t.is_cuda and dist.get_backend(mesh.sp_group) == "gloo"
+    send = t.cpu() if staged else t.contiguous()
+    recv = torch.empty_like(send)
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, send, nxt, mesh.sp_group),
+        dist.P2POp(dist.irecv, recv, prv, mesh.sp_group)])
+    for req in reqs:
+        req.wait()
+    return recv.to(t.device) if staged else recv
+
+
+def ring_head_chunk(B: int, H: int, Sq: int, Skv: int) -> int:
+    """Heads a chunk of the ring's score products: all of them, or as many
+    as keep [B, chunk, Sq, Skv] fp32 scores near RING_SCORE_BYTES."""
+    return max(1, min(H, RING_SCORE_BYTES // (B * Sq * Skv * 4)))
+
+
+def ring_attention(q, k, v, mesh, scale: Optional[float] = None):
+    """Ring sequence-parallel attention on one rank (the body of JAX's
+    ``ring_attention`` shard_map): q, k, v [B_l, H_l, S/sp, D] are the
+    rank's sequence shards. The k/v shards move round the sp ring, i ->
+    i + 1, so hop j holds the shard of rank i - j (the rank's own first);
+    each hop's scores are taken in fp32 and merged by an online softmax:
+    running max m, ``exp(s - m_new)``, the sums and the P V accumulator
+    rescaled by ``exp(m - m_new)``, both in fp32, then divided and cast to
+    q's dtype. JAX computes this with einsums outside any Pallas kernel;
+    here it is ``torch.matmul`` and plain ops, its fp32 products in full
+    fp32 under the port's numerics (``serve.configure_cuda_numerics``
+    turns TF32 off).
+
+    The heads are taken in chunks (``ring_head_chunk``: as many as keep a
+    hop's fp32 scores near RING_SCORE_BYTES; 35 GB for all 48 heads at
+    CogVideoX's sp = 2); heads are independent, so the chunking changes no
+    bit."""
+    scale = scale if scale is not None else _default_scale(q.shape[-1])
+    sp = mesh.sp
+    B, H, Sq, D = q.shape
+    qf = q.float() * scale
+    m = torch.full((B, H, Sq, 1), _NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, H, Sq, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=q.device)
+    kv = torch.stack([k, v])
+    chunk = ring_head_chunk(B, H, Sq, k.shape[2])
+    for hop in range(sp):
+        for h0 in range(0, H, chunk):
+            h = slice(h0, min(H, h0 + chunk))
+            s = torch.matmul(qf[:, h], kv[0, :, h].float().transpose(-1, -2))
+            m_new = torch.maximum(m[:, h], s.amax(dim=-1, keepdim=True))
+            p = torch.exp(s.sub_(m_new))
+            del s
+            alpha = torch.exp(m[:, h] - m_new)
+            l[:, h] = alpha * l[:, h] + p.sum(dim=-1, keepdim=True)
+            acc[:, h] = alpha * acc[:, h] + torch.matmul(
+                p, kv[1, :, h].float())
+            m[:, h] = m_new
+            del p
+        if hop + 1 < sp:
+            kv = _ring_pass(kv, mesh)
+    return (acc / l).to(q.dtype)
 
 
 # the launch counts of every kernel of the port, K7 (the int8 path's

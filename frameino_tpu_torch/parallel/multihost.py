@@ -28,30 +28,35 @@ def initialize(init_method: str, world_size: int, rank: int, *,
                             world_size=world_size, rank=rank)
 
 
-def assert_same_across_processes(value: float, atol: float = 0.0) -> None:
-    """Raise on every process if a host-side scalar differs across the
-    processes: a gather of one float from each, compared everywhere. It
-    catches desynchronized seeds or inputs before they diverge silently."""
+def assert_same_across_processes(value: float, atol: float = 0.0,
+                                 group=None) -> None:
+    """Raise on every process of ``group`` (default: the default group) if
+    a host-side scalar differs across them: a gather of one float from
+    each, compared everywhere. It catches desynchronized seeds or inputs
+    before they diverge silently."""
     # NCCL takes tensors on the current card, gloo on the host
     dev = (torch.device("cuda", torch.cuda.current_device())
-           if dist.get_backend() == "nccl" else torch.device("cpu"))
+           if dist.get_backend(group) == "nccl" else torch.device("cpu"))
     t = torch.tensor([float(value)], dtype=torch.float64, device=dev)
-    gathered = [torch.empty_like(t) for _ in range(dist.get_world_size())]
-    dist.all_gather(gathered, t)
+    gathered = [torch.empty_like(t)
+                for _ in range(dist.get_world_size(group))]
+    dist.all_gather(gathered, t, group=group)
     vals = np.array([float(g) for g in gathered])
     if not np.allclose(vals, vals[0], atol=atol):
         raise AssertionError(f"cross-process divergence: {vals.tolist()}")
 
 
-def broadcast_from_rank0(tensors, device) -> list:
-    """Rank 0's ``tensors`` (any of them None) on every process of the
-    default group: their shapes and dtypes first, as one object, then each
-    tensor, received into new tensors on ``device``. What the other ranks
-    pass is ignored."""
-    rank = dist.get_rank()
+def broadcast_from_rank0(tensors, device, group=None) -> list:
+    """The ``tensors`` (any of them None) of ``group``'s first process (the
+    default group's rank 0 by default) on every process of ``group``:
+    their shapes and dtypes first, as one object, then each tensor,
+    received into new tensors on ``device``. What the other processes pass
+    is ignored."""
+    rank = dist.get_rank(group)
+    src = 0 if group is None else dist.get_global_rank(group, 0)
     meta = [[None if t is None else (tuple(t.shape), t.dtype)
              for t in tensors] if rank == 0 else None]
-    dist.broadcast_object_list(meta, src=0)
+    dist.broadcast_object_list(meta, src=src, group=group)
     out = []
     for i, m in enumerate(meta[0]):
         if m is None:
@@ -59,6 +64,6 @@ def broadcast_from_rank0(tensors, device) -> list:
             continue
         buf = (tensors[i].contiguous() if rank == 0
                else torch.empty(m[0], dtype=m[1], device=device))
-        dist.broadcast(buf, src=0)
+        dist.broadcast(buf, src=src, group=group)
         out.append(buf)
     return out

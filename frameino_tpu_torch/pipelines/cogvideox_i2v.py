@@ -22,8 +22,19 @@ one chunk of one tile). JAX's "full" mode maps to it too: the segmented
 full-sequence decode runs out of an 80 GB card at 480x736x49 (PERF.md);
 ``CogVideoXVAE.decode`` stays as the tests' reference.
 
+Under a dp x tp x sp ``mesh`` (``core/meshes.py``; the DiT cuts the
+batch, the heads and the tokens) one process runs per rank and every rank
+calls the pipeline with the same arguments, as every JAX process calls the
+jitted program. The VAE encodes and decodes on the mesh's rank 0 only (the
+other ranks may pass ``vae=None``); rank 0 broadcasts the condition
+latents and the initial noise, every rank runs the denoise loop on the
+sharded DiT, and a checksum of the final latents must agree on every
+process. Rank 0 returns the video and the other ranks return None
+(``output_type="latent"``: every rank returns the latents).
+
 Not ported: ``offload_dit``/``offload_vae`` and ``vae_offload`` (sized for
-a 16 GB chip) and ``steps_per_program`` (a TPU watchdog workaround).
+a 16 GB chip), ``steps_per_program`` (a TPU watchdog workaround) and the
+int8 DiT under tp > 1.
 """
 
 from __future__ import annotations
@@ -35,12 +46,16 @@ from typing import Optional
 import numpy as np
 import torch
 
+from frameino_tpu_torch.core.meshes import Mesh
 from frameino_tpu_torch.models import cogvideox_vae_streaming as VS
 from frameino_tpu_torch.models import quant
 from frameino_tpu_torch.models.cogvideox_dit import (CogVideoXDiT,
                                                      cogvideox_rope)
 from frameino_tpu_torch.models.cogvideox_vae import CogVideoXVAE
 from frameino_tpu_torch.ops.conv import narrow_conv_dtype
+from frameino_tpu_torch.parallel.multihost import (
+    assert_same_across_processes, broadcast_from_rank0)
+from frameino_tpu_torch.pipelines.wan_i2v import INT8_TP_NOT_PORTED
 from frameino_tpu_torch.schedulers.cogvideox_dpm import dpm_step_pair
 from frameino_tpu_torch.schedulers.ddim import (DDIMConfig,
                                                 ddim_alphas_cumprod,
@@ -158,19 +173,32 @@ class CogVideoXImageToVideoPipeline:
     moved to the DiT's device. ``quantize="int8"`` swaps the DiT's block
     matmuls for int8 w8a8 layers, in place
     (``models/quant.quantize_dit_int8``).
+
+    ``mesh``: serve over a dp x tp x sp process mesh (module docstring).
+    The DiT must be built on it (``CogVideoXDiT(cfg, mesh=mesh)``);
+    ``vae`` may be None on every rank but the mesh's rank 0.
     """
 
-    def __init__(self, dit: CogVideoXDiT, vae: CogVideoXVAE,
+    def __init__(self, dit: CogVideoXDiT, vae: Optional[CogVideoXVAE],
                  pipe_cfg: CogPipelineConfig = CogPipelineConfig(),
-                 text_encoder_fn=None, quantize: Optional[str] = None):
+                 text_encoder_fn=None, quantize: Optional[str] = None,
+                 mesh: Optional[Mesh] = None):
         if quantize not in (None, "int8"):
             raise ValueError(f"unsupported quantize={quantize!r}")
+        if getattr(dit, "mesh", None) != mesh:
+            raise ValueError("the DiT must be built on the pipeline's mesh")
+        if quantize == "int8" and mesh is not None and mesh.tp > 1:
+            raise NotImplementedError(INT8_TP_NOT_PORTED)
+        if vae is None and (mesh is None or mesh.rank == 0):
+            raise ValueError("the VAE is needed on the mesh's rank 0 (or "
+                             "without a mesh)")
         if quantize == "int8":
             quant.quantize_dit_int8(dit)
         self.dit = dit
         self.vae = vae
         self.pipe_cfg = pipe_cfg
         self.text_encoder_fn = text_encoder_fn
+        self.mesh = mesh
 
     @property
     def dit_cfg(self):
@@ -192,7 +220,8 @@ class CogVideoXImageToVideoPipeline:
                  generator: Optional[torch.Generator] = None, latents=None,
                  output_type: str = "np", decode_mode: str = "streaming"):
         dev = self.device
-        vae_cfg = self.vae_cfg
+        # the VAE runs here: without a mesh, or on the mesh's rank 0
+        encoder = self.mesh is None or self.mesh.rank == 0
         if generator is None:
             generator = torch.Generator(dev).manual_seed(0)
         if prompt_embeds is None:
@@ -203,8 +232,49 @@ class CogVideoXImageToVideoPipeline:
         if negative_prompt_embeds is None:
             negative_prompt_embeds = torch.zeros_like(prompt_embeds)
         negative_prompt_embeds = negative_prompt_embeds.to(dev, torch.float32)
-        B = prompt_embeds.shape[0]
 
+        conds = [None] * 4
+        if encoder:
+            conds = self._noise_and_conditions(
+                image, traj_tensor, id_tensor, prompt_embeds.shape[0],
+                height, width, num_frames, generator, latents)
+        if self.mesh is not None:
+            conds = broadcast_from_rank0(conds, dev, group=self.mesh.group)
+        latents, image_latents, traj_latents, id_latent = conds
+        F, _, h, w = latents.shape[1:]
+        rope = cogvideox_rope(self.dit_cfg, F, h, w,
+                              duplicate_first_frame_for_id=id_latent
+                              is not None, device=dev)
+
+        sched = self.pipe_cfg.scheduler
+        ts = inference_timesteps(sched, num_inference_steps)
+        ts_back = np.concatenate([[-1], ts[:-1]])
+        if self.pipe_cfg.use_dynamic_cfg:
+            g = dynamic_cfg_scales(guidance_scale, ts, num_inference_steps)
+        else:
+            g = np.full(len(ts), guidance_scale, np.float32)
+        latents = denoise(self.dit, sched, latents, image_latents,
+                          traj_latents, id_latent, prompt_embeds,
+                          negative_prompt_embeds, rope, ts, ts_back, g,
+                          num_inference_steps, self.pipe_cfg.scheduler_type)
+        if self.mesh is not None:
+            assert_same_across_processes(float(latents.double().sum()),
+                                         group=self.mesh.group)
+        if output_type == "latent":
+            return latents
+        if not encoder:
+            return None
+        video = decode_latents(self.vae, latents)
+        return video.cpu().numpy() if output_type == "np" else video
+
+    def _noise_and_conditions(self, image, traj_tensor, id_tensor, B: int,
+                              height: int, width: int, num_frames: int,
+                              generator, latents):
+        """[the initial noise (``latents``, or drawn from ``generator``),
+        image_latents, traj_latents or None, id_latent or None], fp32 on
+        the DiT's device (the VAE's work)."""
+        dev = self.device
+        vae_cfg = self.vae_cfg
         F = (num_frames - 1) // vae_cfg.temporal_compression_ratio + 1
         h = height // vae_cfg.spatial_compression_ratio
         w = width // vae_cfg.spatial_compression_ratio
@@ -227,26 +297,6 @@ class CogVideoXImageToVideoPipeline:
         def f32(x):
             return None if x is None else x.to(dev, torch.float32)
 
-        image_latents, traj_latents, id_latent = prepare_conditions(
+        return [latents, *prepare_conditions(
             self.vae, f32(image), f32(traj_tensor), f32(id_tensor), F,
-            generator)
-        rope = cogvideox_rope(self.dit_cfg, F, h, w,
-                              duplicate_first_frame_for_id=id_latent
-                              is not None, device=dev)
-
-        sched = self.pipe_cfg.scheduler
-        ts = inference_timesteps(sched, num_inference_steps)
-        ts_back = np.concatenate([[-1], ts[:-1]])
-        if self.pipe_cfg.use_dynamic_cfg:
-            g = dynamic_cfg_scales(guidance_scale, ts, num_inference_steps)
-        else:
-            g = np.full(len(ts), guidance_scale, np.float32)
-        latents = denoise(self.dit, sched, latents, image_latents,
-                          traj_latents, id_latent, prompt_embeds,
-                          negative_prompt_embeds, rope, ts, ts_back, g,
-                          num_inference_steps, self.pipe_cfg.scheduler_type)
-        if output_type == "latent":
-            return latents
-
-        video = decode_latents(self.vae, latents)
-        return video.cpu().numpy() if output_type == "np" else video
+            generator)]

@@ -21,7 +21,8 @@ branch, the text and image K/V computed once per segment
 runs): the full form of an 81-frame 480x832 clip holds 12 GB fp32
 tensors. The two-expert and ID-frame paths are the expand path's only.
 
-Under a dp x tp ``mesh`` (``core/meshes.py``) one process runs per rank
+Under a dp x tp x sp ``mesh`` (``core/meshes.py``; the DiT cuts the
+batch, the heads and the tokens) one process runs per rank
 and every rank calls the pipeline with the same arguments, as every JAX
 process calls the jitted program. The VAE encodes and decodes on the
 mesh's rank 0 only (the other ranks may pass ``vae=None``), as JAX's
@@ -360,7 +361,7 @@ class WanImageToVideoPipeline:
     resblock and resampler convs for w8a8 ones (``models/quant.
     quantize_wan_vae_int8``; K14 on the card), in either branch.
 
-    ``mesh``: serve over a dp x tp process mesh (module docstring). Both
+    ``mesh``: serve over a dp x tp x sp process mesh (module docstring). Both
     experts must be built on it (``WanDiT(cfg, mesh=mesh)``, sharded by
     the same rules); ``vae`` may be None on every rank but the mesh's
     rank 0.
@@ -474,7 +475,7 @@ class WanImageToVideoPipeline:
                 num_frames, height, width, generator, latents)
         clock.lap("vae_encode_s")
         if self.mesh is not None:
-            conds = broadcast_from_rank0(conds, dev)
+            conds = broadcast_from_rank0(conds, dev, group=self.mesh.group)
         latents, condition, traj_latents, id_latents = conds
         mask = build_first_frame_mask(*latents.shape[2:], device=dev)
 
@@ -494,7 +495,8 @@ class WanImageToVideoPipeline:
         clock.lap("denoise_s")
         self.timings, self.peaks_gib = clock.laps, clock.peaks_gib
         if self.mesh is not None:
-            assert_same_across_processes(float(latents.double().sum()))
+            assert_same_across_processes(float(latents.double().sum()),
+                                         group=self.mesh.group)
         if not encoder and output_type != "latent":
             return None
         return self._output(clock, latents, output_type, decode_mode)

@@ -1,10 +1,15 @@
-"""Worker side of ``tests/test_torch_parallel.py``: each function runs in
-one of the gloo processes that ``spawn`` starts, imports only torch and
-the port (never jax), and saves what it computed as ``.npy`` files in the
-test's directory for the test process to compare with JAX.
+"""Worker side of ``tests/test_torch_parallel.py`` and
+``tests/test_torch_sp.py``: each function runs in the gloo processes that
+``spawn`` starts for it, or in those of a ``Pool`` that runs one job after
+another; it imports only torch and the port (never jax), lays its mesh
+over the first processes (``_mesh``), returns at once in a process outside
+it, and saves what it computed as ``.npy`` files in the test's directory
+for the test process to compare with JAX.
 """
 
+import datetime
 import os
+import traceback
 
 import numpy as np
 import torch
@@ -12,11 +17,15 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from frameino_tpu_torch.core.meshes import MeshConfig, make_mesh
+from frameino_tpu_torch.models import cogvideox_dit as tcdit
+from frameino_tpu_torch.models import cogvideox_vae as tcvae
 from frameino_tpu_torch.models import wan_dit as tdit
 from frameino_tpu_torch.models import wan_vae as tvae
-from frameino_tpu_torch.models.weights import wan_dit_from_jax
+from frameino_tpu_torch.models.weights import (cogvideox_dit_from_jax,
+                                               wan_dit_from_jax)
 from frameino_tpu_torch.ops import attention as tattn
 from frameino_tpu_torch.parallel import multihost
+from frameino_tpu_torch.pipelines import cogvideox_i2v as tcpipe
 from frameino_tpu_torch.pipelines import wan_i2v as tpipe
 
 
@@ -38,6 +47,88 @@ def _entry(rank, fn, world, tmp, args):
         dist.destroy_process_group()
 
 
+# the meshes the current job made in this process (their groups are freed
+# after it)
+_MESHES = []
+
+
+def _mesh(mesh_kw):
+    """The job's mesh laid over the first processes of the default group,
+    or None in a process outside it."""
+    cfg = MeshConfig(**mesh_kw)
+    mesh = make_mesh(cfg, ranks=range(cfg.size))
+    if mesh is not None:
+        _MESHES.append(mesh)
+    return mesh
+
+
+class Pool:
+    """``world`` gloo processes started once (each start imports torch
+    and the port: seconds), which then run jobs one after another: every
+    process runs each job's ``fn(rank, tmp, *args)``. A failed job (an
+    exception in any process, or no answer within ``timeout`` seconds)
+    raises and leaves the pool ``broken``: its processes may be out of
+    step."""
+
+    def __init__(self, world: int, tmp, timeout: float = 120.0):
+        ctx = mp.get_context("spawn")
+        self.timeout = timeout
+        self.broken = False
+        self.jobs = [ctx.Queue() for _ in range(world)]
+        self.results = ctx.Queue()
+        self.procs = [ctx.Process(target=_pool_loop, daemon=True, args=(
+            r, world, os.path.join(str(tmp), "pool_pg"), self.jobs[r],
+            self.results)) for r in range(world)]
+        for proc in self.procs:
+            proc.start()
+
+    def run(self, fn, tmp, *args):
+        for q in self.jobs:
+            q.put((fn, str(tmp), args))
+        errors = []
+        try:
+            for _ in self.procs:
+                rank, err = self.results.get(timeout=self.timeout)
+                if err is not None:
+                    errors.append(f"process {rank}:\n{err}")
+        except Exception as e:         # queue.Empty: a process hangs
+            errors.append(f"no answer within {self.timeout} s ({e!r})")
+        if errors:
+            self.broken = True
+            raise RuntimeError("\n".join(errors))
+
+    def close(self):
+        for q in self.jobs:
+            q.put(None)
+        for proc in self.procs:
+            proc.join(timeout=10 if not self.broken else 1)
+            if proc.is_alive():
+                proc.terminate()
+
+
+def _pool_loop(rank, world, pg_path, jobs, results):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{pg_path}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        while (job := jobs.get()) is not None:
+            fn, tmp, args = job
+            err = None
+            try:
+                fn(rank, tmp, *args)
+            except BaseException:
+                err = traceback.format_exc()
+            for m in _MESHES:
+                for g in {m.tp_group, m.dp_group, m.sp_group, m.group}:
+                    if g is not None:
+                        dist.destroy_process_group(g)
+            _MESHES.clear()
+            results.put((rank, err))
+    finally:
+        dist.destroy_process_group()
+
+
 def _save(tmp, name, rank, x):
     np.save(os.path.join(tmp, f"{name}_{rank}.npy"),
             x.float().numpy() if isinstance(x, torch.Tensor) else x)
@@ -51,7 +142,9 @@ def attention(rank, tmp, mesh_kw, q_raw, k_raw, v, w_q, w_k, cos, sin, H,
               eps):
     """The rank's slices of the global inputs through
     ``fused_qk_flash_attention_sharded``."""
-    mesh = make_mesh(MeshConfig(**mesh_kw))
+    mesh = _mesh(mesh_kw)
+    if mesh is None:
+        return
     bl, hl = q_raw.shape[0] // mesh.dp, H // mesh.tp
     D = v.shape[-1]
     b = slice(mesh.dp_rank * bl, (mesh.dp_rank + 1) * bl)
@@ -63,26 +156,148 @@ def attention(rank, tmp, mesh_kw, q_raw, k_raw, v, w_q, w_k, cos, sin, H,
     _save(tmp, "attn", rank, out)
 
 
-def dit(rank, tmp, mesh_kw, dit_kw, params_np, x, t, ctx, mask):
+def dit(rank, tmp, mesh_kw, dit_kw, params_np, x, t, ctx, mask,
+        sp_method="allgather"):
     """The rank's slice of the bridged JAX weights in a sharded WanDiT;
-    the forward with the text projected in the forward and hoisted."""
-    mesh = make_mesh(MeshConfig(**mesh_kw))
+    the forward with the text projected in the forward and hoisted (sp
+    meshes: the keys gathered over sp, or ``sp_method`` "ring")."""
+    tattn.DEFAULT_SP_METHOD = sp_method
+    mesh = _mesh(mesh_kw)
+    if mesh is None:
+        return
     cfg = tdit.tiny_config(**dit_kw)
     model = tdit.WanDiT(cfg, device="meta", mesh=mesh)
     model.load_state_dict(wan_dit_from_jax(params_np, cfg, mesh),
                           assign=True)
     model.eval()
-    x, t, ctx, mask = (_t(a) for a in (x, t, ctx, mask))
+    x, t, ctx = (_t(a) for a in (x, t, ctx))
+    mask = None if mask is None else _t(mask)
     _save(tmp, "dit", rank, model(x, t, ctx, timestep_mask=mask))
     kv = model.precompute_text_kv(ctx)
     _save(tmp, "dit_kv", rank, model(x, t, timestep_mask=mask, text_kv=kv))
     assert kv[0][0].shape[1] == cfg.num_attention_heads // mesh.tp
 
 
+def ln_attention(rank, tmp, mesh_kw, q_raw, k_raw, v, w_q, b_q, w_k, b_k,
+                 cos, sin, H, eps):
+    """The rank's slices of the global inputs through
+    ``fused_ln_qk_flash_attention_sharded``."""
+    mesh = _mesh(mesh_kw)
+    if mesh is None:
+        return
+    b, h, hd = _slices(mesh, q_raw.shape[0], H, v.shape[-1])
+    out = tattn.fused_ln_qk_flash_attention_sharded(
+        _t(q_raw[b, :, hd]), _t(k_raw[b, :, hd]), _t(v[b, h]), _t(w_q),
+        _t(b_q), _t(w_k), _t(b_k), _t(cos), _t(sin), mesh, num_heads=H,
+        eps=eps)
+    _save(tmp, "attn", rank, out)
+
+
+def _slices(mesh, B, H, D):
+    """The rank's batch, head and head-column slices."""
+    bl, hl = B // mesh.dp, H // mesh.tp
+    b = slice(mesh.dp_rank * bl, (mesh.dp_rank + 1) * bl)
+    h = slice(mesh.tp_rank * hl, (mesh.tp_rank + 1) * hl)
+    return b, h, slice(h.start * D, h.stop * D)
+
+
+def sp_attention(rank, tmp, mesh_kw, q, k, v, gather_kv, sp_method):
+    """The rank's batch, head and sequence shard of global [B, H, S, D]
+    q (and k/v with ``gather_kv``; their whole sequence without it)
+    through ``dispatch_attention``; at "ring", also with one head a chunk
+    (saved as ``ring_chunk1``)."""
+    mesh = _mesh(mesh_kw)
+    if mesh is None:
+        return
+    b, h, _ = _slices(mesh, q.shape[0], q.shape[1], 1)
+    n = q.shape[2] // mesh.sp
+    s = slice(mesh.sp_rank * n, (mesh.sp_rank + 1) * n)
+    ql = _t(q[b, h, s])
+    kl, vl = (_t(a[b, h, s] if gather_kv else a[b, h]) for a in (k, v))
+    out = tattn.dispatch_attention(ql, kl, vl, mesh=mesh, gather_kv=gather_kv,
+                                   sp_method=sp_method)
+    _save(tmp, "attn", rank, out)
+    if sp_method == "ring":
+        # a score budget under one head's scores: one head a chunk
+        budget, tattn.RING_SCORE_BYTES = tattn.RING_SCORE_BYTES, 1
+        try:
+            assert tattn.ring_head_chunk(*ql.shape[:3], kl.shape[2]) == 1
+            _save(tmp, "ring_chunk1", rank,
+                  tattn.ring_attention(ql, kl, vl, mesh))
+        finally:
+            tattn.RING_SCORE_BYTES = budget
+
+
+def cog_dit(rank, tmp, mesh_kw, cfg_kw, params_np, x, text, t, rope,
+            sp_method="allgather"):
+    """The rank's slice of the bridged JAX weights in a sharded
+    CogVideoXDiT, one forward (rope: the video tokens' (cos, sin), or None
+    for the 2B)."""
+    tattn.DEFAULT_SP_METHOD = sp_method
+    mesh = _mesh(mesh_kw)
+    if mesh is None:
+        return
+    cfg = tcdit.tiny_config(**cfg_kw)
+    model = tcdit.CogVideoXDiT(cfg, device="meta", mesh=mesh)
+    model.load_state_dict(cogvideox_dit_from_jax(params_np, cfg, mesh),
+                          assign=True, strict=True)
+    model.eval()
+    out = model(_t(x), _t(text), _t(t),
+                None if rope is None else tuple(_t(a) for a in rope))
+    _save(tmp, "dit", rank, out)
+
+
+def cog_pipeline(rank, tmp, mesh_kw, cfg_kw, vae_cfg, inputs, kw):
+    """The seeded tiny CogVideoX pipeline on the mesh: the DiT is the
+    rank's slice of the same seeded init, the VAE lives on rank 0 only."""
+    mesh = _mesh(mesh_kw)
+    if mesh is None:
+        return
+    gen = torch.Generator().manual_seed(11)
+    dit = tcdit.init_cogvideox_dit(tcdit.tiny_config(**cfg_kw), gen,
+                                   mesh=mesh)
+    vae = tcvae.init_cogvideox_vae(vae_cfg, gen) if rank == 0 else None
+    pipe = tcpipe.CogVideoXImageToVideoPipeline(dit, vae, mesh=mesh)
+    image, traj, idf, text, latents = (_t(a) for a in inputs)
+    # only rank 0's noise and conditions are used
+    video = pipe(image if rank == 0 else None, prompt_embeds=text,
+                 traj_tensor=traj if rank == 0 else None,
+                 id_tensor=idf if rank == 0 else None,
+                 latents=latents if rank == 0 else None, **kw)
+    assert (video is None) == (rank != 0)
+    if video is not None:
+        _save(tmp, "video", rank, video)
+
+
+def mesh_layout(rank, tmp):
+    """A tp = 2 x sp = 2 mesh over the 4 processes and an sp = 2 mesh over
+    the first 2 (``ranks=``): each process's mesh rank, coordinates and
+    the default-group ranks of its tp, dp and sp groups (-1 outside the
+    mesh)."""
+    rows = []
+    for kw, ranks in ((dict(tp=2, sp=2), None), (dict(sp=2), [0, 1])):
+        mesh = make_mesh(MeshConfig(**kw), ranks=ranks)
+        if mesh is None:
+            rows.append([-1] * 10)
+            continue
+        c = mesh.coords
+        groups = [dist.get_process_group_ranks(g) for g in (
+            mesh.tp_group, mesh.dp_group, mesh.sp_group)]
+        rows.append([mesh.rank, c["dp"], c["tp"], c["sp"]]
+                    + [g[0] for g in groups] + [g[-1] for g in groups])
+        # every mesh's collectives run over its own groups only
+        t = torch.tensor([float(rank)])
+        dist.all_reduce(t, group=mesh.sp_group)
+        assert t.item() == sum(groups[2])
+    _save(tmp, "layout", rank, np.array(rows))
+
+
 def pipeline(rank, tmp, mesh_kw, dit_kw, vae_cfg, inputs, kw):
     """The seeded tiny pipeline on the mesh: the DiT is the rank's slice
     of the same seeded init, the VAE lives on rank 0 only."""
-    mesh = make_mesh(MeshConfig(**mesh_kw))
+    mesh = _mesh(mesh_kw)
+    if mesh is None:
+        return
     gen = torch.Generator().manual_seed(0)
     dit = tdit.init_wan_dit(tdit.tiny_config(**dit_kw), gen, mesh=mesh)
     vae = tvae.init_wan_vae(vae_cfg, gen) if rank == 0 else None

@@ -18,14 +18,17 @@ import torch
 import _torch_parallel_worker as W
 from frameino_tpu.core.meshes import MeshConfig as JMeshConfig
 from frameino_tpu.core.meshes import make_mesh as jmake_mesh
+from frameino_tpu.models import cogvideox_dit as jcdit
 from frameino_tpu.models import wan_dit as jdit
 from frameino_tpu.ops import attention as jattn
 from frameino_tpu.parallel import sharding as jsharding
 from frameino_tpu_torch import serve
 from frameino_tpu_torch.core.meshes import Mesh, MeshConfig
+from frameino_tpu_torch.models import cogvideox_dit as tcdit
 from frameino_tpu_torch.models import wan_dit as tdit
 from frameino_tpu_torch.models import wan_vae as tvae
-from frameino_tpu_torch.models.weights import wan_dit_from_jax
+from frameino_tpu_torch.models.weights import (cogvideox_dit_from_jax,
+                                               wan_dit_from_jax)
 from frameino_tpu_torch.parallel.sharding import shard_state_dict, tp_dim
 from frameino_tpu_torch.pipelines import wan_i2v as tpipe
 
@@ -221,12 +224,50 @@ def test_shard_state_dict_matches_dit_param_specs(jax_dit, mesh_kw):
         assert n_cut == cfg.num_layers * (2 * (6 + 1 + 2) + 3)
 
 
+@pytest.mark.parametrize("mesh_kw", [dict(tp=2), dict(dp=2, tp=4)],
+                         ids=_ids)
+def test_cog_shard_state_dict_matches_dit_param_specs(mesh_kw):
+    """The CogVideoX DiT (4 heads): each rank's slice of the bridged tree
+    == the bridge of the shards JAX's ``shard_pytree`` places on that
+    rank's device; the per-head LayerNorm [D], the AdaLN, embeddings and
+    head replicated, to_out's and ff.net.2's biases too."""
+    kw = dict(num_attention_heads=4)
+    jcfg, tcfg = jcdit.tiny_config(**kw), tcdit.tiny_config(**kw)
+    params = jcdit.init_cogvideox_dit(jax.random.key(5), jcfg)
+    jmesh = _jmesh(mesh_kw)
+    placed = jsharding.shard_pytree(params, jmesh)
+    full = cogvideox_dit_from_jax(jax.tree.map(np.asarray, params), tcfg)
+    mcfg = MeshConfig(**mesh_kw)
+    for rank in range(mcfg.size):
+        mesh = Mesh(mcfg, rank)
+        c = mesh.coords
+        dev = jmesh.devices[c["dp"], 0, c["tp"], 0, 0]
+        local = jax.tree.map(
+            lambda a: next(np.asarray(s.data) for s in a.addressable_shards
+                           if s.device == dev), placed)
+        want = cogvideox_dit_from_jax(local, tcfg)
+        got = cogvideox_dit_from_jax(jax.tree.map(np.asarray, params), tcfg,
+                                     mesh)
+        assert got.keys() == want.keys() == full.keys()
+        n_cut = 0
+        for name, t in got.items():
+            n_cut += tp_dim(name) is not None
+            assert t.shape == want[name].shape, name
+            assert torch.equal(t, want[name]), name
+        # in every block: q, k and v (weight and bias), out's weight; fc1's
+        # weight and bias, fc2's weight
+        assert n_cut == jcfg.num_layers * (6 + 1 + 3)
+        # the rank's slice loads into a DiT of the rank's width
+        tcdit.CogVideoXDiT(tcfg, device="meta", mesh=mesh).load_state_dict(
+            got, assign=True, strict=True)
+
+
 def test_unported_meshes_and_options_raise():
-    """fsdp, sp and pp meshes, int8 under tp and training under a mesh
-    raise NotImplementedError; heads that do not divide over tp raise
-    ValueError."""
+    """fsdp and pp meshes, int8 under tp and training under a mesh raise
+    NotImplementedError; heads that do not divide over tp raise
+    ValueError (sp meshes run: tests/test_torch_sp.py)."""
     cfg = tdit.tiny_config(**DIT_KW)
-    for axis in ("fsdp", "sp", "pp"):
+    for axis in ("fsdp", "pp"):
         with pytest.raises(NotImplementedError, match="queue 1, item 12"):
             tdit.WanDiT(cfg, device="meta", mesh=Mesh(MeshConfig(**{
                 axis: 2}), 0))
