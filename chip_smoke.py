@@ -238,9 +238,22 @@ Phases (any failure exits non-zero; there is no CPU path):
     attending its own key shard alone and the ring handing each rank its
     own shard back (at block 0's attention, on every rank); requests (a) and (d) through
     WanImageToVideoPipeline(mesh=) / CogVideoXImageToVideoPipeline(mesh=)
-    at tp = 2 in 2 steps, the VAE on rank 0; after the processes end,
-    K4 -> K1 at CogVideoX's tp = 2 rank shapes and K3 at the sp = 2 ones
-    (both DiTs) against their plain versions, beside SDPA and the bound;
+    at tp = 2 in 2 steps, the VAE on rank 0; before those, in the same
+    processes, the train meshes (TRAIN_MESHES: Wan dp = 2 x fsdp = 2 at a
+    global batch of 4 and fsdp = 2 x tp = 2 at 2, CogVideoX dp = 2 x
+    fsdp = 2 at 4, one example a rank, the latents in the batch): the
+    sharded train step from the whole seeded DiT (AdamW on the shards,
+    remat), two steps held to one process's on the same weights and draws
+    (loss and grad_norm within TRAIN_METRIC_REL on every rank, block 0's
+    attention projections' and a replicated LayerNorm's step-1 gradients
+    and last AdamW moments, gathered whole, within TRAIN_GRAD_REL_L2 /
+    TRAIN_MOMENT_REL_L2), exact K6 launches on every rank, per-rank peaks
+    and the time in collectives, and three planted faults over their
+    limits on every rank (TRAIN_FAULTS); after the processes end, K4 ->
+    K1 at CogVideoX's tp = 2 rank shapes and K3 at the sp = 2 ones (both
+    DiTs), and K6 at the train meshes' new rank shapes ([12, 5460, 128]
+    self and cross, [48, 19126, 64]), against their plain versions,
+    beside SDPA and the bound;
 20. Wan2.1 kernels: K2 at [2, 32760, 5120] (40 heads: one team of 160
     threads, five warps, a block) within one bf16 ulp of its fp64
     statistics (a warp's partial sum dropped must show), K1 at [80, 32760,
@@ -512,6 +525,13 @@ KERNELS.update({k: dict(KERNELS[base]) for k, base in (
     ("qk_ln_rope_cog15", "qk_ln_rope"),
     ("flash_fwd_static_cog15", "flash_fwd_static"),
     ("flash_fwd_cog2b", "flash_fwd"))})
+# K6 at the train meshes' rank shapes that no other path runs: Wan's at
+# fsdp 2 x tp 2 (12 of the 24 heads, self- and cross-attention) and
+# CogVideoX's at dp 2 x fsdp 2 (one example a rank: 48 heads of 64, 19,126
+# tokens)
+KERNELS.update({f"{k}_{suffix}": dict(KERNELS[k])
+                for suffix in ("tp2", "cog_fsdp")
+                for k in ("flash_attn_train_fwd", "flash_attn_train_bwd")})
 # K4 -> K1 and K3 at the mesh phase's rank shapes: CogVideoX at tp = 2
 # (24 of the 48 heads), its sp = 2 self-attention (a rank's 9,563 queries
 # against the 19,126 gathered keys); Wan's at sp = 2 (2,730 queries against
@@ -615,6 +635,51 @@ MESH_PROCESSES = 4
 # 160-190 s beside the convergence run): a hung collective fails the run
 # here, with time left to report it
 MESH_DEADLINE_S = 330
+# the train meshes of the same spawn: the sharded train step (AdamW on the
+# rank's shards, remat on, bf16 parameters, gradients and moments, the
+# latents in the batch) of the full-width DiTs at TP_BLOCKS / COG_TP_BLOCKS
+# blocks, as (family, mesh, global batch), each at one example a rank: K6
+# at [1, 24, 5460, 128], [1, 12, 5460, 128] and [1, 48, 19126, 64]. Every
+# rank is built from the whole seeded DiT and takes TRAIN_MESH_STEPS steps,
+# held to one process's steps on the same weights and draws.
+TRAIN_MESHES = {"train_dp2xfsdp2": ("wan", dict(dp=2, fsdp=2), 4),
+                "train_fsdp2xtp2": ("wan", dict(fsdp=2, tp=2), 2),
+                "cog_train_dp2xfsdp2": ("cog", dict(dp=2, fsdp=2), 4)}
+TRAIN_MESH_STEPS = 2
+TRAIN_MESH_SEED = 24
+# the tensors whose gathered step-1 gradients and AdamW moments after the
+# last step are held: block 0's attention projections and one tensor every
+# rank holds whole (Wan's cross-attention LayerNorm, replicated over tp:
+# its gradient is complete only through copy_to_tp's all-reduce;
+# CogVideoX's per-head q LayerNorm, completed over the batch ranks)
+TRAIN_HELD = {
+    "wan": tuple(f"blocks.0.attn1.{n}.weight"
+                 for n in ("to_q", "to_k", "to_v", "to_out.0"))
+    + ("blocks.0.norm2.weight",),
+    "cog": tuple(f"transformer_blocks.0.attn1.{n}.weight"
+                 for n in ("to_q", "to_k", "to_v", "to_out.0"))
+    + ("transformer_blocks.0.attn1.norm_q.weight",)}
+# Limits of a train mesh against one process (bf16 throughout). The sharded
+# step computes the same function and rounds elsewhere: each rank's
+# gradient is a bf16 partial (its examples, its fsdp slice reduce-scattered,
+# tp's partial products) summed over gloo in bf16 where one process rounds
+# one sum, so the gradients and moments differ by a few bf16 roundings
+# (relative L2 2.8e-3 to 6.1e-3 on the H100, as TP_REL_L2's forwards read
+# 1.3e-3 to 4.0e-3) and are held at TP_REL_L2. Loss and grad_norm are
+# fp32 means over millions of elements, whose roundings average out (a
+# relative difference of at most 1.8e-5 there), held at 1e-3: over 50x
+# that, and under any planted fault's reading by 250x.
+TRAIN_METRIC_REL = 1e-3
+TRAIN_GRAD_REL_L2 = TP_REL_L2
+TRAIN_MOMENT_REL_L2 = TP_REL_L2
+# the planted faults of the train meshes, each of which must read over its
+# limit on every rank: the gradients summed over the batch ranks instead of
+# averaged (grad_norm x 4), grad_norm from the rank's own slices (no
+# all-reduce over the mesh; read on step 1's gradients), the tp-replicated
+# norms' gradients left un-reduced over tp (copy_to_tp the identity; read
+# on each rank's gradient of the replicated LayerNorm)
+TRAIN_FAULTS = {"train_dp2xfsdp2": ("sum_not_mean", "local_norm"),
+                "train_fsdp2xtp2": ("tp_grad_unreduced",)}
 
 # Relative L2 limit of the int8 DiT's CFG forward against the bf16 one on
 # the same weights, at full depth and the serving shapes (the JAX package
@@ -1715,11 +1780,13 @@ def _flash_build_report():
                                          0))
 
 
-def _k6_row(tag, bh, sq, skv, d, g, num_sms):
+def _k6_row(tag, bh, sq, skv, d, g, num_sms, plain_heads=None):
     """K6 forward and backward at [bh, sq|skv, d] against the plain
     version's fp32 autograd (the limits, planted faults and rerun checks of
-    ``phase_kernels_train``), timed beside the plain version, SDPA and the
-    bound; returns the shape's row."""
+    ``phase_kernels_train``; on the heads ``plain_heads`` alone where
+    given, as ``phase_kernels_train_cog`` holds its shape), timed beside
+    the plain version (on those heads), SDPA and the bound; returns the
+    shape's row."""
     import torch
     from frameino_tpu_torch.ops import attention as A
     q, do = (torch.randn(bh, sq, d, device="cuda", dtype=torch.bfloat16,
@@ -1739,31 +1806,36 @@ def _k6_row(tag, bh, sq, skv, d, g, num_sms):
     check(rerun_dq <= DQ_RERUN_REL_L2,
           f"K6 backward ({tag}): dQ of two launches differ by "
           f"{rerun_dq:.3e} relative L2 (limit {DQ_RERUN_REL_L2:g})")
-    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    heads = list(range(bh) if plain_heads is None else plain_heads)
+
+    def sub(t):
+        return t if plain_heads is None else t[heads]
+    leaves = [sub(t).float().requires_grad_() for t in (q, k, v)]
+    do_p = sub(do).float()
     o_ref = A.flash_attention_train_ref(*(t[None] for t in leaves),
                                         scale)[0]
-    ref = torch.autograd.grad(o_ref, leaves, do.float(),
-                              retain_graph=True)
-    err, rel, rel_o = _check_close(f"K6 forward ({tag})", o,
+    ref = torch.autograd.grad(o_ref, leaves, do_p, retain_graph=True)
+    err, rel, rel_o = _check_close(f"K6 forward ({tag})", sub(o),
                                    o_ref.detach())
-    lse_err = (lse - torch.logsumexp(
+    lse_err = (sub(lse) - torch.logsumexp(
         leaves[0].detach() @ leaves[1].detach().transpose(1, 2) * scale,
         -1)).abs().max().item()
     check(lse_err <= 1e-3, f"K6 forward ({tag}): lse off by {lse_err}")
-    rel_g = {n: _rel_l2(a, b) for n, a, b in zip(("dq", "dk", "dv"),
-                                                 grads, ref)}
+    rel_g = {n: _rel_l2(sub(a), b)
+             for n, a, b in zip(("dq", "dk", "dv"), grads, ref)}
     check(all(torch.isfinite(t).all() for t in grads),
           f"K6 backward ({tag}): non-finite gradient")
     check(max(rel_g.values()) <= GRAD_REL_L2,
           f"K6 backward ({tag}): relative L2 {rel_g} over the limit "
           f"{GRAD_REL_L2:g}")
-    faults = _planted_faults(q, k, v, do, ref, scale)
+    faults = _planted_faults(sub(q), sub(k), sub(v), sub(do), ref, scale)
     check(min(faults.values()) > GRAD_REL_L2,
           f"K6 ({tag}): a planted fault passes the gradient limit "
           f"{GRAD_REL_L2:g}: {faults}")
-    grad_err = max((a.float() - b).abs().max().item()
+    grad_err = max((sub(a).float() - b).abs().max().item()
                    for a, b in zip(grads, ref))
-    row = dict(fwd_err=err, fwd_rel=rel, fwd_rel_l2=rel_o,
+    row = dict(plain_heads=len(heads), fwd_err=err, fwd_rel=rel,
+               fwd_rel_l2=rel_o,
                bwd_err=grad_err, bwd_rel_l2=rel_g, faults=faults,
                lse_max_abs=lse_err, rerun_dkdv_equal=rerun_dkdv_equal,
                rerun_dq_rel_l2=rerun_dq,
@@ -1776,12 +1848,12 @@ def _k6_row(tag, bh, sq, skv, d, g, num_sms):
                fwd_plain_ms=cuda_ms(lambda: A.flash_attention_train_ref(
                    *(t[None] for t in leaves), scale), 3),
                bwd_plain_ms=cuda_ms(lambda: torch.autograd.grad(
-                   o_ref, leaves, do.float(), retain_graph=True), 3),
+                   o_ref, leaves, do_p, retain_graph=True), 3),
                fwd_bound=attn_bound(bh, sq, skv, d, 4, 4 * bh * sq),
                bwd_bound=attn_bound(bh, sq, skv, d, 10,
                                     2 * 2 * bh * d * (sq + skv)
                                     + 4 * bh * sq))
-    del o_ref, ref, leaves
+    del o_ref, ref, leaves, do_p
     # the library yardstick: SDPA's forward, and its backward alone
     lq, lk, lv = (t[None].detach().requires_grad_() for t in (q, k, v))
     lo = torch.nn.functional.scaled_dot_product_attention(lq, lk, lv)
@@ -1792,8 +1864,8 @@ def _k6_row(tag, bh, sq, skv, d, g, num_sms):
         lo, (lq, lk, lv), do[None], retain_graph=True), 10)
     del lo, lq, lk, lv
     print(f"K6 {tag} [{bh}, {sq}|{skv}, {d}]: forward {row['fwd_ms']:.3f}"
-          f" ms (plain {row['fwd_plain_ms']:.3f}, SDPA "
-          f"{row['fwd_library_ms']:.3f}, bound {row['fwd_bound'][0]:.3f})"
+          f" ms (plain {row['fwd_plain_ms']:.3f} on {len(heads)} heads, "
+          f"SDPA {row['fwd_library_ms']:.3f}, bound {row['fwd_bound'][0]:.3f})"
           f" rel L2 {rel_o:.3e}; backward {row['bwd_ms']:.3f} ms (plain "
           f"{row['bwd_plain_ms']:.3f}, SDPA {row['bwd_library_ms']:.3f}, "
           f"bound {row['bwd_bound'][0]:.3f}) rel L2 "
@@ -4669,6 +4741,194 @@ def _mesh_run(tag, family, mesh, inputs, want_attention):
     return row
 
 
+def _train_batch(family, batch):
+    """A global batch of ``batch`` examples with their latents (no VAE
+    encode), from a seed on the host (the same in every process): Wan
+    49x480x832 latents [48, 13, 30, 52] with the ID frame (5,460 tokens);
+    CogVideoX 49x480x720 latents [13, 16, 60, 90] with the ID frame
+    (19,126 tokens)."""
+    import torch
+    g = torch.Generator().manual_seed(TRAIN_MESH_SEED)
+
+    def randn(*shape):
+        return torch.randn(batch, *shape, generator=g)
+    if family == "wan":
+        return {"video_latents": randn(48, 13, 30, 52),
+                "first_frame_latent": randn(48, 1, 30, 52),
+                "traj_latents": randn(48, 13, 30, 52),
+                "id_latents": randn(48, 1, 30, 52),
+                "prompt_embeds": randn(L_TEXT, 4096)}
+    return {"video_latents": randn(13, 16, 60, 90),
+            "first_frame_latent": randn(13, 16, 60, 90),
+            "traj_latents": randn(13, 16, 60, 90),
+            "id_latent": randn(1, 16, 60, 90),
+            "prompt_embeds": randn(COG_L_TEXT, 4096)}
+
+
+def _train_state(family, mesh):
+    """The train state of the seeded whole full-width DiT at the mesh
+    phase's depth (built on the card, then cut for ``mesh`` by
+    ``init_train_state``, as ``train.py`` does; None: one process)."""
+    import torch
+    from frameino_tpu_torch.models import cogvideox_dit, wan_dit
+    from frameino_tpu_torch.training.optim import OptimizerConfig
+    from frameino_tpu_torch.training.trainer import init_train_state
+    init = (wan_dit.init_wan_dit if family == "wan"
+            else cogvideox_dit.init_cogvideox_dit)
+    model = init(_mesh_configs()[family],
+                 torch.Generator("cuda").manual_seed(0),
+                 dtype=torch.bfloat16)
+    state = init_train_state(model, OptimizerConfig(), mesh=mesh)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return state
+
+
+def _train_step(state, family, batch, batch_size, dp):
+    """One step of the trainer the entry point calls, the draws the
+    step generator's (the global batch's, stratified over ``dp`` ranks)."""
+    from frameino_tpu_torch.training import cog_trainer, trainer
+    if family == "wan":
+        return trainer.train_step(state, None, trainer.TrainerConfig(),
+                                  batch, TRAIN_MESH_SEED, dp_size=dp,
+                                  batch_size=batch_size)
+    return cog_trainer.cog_train_step(state, None,
+                                      cog_trainer.CogTrainerConfig(), batch,
+                                      TRAIN_MESH_SEED, batch_size=batch_size)
+
+
+@contextlib.contextmanager
+def _captured(state, names, update=True, at_step1=None):
+    """While open, each optimizer step of ``state`` first keeps the
+    gradients it is handed (complete: after the mesh's reductions) of
+    ``names`` in got["grads"] (fp32) and, at the first, ``at_step1(grads)``
+    in got["step1"]; with ``update`` False the step updates nothing and
+    the state's step count is put back."""
+    opt = state.optimizer
+    orig, step0, got = opt.step, state.step, {"grads": []}
+
+    def step(params, grads):
+        got["grads"].append({n: grads[n].detach().float().clone()
+                             for n in names})
+        if at_step1 is not None and len(got["grads"]) == 1:
+            got["step1"] = at_step1(grads)
+        if update:
+            orig(params, grads)
+    opt.step = step
+    try:
+        yield got
+    finally:
+        del opt.step
+        if not update:
+            state.step = step0
+
+
+@contextlib.contextmanager
+def _train_fault(name):
+    """The planted fault ``name`` of TRAIN_FAULTS while open."""
+    from frameino_tpu_torch.models import cogvideox_dit, wan_dit
+    from frameino_tpu_torch.training import optim, trainer
+    if name == "sum_not_mean":
+        orig = trainer.reduce_gradients
+
+        def summed(grads, cuts, mesh):
+            orig(grads, cuts, mesh)
+            for g in grads.values():
+                g.mul_(mesh.batch)
+        swaps = [(trainer, "reduce_gradients", summed)]
+    elif name == "local_norm":
+        swaps = [(optim, "sharded_global_norm",
+                  lambda grads, cuts, mesh: optim.global_norm(
+                      grads.values()))]
+    else:
+        swaps = [(m, "copy_to_tp", lambda x, group: x)
+                 for m in (wan_dit, cogvideox_dit)]
+    saved = [(m, a, getattr(m, a)) for m, a, _ in swaps]
+    for m, a, fn in swaps:
+        setattr(m, a, fn)
+    try:
+        yield
+    finally:
+        for m, a, fn in saved:
+            setattr(m, a, fn)
+
+
+def _train_mesh_run(tag, family, mesh, batch_size):
+    """One train mesh on this rank: the state cut from the whole seeded
+    DiT, the planted faults' passes (each a step that updates nothing),
+    then TRAIN_MESH_STEPS steps counted and timed with their time in
+    collectives (the rank's examples only, as the entry collates them);
+    the held tensors' step-1 gradients and last moments gathered whole.
+    Returns the rank's row; rank 0 saves the gathered tensors."""
+    import torch
+    import torch.distributed as dist
+    from frameino_tpu_torch.ops import attention as A
+    from frameino_tpu_torch.parallel import multihost
+    from frameino_tpu_torch.parallel.sharding import gather_tensor
+    t0 = time.time()
+    state = _train_state(family, mesh)
+    dist.barrier(group=mesh.group)
+    row = dict(rank=mesh.rank, coords=mesh.coords,
+               build_s=time.time() - t0,
+               resident_gib=torch.cuda.memory_allocated() / 2 ** 30,
+               fault_grad_norm={})
+    batch = {k: v.cuda() for k, v in multihost.local_batch(
+        _train_batch(family, batch_size), mesh, batch_size).items()}
+    held = TRAIN_HELD[family]
+    opt = state.optimizer
+    for fault in TRAIN_FAULTS.get(tag, ()):
+        if fault == "local_norm":
+            continue
+        with _train_fault(fault), _captured(state, held,
+                                            update=False) as got:
+            m = _train_step(state, family, batch, batch_size, mesh.dp)
+        row["fault_grad_norm"][fault] = float(m["grad_norm"])
+        if fault == "tp_grad_unreduced":
+            # the rank's own gradient of the replicated LayerNorm
+            torch.save(got["grads"][0][held[-1]].cpu(), os.path.join(
+                TP_DIR, f"{tag}_fault_{mesh.rank}.pt"))
+
+    def local_norm(grads):
+        with _train_fault("local_norm"):
+            return float(opt.global_norm(grads))
+    at_step1 = (local_norm if "local_norm" in TRAIN_FAULTS.get(tag, ())
+                else None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    metrics, step_s, coll = [], [], [0.0]
+    with _captured(state, held, at_step1=at_step1) as got, \
+            _timed_collectives(coll):
+        for _ in range(TRAIN_MESH_STEPS):
+            t1 = time.time()
+            m = _train_step(state, family, batch, batch_size, mesh.dp)
+            metrics.append([float(m["loss"]), float(m["grad_norm"])])
+            step_s.append(time.time() - t1)
+    row.update(launches=A.launch_counts(), metrics=metrics, step_s=step_s,
+               collective_s=coll[0],
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if "step1" in got:
+        row["fault_grad_norm"]["local_norm"] = got["step1"]
+    for loss, gn in metrics:
+        multihost.assert_same_across_processes(loss, group=mesh.group)
+        multihost.assert_same_across_processes(gn, group=mesh.group)
+    # the held tensors whole: step 1's gradients (gathered by their cuts),
+    # the moments after the last step (by their slots' cuts)
+    cuts = opt.cuts
+    whole = {f"grad/{n}": gather_tensor(got["grads"][0][n], cuts[n], mesh)
+             for n in held}
+    for slot in ("mu", "nu"):
+        for n in held:
+            whole[f"{slot}/{n}"] = gather_tensor(
+                getattr(opt, slot)[n], opt.slot_cut(slot, n), mesh).float()
+    if mesh.rank == 0:
+        torch.save({k: v.cpu() for k, v in whole.items()},
+                   os.path.join(TP_DIR, f"{tag}_train.pt"))
+    del state, batch, got, whole
+    return row
+
+
 def _warm_up():
     """A tiny build and CFG forward of each DiT on the card (head_dim 128 /
     64, so that the kernels run)."""
@@ -4693,13 +4953,12 @@ def _warm_up():
 
 def _mesh_worker(rank, world, pg_path):
     """One of the MESH_PROCESSES processes on this card (gloo collectives,
-    staged through host memory): waits for the main process's inputs, then
-    every mesh in turn, each laid over the first processes (a process
-    outside it waits at the barrier), its seconds on rank 0 between the
-    barriers."""
+    staged through host memory): the train meshes, then (once the main
+    process's inputs are there) every serving mesh, in turn, each laid
+    over the first processes (a process outside it waits at the barrier),
+    its seconds on rank 0 between the barriers."""
     import torch
     import torch.distributed as dist
-    from frameino_tpu_torch.core.meshes import MeshConfig, make_mesh
     from frameino_tpu_torch.ops import attention as A
     from frameino_tpu_torch.parallel import multihost
     from frameino_tpu_torch.serve import configure_cuda_numerics
@@ -4709,36 +4968,49 @@ def _mesh_worker(rank, world, pg_path):
     try:
         # while the main process runs the single-process forwards: a tiny
         # build and forward of each DiT, so that the process's first use of
-        # each CUDA kernel (which loads it) and of cuBLAS is not timed
+        # each CUDA kernel (which loads it) and of cuBLAS is not timed; then
+        # the train meshes, which need nothing of the main process
         _warm_up()
+        for tag, (family, mesh_kw, batch) in TRAIN_MESHES.items():
+            _on_mesh(rank, tag, mesh_kw, lambda mesh: _train_mesh_run(
+                tag, family, mesh, batch))
         go = os.path.join(TP_DIR, "inputs.pt")
         while not os.path.exists(go + ".done"):
             time.sleep(0.1)
         inputs = torch.load(go, mmap=True)
         for tag, (family, mesh_kw, method) in _mesh_specs().items():
-            cfg = MeshConfig(**mesh_kw)
-            mesh = make_mesh(cfg, ranks=range(cfg.size))
-            dist.barrier()
-            t0 = time.time()
-            if mesh is not None:
-                A.DEFAULT_SP_METHOD = method
-                row = _mesh_run(tag, family, mesh, inputs[family],
-                                inputs[family + "_attention"])
-                with open(os.path.join(TP_DIR, f"{tag}_{rank}.json"),
-                          "w") as f:
-                    json.dump(row, f)
-                for g in {mesh.tp_group, mesh.dp_group, mesh.sp_group,
-                          mesh.group} - {None}:
-                    dist.destroy_process_group(g)
+            A.DEFAULT_SP_METHOD = method
+            _on_mesh(rank, tag, mesh_kw, lambda mesh: _mesh_run(
+                tag, family, mesh, inputs[family],
+                inputs[family + "_attention"]))
             A.DEFAULT_SP_METHOD = "allgather"
-            gc.collect()
-            torch.cuda.empty_cache()
-            dist.barrier()
-            if rank == 0:
-                with open(os.path.join(TP_DIR, f"{tag}_wall.json"), "w") as f:
-                    json.dump(time.time() - t0, f)
     finally:
         dist.destroy_process_group()
+
+
+def _on_mesh(rank, tag, mesh_kw, run):
+    """``run(mesh)`` on mesh ``tag`` laid over the first processes (the
+    others wait at the barrier); each rank's row and rank 0's wall
+    seconds are written to TP_DIR."""
+    import torch
+    import torch.distributed as dist
+    from frameino_tpu_torch.core.meshes import MeshConfig, make_mesh
+    cfg = MeshConfig(**mesh_kw)
+    mesh = make_mesh(cfg, ranks=range(cfg.size))
+    dist.barrier()
+    t0 = time.time()
+    if mesh is not None:
+        row = run(mesh)
+        with open(os.path.join(TP_DIR, f"{tag}_{rank}.json"), "w") as f:
+            json.dump(row, f)
+        for g in mesh.groups():
+            dist.destroy_process_group(g)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        with open(os.path.join(TP_DIR, f"{tag}_wall.json"), "w") as f:
+            json.dump(time.time() - t0, f)
 
 
 def _mesh_kernel_rows(cog, cog_inputs, g):
@@ -4853,15 +5125,17 @@ def _mesh_kernel_rows(cog, cog_inputs, g):
 def phase_tp():
     """The mesh phase, started: every mesh of TP_MESHES and SP_MESHES (the
     full-width Wan2.2-TI2V-5B-motion DiT at TP_BLOCKS blocks) and of
-    COG_MESHES (CogVideoX-5B-I2V-FrameINO at COG_TP_BLOCKS) in one spawn of
-    MESH_PROCESSES processes on this card. While they start, the
+    COG_MESHES (CogVideoX-5B-I2V-FrameINO at COG_TP_BLOCKS), after the
+    train meshes of TRAIN_MESHES, in one spawn of MESH_PROCESSES
+    processes on this card. While they start, the
     single-process forwards run here; then the processes run the meshes
     while the caller runs the convergence run (both bound by the host,
     the card mostly idle), and ``phase_tp_checks`` holds each mesh to the
     single-process bf16 forward on the same seeded weights within
     TP_REL_L2, with exact launches on every rank and its time in
     collectives, the planted faults over the limit and requests (a) and
-    (d) through the pipelines at tp = 2. Returns the running phase."""
+    (d) through the pipelines at tp = 2, and each train mesh to one
+    process's steps. Returns the running phase."""
     import torch
     import torch.multiprocessing as mp
     import types
@@ -4918,9 +5192,11 @@ def phase_tp():
 
 def phase_tp_checks(run):
     """The mesh phase's end: waits for its processes (``phase_tp``), then
-    the checks of every mesh, then (the card free again) the kernels at
-    the ranks' shapes on the single-process CogVideoX DiT's block 0;
-    returns (the rows, the kernels' rows, their launches on the path)."""
+    the checks of every mesh, then (the card free again) one process's
+    train steps and the train meshes' checks against them, then the
+    kernels at the ranks' shapes (K4, K1 and K3 on the single-process
+    CogVideoX DiT's block 0, K6 on random rows); returns (the rows, the
+    kernels' rows, their launches on the path)."""
     import torch
     from frameino_tpu_torch.models import cogvideox_dit
     from frameino_tpu_torch.serve import configure_cuda_numerics
@@ -4938,6 +5214,15 @@ def phase_tp_checks(run):
         out[tag] = _mesh_check(tag, family, mesh_kw, method,
                                run["wants"][family])
         family_of[tag] = family
+    # the train meshes against one process's steps (the card free again)
+    refs = {}
+    for tag, (family, mesh_kw, batch) in TRAIN_MESHES.items():
+        key = (family, batch, mesh_kw.get("dp", 1))
+        if key not in refs:
+            refs[key] = _train_reference(*key)
+        out[tag] = _train_mesh_check(tag, refs[key])
+        family_of[tag] = family
+    del refs
     print(f"tp: {len(family_of)} meshes in one spawn of {MESH_PROCESSES} "
           f"processes: {out['processes_s']:.1f} s from the spawn, "
           f"{out['meshes_s']:.1f} s after the inputs, {out['waited_s']:.1f} "
@@ -4953,6 +5238,8 @@ def phase_tp_checks(run):
     del cog
     gc.collect()
     torch.cuda.empty_cache()
+    kernel_results.update(_train_mesh_kernel_rows(
+        torch.Generator("cuda").manual_seed(25)))
     # the rank-shape kernels' launches on their paths (rank 0): K4 and K1
     # over request (d) at tp = 2, K3 by shape over the sp forwards
     r0 = {tag: out[tag]["ranks"][0] for tag in family_of}
@@ -4964,10 +5251,170 @@ def phase_tp_checks(run):
         qs, ks = kernel_results[name]["shape"]
         launches[name] = r0[tag]["launch_shapes"]["flash_fwd"].get(
             json.dumps([qs, ks]), 0)
+    # K6 at the train meshes' new rank shapes (rank 0's sound steps)
+    for suffix, tag in (("tp2", "train_fsdp2xtp2"),
+                        ("cog_fsdp", "cog_train_dp2xfsdp2")):
+        for k in NO_TRAIN:
+            launches[f"{k}_{suffix}"] = r0[tag]["launches"][k]
     for name, n in launches.items():
         check(n > 0, f"tp: {name} was not launched at its rank shape "
                      f"{kernel_results[name]['shape']}")
     return out, kernel_results, launches
+
+
+def _train_mesh_kernel_rows(g):
+    """K6 forward and backward at the train meshes' new rank shapes, on
+    random rows: Wan's at fsdp 2 x tp 2 (12 of the 24 heads; self and
+    cross) and CogVideoX's at dp 2 x fsdp 2 (one example, 48 heads of 64,
+    19,126 tokens; the plain version on 4 heads), against the plain
+    version's fp32 autograd (``_k6_row``'s limits, planted faults and
+    rerun checks), timed beside it, SDPA and the bound."""
+    import torch
+    num_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    me = _k6_row("tp2", H // 2, S, S, D, g, num_sms)
+    cr = _k6_row("tp2_cross", H // 2, S, L_TEXT, D, g, num_sms)
+    cog = _k6_row("cog_fsdp", COG_H, COG_S, COG_S, COG_D, g, num_sms,
+                  plain_heads=COG_TRAIN_ROWS)
+    results = {}
+    for suffix, row, cross, shape in (
+            ("tp2", me, cr, [1, H // 2, S, D]),
+            ("cog_fsdp", cog, None, [1, COG_H, COG_S, COG_D])):
+        for dirn in ("fwd", "bwd"):
+            r = dict(
+                max_abs_err=row[f"{dirn}_err"], ms=row[f"{dirn}_ms"],
+                plain_ms=row[f"{dirn}_plain_ms"],
+                plain_heads=row["plain_heads"],
+                bound_ms=row[f"{dirn}_bound"][0],
+                bound_by=row[f"{dirn}_bound"][1],
+                library_ms=row[f"{dirn}_library_ms"], shape=shape)
+            if cross is not None:
+                r.update(cross_ms=cross[f"{dirn}_ms"],
+                         cross_plain_ms=cross[f"{dirn}_plain_ms"],
+                         cross_bound_ms=cross[f"{dirn}_bound"][0],
+                         cross_library_ms=cross[f"{dirn}_library_ms"])
+            results[f"flash_attn_train_{dirn}_{suffix}"] = r
+    return results
+
+
+def _train_reference(family, batch_size, dp):
+    """One process's TRAIN_MESH_STEPS steps on the train meshes' seeded
+    weights, batch and draws (indices stratified over ``dp`` ranks): the
+    metrics, the held tensors' step-1 gradients and last moments, the
+    step seconds and the peak."""
+    import torch
+    state = _train_state(family, None)
+    batch = {k: v.cuda() for k, v in _train_batch(family, batch_size).items()}
+    held = TRAIN_HELD[family]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, step_s = [], []
+    with _captured(state, held) as got:
+        for _ in range(TRAIN_MESH_STEPS):
+            t0 = time.time()
+            m = _train_step(state, family, batch, batch_size, dp)
+            metrics.append([float(m["loss"]), float(m["grad_norm"])])
+            step_s.append(time.time() - t0)
+    opt = state.optimizer
+    ref = dict(metrics=metrics, step_s=step_s,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               tensors={f"grad/{n}": got["grads"][0][n].cpu() for n in held})
+    for slot in ("mu", "nu"):
+        ref["tensors"].update({f"{slot}/{n}": getattr(opt, slot)[n].float(
+            ).cpu() for n in held})
+    del state, batch, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _train_mesh_check(tag, ref):
+    """The checks of train mesh ``tag`` on what its processes wrote,
+    against one process's ``ref``: loss and grad_norm at each step on every
+    rank (TRAIN_METRIC_REL), the held step-1 gradients and last moments
+    gathered whole (TRAIN_GRAD_REL_L2, TRAIN_MOMENT_REL_L2), exact K6
+    launches on every rank, each planted fault over its limit on every
+    rank."""
+    import torch
+    family, mesh_kw, batch = TRAIN_MESHES[tag]
+    world = math.prod(mesh_kw.values())
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(TP_DIR, f"{tag}_{r}.json")) as f:
+            ranks.append(json.load(f))
+    with open(os.path.join(TP_DIR, f"{tag}_wall.json")) as f:
+        wall = json.load(f)
+    got = torch.load(os.path.join(TP_DIR, f"{tag}_train.pt"))
+    want = ref["metrics"]
+    metric_rel = max(abs(a / b - 1) for k in ranks
+                     for row, wrow in zip(k["metrics"], want)
+                     for a, b in zip(row, wrow))
+    grad_rel = {n.split("/", 1)[1]: _rel_l2(got[n], ref["tensors"][n])
+                for n in got if n.startswith("grad/")}
+    moment_rel = {n: _rel_l2(got[n], ref["tensors"][n])
+                  for n in got if not n.startswith("grad/")}
+    check(all(bool(torch.isfinite(t).all()) for t in got.values()),
+          f"{tag}: a non-finite gradient or moment")
+    blocks = TP_BLOCKS if family == "wan" else COG_TP_BLOCKS
+    per = (per_train_step(blocks) if family == "wan"
+           else per_cog_train_step(blocks))
+    want_launches = {k: n * TRAIN_MESH_STEPS for k, n in per.items()}
+    row = dict(family=family, mesh=mesh_kw, batch=batch, wall_s=wall,
+               ranks=ranks, metric_rel=metric_rel, grad_rel_l2=grad_rel,
+               moment_rel_l2=moment_rel, reference={
+                   k: ref[k] for k in ("metrics", "step_s", "peak_gib")})
+    step_s = max(max(k["step_s"]) for k in ranks)
+    share = max(k["collective_s"] / sum(k["step_s"]) for k in ranks)
+    print(f"{tag}: {world} processes, {wall:.1f} s; global batch {batch}, "
+          f"steps " + ", ".join(f"{t:.2f}" for t in ranks[0]["step_s"])
+          + f" s on rank 0 (one process "
+          + ", ".join(f"{t:.2f}" for t in ref["step_s"])
+          + f" s), collectives {share:.3f} of the steps; peak per rank "
+          + ", ".join(f"{k['peak_gib']:.2f}" for k in ranks)
+          + f" GiB (one process {ref['peak_gib']:.2f})")
+    def short(n):
+        return n.split("/")[-1].split(".", 2)[-1].rsplit(".weight", 1)[0]
+    print(f"{tag}: loss and grad_norm " + "; ".join(
+        f"{a:.6g} / {b:.6g}" for a, b in ranks[0]["metrics"])
+        + " (one process " + "; ".join(f"{a:.6g} / {b:.6g}"
+                                       for a, b in want)
+        + f"), largest relative difference on any rank {metric_rel:.3e} "
+        f"(limit {TRAIN_METRIC_REL}); step-1 gradients' relative L2 "
+        + ", ".join(f"{short(n)} {x:.3e}" for n, x in grad_rel.items())
+        + f" (limit {TRAIN_GRAD_REL_L2}); moments' "
+        + ", ".join(f"{n.split('/')[0]} {short(n)} {x:.3e}"
+                    for n, x in moment_rel.items())
+        + f" (limit {TRAIN_MOMENT_REL_L2})")
+    check(metric_rel <= TRAIN_METRIC_REL,
+          f"{tag}: loss or grad_norm {metric_rel:.3e} from one process")
+    check(max(grad_rel.values()) <= TRAIN_GRAD_REL_L2,
+          f"{tag}: step-1 gradients {grad_rel} from one process")
+    check(max(moment_rel.values()) <= TRAIN_MOMENT_REL_L2,
+          f"{tag}: moments {moment_rel} from one process")
+    for k in ranks:
+        check(k["launches"] == want_launches,
+              f"{tag} rank {k['rank']}: launches {k['launches']}, expected "
+              f"{want_launches}")
+    gn1 = want[0][1]
+    faults = {}
+    for fault in TRAIN_FAULTS.get(tag, ()):
+        if fault == "tp_grad_unreduced":
+            name = TRAIN_HELD[family][-1]
+            readings = [_rel_l2(torch.load(os.path.join(
+                TP_DIR, f"{tag}_fault_{k['rank']}.pt")),
+                ref["tensors"][f"grad/{name}"]) for k in ranks]
+            limit = TRAIN_GRAD_REL_L2
+        else:
+            readings = [abs(k["fault_grad_norm"][fault] / gn1 - 1)
+                        for k in ranks]
+            limit = TRAIN_METRIC_REL
+        faults[fault] = readings
+        print(f"{tag}: planted fault {fault} reads "
+              + ", ".join(f"{x:.3e}" for x in readings)
+              + f" on the ranks (each must exceed {limit})")
+        check(min(readings) > limit, f"{tag}: the planted fault {fault} "
+                                     f"reads within the limit: {readings}")
+    row["faults"] = faults
+    return row
 
 
 def _mesh_check(tag, family, mesh_kw, method, want):

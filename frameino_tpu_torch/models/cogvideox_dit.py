@@ -49,12 +49,16 @@ the table without slicing when the sample grid matches; the port appends
 one table frame (ph * pw tokens) and always slices to the sequence. Both
 equal JAX wherever JAX runs (ROADMAP queue 3).
 
-Under a dp x tp x sp ``mesh`` (``core/meshes.py``), one process runs per
-rank and ``CogVideoXDiT(cfg, mesh=mesh)`` holds blocks of the rank's width
-(``parallel/sharding.py``): H/tp heads of to_q/to_k/to_v and 4 D/tp of
+Under a dp x fsdp x tp x sp ``mesh`` (``core/meshes.py``), one process
+runs per rank and ``CogVideoXDiT(cfg, mesh=mesh)`` holds blocks of the
+rank's width (``parallel/sharding.py``): H/tp heads of to_q/to_k/to_v and 4 D/tp of
 the FFN's hidden width; the row-parallel to_out and ff.net.2 all-reduce
-their fp32 partial products over tp and add their bias once. Each dp rank
-runs its slice of the batch, the output gathered over dp. The routes are
+their fp32 partial products over tp and add their bias once. Each rank
+runs its slice of the batch, cut over (dp, fsdp), the output gathered
+over them; under fsdp the fsdp-cut tensors are gathered as the Wan DiT
+gathers them (``models/wan_dit.py``), a block's around the block, the
+top level's (patch embed and position table, time and final layers)
+around the forward. The routes are
 JAX's: on an sp = 1 mesh the 5B and 1.5 take K4 -> bound -> K1 on the
 rank's heads (``ops/attention.fused_ln_qk_flash_attention`` with the
 rank's head count, the body of JAX's sharded function: the per-head
@@ -69,8 +73,14 @@ does not divide runs whole on every sp rank (K3, no sp collective). Every
 rank is called with the same full-batch arguments and returns the same
 full-batch output.
 
-Not ported (ROADMAP queue 1 item 12): the pp and fsdp paths and training
-under a mesh.
+The training forward runs under a dp x fsdp x tp mesh (sp = 1) on the
+rank's own examples, as the Wan DiT's does: K6 at D = 64 on the rank's
+heads; the per-head LayerNorm, replicated over tp and applied to the
+rank's heads only, takes its weights through ``copy_to_tp``, so that
+their gradients are summed over tp.
+
+Not ported (ROADMAP queue 1 item 12): the pp path and training under
+sp > 1.
 """
 
 from __future__ import annotations
@@ -94,13 +104,10 @@ from frameino_tpu_torch.ops.norms import layer_norm
 from frameino_tpu_torch.ops.resize import resize_antialiased
 from frameino_tpu_torch.ops.rope import (apply_rope_interleaved,
                                          cogvideox_rope_table)
-from frameino_tpu_torch.parallel.sharding import (row_parallel, run_dp,
-                                                 shard_state_dict)
-
-SHARDED_TRAINING_NOT_PORTED = (
-    "training under a mesh is not ported: sharded training is ROADMAP.md "
-    "queue 1, item 12")
-
+from frameino_tpu_torch.parallel.collectives import copy_to_tp
+from frameino_tpu_torch.parallel.sharding import (gathered, mesh_cuts,
+                                                 row_parallel, run_dp,
+                                                 shard_model)
 
 @dataclasses.dataclass(frozen=True)
 class CogVideoXConfig:
@@ -313,8 +320,14 @@ class CogVideoXBlock(nn.Module):
             o = attn_ops.fused_ln_qk_flash_attention(
                 *args, num_heads=H, eps=cfg.qk_norm_eps)
         else:
+            tp = self.tp_group
+
             def head_norm(t, norm):
-                return layer_norm(_split_heads(t, H), norm.weight, norm.bias,
+                # the weights replicated over tp on the rank's heads: under
+                # autograd their gradients are summed over tp
+                return layer_norm(_split_heads(t, H),
+                                  copy_to_tp(norm.weight, tp),
+                                  copy_to_tp(norm.bias, tp),
                                   eps=cfg.qk_norm_eps).to(t.dtype)
 
             q, k = head_norm(q, a.norm_q), head_norm(k, a.norm_k)
@@ -322,8 +335,9 @@ class CogVideoXBlock(nn.Module):
                 q = apply_rope_interleaved(q, cos_j, sin_j)
                 k = apply_rope_interleaved(k, cos_j, sin_j)
             if differentiable:
-                o = attn_ops.flash_attention_train(             # K6
-                    q.contiguous(), k.contiguous(), v.contiguous())
+                o = attn_ops.dispatch_attention(                # K6
+                    q.contiguous(), k.contiguous(), v.contiguous(),
+                    mesh=self.mesh, differentiable=True)
             elif self.mesh is not None:
                 # K3 on the rank's heads: over the keys gathered over sp (or
                 # the ring) where seq_mesh cuts the sequence
@@ -338,13 +352,16 @@ class CogVideoXBlock(nn.Module):
                 differentiable: bool = False, seq_mesh=None):
         """``seq_mesh``: the mesh when x, the tables and the mask are the
         rank's sequence shard (sp > 1), else None."""
-        eps = self.cfg.norm_eps
+        eps, tp = self.cfg.norm_eps, self.tp_group
+        # each column-parallel layer's replicated input passes through
+        # copy_to_tp: under autograd its gradient is summed over tp
         nx, gate = _adaln_zero(self.norm1, x, temb, eps, video_mask)
-        a = self._attention(nx, cos_j, sin_j, kernels, differentiable,
-                            seq_mesh)
+        a = self._attention(copy_to_tp(nx, tp), cos_j, sin_j, kernels,
+                            differentiable, seq_mesh)
         x = x + (gate * a.float()).to(x.dtype)
         nx, gate_ff = _adaln_zero(self.norm2, x, temb, eps, video_mask)
-        f = row_parallel(gelu_tanh(_lin(nx, self.ff.net[0].proj)),
+        f = row_parallel(gelu_tanh(_lin(copy_to_tp(nx, tp),
+                                        self.ff.net[0].proj)),
                          self.ff.net[2], self.tp_group)
         return x + (gate_ff * f.float()).to(x.dtype)
 
@@ -356,8 +373,9 @@ class CogVideoXDiT(nn.Module):
 
     Build with ``device="meta"`` and then ``to_empty`` + ``init_random_``
     or ``load_state_dict(..., assign=True)`` to skip torch's default init.
-    With a dp x tp x sp ``mesh`` the block layers have this rank's width:
-    load ``parallel.sharding.shard_state_dict`` of a full state dict.
+    With a ``mesh`` the block layers have this rank's width and the
+    fsdp-cut tensors this rank's slice (``cuts``): load
+    ``parallel.sharding.shard_state_dict`` of a full state dict.
     """
 
     def __init__(self, cfg: CogVideoXConfig, device=None, dtype=None,
@@ -386,10 +404,21 @@ class CogVideoXDiT(nn.Module):
                                        **kw)
         self.proj_out = nn.Linear(
             d, cfg.out_channels * p * p * (cfg.patch_size_t or 1), **kw)
+        self.cuts, self._fsdp = mesh_cuts(self, mesh)
 
     @property
     def dtype(self) -> torch.dtype:
         return self.proj_out.weight.dtype
+
+    def _gathered(self, module, prefix):
+        """A context in which ``module`` (the DiT itself for prefix "",
+        or block ``prefix``) holds its fsdp-cut tensors whole."""
+        return gathered(module, self._fsdp.get(prefix), self.mesh)
+
+    def _block(self, i, *args):
+        blk = self.transformer_blocks[i]
+        with self._gathered(blk, f"transformer_blocks.{i}."):
+            return blk(*args)
 
     def trained_buffers(self):
         """{name: buffer} of the buffers that training updates: the joint
@@ -497,9 +526,12 @@ class CogVideoXDiT(nn.Module):
         of keeping its activations.
 
         Under a mesh the kernels run (their plain versions on the CPU;
-        ``attn_impl`` "xla" is refused), and with dp > 1 each dp rank runs
-        its slice of the batch (of every argument), the output gathered
-        over the dp group."""
+        ``attn_impl`` "xla" is refused), and with dp x fsdp > 1 each rank
+        runs its slice of the batch (of every argument;
+        ``parallel.sharding.batch_slice``), the output gathered over the
+        ranks. The differentiable forward under a mesh (sp = 1) takes the
+        rank's own examples and returns its own output: the train step
+        cuts the batch."""
         if attn_impl not in (None, "fused", "xla"):
             raise ValueError(f"attn_impl must be None, 'fused' or 'xla', got "
                              f"{attn_impl!r}")
@@ -510,15 +542,15 @@ class CogVideoXDiT(nn.Module):
                              "kernels")
         if not differentiable:
             with torch.no_grad():
-                if self.mesh is not None and self.mesh.dp > 1:
+                if self.mesh is not None and self.mesh.batch > 1:
                     return self._forward_dp(hidden_states,
                                             encoder_hidden_states, timestep,
                                             image_rotary_emb, ofs, attn_impl)
                 return self._forward(hidden_states, encoder_hidden_states,
                                      timestep, image_rotary_emb, ofs,
                                      attn_impl, False, False)
-        if self.mesh is not None:
-            raise NotImplementedError(SHARDED_TRAINING_NOT_PORTED)
+        if self.mesh is not None and self.mesh.sp > 1:
+            raise NotImplementedError(attn_ops.SP_TRAINING_NOT_PORTED)
         return self._forward(hidden_states, encoder_hidden_states, timestep,
                              image_rotary_emb, ofs, attn_impl, True, remat)
 
@@ -534,6 +566,14 @@ class CogVideoXDiT(nn.Module):
 
     def _forward(self, hidden_states, encoder_hidden_states, timestep,
                  image_rotary_emb, ofs, attn_impl, differentiable, remat):
+        with self._gathered(self, ""):
+            return self._forward_gathered(
+                hidden_states, encoder_hidden_states, timestep,
+                image_rotary_emb, ofs, attn_impl, differentiable, remat)
+
+    def _forward_gathered(self, hidden_states, encoder_hidden_states,
+                          timestep, image_rotary_emb, ofs, attn_impl,
+                          differentiable, remat):
         cfg = self.cfg
         x = hidden_states.to(self.dtype)
         B, F, C, H, W = x.shape
@@ -573,13 +613,14 @@ class CogVideoXDiT(nn.Module):
         xb, video_mask = cut(x, 1), cut(video_mask, 1)
         if cos_j is not None:
             cos_j, sin_j = cut(cos_j), cut(sin_j)
-        for blk in self.transformer_blocks:
+        for i in range(len(self.transformer_blocks)):
+            args = (xb, emb, cos_j, sin_j, video_mask, kernels,
+                    differentiable, seq_mesh)
             if remat:
-                xb = checkpoint(blk, xb, emb, cos_j, sin_j, video_mask,
-                                kernels, differentiable, use_reentrant=False)
+                # under fsdp the recompute gathers the block's slices again
+                xb = checkpoint(self._block, i, *args, use_reentrant=False)
             else:
-                xb = blk(xb, emb, cos_j, sin_j, video_mask, kernels,
-                         differentiable, seq_mesh)
+                xb = self._block(i, *args)
         # the whole sequence again before norm_final (the 2B's slice at L
         # may straddle a rank's rows)
         x = (xb if seq_mesh is None
@@ -633,7 +674,4 @@ def init_cogvideox_dit(cfg: CogVideoXConfig, generator: torch.Generator,
     model.init_random_(generator)
     if mesh is None:
         return model.eval()
-    local = CogVideoXDiT(cfg, device="meta", dtype=dtype, mesh=mesh)
-    local.load_state_dict(shard_state_dict(model.state_dict(), mesh),
-                          assign=True)
-    return local.eval()
+    return shard_model(model.eval(), mesh)

@@ -29,14 +29,18 @@ qk RMS-norm and RoPE run as plain ops, every attention goes through K6
 and ``remat`` recomputes each block in the backward
 (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``).
 
-Under a dp x tp x sp ``mesh`` (``core/meshes.py``), one process runs per
-rank and ``WanDiT(cfg, mesh=mesh)`` holds layers of the rank's width
-(``parallel/sharding.py``): each tp rank computes its contiguous slice of
+Under a dp x fsdp x tp x sp ``mesh`` (``core/meshes.py``), one process
+runs per rank and ``WanDiT(cfg, mesh=mesh)`` holds layers of the rank's
+width (``parallel/sharding.py``): each tp rank computes its contiguous slice of
 the heads and of the FFN hidden width, the qk RMS statistic across heads
 is completed by an all-reduce of the fp32 sum of squares, each
 row-parallel output is all-reduced in fp32 before its bias is added once,
-and each dp rank runs its slice of the batch, the output being gathered
-over dp. With sp = 1 self-attention takes K5 then K1
+and each rank runs its slice of the batch, cut over (dp, fsdp), the
+output being gathered over them. Under fsdp each rank holds its slice of
+the fsdp-cut tensors: a block's slices are gathered just before the block
+runs and dropped after it (and gathered again when ``remat`` recomputes
+it), the top level's (patch embed, text embedder, head) for the whole
+forward. With sp = 1 self-attention takes K5 then K1
 (``fused_qk_flash_attention_sharded``). With sp > 1 (JAX's route, which
 leaves the fused path there) each sp rank runs its contiguous slice of the
 tokens, cut after the patch embed and the position tables (RoPE rows, the
@@ -50,8 +54,17 @@ runs each rank's queries against the replicated text K/V. Every rank is
 called with the same full-batch arguments and returns the same
 full-batch output.
 
-Not ported: the fsdp/pp mesh paths, training under a mesh and the
-image-KV branch under a mesh.
+The training forward runs under a dp x fsdp x tp mesh (sp = 1) on the
+rank's own examples (the trainer cuts the batch): the fsdp gathers are
+``parallel/collectives.gather_fsdp``, whose backward reduce-scatters the
+gradients; a column-parallel layer's replicated input passes through
+``copy_to_tp`` (its gradient summed over tp), a row-parallel output
+through ``reduce_from_tp``, the qk statistic through ``all_reduce_sum``;
+attention is K6 on the rank's heads
+(``ops/attention.dispatch_attention(differentiable=True)``).
+
+Not ported: the pp mesh path, training under sp > 1 and the image-KV
+branch under a mesh.
 """
 
 from __future__ import annotations
@@ -74,15 +87,14 @@ from frameino_tpu_torch.ops.embeddings import (pixart_text_projection,
 from frameino_tpu_torch.ops.linear import dense, gelu_tanh, silu
 from frameino_tpu_torch.ops.norms import layer_norm, rms_norm
 from frameino_tpu_torch.ops.rope import apply_rope_interleaved, wan_rope_table
-from frameino_tpu_torch.parallel.sharding import (row_parallel, run_dp,
-                                                 shard_state_dict)
+from frameino_tpu_torch.parallel.collectives import copy_to_tp
+from frameino_tpu_torch.parallel.sharding import (gathered, mesh_cuts,
+                                                 row_parallel, run_dp,
+                                                 shard_model)
 
-SHARDED_TRAINING_NOT_PORTED = (
-    "training under a mesh is not ported: sharded training is ROADMAP.md "
-    "queue 1, item 12")
 IMAGE_BRANCH_MESH_NOT_PORTED = (
     "the Wan2.1 image-KV branch under a mesh is not ported: ROADMAP.md "
-    "queue 1, item 12")
+    "queue 1, item 12.7")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -275,7 +287,19 @@ class WanBlock(nn.Module):
         cfg, a = self.cfg, self.attn1
         H = self.heads
         q, k, v = _lin(x, a.to_q), _lin(x, a.to_k), _lin(x, a.to_v)
-        if self.sp > 1:
+        if differentiable:
+            # the norm across heads (statistic all-reduced over tp), RoPE,
+            # then K6 on the rank's heads
+            q = _split_heads(rms_norm(q, a.norm_q.weight, cfg.eps,
+                                      group=self.tp_group), H)
+            k = _split_heads(rms_norm(k, a.norm_k.weight, cfg.eps,
+                                      group=self.tp_group), H)
+            o = attn_ops.dispatch_attention(
+                apply_rope_interleaved(q, cos, sin).contiguous(),
+                apply_rope_interleaved(k, cos, sin).contiguous(),
+                _split_heads(v, H).contiguous(), mesh=self.mesh,
+                differentiable=True)
+        elif self.sp > 1:
             # the norm across heads (statistic all-reduced over tp), RoPE
             # on the rank's rows, then K3 over the gathered keys or the
             # ring (seq_mesh None: the whole sequence here, K3 alone)
@@ -293,7 +317,7 @@ class WanBlock(nn.Module):
                 q, k, _split_heads(v, H).contiguous(), a.norm_q.weight,
                 a.norm_k.weight, cos, sin, self.mesh,
                 num_heads=cfg.num_attention_heads, eps=cfg.eps)
-        elif x.is_cuda and not differentiable:
+        elif x.is_cuda:
             # K2 (norm + RoPE producer) -> bound -> K1
             o = attn_ops.fused_qk_flash_attention(
                 q, k, _split_heads(v, H).contiguous(), a.norm_q.weight,
@@ -303,12 +327,7 @@ class WanBlock(nn.Module):
             k = _split_heads(rms_norm(k, a.norm_k.weight, cfg.eps), H)
             q = apply_rope_interleaved(q, cos, sin)
             k = apply_rope_interleaved(k, cos, sin)
-            if differentiable:
-                o = attn_ops.flash_attention_train(          # K6
-                    q.contiguous(), k.contiguous(),
-                    _split_heads(v, H).contiguous())
-            else:
-                o = attn_ops.attention_ref(q, k, _split_heads(v, H))
+            o = attn_ops.attention_ref(q, k, _split_heads(v, H))
         return row_parallel(_merge_heads(o), a.to_out[0], self.tp_group)
 
     def _cross_attention(self, x, context, context_img, kv, differentiable):
@@ -356,9 +375,12 @@ class WanBlock(nn.Module):
             shift_msa, scale_msa, gate_msa, c_shift, c_scale, c_gate = \
                 mod.unbind(dim=2)
 
+        # each column-parallel layer's replicated input passes through
+        # copy_to_tp: under autograd its gradient is summed over tp
+        tp = self.tp_group
         norm_x = layer_norm(x, eps=eps) * (1 + scale_msa) + shift_msa
-        attn_out = self._self_attention(norm_x.to(x.dtype), cos, sin,
-                                        differentiable, seq_mesh)
+        attn_out = self._self_attention(copy_to_tp(norm_x.to(x.dtype), tp),
+                                        cos, sin, differentiable, seq_mesh)
         x = (x.float() + attn_out.float() * gate_msa).to(x.dtype)
 
         if self.cfg.cross_attn_norm:
@@ -366,11 +388,11 @@ class WanBlock(nn.Module):
                                 eps=eps).to(x.dtype)
         else:
             norm_x = x
-        x = x + self._cross_attention(norm_x, context, context_img, kv,
-                                      differentiable)
+        x = x + self._cross_attention(copy_to_tp(norm_x, tp), context,
+                                      context_img, kv, differentiable)
 
         norm_x = layer_norm(x, eps=eps) * (1 + c_scale) + c_shift
-        h = _lin(norm_x.to(x.dtype), self.ffn.net[0].proj)
+        h = _lin(copy_to_tp(norm_x.to(x.dtype), tp), self.ffn.net[0].proj)
         h = row_parallel(gelu_tanh(h), self.ffn.net[2], self.tp_group)
         return (x.float() + h.float() * c_gate).to(x.dtype)
 
@@ -400,7 +422,8 @@ class WanDiT(nn.Module):
 
     Build with ``device="meta"`` and then ``to_empty`` + ``init_random_``
     or ``load_state_dict(..., assign=True)`` to skip torch's default init.
-    With a dp x tp ``mesh`` the block layers have this rank's width: load
+    With a ``mesh`` the block layers have this rank's width and the
+    fsdp-cut tensors this rank's slice (``cuts``): load
     ``parallel.sharding.shard_state_dict`` of a full state dict.
     """
 
@@ -427,6 +450,7 @@ class WanDiT(nn.Module):
         self.scale_shift_table = nn.Parameter(torch.empty(1, 2, d, **kw))
         self.proj_out = nn.Linear(
             d, cfg.out_channels * math.prod(cfg.patch_size), **kw)
+        self.cuts, self._fsdp = mesh_cuts(self, mesh)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -475,6 +499,15 @@ class WanDiT(nn.Module):
         return ce.image_embedder(encoder_hidden_states_image.to(
             self.proj_out.weight.device), dtype)
 
+    def _gathered(self, module, prefix):
+        """A context in which ``module`` (the DiT itself for prefix "",
+        or block ``prefix``) holds its fsdp-cut tensors whole."""
+        return gathered(module, self._fsdp.get(prefix), self.mesh)
+
+    def _block(self, i, *args):
+        with self._gathered(self.blocks[i], f"blocks.{i}."):
+            return self.blocks[i](*args)
+
     @torch.no_grad()
     def precompute_text_kv(self, encoder_hidden_states, image=None,
                            dtype: Optional[torch.dtype] = None
@@ -485,10 +518,16 @@ class WanDiT(nn.Module):
         branch, (k, v, k_img, v_img)."""
         dtype = dtype or self.dtype
         te = self.condition_embedder.text_embedder
-        context = pixart_text_projection(encoder_hidden_states, te.linear_1,
-                                         te.linear_2, out_dtype=dtype)
-        context_img = self._image_context(image, dtype)
-        return [blk.text_kv(context, context_img) for blk in self.blocks]
+        with self._gathered(self, ""):
+            context = pixart_text_projection(
+                encoder_hidden_states, te.linear_1, te.linear_2,
+                out_dtype=dtype)
+            context_img = self._image_context(image, dtype)
+        out = []
+        for i, blk in enumerate(self.blocks):
+            with self._gathered(blk, f"blocks.{i}."):
+                out.append(blk.text_kv(context, context_img))
+        return out
 
     def forward(self, hidden_states, timestep, encoder_hidden_states=None,
                 encoder_hidden_states_image=None, *, timestep_mask=None,
@@ -508,12 +547,15 @@ class WanDiT(nn.Module):
         ``remat``: with ``differentiable``, recompute each block in the
         backward instead of keeping its activations.
 
-        Under a mesh with dp > 1 each dp rank runs its slice of the batch
-        (of every argument, ``text_kv`` included) and the output is
-        gathered over the dp group."""
+        Under a mesh with dp x fsdp > 1 each rank runs its slice of the
+        batch (``parallel.sharding.batch_slice``; of every argument,
+        ``text_kv`` included) and the output is gathered over the ranks.
+        The differentiable forward under a mesh (sp = 1) takes the rank's
+        own examples and returns its own output: the train step cuts the
+        batch."""
         if not differentiable:
             with torch.no_grad():
-                if self.mesh is None or self.mesh.dp == 1:
+                if self.mesh is None or self.mesh.batch == 1:
                     return self._forward(hidden_states, timestep,
                                          encoder_hidden_states,
                                          encoder_hidden_states_image,
@@ -521,8 +563,8 @@ class WanDiT(nn.Module):
                 return self._forward_dp(hidden_states, timestep,
                                         encoder_hidden_states, timestep_mask,
                                         text_kv)
-        if self.mesh is not None:
-            raise NotImplementedError(SHARDED_TRAINING_NOT_PORTED)
+        if self.mesh is not None and self.mesh.sp > 1:
+            raise NotImplementedError(attn_ops.SP_TRAINING_NOT_PORTED)
         if text_kv is not None:
             raise ValueError("the differentiable forward projects the text "
                              "K/V in the graph; pass encoder_hidden_states")
@@ -548,6 +590,15 @@ class WanDiT(nn.Module):
     def _forward(self, hidden_states, timestep, encoder_hidden_states,
                  encoder_hidden_states_image, timestep_mask, text_kv,
                  differentiable, remat):
+        with self._gathered(self, ""):
+            return self._forward_gathered(
+                hidden_states, timestep, encoder_hidden_states,
+                encoder_hidden_states_image, timestep_mask, text_kv,
+                differentiable, remat)
+
+    def _forward_gathered(self, hidden_states, timestep,
+                          encoder_hidden_states, encoder_hidden_states_image,
+                          timestep_mask, text_kv, differentiable, remat):
         cfg = self.cfg
         d = cfg.inner_dim
         x = hidden_states.to(self.dtype)
@@ -588,6 +639,9 @@ class WanDiT(nn.Module):
                 ce.text_embedder.linear_2, out_dtype=x.dtype)
             context_img = self._image_context(encoder_hidden_states_image,
                                               x.dtype)
+            # the text K/V's column-parallel projections take it replicated
+            context = copy_to_tp(context, None if self.mesh is None
+                                 or self.mesh.tp == 1 else self.mesh.tp_group)
         # under sp, the blocks run the rank's rows of the tokens and of
         # every per-token table
         seq_mesh, cut = attn_ops.sequence_cut(
@@ -597,15 +651,15 @@ class WanDiT(nn.Module):
             proj_b = (timestep_proj[0], cut(sel, 1))
         else:
             proj_b = (cut(timestep_proj, 1) if per_token else timestep_proj)
-        for i, blk in enumerate(self.blocks):
+        for i in range(len(self.blocks)):
             kv = None if text_kv is None else text_kv[i]
+            args = (xb, context, proj_b, cos, sin, kv, differentiable,
+                    context_img, seq_mesh)
             if remat:
-                xb = checkpoint(blk, xb, context, proj_b, cos, sin, kv,
-                                differentiable, context_img,
-                                use_reentrant=False)
+                # under fsdp the recompute gathers the block's slices again
+                xb = checkpoint(self._block, i, *args, use_reentrant=False)
             else:
-                xb = blk(xb, context, proj_b, cos, sin, kv, differentiable,
-                         context_img, seq_mesh)
+                xb = self._block(i, *args)
         x = (xb if seq_mesh is None
              else attn_ops.gather_sequence(xb, seq_mesh, dim=1))
 
@@ -640,7 +694,4 @@ def init_wan_dit(cfg: WanDiTConfig, generator: torch.Generator,
     model.init_random_(generator)
     if mesh is None:
         return model.eval()
-    local = WanDiT(cfg, device="meta", dtype=dtype, mesh=mesh)
-    local.load_state_dict(shard_state_dict(model.state_dict(), mesh),
-                          assign=True)
-    return local.eval()
+    return shard_model(model.eval(), mesh)

@@ -748,11 +748,23 @@ def sp_supported(mesh, q_shape) -> bool:
             and H % mesh.tp == 0)
 
 
+SP_TRAINING_NOT_PORTED = (
+    "training under sp > 1 is not ported: K6 over keys gathered by a "
+    "differentiable all-gather is ROADMAP.md queue 1, item 12.8")
+
+
 def dispatch_attention(q, k, v, *, mesh=None, gather_kv: bool = True,
                        scale: Optional[float] = None,
-                       sp_method: Optional[str] = None):
+                       sp_method: Optional[str] = None,
+                       differentiable: bool = False):
     """Attention on one rank's [B_l, H_l, S_l, D] tensors (JAX's
-    ``dispatch_attention``, forward only).
+    ``dispatch_attention``).
+
+    ``differentiable``: the training route, K6 (``flash_attention_train``)
+    on the rank's batch and head shard under any mesh with sp = 1 (JAX's
+    ``sp_attention`` runs the local differentiable attention there);
+    under sp > 1 it raises (``SP_TRAINING_NOT_PORTED``). Otherwise the
+    forward only:
 
     ``mesh``: the mesh, where q holds the rank's shard of a sequence cut
     over sp (and k/v theirs, with ``gather_kv``); None where every rank
@@ -762,6 +774,10 @@ def dispatch_attention(q, k, v, *, mesh=None, gather_kv: bool = True,
     decides: "ring" with ``gather_kv`` runs ``ring_attention``, anything
     else ``sp_attention`` (K3 over the gathered keys, or over the
     replicated ones without ``gather_kv``: cross-attention to the text)."""
+    if differentiable:
+        if mesh is not None and mesh.sp > 1:
+            raise NotImplementedError(SP_TRAINING_NOT_PORTED)
+        return flash_attention_train(q, k, v, scale)
     method = sp_method or DEFAULT_SP_METHOD
     if method not in SP_METHODS:
         raise ValueError(f"sp_method must be one of {SP_METHODS}, got "

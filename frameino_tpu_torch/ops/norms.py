@@ -10,6 +10,7 @@ import torch
 import torch.distributed as dist
 
 from frameino_tpu_torch.ops.conv import low_precision_dtype
+from frameino_tpu_torch.parallel.collectives import all_reduce_sum
 
 
 def layer_norm(x, weight=None, bias=None, eps: float = 1e-6):
@@ -36,13 +37,13 @@ def rms_norm(x, weight=None, eps: float = 1e-6, group=None):
     ``group``: the tensor-parallel process group over whose ranks the last
     dim is cut in equal slices (x and weight are this rank's): the fp32
     sum of squares is all-reduced over it before the mean, as GSPMD
-    completes the statistic of a sharded dim in JAX."""
+    completes the statistic of a sharded dim in JAX (``all_reduce_sum``,
+    whose backward sums the statistic's gradient over the ranks too)."""
     xf = x.float()
     if group is None:
         ms = xf.square().mean(-1, keepdim=True)
     else:
-        ms = xf.square().sum(-1, keepdim=True)
-        dist.all_reduce(ms, group=group)
+        ms = all_reduce_sum(xf.square().sum(-1, keepdim=True), group)
         ms = ms / (xf.shape[-1] * dist.get_world_size(group))
     y = xf * torch.reciprocal(torch.sqrt(ms + eps))
     if weight is not None:

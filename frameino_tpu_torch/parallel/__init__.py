@@ -1,5 +1,5 @@
 """Multi-process runtime and sharding rules over ``torch.distributed``
 (counterpart of ``frameino_tpu/parallel/``): ``multihost`` starts and
 checks the processes, ``sharding`` cuts the DiTs' parameters for a
-``core.meshes.Mesh``. dp x tp x sp meshes are ported; fsdp and pp are
-not."""
+``core.meshes.Mesh``, ``collectives`` the collectives autograd sees. dp
+x fsdp x tp x sp meshes are ported; pp is not."""

@@ -1,18 +1,23 @@
 """Multi-process runtime (counterpart of
 ``frameino_tpu/parallel/multihost.py``).
 
-One process runs per rank, started by ``torch.multiprocessing`` or any
-launcher that knows the rank and the world size. ``initialize`` joins
-them into the default process group; ``core.meshes.make_mesh`` then lays
-them out. The caller names the collective backend: NCCL with one card a
-rank, gloo on the CPU or with several ranks on one card (NCCL refuses two
-ranks on one GPU; gloo stages CUDA tensors through host memory).
+One process runs per rank, started by ``torch.multiprocessing``,
+``torchrun`` (``initialize_from_env``) or any launcher that knows the rank
+and the world size. ``initialize`` joins them into the default process
+group; ``core.meshes.make_mesh`` then lays them out. The caller names the
+collective backend: NCCL with one card a rank, gloo on the CPU or with
+several ranks on one card (NCCL refuses two ranks on one GPU; gloo stages
+CUDA tensors through host memory).
 
-JAX's ``global_batch`` (per-host input shards of a sharded train step)
-waits for sharded training, which is not ported.
+``local_batch`` is JAX's ``global_batch`` turned around: JAX assembles
+each process's examples into one global array; here each process keeps
+the examples its rank runs (``parallel.sharding.batch_slice``).
 """
 
 from __future__ import annotations
+
+import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -26,6 +31,35 @@ def initialize(init_method: str, world_size: int, rank: int, *,
     ``backend`` "nccl" or "gloo"."""
     dist.init_process_group(backend=backend, init_method=init_method,
                             world_size=world_size, rank=rank)
+
+
+def initialize_from_env(backend: Optional[str] = None) -> dict:
+    """Join the processes that ``torchrun`` started: ``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK`` and ``MASTER_ADDR`` / ``MASTER_PORT``
+    from the environment. ``backend`` None: NCCL with this process on
+    ``cuda:LOCAL_RANK`` (one card a rank); "gloo" (several ranks on one
+    card, or the CPU) keeps the current device. Returns {"rank",
+    "world_size", "local_rank"}."""
+    env = {k: int(os.environ[k.upper()])
+           for k in ("rank", "world_size", "local_rank")}
+    backend = backend or "nccl"
+    if backend == "nccl":
+        torch.cuda.set_device(env["local_rank"])
+    initialize(f"tcp://{os.environ['MASTER_ADDR']}:"
+               f"{os.environ['MASTER_PORT']}", env["world_size"],
+               env["rank"], backend=backend)
+    return env
+
+
+def local_batch(batch: dict, mesh, batch_size: int) -> dict:
+    """The examples of a global batch (tensors, arrays or lists along dim
+    0; None kept) that this rank runs; ``batch_size`` is the global
+    count (``mesh`` None: the batch as it is)."""
+    if mesh is None:
+        return batch
+    from frameino_tpu_torch.parallel.sharding import batch_slice
+    sl, _ = batch_slice(mesh, batch_size)
+    return {k: None if v is None else v[sl] for k, v in batch.items()}
 
 
 def assert_same_across_processes(value: float, atol: float = 0.0,

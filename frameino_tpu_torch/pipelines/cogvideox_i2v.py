@@ -22,7 +22,7 @@ one chunk of one tile). JAX's "full" mode maps to it too: the segmented
 full-sequence decode runs out of an 80 GB card at 480x736x49 (PERF.md);
 ``CogVideoXVAE.decode`` stays as the tests' reference.
 
-Under a dp x tp x sp ``mesh`` (``core/meshes.py``; the DiT cuts the
+Under a dp x fsdp x tp x sp ``mesh`` (``core/meshes.py``; the DiT cuts the
 batch, the heads and the tokens) one process runs per rank and every rank
 calls the pipeline with the same arguments, as every JAX process calls the
 jitted program. The VAE encodes and decodes on the mesh's rank 0 only (the
@@ -34,7 +34,7 @@ process. Rank 0 returns the video and the other ranks return None
 
 Not ported: ``offload_dit``/``offload_vae`` and ``vae_offload`` (sized for
 a 16 GB chip), ``steps_per_program`` (a TPU watchdog workaround) and the
-int8 DiT under tp > 1.
+int8 DiT under tp > 1 or fsdp > 1.
 """
 
 from __future__ import annotations
@@ -55,7 +55,8 @@ from frameino_tpu_torch.models.cogvideox_vae import CogVideoXVAE
 from frameino_tpu_torch.ops.conv import narrow_conv_dtype
 from frameino_tpu_torch.parallel.multihost import (
     assert_same_across_processes, broadcast_from_rank0)
-from frameino_tpu_torch.pipelines.wan_i2v import INT8_TP_NOT_PORTED
+from frameino_tpu_torch.pipelines.wan_i2v import (INT8_FSDP_NOT_PORTED,
+                                                 INT8_TP_NOT_PORTED)
 from frameino_tpu_torch.schedulers.cogvideox_dpm import dpm_step_pair
 from frameino_tpu_torch.schedulers.ddim import (DDIMConfig,
                                                 ddim_alphas_cumprod,
@@ -174,8 +175,8 @@ class CogVideoXImageToVideoPipeline:
     matmuls for int8 w8a8 layers, in place
     (``models/quant.quantize_dit_int8``).
 
-    ``mesh``: serve over a dp x tp x sp process mesh (module docstring).
-    The DiT must be built on it (``CogVideoXDiT(cfg, mesh=mesh)``);
+    ``mesh``: serve over a dp x fsdp x tp x sp process mesh (module
+    docstring). The DiT must be built on it (``CogVideoXDiT(cfg, mesh=mesh)``);
     ``vae`` may be None on every rank but the mesh's rank 0.
     """
 
@@ -189,6 +190,8 @@ class CogVideoXImageToVideoPipeline:
             raise ValueError("the DiT must be built on the pipeline's mesh")
         if quantize == "int8" and mesh is not None and mesh.tp > 1:
             raise NotImplementedError(INT8_TP_NOT_PORTED)
+        if quantize == "int8" and mesh is not None and mesh.fsdp > 1:
+            raise NotImplementedError(INT8_FSDP_NOT_PORTED)
         if vae is None and (mesh is None or mesh.rank == 0):
             raise ValueError("the VAE is needed on the mesh's rank 0 (or "
                              "without a mesh)")

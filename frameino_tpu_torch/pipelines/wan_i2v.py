@@ -21,7 +21,7 @@ branch, the text and image K/V computed once per segment
 runs): the full form of an 81-frame 480x832 clip holds 12 GB fp32
 tensors. The two-expert and ID-frame paths are the expand path's only.
 
-Under a dp x tp x sp ``mesh`` (``core/meshes.py``; the DiT cuts the
+Under a dp x fsdp x tp x sp ``mesh`` (``core/meshes.py``; the DiT cuts the
 batch, the heads and the tokens) one process runs per rank
 and every rank calls the pipeline with the same arguments, as every JAX
 process calls the jitted program. The VAE encodes and decodes on the
@@ -36,7 +36,8 @@ The decode modes are the JAX pipeline's: "full" (``WanVAE.decode``),
 "streaming", "tiled" and "hybrid" (``models/wan_vae_streaming.py``,
 ``models/wan_vae_tiling.py``); the server asks for "hybrid" as JAX's does.
 
-Not ported: the int8 DiT under tp > 1 and the Wan2.1 path under a mesh.
+Not ported: the int8 DiT under tp > 1 or fsdp > 1 and the Wan2.1 path under
+a mesh.
 """
 
 from __future__ import annotations
@@ -65,10 +66,13 @@ DECODE_MODES = ("full", "streaming", "tiled", "hybrid")
 INT8_TP_NOT_PORTED = (
     "quantize='int8' under tp > 1 is not ported: the row-parallel layers' "
     "activation quantizer needs the row amax all-reduced over tp before "
-    "K7 (ROADMAP.md queue 1, item 12)")
+    "K7 (ROADMAP.md queue 1, item 12.5)")
+INT8_FSDP_NOT_PORTED = (
+    "quantize='int8' under fsdp > 1 is not ported: the weight quantizer "
+    "takes whole weights (ROADMAP.md queue 1, item 12.5)")
 WAN21_MESH_NOT_PORTED = (
     "the Wan2.1 path (expand_timesteps=False) under a mesh is not ported "
-    "(ROADMAP.md queue 1, item 12)")
+    "(ROADMAP.md queue 1, item 12.7)")
 # pixel frames a step of the Wan2.1 condition encodes (1, then this many)
 WAN21_ENCODE_CHUNK = 8
 
@@ -361,10 +365,10 @@ class WanImageToVideoPipeline:
     resblock and resampler convs for w8a8 ones (``models/quant.
     quantize_wan_vae_int8``; K14 on the card), in either branch.
 
-    ``mesh``: serve over a dp x tp x sp process mesh (module docstring). Both
-    experts must be built on it (``WanDiT(cfg, mesh=mesh)``, sharded by
-    the same rules); ``vae`` may be None on every rank but the mesh's
-    rank 0.
+    ``mesh``: serve over a dp x fsdp x tp x sp process mesh (module
+    docstring). Both experts must be built on it (``WanDiT(cfg,
+    mesh=mesh)``, sharded by the same rules); ``vae`` may be None on every
+    rank but the mesh's rank 0.
     """
 
     def __init__(self, dit: WanDiT, vae: Optional[wan_vae.WanVAE],
@@ -380,6 +384,8 @@ class WanImageToVideoPipeline:
                              "mesh")
         if quantize == "int8" and mesh is not None and mesh.tp > 1:
             raise NotImplementedError(INT8_TP_NOT_PORTED)
+        if quantize == "int8" and mesh is not None and mesh.fsdp > 1:
+            raise NotImplementedError(INT8_FSDP_NOT_PORTED)
         if not pipe_cfg.expand_timesteps and (mesh is not None
                                               or dit_2 is not None):
             raise NotImplementedError(

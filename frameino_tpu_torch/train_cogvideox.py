@@ -21,7 +21,9 @@ and optimizer state as ``train.py`` keeps them, beside the bf16 CogVideoX
 VAE. ``--surgery`` widens the DiT's patch embedding by the trajectory
 latent channels with zeros first (the pretrained model, or the seeded one
 built that much narrower). ``--profile_dir DIR`` writes a
-``torch.profiler`` trace of step 2 there.
+``torch.profiler`` trace of step 2 there. It runs on one process, as
+the JAX CLI does: a config with a ``mesh:`` key is refused rather than
+dropped.
 """
 
 from __future__ import annotations
@@ -32,6 +34,15 @@ import os
 import torch
 
 from frameino_tpu_torch.training import cli
+
+
+# JAX's CogVideoX CLI passes no mesh to its step
+# (scripts/train_cogvideox_motion_frameino.py), so this entry trains on one
+# process; its step runs under a mesh (training/cog_trainer.py)
+MESH_REFUSED = ("train_cogvideox trains on one process, as the JAX CLI "
+                "does: remove the config's mesh: (and --backend); the "
+                "sharded CogVideoX step is training/cog_trainer."
+                "cog_train_step on a mesh")
 
 
 def parse_args(argv=None):
@@ -82,6 +93,8 @@ def main(argv=None, dit_cfg=None) -> dict:
     from frameino_tpu_torch.training.trainer import init_train_state
 
     config = load_config(args.config_path)
+    if config.get("mesh") or args.backend:
+        raise ValueError(MESH_REFUSED)
     pretrained = cli.pretrained_path(config)
     if args.smoke:
         vae_cfg = cogvideox_vae.tiny_vae_config()

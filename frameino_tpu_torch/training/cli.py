@@ -1,7 +1,8 @@
 """What the two training entry points share (``train.py`` for Wan2.2,
 ``train_cogvideox.py`` for CogVideoX): the arguments, the optimizer keys
-of the config, the dataset and its batches with their prompt embeddings,
-and the loop of steps with logging, checkpoints and resume.
+of the config, the process mesh (``train.py`` under ``torchrun``), the
+dataset and its batches with their prompt embeddings, and the loop of
+steps with logging, checkpoints and resume.
 """
 
 from __future__ import annotations
@@ -24,7 +25,46 @@ def parser(description: str) -> argparse.ArgumentParser:
                    help="motion-only recipe, no ID branch")
     p.add_argument("--profile_dir", default=None,
                    help="write a torch.profiler trace of step 2 here")
+    p.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                   help="collectives under torchrun: nccl (one card a "
+                        "rank, the default) or gloo (several ranks on one "
+                        "card, or --smoke on the CPU)")
     return p
+
+
+def mesh_config(config, world_size: int, smoke: bool):
+    """JAX's choice of mesh (``scripts/train_wan_motion_frameino.py``)
+    with the world size in the place of the device count: the config's
+    ``mesh:`` where its product is the world size; else dp 2 x fsdp n/2
+    where 4 divides n (not under ``--smoke``); dp 2 x fsdp 2 x tp 2 under
+    ``--smoke`` where 8 divides n; else dp n."""
+    from frameino_tpu_torch.core.meshes import MeshConfig
+    mesh = config.get("mesh")
+    if mesh and int(np.prod([int(v) for v in mesh.values()])) == world_size:
+        return MeshConfig(**{k: int(v) for k, v in mesh.items()})
+    if world_size % 4 == 0 and not smoke:
+        return MeshConfig(dp=2, fsdp=world_size // 2)
+    if smoke and world_size % 8 == 0:
+        return MeshConfig(dp=2, fsdp=2, tp=2)
+    return MeshConfig(dp=world_size)
+
+
+def start_mesh(config, args):
+    """Under ``torchrun`` (``WORLD_SIZE`` set): join the processes
+    (``parallel.multihost.initialize_from_env``, NCCL with a card a rank
+    unless ``--backend gloo``) and lay out ``mesh_config``'s mesh. None
+    for one process started without ``torchrun``."""
+    if "WORLD_SIZE" not in os.environ:
+        return None
+    from frameino_tpu_torch.core.meshes import make_mesh
+    from frameino_tpu_torch.parallel import multihost
+    backend = args.backend or ("gloo" if args.smoke else None)
+    env = multihost.initialize_from_env(backend)
+    mesh = make_mesh(mesh_config(config, env["world_size"], args.smoke))
+    if mesh.rank == 0:
+        print(f"mesh {mesh.cfg} over {env['world_size']} processes "
+              f"({backend or 'nccl'})")
+    return mesh
 
 
 def require_cuda():
@@ -105,8 +145,10 @@ def dataset_config(config):
                                                  config))
 
 
-def train_data(config, seed: int):
-    """The config's training dataset and its batch sampler."""
+def train_data(config, seed: int, dp: int = 1):
+    """The config's training dataset and its batch sampler, whose batches
+    are the global ones: ``train_batch_size`` x ``dp`` examples, as JAX's
+    CLI takes them."""
     from frameino_tpu_torch.data.frameino_dataset import FrameINODataset
     from frameino_tpu_torch.data.sampler import MixedBatchSampler
     dataset = FrameINODataset(dataset_config(config),
@@ -115,11 +157,12 @@ def train_data(config, seed: int):
                               config["train_video_relative_path"],
                               config["train_ID_relative_path"],
                               seed=config.get("seed"))
-    batch_size = int(config.get("train_batch_size", 1))
+    batch_size = int(config.get("train_batch_size", 1)) * dp
     sampler = MixedBatchSampler([len(dataset)], batch_size, seed=seed)
     if len(sampler) == 0:
         raise ValueError(f"dataset of {len(dataset)} samples yields no "
-                         f"batches at batch size {batch_size}")
+                         f"batches at global batch size {batch_size} "
+                         f"(dp={dp})")
     return dataset, sampler
 
 
@@ -142,14 +185,17 @@ def resume(config, state, output_dir: str):
 def train_loop(config, state, output_dir: str, sampler, make_batch,
                take_step: Callable, start_meta: dict, log_every: int,
                profile_dir: Optional[str] = None,
-               after_step: Optional[Callable] = None) -> list:
+               after_step: Optional[Callable] = None,
+               writer: bool = True) -> list:
     """Steps until ``max_train_steps``: batches from ``make_batch`` on
     prefetch threads, ``take_step(batch)`` -> metrics, a log line and a
     metrics row every ``log_every`` steps, checkpoints every
     ``checkpointing_steps`` and at the end (with the data iterator's
     position, so a resumed run takes the batches an uninterrupted one
     would); step 2 under ``core/metrics_logger.maybe_profile``. Returns the
-    logged rows."""
+    logged rows. Under a mesh every rank runs the loop (the checkpoints
+    gather over it) and only the ``writer`` (the mesh's rank 0) logs and
+    profiles."""
     from frameino_tpu_torch.core.checkpoint import save_checkpoint
     from frameino_tpu_torch.core.metrics_logger import (MetricsLogger,
                                                         maybe_profile)
@@ -158,7 +204,7 @@ def train_loop(config, state, output_dir: str, sampler, make_batch,
     max_steps = int(config.get("max_train_steps", 1000))
     ckpt_every = int(config.get("checkpointing_steps", 2000))
     limit = config.get("checkpoints_total_limit")
-    mlog = MetricsLogger(output_dir)
+    mlog = MetricsLogger(output_dir) if writer else None
     t0 = time.time()
     history = []
     num_workers = int(config.get("dataloader_num_workers", 2))
@@ -167,19 +213,21 @@ def train_loop(config, state, output_dir: str, sampler, make_batch,
         for batch in BatchPrefetcher(make_batch, data_iter.epoch(state.step),
                                      num_workers=num_workers):
             lr = state.optimizer.lr()
-            with maybe_profile(profile_dir if state.step == 2 else None):
+            with maybe_profile(profile_dir if state.step == 2 and writer
+                               else None):
                 metrics = take_step(batch)
             data_iter.advance()
             step_count = state.step
             if step_count % log_every == 0:
                 loss = float(metrics["loss"])
                 gn = float(metrics["grad_norm"])
-                mlog.log(step_count, {"loss": loss, "grad_norm": gn,
-                                      "lr": lr})
                 history.append({"step": step_count, "loss": loss,
                                 "grad_norm": gn, "lr": lr})
-                print(f"step {step_count} loss {loss:.4f} grad_norm "
-                      f"{gn:.3f} lr {lr:.3g} ({time.time() - t0:.1f}s)")
+                if writer:
+                    mlog.log(step_count, {"loss": loss, "grad_norm": gn,
+                                          "lr": lr})
+                    print(f"step {step_count} loss {loss:.4f} grad_norm "
+                          f"{gn:.3f} lr {lr:.3g} ({time.time() - t0:.1f}s)")
             if after_step is not None:
                 after_step(step_count)
             if step_count % ckpt_every == 0:
@@ -192,6 +240,7 @@ def train_loop(config, state, output_dir: str, sampler, make_batch,
     save_checkpoint(output_dir, state.step, state,
                     metadata={"final": True, **data_iter.meta()},
                     total_limit=limit)
-    mlog.close()
-    print(f"done at step {state.step}")
+    if writer:
+        mlog.close()
+        print(f"done at step {state.step}")
     return history

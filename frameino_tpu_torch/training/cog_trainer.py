@@ -24,6 +24,14 @@ from a dict of named tensors (``CogDraws``): the parity tests hand in the
 draws JAX takes from ``split(fold_in(key, step), 2)`` and ``split(k_enc,
 8)``. The encodes run in the encode dtype (``vae_encode_accum_dtype``, or
 the compute dtype when it is None), as the Wan trainer's do.
+
+Under a dp x fsdp x tp ``mesh`` (sp = 1; JAX's ``make_cog_train_step(
+mesh=)``) the step is the Wan trainer's sharded one: each rank draws the
+global batch's timesteps and noise, runs its examples
+(``trainer.rank_examples``) and weights its local mean, and
+``optimizer_step`` completes the gradients and the loss over the mesh. A
+batch that carries its latents (``video_latents``, ``first_frame_latent``,
+``traj_latents``, ``id_latent``) skips the encodes.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from frameino_tpu_torch.schedulers.ddim import (DDIMConfig, ddim_add_noise,
                                                 ddim_alphas_cumprod)
 from frameino_tpu_torch.training.optim import OptimizerConfig
 from frameino_tpu_torch.training.trainer import (TrainState, optimizer_step,
+                                                 rank_examples,
                                                  step_generator)
 
 @dataclasses.dataclass(frozen=True)
@@ -157,15 +166,27 @@ def encode_training_batch(cfg: CogTrainerConfig, vae: CogVideoXVAE,
 
 def cog_vpred_loss(model: cogvideox_dit.CogVideoXDiT, cfg: CogTrainerConfig,
                    video_latents, first_frame_latent, traj_latents,
-                   id_latent, prompt_embeds, draws: CogDraws) -> torch.Tensor:
+                   id_latent, prompt_embeds, draws: CogDraws,
+                   batch_size: Optional[int] = None) -> torch.Tensor:
     """The SNR-weighted x0 loss of the v-prediction (reference
-    :1017-1129), a scalar fp32 tensor under autograd."""
+    :1017-1129), a scalar fp32 tensor under autograd. The draws are the
+    global batch's, of ``batch_size`` examples (the latents' count by
+    default); under a mesh the latents are the global batch's or this
+    rank's examples, and the value is the rank's weighted local mean
+    (``trainer.wan_fm_loss``)."""
     dev = video_latents.device
+    Bg = batch_size or video_latents.shape[0]
+    mesh = getattr(model, "mesh", None)
+    sl, weight, (video_latents, first_frame_latent, traj_latents,
+                 id_latent, prompt_embeds) = rank_examples(
+        model, Bg, (video_latents, first_frame_latent, traj_latents,
+                    id_latent, prompt_embeds))
     B, F, _, h, w = video_latents.shape
     ac = torch.tensor(ddim_alphas_cumprod(cfg.scheduler), dtype=torch.float32,
                       device=dev)
-    t = draws.randint("t", cfg.scheduler.num_train_timesteps, (B,), dev)
-    noise = draws.normal("noise", video_latents.shape, dev)
+    t = draws.randint("t", cfg.scheduler.num_train_timesteps, (Bg,), dev)[sl]
+    noise = draws.normal("noise", (Bg,) + tuple(video_latents.shape[1:]),
+                         dev)[sl]
     x0 = video_latents.float()
     noisy = ddim_add_noise(ac, x0, noise, t)
 
@@ -192,25 +213,37 @@ def cog_vpred_loss(model: cogvideox_dit.CogVideoXDiT, cfg: CogTrainerConfig,
     weights = 1.0 / (1.0 - a_t)
     per_example = torch.mean(
         (weights * torch.square(x0_pred - x0)).reshape(B, -1), dim=1)
-    return torch.mean(per_example)
+    loss = torch.mean(per_example)
+    return loss if mesh is None else loss * weight
 
 
 def cog_train_step(state: TrainState, vae: CogVideoXVAE,
                    cfg: CogTrainerConfig, batch: Dict[str, torch.Tensor],
-                   seed: int, draws: Optional[Dict[str, torch.Tensor]] = None
+                   seed: int = 0,
+                   draws: Optional[Dict[str, torch.Tensor]] = None,
+                   batch_size: Optional[int] = None
                    ) -> Dict[str, torch.Tensor]:
     """One optimizer step: the encodes, loss and gradients, clip + the
     optimizer. ``draws`` replace the step generator's, by name: the
     encodes' ``post_video``, ``post_traj``, ``aug_first_sigma``,
     ``aug_first_noise``, ``post_first``, ``aug_id_sigma``,
     ``aug_id_noise``, ``post_id`` (a generator makes them in this order),
-    then the loss's ``t`` and ``noise``. Returns {"loss", "grad_norm"} as
-    device scalars (grad_norm before clipping)."""
+    then the loss's ``t`` and ``noise`` (the global batch's: ``batch_size``
+    examples, by default the batch's own count; under a mesh the batch is
+    the global one or this rank's examples). A batch with
+    ``video_latents`` skips the encodes (``vae`` may be None). Returns
+    {"loss", "grad_norm"} as device scalars (grad_norm before
+    clipping)."""
     model = state.model
     dev = model.proj_out.weight.device
     gen = None if draws is not None else step_generator(seed, state.step, dev)
     d = CogDraws(gen, draws)
-    with record_function("vae_encode"):
-        enc = encode_training_batch(cfg, vae, batch, d)
+    if "video_latents" in batch:
+        enc = tuple(None if batch.get(k) is None else batch[k].to(dev)
+                    for k in ("video_latents", "first_frame_latent",
+                              "traj_latents", "id_latent"))
+    else:
+        with record_function("vae_encode"):
+            enc = encode_training_batch(cfg, vae, batch, d)
     return optimizer_step(state, lambda: cog_vpred_loss(
-        model, cfg, *enc, batch["prompt_embeds"], d))
+        model, cfg, *enc, batch["prompt_embeds"], d, batch_size))

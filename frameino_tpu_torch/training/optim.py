@@ -31,6 +31,25 @@ in the parameters' dtype:
   four states the size of the parameters (two moments, the gradient sum
   and the initial parameters).
 
+On shards (a ``mesh`` and the parameters' ``cuts``, as
+``parallel.sharding`` lays them out; JAX runs optax on sharded arrays and
+GSPMD completes every reduction) the state is made on the rank's slices
+and each reduction over a whole tensor is completed over the ranks:
+
+- the global norm (the clip's and the reported ``grad_norm``) sums the
+  squares of the elements the rank owns (``Cut.owned``: a tensor
+  replicated over an axis counts on that axis's first rank only) and
+  all-reduces the sum over the mesh;
+- adafactor's factored dims are the whole shape's; its row and column
+  means and the rms of the update and of the parameter are sums
+  all-reduced over the ranks that cut the reduced dims, divided by the
+  whole length;
+- prodigy's numerator and denominator are sums over owned elements,
+  all-reduced over the mesh;
+- ``apply_if_finite`` agrees on every rank (an all-reduce of the count of
+  non-finite gradients), so that no rank skips alone;
+- AdamW, the moments and ``MultiSteps`` are elementwise.
+
 Reference recipe: ``train_code/train_wan_motion_FrameINO.py:401-487`` and
 ``config/train_wan_motion_FrameINO.yaml`` (lr 3e-5, betas (0.9, 0.999),
 weight_decay 1e-4, eps 1e-10, constant_with_warmup 100, clip 1.0).
@@ -40,10 +59,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 RULES = {"adamw": ("mu", "nu"), "adam": ("mu", "nu"),
          "adafactor": ("v_row", "v_col", "v"),
@@ -109,21 +129,52 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.stack(sq).sum().sqrt()
 
 
+def _owned_sum(values, cuts, mesh) -> torch.Tensor:
+    """The fp32 sum over the mesh of per-tensor fp32 sums ``values``
+    ({name: scalar}), each counted on the ranks that own it."""
+    total = torch.stack([v for n, v in values.items()
+                         if cuts[n].owned(mesh)] or
+                        [torch.zeros((), device=next(iter(
+                            values.values())).device)]).sum()
+    dist.all_reduce(total, group=mesh.group)
+    return total
+
+
+def sharded_global_norm(grads: Dict[str, torch.Tensor], cuts, mesh
+                        ) -> torch.Tensor:
+    """``global_norm`` of the whole tensors whose slices on this rank are
+    ``grads``: every element counted once over the mesh."""
+    return _owned_sum({n: torch.linalg.vector_norm(
+        g, dtype=torch.float32).square() for n, g in grads.items()},
+        cuts, mesh).sqrt()
+
+
 class Optimizer:
     """The optax chain above over ``{name: tensor}``; ``step`` updates the
     parameters in place. ``state_dict`` / ``load_state_dict`` carry every
-    counter and state tensor (for ``core/checkpoint.py``)."""
+    counter and state tensor (for ``core/checkpoint.py``). With ``mesh``
+    and ``cuts`` ({name: ``parallel.sharding.Cut``}) the tensors are the
+    rank's slices and every reduction is completed over the mesh (module
+    docstring)."""
 
-    def __init__(self, cfg: OptimizerConfig, params: Dict[str, torch.Tensor]):
+    def __init__(self, cfg: OptimizerConfig, params: Dict[str, torch.Tensor],
+                 cuts: Optional[dict] = None, mesh=None):
         if cfg.optimizer not in RULES:
             raise ValueError(f"unsupported optimizer {cfg.optimizer}")
+        if (mesh is None) != (cuts is None):
+            raise ValueError("a mesh and the parameters' cuts go together")
+        self.cuts = cuts
+        self.mesh = mesh
         self.cfg = cfg
         self.schedule = make_schedule(cfg)
         self.weight_decay = cfg.weight_decay if cfg.optimizer == "adamw" \
             else 0.0
         self.slots = RULES[cfg.optimizer]
+        # each tensor's whole shape (the rank holds a slice under a mesh)
+        self.shapes = {n: tuple(p.shape if cuts is None else cuts[n].shape)
+                       for n, p in params.items()}
         for slot in self.slots:
-            setattr(self, slot, {n: self._init_slot(slot, p)
+            setattr(self, slot, {n: self._init_slot(slot, p, n)
                                  for n, p in params.items()})
         self.estim_lr = self.numerator_weighted = None
         if cfg.optimizer == "prodigy":
@@ -144,11 +195,66 @@ class Optimizer:
         self.acc = ({n: torch.zeros_like(p) for n, p in params.items()}
                     if cfg.gradient_accumulation_steps > 1 else None)
 
-    def _init_slot(self, slot: str, p: torch.Tensor) -> torch.Tensor:
+    def _complete(self, name: str, s: torch.Tensor, dims) -> torch.Tensor:
+        """A partial sum ``s`` over the param dims ``dims`` of tensor
+        ``name``, completed over the ranks that cut those dims."""
+        if self.mesh is None:
+            return s
+        c, m = self.cuts[name], self.mesh
+        for d, group, n in ((c.fsdp_dim, m.fsdp_group, m.fsdp),
+                            (c.tp_dim, m.tp_group, m.tp)):
+            if d is not None and d in dims and n > 1:
+                s = s.contiguous()
+                dist.all_reduce(s, group=group)
+        return s
+
+    def _mean(self, name: str, x: torch.Tensor, dims=None,
+              keepdim: bool = False, x_dims=None) -> torch.Tensor:
+        """The mean of ``x`` over its dims ``x_dims`` (all when None),
+        which are the param dims ``dims`` of tensor ``name``, over the
+        whole tensor."""
+        x_dims = dims if x_dims is None else x_dims
+        if self.mesh is None:
+            return (x.mean() if x_dims is None
+                    else x.mean(x_dims, keepdim=keepdim))
+        shape = self.shapes[name]
+        pdims = tuple(range(len(shape))) if dims is None else tuple(dims)
+        s = x.sum() if x_dims is None else x.sum(x_dims, keepdim=keepdim)
+        return self._complete(name, s, pdims) / math.prod(
+            shape[d] for d in pdims)
+
+    def slot_cut(self, slot: str, name: str):
+        """How state tensor ``slot`` of parameter ``name`` is laid out over
+        the mesh (a ``parallel.sharding.Cut``): the parameter's, or for
+        adafactor's factored rows and columns the parameter's without the
+        reduced dim; an empty placeholder is whole."""
+        from frameino_tpu_torch.parallel.sharding import Cut
+        c = self.cuts[name]
+        t = getattr(self, slot)[name]
+        if t.numel() == 0:
+            return Cut(tuple(t.shape))
+        if slot in ("v_row", "v_col"):
+            d1, d0 = factored_dims(c.shape)
+            drop = d0 if slot == "v_row" else d1
+
+            def keep(d):
+                return None if d is None or d == drop else d - (d > drop)
+            return Cut(tuple(n for i, n in enumerate(c.shape) if i != drop),
+                       keep(c.tp_dim), keep(c.fsdp_dim))
+        return c
+
+    def global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global norm of the whole gradients (fp32 device scalar)."""
+        if self.mesh is None:
+            return global_norm(grads.values())
+        return sharded_global_norm(grads, self.cuts, self.mesh)
+
+    def _init_slot(self, slot: str, p: torch.Tensor,
+                   name: str) -> torch.Tensor:
         if slot == "params0":
             return p.detach().clone()
         if slot in ("v_row", "v_col", "v"):
-            dims = factored_dims(p.shape)
+            dims = factored_dims(self.shapes[name])
             if slot == "v":
                 return torch.zeros_like(p) if dims is None else \
                     p.new_zeros(0)
@@ -190,8 +296,12 @@ class Optimizer:
 
     def _guarded_update(self, params, grads) -> bool:
         if self.cfg.skip_nonfinite_updates:
-            finite = bool(torch.stack([torch.isfinite(g).all()
-                                       for g in grads.values()]).all())
+            bad = torch.stack([~torch.isfinite(g).all()
+                               for g in grads.values()]).sum().float()
+            if self.mesh is not None:
+                # every rank skips, or none
+                dist.all_reduce(bad, group=self.mesh.group)
+            finite = bool(bad == 0)
             self.notfinite_count = 0 if finite else self.notfinite_count + 1
             self.total_notfinite += 0 if finite else 1
             if not finite and (self.notfinite_count
@@ -210,7 +320,7 @@ class Optimizer:
     def _clip(self, grads):
         """clip_by_global_norm, applied to one gradient at a time."""
         max_norm = self.cfg.max_grad_norm
-        g_norm = global_norm(grads.values())
+        g_norm = self.global_norm(grads)
         keep = g_norm < max_norm
 
         def clip(g):
@@ -248,23 +358,28 @@ class Optimizer:
         for name, p in params.items():
             g = clip(grads[name])
             g2 = g * g + ADAFACTOR_EPS
-            dims = factored_dims(p.shape)
+            dims = factored_dims(self.shapes[name])
             if dims is not None:
                 d1, d0 = dims
-                v_row = decay * self.v_row[name] + keep * g2.mean(d0)
-                v_col = decay * self.v_col[name] + keep * g2.mean(d1)
+                v_row = (decay * self.v_row[name]
+                         + keep * self._mean(name, g2, (d0,)))
+                v_col = (decay * self.v_col[name]
+                         + keep * self._mean(name, g2, (d1,)))
                 self.v_row[name].copy_(v_row)
                 self.v_col[name].copy_(v_col)
                 reduced = d1 - 1 if d1 > d0 else d1
-                row = (v_row / v_row.mean(reduced, keepdim=True)) ** -0.5
+                row = (v_row / self._mean(name, v_row, (d1,), keepdim=True,
+                                          x_dims=(reduced,))) ** -0.5
                 u = g * row.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
             else:
                 v = decay * self.v[name] + keep * g2
                 self.v[name].copy_(v)
                 u = g * v ** -0.5
-            u = u / torch.clamp(_rms(u) / ADAFACTOR_CLIP, min=1.0)
+            rms_u = torch.sqrt(self._mean(name, u * u))
+            u = u / torch.clamp(rms_u / ADAFACTOR_CLIP, min=1.0)
             u = torch.tensor(lr, dtype=u.dtype) * u
-            u = u * _safe_rms(p, ADAFACTOR_MIN_SCALE)
+            u = u * _at_least(torch.sqrt(self._mean(name, p * p)),
+                              ADAFACTOR_MIN_SCALE)
             p.copy_(p + -u)
 
     def _prodigy(self, params, grads, clip):
@@ -279,15 +394,23 @@ class Optimizer:
         numerator = torch.zeros((), dtype=torch.float32,
                                 device=estim_lr.device)
         denominator = torch.zeros_like(numerator)
+        nums, dens = {}, {}
         for name, p in params.items():
             g = clip(grads[name])
-            numerator += torch.sum((g * (self.params0[name] - p)).float())
+            nums[name] = torch.sum((g * (self.params0[name] - p)).float())
             dg = estim_lr * g
             self.exp_avg[name].mul_(b1).add_((1 - b1) * dg)
             self.exp_avg_sq[name].mul_(b2).add_((1 - b2) * dg * dg)
             s = self.grad_sum[name]
             s.copy_(b3 * s + dlr * dg / PRODIGY_ESTIM_LR0)
-            denominator += s.abs().float().sum()
+            dens[name] = s.abs().float().sum()
+        if self.mesh is None:
+            for name in params:
+                numerator += nums[name]
+                denominator += dens[name]
+        else:
+            numerator = _owned_sum(nums, self.cuts, self.mesh)
+            denominator = _owned_sum(dens, self.cuts, self.mesh)
         self.numerator_weighted = (
             b3 * self.numerator_weighted
             + (estim_lr / PRODIGY_ESTIM_LR0) * dlr * numerator
@@ -354,17 +477,12 @@ def factored_dims(shape):
     return int(order[-2]), int(order[-1])
 
 
-def _rms(x):
-    return torch.sqrt(torch.mean(x * x))
-
-
-def _safe_rms(x, min_rms: float):
-    """max(rms(x), min_rms), optax's ``safe_root_mean_squares``."""
-    rms = _rms(x)
+def _at_least(rms, min_rms: float):
+    """max(rms, min_rms), as optax's ``safe_root_mean_squares``."""
     return torch.where(rms <= min_rms, torch.tensor(min_rms, dtype=rms.dtype,
                                                     device=rms.device), rms)
 
 
-def make_optimizer(cfg: OptimizerConfig,
-                   params: Dict[str, torch.Tensor]) -> Optimizer:
-    return Optimizer(cfg, params)
+def make_optimizer(cfg: OptimizerConfig, params: Dict[str, torch.Tensor],
+                   cuts: Optional[dict] = None, mesh=None) -> Optimizer:
+    return Optimizer(cfg, params, cuts, mesh)

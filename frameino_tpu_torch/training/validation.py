@@ -5,8 +5,9 @@ Reference ``train_code/train_wan_motion_FrameINO.py:165-299``
 (log_validation): every ``validation_step`` steps the full FrameINO
 inference pipeline runs on one validation sample and the condition
 visualizations and the generated video are written out;
-``first_iter_validation: true`` exercises the whole stack at step 0. One
-card, one process: the sample is ``sample_offset % len(dataset)``.
+``first_iter_validation: true`` exercises the whole stack at step 0. The
+sample is ``sample_offset % len(dataset)``; under a mesh every rank runs
+the pipeline and the mesh's rank 0, which alone gets the video, writes.
 """
 
 from __future__ import annotations
@@ -27,10 +28,10 @@ def log_validation(pipeline, dataset, embed_prompts: Callable,
                    guidance_scale: float = 5.0,
                    sample_offset: int = 0) -> str:
     """Generate one validation video and its condition dumps with the
-    port's ``WanImageToVideoPipeline``; returns the directory."""
+    port's ``WanImageToVideoPipeline``; returns the directory (None on a
+    mesh rank that gets no video)."""
     item = dataset[sample_offset % len(dataset)]
     out_dir = os.path.join(output_folder, f"validation_step{step}")
-    os.makedirs(out_dir, exist_ok=True)
 
     F, _, H, W = item["video_tensor"].shape
     video = pipeline(
@@ -42,6 +43,9 @@ def log_validation(pipeline, dataset, embed_prompts: Callable,
         num_inference_steps=num_inference_steps,
         guidance_scale=guidance_scale,
         generator=torch.Generator(pipeline.device).manual_seed(step))
+    if video is None:
+        return None
+    os.makedirs(out_dir, exist_ok=True)
     gen = ((video[0].transpose(1, 2, 3, 0) + 1) / 2 * 255
            ).clip(0, 255).astype(np.uint8)
 

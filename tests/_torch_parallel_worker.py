@@ -120,9 +120,8 @@ def _pool_loop(rank, world, pg_path, jobs, results):
             except BaseException:
                 err = traceback.format_exc()
             for m in _MESHES:
-                for g in {m.tp_group, m.dp_group, m.sp_group, m.group}:
-                    if g is not None:
-                        dist.destroy_process_group(g)
+                for g in m.groups():
+                    dist.destroy_process_group(g)
             _MESHES.clear()
             results.put((rank, err))
     finally:
@@ -336,3 +335,202 @@ def multihost_helpers(rank, tmp):
         make_mesh(MeshConfig(dp=4))
     except ValueError:
         _save(tmp, "bad_size", rank, np.array([True]))
+
+
+def _gathered_state(state, mesh):
+    """The train state's parameters and optimizer slots, whole (gathered
+    over the mesh), as numpy, with the step's metrics added by the
+    caller."""
+    from frameino_tpu_torch.parallel.sharding import gather_state_dict
+    opt = state.optimizer
+    out = {f"param/{n}": t for n, t in gather_state_dict(
+        state.params(), mesh, opt.cuts).items()}
+    for slot in opt.slots:
+        tensors = getattr(opt, slot)
+        out.update({f"{slot}/{n}": t for n, t in gather_state_dict(
+            tensors, mesh, {n: opt.slot_cut(slot, n)
+                            for n in tensors}).items()})
+    return {k: v.detach().float().numpy() for k, v in out.items()}
+
+
+def train_steps(rank, tmp, mesh_kw, family, cfg_kw, sd_np, batches, draws,
+                ocfg, local_batch=False, fault=None):
+    """The port's sharded train step on the mesh, from the whole state
+    dict ``sd_np`` (Wan or CogVideoX tiny config), over the global
+    ``batches`` (latents) with the given ``draws`` a step: each step's
+    loss and grad_norm, then the whole parameters and optimizer state,
+    saved by mesh rank 0 as ``train.npz``. ``local_batch``: hand each rank
+    only its examples. ``fault``: a planted fault of the checks
+    ("sum_not_mean", "local_norm", "tp_grad_unreduced")."""
+    from frameino_tpu_torch.parallel import collectives
+    from frameino_tpu_torch.parallel.sharding import batch_slice
+    from frameino_tpu_torch.training import cog_trainer, optim, trainer
+    mesh = _mesh(mesh_kw)
+    if mesh is None:
+        return
+    sd = {k: _t(v) for k, v in sd_np.items()}
+    if family == "wan":
+        model = tdit.WanDiT(tdit.tiny_config(**cfg_kw), device="meta")
+    else:
+        model = tcdit.CogVideoXDiT(tcdit.tiny_config(**cfg_kw),
+                                   device="meta")
+    model.load_state_dict(sd, assign=True)
+    state = trainer.init_train_state(model, optim.OptimizerConfig(**ocfg),
+                                     mesh=mesh)
+    assert state.model.mesh is mesh
+    metrics = []
+    saved = (trainer.reduce_gradients, optim.sharded_global_norm,
+             collectives.copy_to_tp)
+    try:
+        if fault == "sum_not_mean":
+            def summed(grads, cuts, m):
+                saved[0](grads, cuts, m)
+                for g in grads.values():
+                    g.mul_(m.batch)
+            trainer.reduce_gradients = summed
+        elif fault == "local_norm":
+            optim.sharded_global_norm = lambda g, cuts, m: optim.global_norm(
+                g.values())
+        elif fault == "tp_grad_unreduced":
+            for mod in (tdit, tcdit):
+                mod.copy_to_tp = lambda x, group: x
+        for i, (batch, d) in enumerate(zip(batches, draws)):
+            B = batch["video_latents"].shape[0]
+            tb = {k: None if v is None else _t(v) for k, v in batch.items()}
+            if local_batch:
+                sl, _ = batch_slice(mesh, B)
+                tb = {k: None if v is None else v[sl] for k, v in tb.items()}
+            if family == "wan":
+                m = trainer.train_step(
+                    state, None, trainer.TrainerConfig(
+                        compute_dtype=torch.float32, remat=bool(i % 2)),
+                    tb, seed=0, draws=tuple(_t(a) for a in d), batch_size=B)
+            else:
+                m = cog_trainer.cog_train_step(
+                    state, None, cog_trainer.CogTrainerConfig(
+                        compute_dtype=torch.float32, remat=bool(i % 2)),
+                    tb, draws={k: _t(v) for k, v in d.items()},
+                    batch_size=B)
+            metrics.append([float(m["loss"]), float(m["grad_norm"])])
+    finally:
+        trainer.reduce_gradients, optim.sharded_global_norm = saved[:2]
+        tdit.copy_to_tp = tcdit.copy_to_tp = saved[2]
+    out = _gathered_state(state, mesh)
+    if mesh.rank == 0:
+        np.savez(os.path.join(tmp, "train.npz"), metrics=np.array(metrics),
+                 **out)
+
+
+def mesh_layout_fsdp(rank, tmp):
+    """dp 2 x fsdp 2 and fsdp 2 x tp 2 meshes over the 4 processes: each
+    process's mesh rank, coordinates (dp, fsdp, tp, sp), batch rank and
+    the default-group ranks of its fsdp and batch groups; an all-reduce
+    over each group sums its members."""
+    rows = []
+    for kw in (dict(dp=2, fsdp=2), dict(fsdp=2, tp=2)):
+        mesh = _mesh(kw)
+        c = mesh.coords
+        fs, bt = (dist.get_process_group_ranks(g)
+                  for g in (mesh.fsdp_group, mesh.batch_group))
+        for g, members in ((mesh.fsdp_group, fs), (mesh.batch_group, bt)):
+            t = torch.tensor([float(rank)])
+            dist.all_reduce(t, group=g)
+            assert t.item() == sum(members)
+        rows.append([mesh.rank, c["dp"], c["fsdp"], c["tp"], c["sp"],
+                     mesh.batch_rank] + fs + bt + [-1] * (4 - len(bt)))
+        for g in mesh.groups():
+            dist.destroy_process_group(g)
+        _MESHES.remove(mesh)
+    _save(tmp, "layout", rank, np.array(rows))
+
+
+def checkpoint_round(rank, tmp, mesh_kw, cfg_kw, sd_np, batch, draws, ocfg,
+                     save):
+    """At ``save``: one AdamW step of the tiny Wan DiT on the mesh from
+    ``sd_np``, then ``save_checkpoint`` under ``tmp/ckpt``; otherwise a
+    fresh state on the mesh restored from that checkpoint. Either way the
+    gathered state is saved by mesh rank 0 (``state_<mesh>.npz``, with the
+    optimizer's count)."""
+    from frameino_tpu_torch.core.checkpoint import (latest_checkpoint,
+                                                    restore_checkpoint,
+                                                    save_checkpoint)
+    from frameino_tpu_torch.training import optim, trainer
+    mesh = _mesh(mesh_kw)
+    if mesh is None:
+        return
+    model = tdit.WanDiT(tdit.tiny_config(**cfg_kw), device="meta")
+    model.load_state_dict({k: _t(v) for k, v in sd_np.items()}, assign=True)
+    state = trainer.init_train_state(model, optim.OptimizerConfig(**ocfg),
+                                     mesh=mesh)
+    root = os.path.join(tmp, "ckpt")
+    if save:
+        trainer.train_step(
+            state, None, trainer.TrainerConfig(compute_dtype=torch.float32,
+                                               remat=False),
+            {k: _t(v) for k, v in batch.items()}, seed=0,
+            draws=tuple(_t(a) for a in draws))
+        save_checkpoint(root, state.step, state, metadata={"x": 1})
+    else:
+        _, meta = restore_checkpoint(latest_checkpoint(root), state)
+        assert meta == {"x": 1}
+    out = _gathered_state(state, mesh)
+    if mesh.rank == 0:
+        tag = "x".join(f"{k}{v}" for k, v in mesh_kw.items())
+        np.savez(os.path.join(tmp, f"state_{tag}.npz"),
+                 count=np.array([state.optimizer.count, state.step]), **out)
+
+
+def optimizer_shards(rank, tmp, mesh_kw, ocfg, params_np, grads_np):
+    """The port's optimizer on the rank's slices of whole ``params_np``
+    (laid out by the DiT rules of their names), stepped once per entry of
+    ``grads_np`` with the slices of those whole gradients; the whole
+    parameters after each step, saved by mesh rank 0 as ``opt.npz``."""
+    from frameino_tpu_torch.parallel.sharding import (gather_tensor,
+                                                      layout, shard_tensor)
+    from frameino_tpu_torch.training import optim
+    mesh = _mesh(mesh_kw)
+    if mesh is None:
+        return
+    cuts = layout({n: a.shape for n, a in params_np.items()}, mesh)
+    assert any(c.fsdp_dim is not None for c in cuts.values())
+    params = {n: shard_tensor(_t(a), cuts[n], mesh).clone()
+              for n, a in params_np.items()}
+    opt = optim.make_optimizer(optim.OptimizerConfig(**ocfg), params, cuts,
+                               mesh)
+    out = {}
+    for i, grads in enumerate(grads_np):
+        opt.step(params, {n: shard_tensor(_t(a), cuts[n], mesh)
+                          for n, a in grads.items()})
+        for n, p in params.items():
+            out[f"{i}/{n}"] = gather_tensor(p, cuts[n], mesh).numpy().copy()
+    if mesh.rank == 0:
+        np.savez(os.path.join(tmp, "opt.npz"), **out)
+
+
+def train_entry(rank, world, tmp, argv, port):
+    """``train.main(argv)`` as one of ``world`` torchrun processes (its
+    environment set here, gloo on the CPU), recording how many examples
+    each collate took; saves the counts and the summary's history."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    torch.set_num_threads(1)
+    from frameino_tpu_torch import train
+    from frameino_tpu_torch.training import cli
+    sizes = []
+    collate = cli.collate
+
+    def counted(items, *a, **kw):
+        sizes.append(len(items))
+        return collate(items, *a, **kw)
+    cli.collate = counted
+    try:
+        out = train.main(argv)
+    finally:
+        cli.collate = collate
+        dist.destroy_process_group()
+    np.save(os.path.join(tmp, f"collated_{rank}.npy"), np.array(sizes))
+    np.save(os.path.join(tmp, f"history_{rank}.npy"), np.array(
+        [[h["loss"], h["grad_norm"]] for h in out["history"]]))
+    np.save(os.path.join(tmp, f"mesh_{rank}.npy"), np.array(
+        [out["mesh"].dp, out["mesh"].fsdp, out["mesh"].tp]))

@@ -263,14 +263,18 @@ def test_cog_shard_state_dict_matches_dit_param_specs(mesh_kw):
 
 
 def test_unported_meshes_and_options_raise():
-    """fsdp and pp meshes, int8 under tp and training under a mesh raise
-    NotImplementedError; heads that do not divide over tp raise
-    ValueError (sp meshes run: tests/test_torch_sp.py)."""
+    """pp meshes, int8 under tp or fsdp and training under sp raise
+    NotImplementedError naming their ROADMAP items; heads that do not
+    divide over tp raise ValueError (sp meshes run:
+    tests/test_torch_sp.py; fsdp meshes and training under dp x fsdp x tp:
+    tests/test_torch_sharded_training.py)."""
     cfg = tdit.tiny_config(**DIT_KW)
-    for axis in ("fsdp", "pp"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 12"):
-            tdit.WanDiT(cfg, device="meta", mesh=Mesh(MeshConfig(**{
-                axis: 2}), 0))
+    with pytest.raises(NotImplementedError, match="queue 1, item 12.3"):
+        tdit.WanDiT(cfg, device="meta", mesh=Mesh(MeshConfig(pp=2), 0))
+    # an fsdp mesh builds, its fsdp-cut weights the rank's slice
+    fsdp = tdit.WanDiT(cfg, device="meta", mesh=Mesh(MeshConfig(fsdp=2), 0))
+    assert fsdp.blocks[0].attn1.to_q.weight.shape == (
+        cfg.inner_dim, cfg.inner_dim // 2)
     with pytest.raises(ValueError):
         tdit.WanDiT(dataclasses.replace(cfg, num_attention_heads=3),
                     device="meta", mesh=Mesh(MeshConfig(tp=2), 0))
@@ -282,9 +286,13 @@ def test_unported_meshes_and_options_raise():
         tpipe.WanImageToVideoPipeline(dit, vae, quantize="int8", mesh=mesh)
     with pytest.raises(ValueError, match="mesh"):
         tpipe.WanImageToVideoPipeline(dit, vae)
-    with pytest.raises(NotImplementedError, match="training"):
-        dit(torch.zeros(1, 8, 1, 4, 4), torch.ones(1), torch.zeros(1, 7, 16),
-            differentiable=True)
+    with pytest.raises(NotImplementedError, match="int8"):
+        tpipe.WanImageToVideoPipeline(fsdp, vae, quantize="int8",
+                                      mesh=fsdp.mesh)
+    sp = tdit.WanDiT(cfg, device="meta", mesh=Mesh(MeshConfig(sp=2), 0))
+    with pytest.raises(NotImplementedError, match="item 12.8"):
+        sp(torch.zeros(1, 8, 1, 4, 4), torch.ones(1), torch.zeros(1, 7, 16),
+           differentiable=True)
     # the dp-only int8 pipeline is allowed (every rank holds full layers)
     dp_mesh = Mesh(MeshConfig(dp=2), 0)
     tpipe.WanImageToVideoPipeline(

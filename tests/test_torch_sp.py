@@ -418,21 +418,20 @@ def test_make_mesh_matches_jax_device_grid(pool, tmp_path):
             dp_line = grid[:, 0, tp, sp, 0]
             for i, line in enumerate((tp_line, dp_line, sp_line)):
                 assert (row[4 + i], row[7 + i]) == (line.min(), line.max())
-    with pytest.raises(NotImplementedError, match="queue 1, item 12"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 12.3"):
         tdit.WanDiT(tdit.tiny_config(**WAN_KW), device="meta",
-                    mesh=Mesh(MeshConfig(fsdp=2), 0))
+                    mesh=Mesh(MeshConfig(pp=2), 0))
 
 
 def test_cog_unported_options_raise():
-    """The CogVideoX DiT under a mesh: fsdp and pp, training, the plain
+    """The CogVideoX DiT under a mesh: pp, training under sp, the plain
     "xla" path and heads that do not divide over tp raise; the pipeline
-    refuses int8 under tp and a DiT built on another mesh, allows int8 on
-    dp alone."""
+    refuses int8 under tp or fsdp and a DiT built on another mesh, allows
+    int8 on dp alone."""
     cfg = tcdit.tiny_config(**COG_KW)
-    for axis in ("fsdp", "pp"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 12"):
-            tcdit.CogVideoXDiT(cfg, device="meta",
-                               mesh=Mesh(MeshConfig(**{axis: 2}), 0))
+    with pytest.raises(NotImplementedError, match="queue 1, item 12.3"):
+        tcdit.CogVideoXDiT(cfg, device="meta",
+                           mesh=Mesh(MeshConfig(pp=2), 0))
     with pytest.raises(ValueError, match="divide"):
         tcdit.CogVideoXDiT(dataclasses.replace(cfg, num_attention_heads=3),
                            device="meta", mesh=Mesh(MeshConfig(tp=2), 0))
@@ -442,8 +441,10 @@ def test_cog_unported_options_raise():
     x, text, t = (torch.zeros(1, 3, 12, 8, 8), torch.zeros(1, 8, 16),
                   torch.ones(1))
     rope = tcdit.cogvideox_rope(cfg, 3, 8, 8)
-    with pytest.raises(NotImplementedError, match="training"):
-        dit(x, text, t, rope, differentiable=True)
+    sp_dit = tcdit.CogVideoXDiT(cfg, device="meta",
+                                mesh=Mesh(MeshConfig(sp=2), 0))
+    with pytest.raises(NotImplementedError, match="item 12.8"):
+        sp_dit(x, text, t, rope, differentiable=True)
     with pytest.raises(ValueError, match="xla"):
         dit(x, text, t, rope, attn_impl="xla")
     vae = tcvae.init_cogvideox_vae(tcvae.tiny_vae_config(), gen)
@@ -454,6 +455,11 @@ def test_cog_unported_options_raise():
         tcpipe.CogVideoXImageToVideoPipeline(dit, vae)
     with pytest.raises(ValueError, match="rank 0"):
         tcpipe.CogVideoXImageToVideoPipeline(dit, None, mesh=mesh)
+    fsdp_mesh = Mesh(MeshConfig(fsdp=2), 0)
+    with pytest.raises(NotImplementedError, match="int8"):
+        tcpipe.CogVideoXImageToVideoPipeline(
+            tcdit.init_cogvideox_dit(cfg, gen, mesh=fsdp_mesh), vae,
+            quantize="int8", mesh=fsdp_mesh)
     dp_mesh = Mesh(MeshConfig(dp=2), 0)
     tcpipe.CogVideoXImageToVideoPipeline(
         tcdit.init_cogvideox_dit(cfg, gen, mesh=dp_mesh), vae,
